@@ -1,0 +1,66 @@
+"""KinectFusion-style truncated signed distance field (counterpart of
+`supereight_tpu/fields/sdf.py`).  Channels: tsdf (empty 1, init 1) and
+weight (empty -1, init 0)."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import torch
+
+from supereight_tpu_torch.core.numerics import div
+from supereight_tpu_torch.core.octree import ChannelSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class SDFField:
+    name: str = "sdf"
+    mu: float = 0.1                 # truncation band (m)
+    max_weight: float = 100.0       # weight cap
+
+    #: channel marched / interpolated by the raycaster
+    select_channel: str = "tsdf"
+    #: SDF surfaces need the gradient negated
+    invert_normals: bool = True
+    #: allocation is single-scale (blocks only)
+    multiscale_alloc: bool = False
+    #: surface is the + -> - zero crossing of tsdf
+    surf_boundary: float = 0.0
+
+    @property
+    def channels(self):
+        return (ChannelSpec("tsdf", torch.float32, init=1.0, empty=1.0),
+                ChannelSpec("weight", torch.float32, init=0.0, empty=-1.0))
+
+    def alloc_band(self) -> float:
+        """Allocate a +/- mu band around the surface."""
+        return 2.0 * self.mu
+
+    def update(self, data: Dict[str, torch.Tensor], pos_cam: torch.Tensor,
+               depth_sample: torch.Tensor,
+               valid: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Per-voxel projective TSDF update (`sdf.py:SDFField.update`):
+        ``pos_cam`` [..., 3] camera-space voxel centres, ``depth_sample`` the
+        depth at the projected pixel, ``valid`` the in-frame gate."""
+        z = pos_cam[..., 2]
+        zsafe = torch.where(z == 0, 1.0, z)
+        nx = pos_cam[..., 0] / zsafe
+        ny = pos_cam[..., 1] / zsafe
+        norm = torch.sqrt(1.0 + nx * nx + ny * ny)
+        diff = (depth_sample - z) * norm
+        do = valid & (depth_sample > 0) & (diff > -self.mu)
+        sdf = torch.clamp(div(diff, self.mu), max=1.0)
+        w = data["weight"]
+        tsdf = data["tsdf"]
+        new_tsdf = torch.clamp((w * tsdf + sdf) / (w + 1.0), -1.0, 1.0)
+        new_w = torch.clamp(w + 1.0, max=self.max_weight)
+        return {"tsdf": torch.where(do, new_tsdf, tsdf),
+                "weight": torch.where(do, new_w, w)}
+
+    def is_inside(self, f):
+        return f < self.surf_boundary
+
+    def sample_valid(self, data):
+        """weight == 0 marks allocated-but-never-fused voxels."""
+        return data["weight"] != 0

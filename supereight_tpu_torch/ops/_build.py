@@ -1,0 +1,69 @@
+"""Build the package's CUDA sources into a shared library at first use.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled with
+``nvcc`` for Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so``, where
+the hash covers the source and the flags, then loaded with ``ctypes``.  The
+build directory is not committed; a checkout builds on its first launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+# --fmad=false: no multiply-add contraction, so the kernel rounds every
+# product and sum as the plain PyTorch twin does and the two agree bit for
+# bit (a contracted projection can flip a voxel's pixel near a pixel edge)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()) \
+        .hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu``, compiling it if needed.
+    The compiler's output (``-Xptxas -v``: registers, spills) is kept
+    beside it in ``<library>.log``."""
+    if name in _loaded:
+        return _loaded[name]
+    so = library_path(name)
+    if not so.exists():
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            capture_output=True, text=True)
+        so.with_name(so.name + ".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed building {name}:\n{proc.stderr}")
+        os.replace(tmp, so)        # atomic: concurrent builders never race
+    _loaded[name] = ctypes.CDLL(str(so))
+    return _loaded[name]

@@ -1,0 +1,363 @@
+"""Surface raycasting: splat bounds + short-window scan (counterpart of the
+single-scale branch of `supereight_tpu/pipeline/raycast.py`).
+
+Phase 1 (`_splat_bounds`) projects the blocks holding an inside voxel into
+a coarse image grid and takes min/max camera depths as each ray's start and
+far bounds.  Phase 2 (`_fine_scan`) samples a short window per ray at half
+ray resolution, finds the first valid outside -> inside crossing and solves
+it linearly; a compacted second window re-scans the rays whose far bound
+reaches deeper.  A full-resolution secant re-solve (`_refine`) then gives
+per-pixel depth, and normals come from 6-tap central differences (hybrid:
+at quarter resolution with a per-pixel along-ray correction).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from supereight_tpu_torch.core import octree
+from supereight_tpu_torch.core.numerics import trunc_i32
+from supereight_tpu_torch.core.octree import BLOCK_SIDE, VoxelMap
+from . import camera
+from .constants import INVALID
+from .preprocessing import norm
+
+
+class RaycastResult(NamedTuple):
+    vertex: torch.Tensor   # [H, W, 3] world-space hit points (0 on miss)
+    normal: torch.Tensor   # [H, W, 3] unit normals (x = INVALID on miss)
+    t_hit: torch.Tensor    # [H, W] ray distance of the hit (0 on miss)
+
+
+def ray_directions(view: torch.Tensor, H: int, W: int):
+    """Per-pixel world ray origin + direction with unit camera z (``view`` =
+    camera-to-world pose @ inv(K))."""
+    x = torch.arange(W, dtype=torch.float32, device=view.device)[None, :]
+    y = torch.arange(H, dtype=torch.float32, device=view.device)[:, None]
+    dirs = torch.stack([
+        (view[0, 0] * x + view[0, 1] * y + view[0, 2]).expand(H, W),
+        (view[1, 0] * x + view[1, 1] * y + view[1, 2]).expand(H, W),
+        (view[2, 0] * x + view[2, 1] * y + view[2, 2]).expand(H, W),
+    ], dim=-1)
+    return view[:3, 3], dirs
+
+
+def view_dtype(field) -> torch.dtype:
+    """Storage dtype of the read view: bf16 for a normalised TSDF."""
+    return torch.bfloat16 if field.invert_normals else torch.float32
+
+
+def encode_view_rows(field, rows):
+    """NaN-encode channel rows for the read view: invalid samples (weight
+    0, never observed) become NaN, so one array carries value and
+    validity."""
+    vals = {k: v.to(torch.float32) for k, v in rows.items()}
+    return torch.where(field.sample_valid(vals), vals[field.select_channel],
+                       float("nan")).to(view_dtype(field))
+
+
+def pack_view(m: VoxelMap, field):
+    """Brick-tiled read view ``{"F": [B^3, 512]}``: one row per block-grid
+    cell, the NaN-encoded select channel for allocated blocks and the
+    field's empty value (NaN if empty is not a valid sample) elsewhere."""
+    if field.multiscale_alloc:
+        raise NotImplementedError(
+            "the multiscale read view is not ported yet "
+            "(ROADMAP queue 1, item 10)")
+    spec = next(c for c in m.channels if c.name == field.select_channel)
+    empties = {c.name: torch.full((), c.empty) for c in m.channels}
+    fill = spec.empty if bool(field.sample_valid(empties)) else float("nan")
+    B = m.blocks_per_edge
+    bc = octree.block_coords_table(m)
+    lin = (bc[:, 0] * B + bc[:, 1]) * B + bc[:, 2]
+    flat = torch.full((B * B * B, octree.BLOCK_VOXELS), fill,
+                      dtype=view_dtype(field), device=m.device)
+    tgt = torch.where(octree.slot_mask(m), lin, B * B * B)
+    return {"F": octree.scatter_drop(flat, tgt, encode_view_rows(field,
+                                                                 m.voxels))}
+
+
+def _sample_volume(vol, pos_vox, size: int, fill: float):
+    """Nearest-voxel lookup in the tiled view with out-of-bounds ``fill``;
+    returns (value f32, in-bounds)."""
+    v = trunc_i32(torch.floor(pos_vox))
+    inb = ((v >= 0) & (v < size)).all(-1)
+    vc = v.clamp(0, size - 1)
+    B = size // BLOCK_SIDE
+    b = vc >> 3
+    l = vc & 7
+    row = (b[..., 0] * B + b[..., 1]) * B + b[..., 2]
+    col = l[..., 0] + l[..., 1] * 8 + l[..., 2] * 64
+    val = vol[row.long(), col.long()].to(torch.float32)
+    return torch.where(inb, val, fill), inb
+
+
+def _max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
+    """k x k max filter, stride 1, -inf padding (``reduce_window`` SAME)."""
+    return F.max_pool2d(x[None, None], k, stride=1, padding=k // 2)[0, 0]
+
+
+def _splat_bounds(m: VoxelMap, field, view, H: int, W: int, near: float,
+                  far: float, near_rescue: bool = True):
+    """Phase 1: per-cell start and far depth from splatting the blocks that
+    contain an inside voxel into a coarse grid.  Returns (tmin, tmax, g)
+    with [H/g, W/g] grids."""
+    for g in (8, 4, 2, 1):
+        if H % g == 0 and W % g == 0:
+            break
+    gh, gw = H // g, W // g
+    dev = view.device
+
+    inv_view = torch.linalg.inv(view)          # = K @ inv(pose)
+    vs = m.voxel_size
+    bc = octree.block_coords_table(m).to(torch.float32)
+    hom = camera.transform_points(inv_view, (bc + 0.5) * (BLOCK_SIDE * vs))
+    z = hom[:, 2]
+    zsafe = torch.where(z == 0, 1.0, z)
+    px = hom[:, 0] / zsafe
+    py = hom[:, 1] / zsafe
+
+    raw = m.voxels[field.select_channel].to(torch.float32)
+    inside_any = field.is_inside(raw).any(1)
+    diag = 1.7320508 * BLOCK_SIDE * vs
+    marg = 2.0 * g
+    ok = (octree.slot_mask(m) & inside_any & (z > 1e-3)
+          & (px >= -marg) & (px <= W - 1 + marg)
+          & (py >= -marg) & (py <= H - 1 + marg))
+
+    z_lo = torch.clamp(z - 0.5 * diag, min=near)
+    z_hi = z + 0.5 * diag
+    cxf = px / g
+    cyf = py / g
+    tmin = torch.full((gh * gw + 1,), float("inf"), device=dev)
+    tmax = torch.full((gh * gw + 1,), float("-inf"), device=dev)
+    # fx recovered from view = pose @ inv(K): ||view[:3,0]|| == 1/fx
+    fx = 1.0 / torch.clamp(norm(view[:3, 0]), min=1e-9)
+    foot_r = 0.5 * diag * fx / torch.clamp(z, min=1e-3) / g
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            okc = ok & (foot_r >= float(np.hypot(dx, dy)) - 0.71)
+            cx = trunc_i32(cxf + dx).clamp(0, gw - 1)
+            cy = trunc_i32(cyf + dy).clamp(0, gh - 1)
+            # dropped entries go to the scratch cell gh*gw
+            tgt = torch.where(okc, cy * gw + cx, gh * gw).long()
+            tmin = tmin.scatter_reduce(0, tgt, z_lo, "amin")
+            tmax = tmax.scatter_reduce(0, tgt, z_hi, "amax")
+    tmin = -_max_pool_same(-tmin[:-1].reshape(gh, gw), 3)
+    tmax = _max_pool_same(tmax[:-1].reshape(gh, gw), 3)
+    if not near_rescue:
+        return tmin, tmax, g
+
+    # near-field blind zone: cells with no splat next to a block closer than
+    # z_blind inherit that neighbourhood's start depth
+    R = 12
+    twide = -_max_pool_same(-tmin, 2 * R + 1)
+    z_blind = 0.5 * diag * fx / (2.4 * g)
+    fallback = ~torch.isfinite(tmin) & (twide < z_blind)
+    tmin = torch.where(fallback, twide, tmin)
+    tmax = torch.where(fallback, twide + diag, tmax)
+    return tmin, tmax, g
+
+
+class _Fine(NamedTuple):
+    hit: torch.Tensor
+    z_hit: torch.Tensor
+
+
+def _fine_scan(m, dense, field, origin, dirs, z_start, span: float,
+               n_samples: int, active):
+    """Phase 2: first valid outside -> inside crossing over
+    ``n_samples + 1`` samples from ``z_start``, solved linearly between the
+    two bracketing valid samples (invalid samples neither cross nor reset
+    the last valid one)."""
+    dz = span / n_samples
+    nF = n_samples + 1
+    rshape = dirs.shape[:-1]
+    stepshape = (nF,) + (1,) * len(rshape)
+    z = z_start[None] + dz * torch.arange(
+        nF, dtype=torch.float32, device=dirs.device).reshape(stepshape)
+    pos = (origin + dirs[None] * z[..., None]) * m.inverse_voxel_size
+    f, _ = _sample_volume(dense["F"], pos, m.size, float("nan"))
+    ok = ~torch.isnan(f)
+
+    # forward-fill (index, outside-bit) of the last valid sample by cummax
+    steps = torch.arange(nF, dtype=torch.int32,
+                         device=dirs.device).reshape(stepshape)
+    inside = field.is_inside(f)
+    enc = torch.where(ok, steps * 2 + (ok & ~inside).to(torch.int32), -1)
+    last_enc = torch.cummax(enc, dim=0).values
+    prev_enc = torch.cat([torch.full_like(last_enc[:1], -1), last_enc[:-1]])
+    prev_idx = torch.clamp(prev_enc >> 1, min=0).long()
+
+    crossing = ok & (prev_enc >= 0) & inside & ((prev_enc & 1) == 1) \
+        & active[None]
+    hit = crossing.any(0)
+    j_star = crossing.to(torch.uint8).argmax(0)[None].long()   # first True
+
+    f_hi = f.gather(0, j_star)[0]
+    j_lo = prev_idx.gather(0, j_star)
+    z_lo = z_start + dz * j_lo[0].to(torch.float32)
+    f_lo = torch.where(ok, f, 0.0).gather(0, j_lo)[0]
+    z_hi = z.gather(0, j_star)[0]
+
+    denom = f_lo - f_hi
+    denom = torch.where(torch.abs(denom) < 1e-12, -1e-12, denom)
+    frac = (f_hi - field.surf_boundary) / denom
+    z_ref = z_hi + (z_hi - z_lo) * frac
+    return _Fine(hit=hit, z_hit=torch.where(hit, z_ref, 0.0))
+
+
+def _up2(a: torch.Tensor) -> torch.Tensor:
+    return a.repeat_interleave(2, 0).repeat_interleave(2, 1)
+
+
+def raycast(m: VoxelMap, field, view, H: int, W: int, near: float,
+            far: float, dense=None, *, normals: str = "volume",
+            second_window: bool = True, span_factor: float = 1.6,
+            w2_budget: int = 8192, scan_stride: float = 0.5,
+            near_rescue: bool = True, grad_decim: int = 1) -> RaycastResult:
+    """Vertex + normal maps from ``view`` (= pose @ inv(K)).
+
+    The fine scan runs at half ray resolution when H and W are even and
+    W >= 160, followed by the full-res ``_refine``; ``normals`` is "volume"
+    (full-res 6-tap gradient) or "hybrid" (half-res, or 1/``grad_decim``
+    of that, lateral gradient + per-pixel along-ray correction; without
+    the half-res scan it falls back to "volume")."""
+    if normals not in ("volume", "hybrid"):
+        raise NotImplementedError(
+            f"raycast normals {normals!r} are not ported yet "
+            "(ROADMAP queue 1, item 10)")
+    origin, dirs = ray_directions(view, H, W)
+    if dense is None:
+        dense = pack_view(m, field)
+    tgrid, tmax_grid, g = _splat_bounds(m, field, view, H, W, near, far,
+                                        near_rescue=near_rescue)
+
+    vs = m.voxel_size
+    inv_vs = m.inverse_voxel_size
+    thickness = field.mu if field.invert_normals else 2.0 * vs
+    diag = 1.7320508 * BLOCK_SIDE * vs
+    half_res = H % 2 == 0 and W % 2 == 0 and W >= 160
+    fine_step = scan_stride * thickness
+    fine_span = span_factor * diag + 2.0 * thickness
+    n_fine = int(np.clip(np.ceil(fine_span / fine_step) + 1, 8, 48))
+    fine_span = n_fine * fine_step
+
+    if half_res:
+        fd = 0.25 * (dirs[0::2, 0::2] + dirs[1::2, 0::2]
+                     + dirs[0::2, 1::2] + dirs[1::2, 1::2])
+        rep = g // 2
+    else:
+        fd = dirs
+        rep = g
+    h, w = fd.shape[:2]
+    t0 = tgrid.repeat_interleave(rep, 0).repeat_interleave(rep, 1)[:h, :w]
+    t1 = tmax_grid.repeat_interleave(rep, 0) \
+        .repeat_interleave(rep, 1)[:h, :w]
+    active = torch.isfinite(t0)
+    z_start = torch.clamp(torch.where(active, t0, near), near, far)
+
+    f1 = _fine_scan(m, dense, field, origin, fd, z_start, fine_span, n_fine,
+                    active)
+    hit, z_hit = f1.hit, f1.z_hit
+    if second_window:
+        # rays whose far bound reaches past window 1, compacted (the first
+        # w2_budget of them in raster order) and scanned one window deeper
+        need2 = (active & ~f1.hit
+                 & (z_start + fine_span < t1 + diag)).reshape(-1)
+        idx = torch.nonzero(need2)[:, 0][:min(w2_budget, h * w)]
+        f2 = _fine_scan(m, dense, field, origin, fd.reshape(-1, 3)[idx],
+                        (z_start + fine_span).reshape(-1)[idx], fine_span,
+                        n_fine, torch.ones_like(idx, dtype=torch.bool))
+        hit2 = torch.zeros(h * w, dtype=torch.bool, device=idx.device) \
+            .index_copy(0, idx, f2.hit).reshape(h, w)
+        z2 = torch.zeros(h * w, device=idx.device) \
+            .index_copy(0, idx, f2.z_hit).reshape(h, w)
+        hit = f1.hit | hit2
+        z_hit = torch.where(f1.hit, f1.z_hit, z2)
+
+    z_half, hit_half = z_hit, hit
+    if half_res:
+        delta = 0.7 * thickness
+        z_hit, hit, rf_lo, rf_hi, rf_pair = _refine(
+            m, dense, field, origin, dirs, _up2(z_hit), _up2(hit), delta)
+
+    vertex = origin + dirs * z_hit[..., None]
+    ray_norm = norm(dirs)
+    t_hit = torch.where(hit, z_hit * ray_norm, 0.0)
+
+    if normals == "hybrid" and half_res:
+        vert_h = origin + fd * z_half[..., None]
+        gd = int(grad_decim)
+        if gd > 1 and h % gd == 0 and w % gd == 0:
+            g_q = _grad6(m, dense, field, vert_h[::gd, ::gd]) * inv_vs
+            g_h = g_q.repeat_interleave(gd, 0).repeat_interleave(gd, 1)
+            grad_ok_h = hit_half[::gd, ::gd].repeat_interleave(gd, 0) \
+                .repeat_interleave(gd, 1)
+        else:
+            g_h = _grad6(m, dense, field, vert_h) * inv_vs
+            grad_ok_h = torch.ones_like(hit_half)
+        g_m = _up2(g_h)
+        rn = torch.clamp(ray_norm, min=1e-12)
+        rhat = dirs / rn[..., None]
+        d_ray = (rf_hi - rf_lo) / (2.0 * delta * rn)
+        have = rf_pair & hit & _up2(hit_half)
+        corr = torch.where(have, d_ray - (g_m * rhat).sum(-1), 0.0)
+        g_ = g_m + corr[..., None] * rhat
+        bad_grad = ~_up2(grad_ok_h)
+    else:
+        g_ = _grad6(m, dense, field, vertex)
+        bad_grad = torch.zeros_like(hit)
+    if field.invert_normals:
+        g_ = -g_
+    gn = norm(g_, keepdim=True)
+    normal = g_ / torch.clamp(gn, min=1e-12)
+    bad = ~hit | (gn[..., 0] == 0) | bad_grad
+    vertex = torch.where(hit[..., None], vertex, 0.0)
+    invalid = torch.zeros_like(normal)
+    invalid[..., 0] = INVALID
+    normal = torch.where(bad[..., None], invalid, normal)
+    return RaycastResult(vertex=vertex, normal=normal, t_hit=t_hit)
+
+
+def _refine(m: VoxelMap, dense, field, origin, dirs, z_hit, hit,
+            delta: float):
+    """Full-res re-solve within +/-delta of ``z_hit``: a valid outside ->
+    inside pair re-solves the crossing, a valid pair without a crossing
+    drops the hit.  Also returns the two samples and the pair flag (the
+    hybrid normals' along-ray derivative)."""
+    def sample(z):
+        pos = (origin + dirs * z[..., None]) * m.inverse_voxel_size
+        return _sample_volume(dense["F"], pos, m.size, float("nan"))[0]
+
+    f_lo = sample(z_hit - delta)
+    f_hi = sample(z_hit + delta)
+    pair = ~torch.isnan(f_lo) & ~torch.isnan(f_hi)
+    crossing = pair & ~field.is_inside(f_lo) & field.is_inside(f_hi)
+    miss = pair & ~crossing
+    denom = f_lo - f_hi
+    denom = torch.where(torch.abs(denom) < 1e-12, -1e-12, denom)
+    frac = (f_hi - field.surf_boundary) / denom
+    z_new = z_hit + delta + 2.0 * delta * frac
+    return torch.where(crossing, z_new, z_hit), hit & ~miss, f_lo, f_hi, pair
+
+
+def _grad6(m: VoxelMap, dense, field, pos_world):
+    """Central-difference gradient from 6 nearest-voxel taps of the view;
+    NaN taps read the channel's init value, out-of-volume taps its empty
+    value."""
+    spec = next(c for c in m.channels if c.name == field.select_channel)
+    base = pos_world * m.inverse_voxel_size
+    offs = torch.tensor([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0],
+                         [0, 0, 1], [0, 0, -1]], dtype=torch.float32,
+                        device=base.device)
+    pos6 = base[None] + offs.reshape((6,) + (1,) * (base.ndim - 1) + (3,))
+    vals, _ = _sample_volume(dense["F"], pos6, m.size, spec.empty)
+    vals = torch.nan_to_num(vals, nan=spec.init)
+    g = torch.stack([vals[0] - vals[1], vals[2] - vals[3],
+                     vals[4] - vals[5]], dim=-1)
+    return g * 0.5

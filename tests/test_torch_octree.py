@@ -1,0 +1,125 @@
+"""Block map of the PyTorch port against the JAX package: Morton block
+keys, slot assignment with ``allocate_block_mask`` (including a capacity
+that overflows) and the carried-over map.  Every output is integer or
+boolean and must match bit for bit.  Also checks that the port imports no
+JAX."""
+
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from supereight_tpu.core import morton as jmorton
+from supereight_tpu.core import octree as joct
+from supereight_tpu.fields.sdf import SDFField as JaxSDF
+from supereight_tpu_torch import convert
+from supereight_tpu_torch.core import morton, octree
+from supereight_tpu_torch.fields import SDFField
+
+from torch_port_util import map_to_numpy
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_block_key_matches_jax():
+    rng = np.random.default_rng(0)
+    c = rng.integers(0, 1024, (3, 4096)).astype(np.int32)
+    want = np.asarray(jmorton.block_key(*(jnp.asarray(v, jnp.uint32)
+                                          for v in c)))
+    got = morton.block_key(*(torch.from_numpy(v) for v in c)).numpy()
+    np.testing.assert_array_equal(got, want.astype(np.int64))
+    back = morton.block_key_decode(torch.from_numpy(got))
+    for axis in range(3):
+        np.testing.assert_array_equal(back[axis].numpy(), c[axis])
+
+
+def _masks(B, seed, n):
+    rng = np.random.default_rng(seed)
+    return [rng.random((B, B, B)) < 0.15 for _ in range(n)]
+
+
+@pytest.mark.parametrize("capacity", [4096, 150])
+def test_allocate_block_mask_matches_jax(capacity):
+    """Three successive allocations on a 16^3-block grid; at capacity 150
+    the first already overflows and the rest only re-activate."""
+    size, B = 128, 16
+    jm = joct.init(size, 4.8, JaxSDF().channels, capacity=capacity)
+    tm = octree.init(size, 4.8, SDFField().channels, "cpu",
+                     capacity=capacity)
+    for wanted in _masks(B, capacity, 3):
+        jm = joct.allocate_block_mask(jm, jnp.asarray(wanted))
+        tm = octree.allocate_block_mask(tm, torch.from_numpy(wanted))
+        np.testing.assert_array_equal(tm.block_index.numpy(),
+                                      np.asarray(jm.block_index))
+        np.testing.assert_array_equal(tm.keys.numpy(),
+                                      np.asarray(jm.keys).astype(np.int64))
+        assert int(tm.n_blocks) == int(jm.n_blocks)
+        assert int(tm.overflow) == int(jm.overflow)
+        np.testing.assert_array_equal(tm.active.numpy(),
+                                      np.asarray(jm.active))
+        np.testing.assert_array_equal(octree.slot_mask(tm).numpy(),
+                                      np.asarray(joct.slot_mask(jm)))
+        np.testing.assert_array_equal(
+            octree.block_coords_table(tm).numpy(),
+            np.asarray(joct.block_coords_table(jm)))
+    if capacity == 150:
+        assert int(tm.overflow) > 0 and int(tm.n_blocks) == capacity
+    else:
+        assert int(tm.overflow) == 0
+
+
+def test_map_from_numpy_carries_every_field():
+    jm = joct.init(64, 2.4, JaxSDF().channels, capacity=64)
+    jm = joct.allocate_block_mask(jm, jnp.asarray(_masks(8, 3, 1)[0]))
+    tm = convert.map_from_numpy(map_to_numpy(jm), "cpu")
+    assert (tm.size, tm.dim, tm.capacity) == (64, 2.4, 64)
+    for name in ("block_index", "n_blocks", "active", "overflow"):
+        np.testing.assert_array_equal(getattr(tm, name).numpy(),
+                                      np.asarray(getattr(jm, name)))
+    np.testing.assert_array_equal(tm.keys.numpy(), np.asarray(jm.keys))
+    for name in ("tsdf", "weight"):
+        np.testing.assert_array_equal(tm.voxels[name].numpy(),
+                                      np.asarray(jm.voxels[name]))
+    assert len(tm.node_alloc) == len(jm.node_alloc) == tm.block_level + 1
+    # and it keeps allocating where the JAX map would
+    wanted = _masks(8, 4, 1)[0]
+    jm = joct.allocate_block_mask(jm, jnp.asarray(wanted))
+    tm = octree.allocate_block_mask(tm, torch.from_numpy(wanted))
+    np.testing.assert_array_equal(tm.block_index.numpy(),
+                                  np.asarray(jm.block_index))
+
+
+def test_port_imports_no_jax():
+    """Every module of the port imports with JAX and flax made
+    unimportable, and none of them loads the JAX package."""
+    code = r"""
+import importlib, pkgutil, sys
+for name in list(sys.modules):
+    if name.split(".")[0] in ("jax", "jaxlib", "flax"):
+        del sys.modules[name]
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax"):
+            raise ImportError("blocked: " + name)
+
+sys.meta_path.insert(0, Block())
+import supereight_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "flax")
+       or n.split(".")[0] == "supereight_tpu"]
+assert not bad, bad
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
