@@ -4,7 +4,8 @@
 ``state_from_numpy`` a ``FrameState``, each as a dict of numpy arrays (the
 arrays of the JAX pytree under their field names, plus the map's static
 fields), and return the port's map and state on ``device``.  They let a
-port stage start from a JAX mid-sequence state.
+port stage start from a JAX mid-sequence state, of either field (SDF or
+OFusion, told apart by the voxel channels).
 """
 
 from __future__ import annotations
@@ -13,12 +14,16 @@ import numpy as np
 import torch
 
 from supereight_tpu_torch.core.octree import VoxelMap
-from supereight_tpu_torch.fields import SDFField
+from supereight_tpu_torch.fields import OFusionField, SDFField
 from supereight_tpu_torch.pipeline.system import FrameState
 
 
 def _t(a, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+
+_CHANNELS = {frozenset(c.name for c in f.channels): f.channels
+             for f in (SDFField(), OFusionField())}
 
 
 def map_from_numpy(d, device) -> VoxelMap:
@@ -29,10 +34,10 @@ def map_from_numpy(d, device) -> VoxelMap:
     if int(d.get("partitions", 1)) != 1:
         raise NotImplementedError("partitioned maps are not ported yet "
                                   "(ROADMAP queue 1, item 12)")
-    channels = SDFField().channels
-    if set(d["voxels"]) != {c.name for c in channels}:
+    channels = _CHANNELS.get(frozenset(d["voxels"]))
+    if channels is None:
         raise NotImplementedError(
-            f"channels {sorted(d['voxels'])}: only the SDF field is ported")
+            f"channels {sorted(d['voxels'])}: no ported field has them")
     if "part_counts" in d and \
             np.asarray(d["part_counts"]).tolist() != [int(d["n_blocks"])]:
         raise ValueError("part_counts disagrees with n_blocks")
@@ -57,8 +62,13 @@ def state_from_numpy(d, device) -> FrameState:
     FrameState arrays ``pose``, ``raycast_pose``, ``float_depth``,
     ``scaled_depth``, ``ref_vertex``, ``ref_normal``, ``track_result``,
     ``tracked``, ``integrated``, ``alloc_pose``, ``alloc_count``,
-    ``prev_pose`` and ``model_ref``."""
+    ``prev_pose`` and ``model_ref``, and ``view`` (the held read view, or
+    None; it may be bf16)."""
     f32 = torch.float32
+    view = d.get("view")
+    if view is not None:      # bf16 -> f32 -> bf16 is exact
+        view = _t(np.asarray(view, np.float32), f32, device) \
+            .to(torch.bfloat16)
     return FrameState(
         map=map_from_numpy(d["map"], device),
         **{name: _t(d[name], f32, device)
@@ -67,4 +77,5 @@ def state_from_numpy(d, device) -> FrameState:
                         "alloc_pose", "prev_pose")},
         track_result=_t(d["track_result"], torch.int32, device),
         tracked=bool(d["tracked"]), integrated=bool(d["integrated"]),
-        alloc_count=int(d["alloc_count"]), model_ref=bool(d["model_ref"]))
+        alloc_count=int(d["alloc_count"]), model_ref=bool(d["model_ref"]),
+        view=view)

@@ -5,9 +5,11 @@ Same layout as the JAX map: ``block_index`` int32[B,B,B] maps a block
 coordinate to its slot (or -1); the block table holds Morton ``keys``,
 per-channel voxel bricks ``{name: [capacity, 512]}`` (linear voxel index
 x + 8y + 64z), an ``active`` flag per slot and a bump counter ``n_blocks``.
-The coarse node pyramid (``node_values`` / ``node_alloc``) is kept for the
-fusion's node update.  Functions return a new map and never write into the
-tensors of the map they were given.
+The coarse node pyramid (``node_values`` / ``node_alloc``) takes the
+fusion's node update; OFusion's multiscale allocation marks its cells and
+its values show through unallocated space (``node_fill``).  Functions
+return a new map and never write into the tensors of the map they were
+given.
 """
 
 from __future__ import annotations
@@ -165,3 +167,54 @@ def allocate_block_mask(m: VoxelMap, wanted: torch.Tensor) -> VoxelMap:
                      n_blocks=torch.clamp(n_new, max=cap),
                      active=active,
                      overflow=m.overflow + torch.clamp(n_new - cap, min=0))
+
+
+def allocate_octant_masks(m: VoxelMap, masks: List[torch.Tensor]) -> VoxelMap:
+    """Allocate octants from per-level request masks
+    (`octree.py:allocate_octant_masks`): ``masks[l]`` bool[2^l]^3 requests
+    a node at level l < block_level, whose 2x2x2 child cells join
+    ``node_alloc[l + 1]``, or a block at l == block_level."""
+    m = allocate_block_mask(m, masks[m.block_level])
+    node_alloc = list(m.node_alloc)
+    for level in range(m.block_level):
+        node_alloc[level + 1] = node_alloc[level + 1] | _upsample(
+            masks[level], 2)
+    return m.replace(node_alloc=node_alloc)
+
+
+def _upsample(a: torch.Tensor, f: int) -> torch.Tensor:
+    """Repeat each cell of a 3-D tensor ``f`` times along every axis."""
+    return a.repeat_interleave(f, 0).repeat_interleave(f, 1) \
+        .repeat_interleave(f, 2)
+
+
+def node_fill(m: VoxelMap, channel: str) -> torch.Tensor:
+    """``[B^3]``: over each block-grid cell, the value of the deepest
+    allocated node-pyramid level (a deeper level overwrites), ``empty``
+    where no ancestor octant is allocated (`octree.py:node_fill`)."""
+    spec = next(c for c in m.channels if c.name == channel)
+    B = m.blocks_per_edge
+    fill = torch.full((B, B, B), spec.empty, dtype=spec.dtype,
+                      device=m.device)
+    for level in range(1, m.block_level + 1):
+        rep = B >> level
+        fill = torch.where(_upsample(m.node_alloc[level], rep),
+                           _upsample(m.node_values[level][channel], rep),
+                           fill)
+    return fill.reshape(B * B * B)
+
+
+def pack_tiled_multiscale(m: VoxelMap, channel: str) -> torch.Tensor:
+    """Brick-tiled rows ``[B^3, 512]`` of one channel: allocated blocks
+    carry their voxels, every other row its cell's :func:`node_fill` value
+    (`octree.py:pack_tiled_multiscale`)."""
+    spec = next(c for c in m.channels if c.name == channel)
+    B = m.blocks_per_edge
+    bc = block_coords_table(m)
+    lin = (bc[:, 0] * B + bc[:, 1]) * B + bc[:, 2]
+    flat = torch.full((B * B * B, BLOCK_VOXELS), spec.empty,
+                      dtype=spec.dtype, device=m.device)
+    flat = scatter_drop(flat, torch.where(slot_mask(m), lin, B * B * B),
+                        m.voxels[channel])
+    has_leaf = (m.block_index >= 0).reshape(-1)
+    return torch.where(has_leaf[:, None], flat, node_fill(m, channel)[:, None])

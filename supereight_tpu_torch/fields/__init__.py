@@ -1,5 +1,6 @@
 """Voxel field types (counterpart of `supereight_tpu/fields/__init__.py`)."""
 
+from .ofusion import OFusionField  # noqa: F401
 from .sdf import SDFField  # noqa: F401
 
 
@@ -7,6 +8,5 @@ def make_field(name: str, **kw):
     if name == "sdf":
         return SDFField(**kw)
     if name == "ofusion":
-        raise NotImplementedError(
-            "the OFusion field is not ported yet (ROADMAP queue 1, item 10)")
+        return OFusionField(**kw)
     raise ValueError(f"unknown field {name!r}")

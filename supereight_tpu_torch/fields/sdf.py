@@ -38,11 +38,12 @@ class SDFField:
         return 2.0 * self.mu
 
     def update(self, data: Dict[str, torch.Tensor], pos_cam: torch.Tensor,
-               depth_sample: torch.Tensor,
-               valid: torch.Tensor) -> Dict[str, torch.Tensor]:
+               depth_sample: torch.Tensor, valid: torch.Tensor,
+               timestamp: float = 0.0) -> Dict[str, torch.Tensor]:
         """Per-voxel projective TSDF update (`sdf.py:SDFField.update`):
         ``pos_cam`` [..., 3] camera-space voxel centres, ``depth_sample`` the
-        depth at the projected pixel, ``valid`` the in-frame gate."""
+        depth at the projected pixel, ``valid`` the in-frame gate.  The
+        frame ``timestamp`` is unused (the SDF keeps no time)."""
         z = pos_cam[..., 2]
         zsafe = torch.where(z == 0, 1.0, z)
         nx = pos_cam[..., 0] / zsafe

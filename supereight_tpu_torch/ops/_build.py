@@ -1,9 +1,10 @@
-"""Build the package's CUDA sources into a shared library at first use.
+"""Build the package's CUDA sources into shared libraries at first use.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so``, where
 the hash covers the source and the flags, then loaded with ``ctypes``.  The
-build directory is not committed; a checkout builds on its first launch.
+build directory is not committed; a checkout builds on its first launch, or
+all at once with :func:`build_all`.
 """
 
 from __future__ import annotations
@@ -48,22 +49,47 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+#: every kernel source of the package
+SOURCES = ("integrate", "gather_probe")
+
+
+def _start(name: str):
+    """Start ``nvcc`` on ``csrc/<name>.cu`` unless it is built; returns
+    (library, temporary output, process) or None."""
+    so = library_path(name)
+    if so.exists():
+        return None
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    proc = subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return so, tmp, proc
+
+
+def _finish(name: str, so: Path, tmp: Path, proc) -> None:
+    out, err = proc.communicate()
+    so.with_name(so.name + ".log").write_text(out + err)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed building {name}:\n{err}")
+    os.replace(tmp, so)        # atomic: concurrent builds never race
+
+
+def build_all(names=SOURCES) -> None:
+    """Build every source in ``names`` that is not built yet, one ``nvcc``
+    each, all started together."""
+    started = {name: _start(name) for name in names}
+    for name, job in started.items():
+        if job is not None:
+            _finish(name, *job)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, compiling it if needed.
     The compiler's output (``-Xptxas -v``: registers, spills) is kept
     beside it in ``<library>.log``."""
     if name in _loaded:
         return _loaded[name]
-    so = library_path(name)
-    if not so.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            capture_output=True, text=True)
-        so.with_name(so.name + ".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {name}:\n{proc.stderr}")
-        os.replace(tmp, so)        # atomic: concurrent builders never race
-    _loaded[name] = ctypes.CDLL(str(so))
+    build_all((name,))
+    _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]

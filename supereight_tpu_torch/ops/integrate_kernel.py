@@ -1,11 +1,12 @@
-"""SDF fusion over compacted block rows: the hand-written CUDA kernel
-(`csrc/integrate_sdf.cu`) and its plain PyTorch twin.
+"""Projective fusion over compacted block rows: the hand-written CUDA
+kernels (`csrc/integrate.cu`) and their plain PyTorch twins, for the SDF
+(:func:`fuse_sdf`) and the OFusion field (:func:`fuse_ofusion`).
 
-Counterpart of `supereight_tpu/ops/integrate_kernel.py` (the Pallas TPU
-kernel K1) and of the body of `supereight_tpu/pipeline/integration.py:
-fuse_rows`, which both compute this function.  :func:`fuse_sdf` launches the
-kernel for CUDA tensors and takes :func:`fuse_sdf_reference` only for CPU
-tensors; there is no fallback between the two.
+Counterparts of `supereight_tpu/ops/integrate_kernel.py` (the Pallas TPU
+kernel K1, SDF only) and of the body of `supereight_tpu/pipeline/
+integration.py:fuse_rows`, which computes both.  A wrapper launches its
+kernel for CUDA tensors and takes its twin only for CPU tensors; there is no
+fallback between the two.
 """
 
 from __future__ import annotations
@@ -16,14 +17,15 @@ import torch
 
 from supereight_tpu_torch.core.numerics import matvec, trunc_i32
 from supereight_tpu_torch.core.octree import BLOCK_SIDE, BLOCK_VOXELS
+from supereight_tpu_torch.fields.ofusion import OFusionField
 from supereight_tpu_torch.fields.sdf import SDFField
 
 PATCH = 16          # depth patch side per block, in strided pixels
 N_STRIDES = 4       # patch strides 1, 2, 4, 8
 
-#: kernel launches so far (the chip smoke test reads it to show that the
-#: main path went through the kernel)
-LAUNCHES = 0
+#: kernel launches so far, one counter per kernel (the chip smoke test reads
+#: them to show that the main path went through the kernels)
+LAUNCHES = {"fuse_sdf": 0, "fuse_ofusion": 0}
 
 
 def _local_offsets(device) -> torch.Tensor:
@@ -45,18 +47,12 @@ def project(T_cw, K, pos_world):
     return pos_cam, hom[..., 0] / zsafe + 0.5, hom[..., 1] / zsafe + 0.5
 
 
-def fuse_sdf_reference(bc, live, tsdf, weight, depth, T_cw, K, mu: float,
-                       max_weight: float, voxel_size: float,
-                       patch: int = PATCH):
-    """Plain PyTorch version of the kernel: ``fuse_rows``' function with the
-    depth sample read directly at ``depth[(iy>>lvl)<<lvl, (ix>>lvl)<<lvl]``
-    (the pixel the strided atlas patch resolves to).
-
-    ``bc`` int32[n,3] block coords, ``live`` bool[n], ``tsdf``/``weight``
-    f32[n,512], ``depth`` f32[H,W], ``T_cw``/``K`` f32[4,4].  Returns
-    (tsdf', weight', visible bool[n]); rows that are not live come back
-    unchanged, ``visible`` is any voxel in frame and in its block's patch.
-    """
+def _sample_rows(bc, live, depth, T_cw, K, voxel_size: float, patch: int):
+    """``fuse_rows``' projection and depth sampling, with the sample read
+    directly at ``depth[(iy>>lvl)<<lvl, (ix>>lvl)<<lvl]`` (the pixel the
+    strided atlas patch resolves to).  Returns (camera positions [n,512,3],
+    depth samples [n,512] (0 where not fused), fuse mask [n,512], visible
+    [n])."""
     H, W = depth.shape
     base = (bc * BLOCK_SIDE).to(torch.float32)
     pos = (base[:, None, :] + _local_offsets(bc.device)) * voxel_size
@@ -86,11 +82,25 @@ def fuse_sdf_reference(bc, live, tsdf, weight, depth, T_cw, K, mu: float,
     valid = valid & (lr >= 0) & (lr < patch) & (lc >= 0) & (lc < patch)
     do = valid & live[:, None]
     ds = depth[(iy << lv).clamp(0, H - 1), (ix << lv).clamp(0, W - 1)]
-    ds = torch.where(do, ds, 0.0)
+    return pos_cam, torch.where(do, ds, 0.0), do, valid.any(1)
 
+
+def fuse_sdf_reference(bc, live, tsdf, weight, depth, T_cw, K, mu: float,
+                       max_weight: float, voxel_size: float,
+                       patch: int = PATCH):
+    """Plain PyTorch version of the SDF kernel: ``fuse_rows``' function
+    with :class:`SDFField`.
+
+    ``bc`` int32[n,3] block coords, ``live`` bool[n], ``tsdf``/``weight``
+    f32[n,512], ``depth`` f32[H,W], ``T_cw``/``K`` f32[4,4].  Returns
+    (tsdf', weight', visible bool[n]); rows that are not live come back
+    unchanged, ``visible`` is any voxel in frame and in its block's patch.
+    """
+    pos_cam, ds, do, visible = _sample_rows(bc, live, depth, T_cw, K,
+                                            voxel_size, patch)
     field = SDFField(mu=mu, max_weight=max_weight)
     new = field.update({"tsdf": tsdf, "weight": weight}, pos_cam, ds, do)
-    return new["tsdf"], new["weight"], valid.any(1)
+    return new["tsdf"], new["weight"], visible
 
 
 def fuse_sdf(bc, live, tsdf, weight, depth, T_cw, K, mu: float,
@@ -101,48 +111,85 @@ def fuse_sdf(bc, live, tsdf, weight, depth, T_cw, K, mu: float,
     if tsdf.device.type == "cpu":
         return fuse_sdf_reference(bc, live, tsdf, weight, depth, T_cw, K,
                                   mu, max_weight, voxel_size, patch)
-    if tsdf.device.type != "cuda":
-        raise ValueError(f"fuse_sdf: no kernel for device {tsdf.device}")
+    return _launch("fuse_sdf", bc, live, tsdf, weight, depth, T_cw, K,
+                   (mu, max_weight), voxel_size, patch)
+
+
+def fuse_ofusion_reference(bc, live, occupancy, timestamp, depth, T_cw, K,
+                           mu: float, sigma_lo: float, now: float,
+                           voxel_size: float, patch: int = PATCH):
+    """Plain PyTorch version of the OFusion kernel: ``fuse_rows``' function
+    with :class:`OFusionField` (``sigma_lo`` its sensor-model sigma's lower
+    bound, ``now`` the frame's float32 timestamp).  Arguments and results as
+    :func:`fuse_sdf_reference`, with the channels occupancy and
+    timestamp."""
+    pos_cam, ds, do, visible = _sample_rows(bc, live, depth, T_cw, K,
+                                            voxel_size, patch)
+    # with voxel_size 0 the field's sigma lower bound is sigma_floor
+    field = OFusionField(mu=mu, voxel_size=0.0, sigma_floor=sigma_lo)
+    new = field.update({"occupancy": occupancy, "timestamp": timestamp},
+                       pos_cam, ds, do, now)
+    return new["occupancy"], new["timestamp"], visible
+
+
+def fuse_ofusion(bc, live, occupancy, timestamp, depth, T_cw, K, mu: float,
+                 sigma_lo: float, now: float, voxel_size: float,
+                 patch: int = PATCH):
+    """OFusion fusion of block rows (see :func:`fuse_ofusion_reference`).
+    CPU tensors go through the plain twin; CUDA tensors launch the kernel,
+    which raises if it cannot."""
+    if occupancy.device.type == "cpu":
+        return fuse_ofusion_reference(bc, live, occupancy, timestamp, depth,
+                                      T_cw, K, mu, sigma_lo, now, voxel_size,
+                                      patch)
+    return _launch("fuse_ofusion", bc, live, occupancy, timestamp, depth,
+                   T_cw, K, (mu, sigma_lo, now), voxel_size, patch)
+
+
+def _launch(fn: str, bc, live, a, b, depth, T_cw, K, params, voxel_size,
+            patch):
+    """Check the operands, launch kernel ``fn`` of `csrc/integrate.cu` on
+    two channels ``a``/``b`` with the field's float ``params``, and return
+    (a', b', visible)."""
+    dev = a.device
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: no kernel for device {dev}")
     n = bc.shape[0]
     H, W = depth.shape
-    dev = tsdf.device
     for name, t, dt, shape in (("bc", bc, torch.int32, (n, 3)),
                                ("live", live, torch.bool, (n,)),
-                               ("tsdf", tsdf, torch.float32,
+                               ("channel 0", a, torch.float32,
                                 (n, BLOCK_VOXELS)),
-                               ("weight", weight, torch.float32,
+                               ("channel 1", b, torch.float32,
                                 (n, BLOCK_VOXELS)),
                                ("depth", depth, torch.float32, (H, W)),
                                ("T_cw", T_cw, torch.float32, (4, 4)),
                                ("K", K, torch.float32, (4, 4))):
         if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
                 or not t.is_contiguous()):
-            raise ValueError(f"fuse_sdf: {name} must be a contiguous "
-                             f"{dt} {shape} tensor on {dev}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    tsdf_out = torch.empty_like(tsdf)
-    weight_out = torch.empty_like(weight)
+            raise ValueError(f"{fn}: {name} must be a contiguous {dt} "
+                             f"{shape} tensor on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    a_out = torch.empty_like(a)
+    b_out = torch.empty_like(b)
     visible = torch.empty((n,), dtype=torch.bool, device=dev)
     if n == 0:
-        return tsdf_out, weight_out, visible
+        return a_out, b_out, visible
 
     from . import _build
-    lib = _build.load("integrate_sdf")
+    c_fn = getattr(_build.load("integrate"), fn)
     P = ctypes.c_void_p
-    lib.fuse_sdf.argtypes = [P] * 10 + [ctypes.c_int] * 3 \
-        + [ctypes.c_float] * 4 + [ctypes.c_int, P]
-    lib.fuse_sdf.restype = ctypes.c_int
+    c_fn.argtypes = [P] * 10 + [ctypes.c_int] * 3 \
+        + [ctypes.c_float] * (len(params) + 2) + [ctypes.c_int, P]
+    c_fn.restype = ctypes.c_int
     diag = 1.7320508 * BLOCK_SIDE * voxel_size
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fuse_sdf(
-            bc.data_ptr(), live.data_ptr(), tsdf.data_ptr(),
-            weight.data_ptr(), depth.data_ptr(), T_cw.data_ptr(),
-            K.data_ptr(), tsdf_out.data_ptr(), weight_out.data_ptr(),
-            visible.data_ptr(), n, H, W, mu, max_weight, voxel_size, diag,
-            patch, stream)
+        err = c_fn(bc.data_ptr(), live.data_ptr(), a.data_ptr(), b.data_ptr(),
+                   depth.data_ptr(), T_cw.data_ptr(), K.data_ptr(),
+                   a_out.data_ptr(), b_out.data_ptr(), visible.data_ptr(), n,
+                   H, W, *params, voxel_size, diag, patch, stream)
     if err != 0:
-        raise RuntimeError(f"fuse_sdf kernel launch failed: CUDA error {err}")
-    global LAUNCHES
-    LAUNCHES += 1
-    return tsdf_out, weight_out, visible
+        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")
+    LAUNCHES[fn] += 1
+    return a_out, b_out, visible

@@ -1,13 +1,18 @@
-"""SDF block allocation and projective fusion (counterpart of the SDF half
-of `supereight_tpu/pipeline/integration.py`).
+"""Block allocation and projective fusion (counterpart of
+`supereight_tpu/pipeline/integration.py`, single partition).
 
-Allocation is the per-pixel band march of ``buildAllocationList`` over a
-(decimated) pixel grid, deduplicated by one dense block mask.  Fusion
-compacts the frustum candidates into at most ``budget`` rows and fuses them
-through the SDF kernel (`ops/integrate_kernel.py`).
+SDF allocation is the per-pixel band march of ``buildAllocationList`` over a
+(decimated) pixel grid, deduplicated by one dense block mask; OFusion's is
+the distance-adaptive octant march of ``buildOctantList``, one dense request
+mask per octree level.  Fusion compacts the frustum candidates into at most
+``budget`` rows and fuses them through the field's kernel
+(`ops/integrate_kernel.py`: ``fuse_sdf`` or ``fuse_ofusion``), then updates
+the coarse node pyramid.
 """
 
 from __future__ import annotations
+
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -15,6 +20,8 @@ import torch
 from supereight_tpu_torch.core import octree
 from supereight_tpu_torch.core.numerics import matvec, trunc_i32
 from supereight_tpu_torch.core.octree import BLOCK_SIDE, VoxelMap
+from supereight_tpu_torch.fields.ofusion import (compute_stepsize,
+                                                 step_to_depth)
 from supereight_tpu_torch.ops import integrate_kernel
 from .constants import FAR_PLANE
 from .preprocessing import norm
@@ -99,6 +106,96 @@ def allocate_sdf(m: VoxelMap, depth, pose, K, band: float,
     return octree.allocate_block_mask(m, wanted)
 
 
+#: the coarse march's stride-2 ray-grid offsets, rotated by the phase
+_PHASE_OFFSETS = ((0, 0), (0, 1), (1, 0), (1, 1))
+
+
+def ofusion_wanted_masks(m: VoxelMap, depth, pose, K, band: float,
+                         coarse_stride: bool = True,
+                         phase: Optional[int] = None) -> List[torch.Tensor]:
+    """Per-level dense octant-request masks bool[2^l]^3 of the occupancy
+    march (`integration.py:ofusion_wanted_masks`).  Each pixel marches from
+    half a band behind its surface point toward the camera: voxel steps
+    through the band request blocks, 10-voxel steps to 1.5 bands travelled
+    request 16-voxel octants, 30-voxel steps to the camera 32-voxel ones.
+    With ``coarse_stride`` the two coarse zones march every second ray row
+    and column when their octants' far-plane footprint is >= 4 px and the
+    ray grid is not already decimated; ``phase`` (the allocation count)
+    rotates that grid through its 4 offsets, ``None`` pins (0, 0)."""
+    decim = _alloc_decimation(m, depth.shape)
+    d, vertex, direction, dist, _ = _pixel_rays(depth, pose, K, decim)
+    vs = m.voxel_size
+    inv_vs = m.inverse_voxel_size
+    origin = vertex - (0.5 * band) * direction
+    ok0 = d > 0
+    dev = depth.device
+    masks = [torch.zeros((1 << l,) * 3, dtype=torch.bool, device=dev)
+             for l in range(m.block_level + 1)]
+    fx_min = depth.shape[1] / 3.0
+
+    def zone_stride(level: int) -> int:
+        if not coarse_stride or decim > 1:
+            return 1
+        edge_m = float((1 << (m.max_depth - level)) * vs)
+        return 2 if edge_m * fx_min / FAR_PLANE >= 4.0 else 1
+
+    def scatter_zone(level: int, t, extra_ok=None, stride: int = 1):
+        """Request the level-``level`` octants of the samples at
+        ``origin + t * direction`` (``t`` [n] distances travelled)."""
+        n = 1 << level
+        oy, ox = (0, 0)
+        if stride > 1 and phase is not None:
+            oy, ox = _PHASE_OFFSETS[phase % 4]
+        sl = (slice(oy, None, stride), slice(ox, None, stride))
+        org, dr, okz, dst = origin[sl], direction[sl], ok0[sl], dist[sl]
+        pts = org[..., None, :] + dr[..., None, :] * t[:, None]
+        vox = trunc_i32(torch.floor(pts * inv_vs))
+        ok = (okz[..., None] & (vox >= 0).all(-1) & (vox < m.size).all(-1)
+              & (t < dst[..., None]))
+        if extra_ok is not None:
+            ok = ok & extra_ok
+        oc = (vox >> (m.max_depth - level)).clamp(0, n - 1).reshape(-1, 3)
+        lin = (oc[:, 0] * n + oc[:, 1]) * n + oc[:, 2]
+        # scatter True at the ok entries only (duplicates all write True)
+        masks[level] = octree.scatter_drop(
+            masks[level].reshape(-1),
+            torch.where(ok.reshape(-1), lin, n * n * n), True).reshape(n, n, n)
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    # zone 1: voxel steps through the band -> blocks
+    n1 = max(int(np.ceil(band * inv_vs)), 1)
+    scatter_zone(m.block_level, (band / n1) * torch.arange(n1, **f32))
+
+    step_mid = compute_stepsize(band, band, vs)                 # 10 voxels
+    lvl_mid = max(step_to_depth(step_mid, m.max_depth, vs), 0)
+    step_far = compute_stepsize(1.6 * band, band, vs)           # 30 voxels
+    lvl_far = max(step_to_depth(step_far, m.max_depth, vs), 0)
+
+    # zone 2: 10-voxel steps, band .. 1.5 band travelled
+    n2 = max(int(np.ceil(0.5 * band / step_mid)), 1)
+    t2 = band + step_mid * torch.arange(n2, **f32)
+    scatter_zone(lvl_mid, t2, extra_ok=t2 < 1.5 * band,
+                 stride=zone_stride(lvl_mid))
+
+    # zone 3: 30-voxel steps to the camera (frustum-diagonal bound)
+    t3_start = band + n2 * step_mid
+    n3 = max(int(np.ceil((1.42 * FAR_PLANE + band - t3_start) / step_far)),
+             1)
+    scatter_zone(lvl_far, t3_start + step_far * torch.arange(n3, **f32),
+                 stride=zone_stride(lvl_far))
+    return masks
+
+
+def allocate_ofusion(m: VoxelMap, depth, pose, K, band: float,
+                     coarse_stride: bool = True,
+                     phase: Optional[int] = None) -> VoxelMap:
+    """Occupancy multi-scale allocation: the octant march's masks, then
+    blocks and node cells (`octree.allocate_octant_masks`)."""
+    masks = ofusion_wanted_masks(m, depth, pose, K, band,
+                                 coarse_stride=coarse_stride, phase=phase)
+    return octree.allocate_octant_masks(m, masks)
+
+
 def frustum_candidates(m: VoxelMap, T_cw, K, frame_hw):
     """bool[capacity]: live active blocks whose centre projects into the
     frame dilated by the block's footprint and that are not fully behind
@@ -115,9 +212,10 @@ def frustum_candidates(m: VoxelMap, T_cw, K, frame_hw):
             & (cpy >= -foot) & (cpy <= H - 1 + foot))
 
 
-def integrate(m: VoxelMap, field, depth, pose, K, budget: int = 0,
-              patch: int = PATCH) -> VoxelMap:
-    """Fuse one depth frame.  With ``0 < budget < capacity`` only the first
+def integrate(m: VoxelMap, field, depth, pose, K, timestamp: float = 0.0,
+              budget: int = 0, patch: int = PATCH) -> VoxelMap:
+    """Fuse one depth frame taken at ``timestamp`` (a float32 value) with
+    the field's kernel.  With ``0 < budget < capacity`` only the first
     ``budget`` frustum candidates (in slot order) fuse; the rest keep their
     voxels and active flag and count into ``overflow``.  Fused rows refresh
     ``active`` from visibility."""
@@ -140,22 +238,31 @@ def integrate(m: VoxelMap, field, depth, pose, K, budget: int = 0,
         sel = None
         bc, live, rows = bc_full, live_full, m.voxels
 
-    tsdf, weight, visible = integrate_kernel.fuse_sdf(
-        bc, live, rows["tsdf"], rows["weight"], depth, T_cw, K, field.mu,
-        field.max_weight, vs, patch)
+    if field.name == "ofusion":
+        names = ("occupancy", "timestamp")
+        fused = integrate_kernel.fuse_ofusion(
+            bc, live, rows[names[0]], rows[names[1]], depth, T_cw, K,
+            field.mu, field.sigma_lo, timestamp, vs, patch)
+    else:
+        names = ("tsdf", "weight")
+        fused = integrate_kernel.fuse_sdf(
+            bc, live, rows[names[0]], rows[names[1]], depth, T_cw, K,
+            field.mu, field.max_weight, vs, patch)
+    visible = fused[2]
 
     if sel is not None:
-        voxels = {"tsdf": m.voxels["tsdf"].index_copy(0, sel, tsdf),
-                  "weight": m.voxels["weight"].index_copy(0, sel, weight)}
+        voxels = {name: m.voxels[name].index_copy(0, sel, new)
+                  for name, new in zip(names, fused)}
         active = m.active.index_copy(0, sel, visible)
     else:
-        voxels = {"tsdf": tsdf, "weight": weight}
+        voxels = dict(zip(names, fused))
         active = torch.where(live_full, visible, m.active)
     m = m.replace(voxels=voxels, active=active)
-    return _update_nodes(m, field, depth, T_cw, K)
+    return _update_nodes(m, field, depth, T_cw, K, timestamp)
 
 
-def _update_nodes(m: VoxelMap, field, depth, T_cw, K) -> VoxelMap:
+def _update_nodes(m: VoxelMap, field, depth, T_cw, K,
+                  timestamp: float) -> VoxelMap:
     """Coarse node-pyramid updates: project every allocated pyramid cell's
     corner and fuse its depth sample."""
     node_values = list(m.node_values)
@@ -169,7 +276,7 @@ def _update_nodes(m: VoxelMap, field, depth, T_cw, K) -> VoxelMap:
         ok = _pixel_valid(px, py, pos_cam, depth.shape) & alloc
         vals = m.node_values[level]
         new = field.update(vals, pos_cam, _sample_depth(depth, px, py, ok),
-                           ok)
+                           ok, timestamp)
         node_values[level] = {name: torch.where(alloc, new[name], vals[name])
                               for name in vals}
     return m.replace(node_values=node_values)

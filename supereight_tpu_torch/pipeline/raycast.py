@@ -1,5 +1,5 @@
-"""Surface raycasting: splat bounds + short-window scan (counterpart of the
-single-scale branch of `supereight_tpu/pipeline/raycast.py`).
+"""Surface raycasting: splat bounds + short-window scan (counterpart of
+`supereight_tpu/pipeline/raycast.py`, for both fields).
 
 Phase 1 (`_splat_bounds`) projects the blocks holding an inside voxel into
 a coarse image grid and takes min/max camera depths as each ray's start and
@@ -63,11 +63,12 @@ def encode_view_rows(field, rows):
 def pack_view(m: VoxelMap, field):
     """Brick-tiled read view ``{"F": [B^3, 512]}``: one row per block-grid
     cell, the NaN-encoded select channel for allocated blocks and the
-    field's empty value (NaN if empty is not a valid sample) elsewhere."""
+    field's empty value (NaN if empty is not a valid sample) elsewhere.
+    For a multiscale field (OFusion) the view is bf16 and rows without a
+    block read the NaN-encoded node-pyramid value of their cell
+    (``octree.node_fill``)."""
     if field.multiscale_alloc:
-        raise NotImplementedError(
-            "the multiscale read view is not ported yet "
-            "(ROADMAP queue 1, item 10)")
+        return {"F": _pack_view_multiscale(m, field)}
     spec = next(c for c in m.channels if c.name == field.select_channel)
     empties = {c.name: torch.full((), c.empty) for c in m.channels}
     fill = spec.empty if bool(field.sample_valid(empties)) else float("nan")
@@ -79,6 +80,16 @@ def pack_view(m: VoxelMap, field):
     tgt = torch.where(octree.slot_mask(m), lin, B * B * B)
     return {"F": octree.scatter_drop(flat, tgt, encode_view_rows(field,
                                                                  m.voxels))}
+
+
+def _pack_view_multiscale(m: VoxelMap, field) -> torch.Tensor:
+    """bf16 ``[B^3, 512]``: the NaN-encoded select channel of the tiled
+    multiscale rows (voxels of allocated blocks, their cell's node fill in
+    every other row)."""
+    rows = {c.name: octree.pack_tiled_multiscale(m, c.name).to(torch.float32)
+            for c in m.channels}
+    return torch.where(field.sample_valid(rows), rows[field.select_channel],
+                       float("nan")).to(torch.bfloat16)
 
 
 def _sample_volume(vol, pos_vox, size: int, fill: float):

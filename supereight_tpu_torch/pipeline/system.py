@@ -1,6 +1,6 @@
 """DenseSLAMSystem: the pipeline facade (counterpart of
-`supereight_tpu/pipeline/system.py`, the headline knobs and the defaults
-they sit on).
+`supereight_tpu/pipeline/system.py`: the SDF and OFusion fields, the knobs
+of the ``headline`` and ``ofusion`` presets and the defaults they sit on).
 
 All per-frame state lives in one :class:`FrameState`.  A frame runs four
 stages, preprocess -> track -> integrate -> raycast; each stage is one
@@ -58,6 +58,9 @@ class SlamConfig:
     bootstrap_frames: int = 3
     raycast_from_frame: int = 3
     icp_symmetric: bool = False
+    field_type: str = "sdf"
+    incremental_view: bool = False
+    ofusion_sigma_floor: float = 0.0
 
     @classmethod
     def of(cls, config) -> "SlamConfig":
@@ -76,6 +79,12 @@ class SlamConfig:
         if getattr(config, "icp_symmetric", False) not in (False, True):
             raise NotImplementedError(
                 f"icp_symmetric={config.icp_symmetric!r}: {_NEGATIVE}")
+        if getattr(config, "incremental_view", False) and \
+                getattr(config, "field_type", "sdf") == "sdf":
+            raise NotImplementedError(
+                "incremental_view=True on an SDF field (view_alloc_fill, "
+                "integrate(view=)): not ported yet (ROADMAP queue 1, "
+                "item 10)")
         return cls(**{f.name: getattr(config, f.name)
                       for f in dataclasses.fields(cls)
                       if hasattr(config, f.name)})
@@ -84,10 +93,8 @@ class SlamConfig:
 _LATER = "not ported yet (ROADMAP queue 1, item 10)"
 _NEGATIVE = "measured negative in the JAX package; not ported"
 _UNPORTED = {
-    "field_type": ("sdf", _LATER),
     "bilateral_filter": (False, _LATER),
     "fuse_filtered": (False, _LATER),
-    "incremental_view": (False, _LATER),
     "raycast_full_res_scan": (False, _LATER),
     "raycast_refine": ("secant", _LATER),
     "alloc_adaptive_deg": (0.0, _LATER),
@@ -117,14 +124,20 @@ class FrameState:
     alloc_count: int             # allocation marches so far
     prev_pose: torch.Tensor      # pose before the last tracked frame
     model_ref: bool              # reference maps come from a model raycast
+    #: the raycaster's read view [B^3, 512] held across frames and rebuilt
+    #: on integration frames (multiscale fields with incremental_view), or
+    #: None to build it in every raycast
+    view: Optional[torch.Tensor] = None
 
     def replace(self, **kw) -> "FrameState":
         return dataclasses.replace(self, **kw)
 
 
 def init_state(size: int, dim: float, field, H: int, W: int, init_pose,
-               device, capacity: Optional[int] = None) -> FrameState:
-    """Empty map at ``init_pose``; every pose field is its own buffer."""
+               device, capacity: Optional[int] = None,
+               incremental_view: bool = False) -> FrameState:
+    """Empty map at ``init_pose``; every pose field is its own buffer.
+    With ``incremental_view`` the state holds the map's read view."""
     m = octree.init(size, dim, field.channels, device, capacity=capacity)
     pose = torch.as_tensor(init_pose, dtype=torch.float32, device=device)
     ref_normal = torch.zeros((H, W, 3), dtype=torch.float32, device=device)
@@ -137,7 +150,8 @@ def init_state(size: int, dim: float, field, H: int, W: int, init_pose,
         ref_vertex=torch.zeros((H, W, 3), **zeros), ref_normal=ref_normal,
         track_result=torch.zeros((H, W), dtype=torch.int32, device=device),
         tracked=False, integrated=False, alloc_pose=pose.clone(),
-        alloc_count=0, prev_pose=pose.clone(), model_ref=True)
+        alloc_count=0, prev_pose=pose.clone(), model_ref=True,
+        view=raycast.pack_view(m, field)["F"] if incremental_view else None)
 
 
 def preprocessing_stage(state: FrameState, depth_mm) -> FrameState:
@@ -172,7 +186,9 @@ def integration_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
                       field) -> FrameState:
     """Fuse when tracked against a model map or during the bootstrap
     frames; the allocation march fires every ``alloc_rate``-th frame and
-    on the first six."""
+    on the first six.  OFusion's march rotates its coarse ray grid with the
+    allocation count.  A held read view is rebuilt here, the only stage
+    that changes the map."""
     boot = frame <= cfg.bootstrap_frames
     do_integrate = ((state.tracked and state.model_ref) or boot) and \
         (frame % cfg.integration_rate == 0 or boot)
@@ -180,17 +196,26 @@ def integration_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
         return state.replace(integrated=False)
     K = camera.camera_matrix(k)
     depth, pose = state.float_depth, state.pose
+    # the float32 product the JAX stage computes
+    timestamp = float(np.float32(1.0 / 30.0) * np.float32(frame))
     m = state.map
     a_pose, a_count = state.alloc_pose, state.alloc_count
     if cfg.alloc_rate <= 1 or frame % cfg.alloc_rate == 0 or frame <= 5:
-        m = integration.allocate_sdf(m, depth, pose, K, field.alloc_band(),
-                                     stride=cfg.alloc_stride)
+        if field.multiscale_alloc:
+            m = integration.allocate_ofusion(m, depth, pose, K,
+                                             field.alloc_band(),
+                                             phase=a_count)
+        else:
+            m = integration.allocate_sdf(m, depth, pose, K,
+                                         field.alloc_band(),
+                                         stride=cfg.alloc_stride)
         a_pose, a_count = pose.clone(), a_count + 1
-    m = integration.integrate(m, field, depth, pose, K,
+    m = integration.integrate(m, field, depth, pose, K, timestamp=timestamp,
                               budget=cfg.integrate_budget,
                               patch=cfg.integrate_patch)
+    view = None if state.view is None else raycast.pack_view(m, field)["F"]
     return state.replace(map=m, alloc_pose=a_pose, alloc_count=a_count,
-                         integrated=True)
+                         integrated=True, view=view)
 
 
 def raycasting_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
@@ -215,7 +240,9 @@ def raycasting_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
     H, W = state.float_depth.shape
     rc = raycast.raycast(
         state.map, field, state.pose @ camera.inverse_camera_matrix(k), H, W,
-        NEAR_PLANE, FAR_PLANE, normals=cfg.raycast_normals,
+        NEAR_PLANE, FAR_PLANE,
+        dense=None if state.view is None else {"F": state.view},
+        normals=cfg.raycast_normals,
         second_window=cfg.raycast_second_window,
         span_factor=cfg.raycast_span_factor, w2_budget=cfg.raycast_w2_budget,
         scan_stride=cfg.raycast_scan_stride,
@@ -249,14 +276,20 @@ class DenseSLAMSystem:
         self.input_size = input_size                      # (H, W)
         self.H = input_size[0] // ratio
         self.W = input_size[1] // ratio
-        self.field = make_field("sdf", mu=cfg.mu)
+        if cfg.field_type == "sdf":
+            self.field = make_field("sdf", mu=cfg.mu)
+        else:
+            vs = float(cfg.volume_size[0]) / cfg.volume_resolution[0]
+            self.field = make_field(cfg.field_type, mu=cfg.mu, voxel_size=vs,
+                                    sigma_floor=cfg.ofusion_sigma_floor)
         self.init_pose = camera.pose_from_translation(
             [f * s for f, s in zip(cfg.initial_pos_factor, cfg.volume_size)],
             self.device)
         self.state = init_state(cfg.volume_resolution[0],
                                 float(cfg.volume_size[0]), self.field,
                                 self.H, self.W, self.init_pose, self.device,
-                                capacity=cfg.block_capacity)
+                                capacity=cfg.block_capacity,
+                                incremental_view=cfg.incremental_view)
 
     def getPose(self) -> torch.Tensor:
         return self.state.pose

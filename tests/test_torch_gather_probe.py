@@ -1,0 +1,116 @@
+"""Gather-rate probe of the PyTorch port (`ops/gather_probe.py`,
+`probes/gather_probe.py`) against the Pallas kernels K2 and K3.
+
+``shuffle_kernel`` and ``rows_kernel`` are closures inside
+``scripts/pallas_gather_probe.py:main``; they are taken from its source with
+``ast`` and run through ``pl.pallas_call(..., interpret=True)`` with the
+probe's constants bound to small values.  The port's plain versions must
+equal them bit for bit (both sum in the kernels' order).  The CUDA kernels
+are held against the plain versions on the card by tests/test_torch_gpu.py.
+"""
+
+import ast
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from supereight_tpu_torch.ops import gather_probe as gp
+from supereight_tpu_torch.probes import gather_probe as probe
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCRIPT = os.path.join(REPO, "scripts", "pallas_gather_probe.py")
+
+
+def _pallas_bodies(**consts):
+    """``shuffle_kernel`` and ``rows_kernel`` from the JAX probe's source,
+    with ``consts`` (S, KREP, WIDE, N_ROWS) bound."""
+    with open(SCRIPT) as fh:
+        tree = ast.parse(fh.read())
+    main = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "main")
+    fns = [n for n in main.body if isinstance(n, ast.FunctionDef)
+           and n.name in ("shuffle_kernel", "rows_kernel")]
+    ns = dict(jax=jax, jnp=jnp, pl=pl, **consts)
+    exec(compile(ast.Module(body=fns, type_ignores=[]), SCRIPT, "exec"), ns)
+    return ns["shuffle_kernel"], ns["rows_kernel"]
+
+
+@pytest.mark.parametrize("S,KREP,carry", [(16, 64, 0), (8, 64, 1 << 20),
+                                          (16, 5, 2 ** 31 - 40)])
+def test_lane_shuffle_sum_matches_pallas(S, KREP, carry):
+    """The last case wraps the int32 lane index past 2^31."""
+    shuffle_kernel, _ = _pallas_bodies(S=S, KREP=KREP)
+    rng = np.random.default_rng(S + KREP)
+    src = rng.standard_normal((S, 128)).astype(np.float32)
+    idx = (rng.integers(0, 128, (S, 128)) + carry).astype(np.int32)
+    want = pl.pallas_call(
+        shuffle_kernel, out_shape=jax.ShapeDtypeStruct((S, 128), jnp.float32),
+        interpret=True)(jnp.asarray(src), jnp.asarray(idx))
+    got = gp.lane_shuffle_sum(torch.from_numpy(src), torch.from_numpy(idx),
+                              KREP)
+    assert got.dtype == torch.float32 and got.shape == (S, 128)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("CAP,N_ROWS,WIDE", [(256, 64, 512), (64, 32, 128)])
+def test_slab_row_sum_matches_pallas(CAP, N_ROWS, WIDE):
+    _, rows_kernel = _pallas_bodies(N_ROWS=N_ROWS, WIDE=WIDE)
+    rng = np.random.default_rng(CAP)
+    table = jnp.asarray(rng.standard_normal((CAP, WIDE)), jnp.bfloat16)
+    rows = (rng.integers(0, CAP // 8, (N_ROWS,)) * 8).astype(np.int32)
+    want = pl.pallas_call(
+        rows_kernel, out_shape=jax.ShapeDtypeStruct((8, WIDE), jnp.float32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
+                  pl.BlockSpec(memory_space=pltpu.VMEM)],
+        interpret=True)(jnp.asarray(rows), table)
+    t16 = torch.from_numpy(np.array(table.astype(jnp.float32))) \
+        .to(torch.bfloat16)
+    got = gp.slab_row_sum(torch.from_numpy(rows), t16)
+    assert got.dtype == torch.float32 and got.shape == (8, WIDE)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    before = dict(gp.LAUNCHES)
+    src = torch.ones((4, 128))
+    out = gp.lane_shuffle_sum(src, torch.zeros((4, 128), dtype=torch.int32),
+                              3)
+    assert torch.equal(out, torch.full((4, 128), 3.0))
+    rows = torch.tensor([0, 8, 0, 8], dtype=torch.int32)
+    out = gp.slab_row_sum(rows, torch.ones((16, 32), dtype=torch.bfloat16))
+    assert torch.equal(out, torch.full((8, 32), 4.0))
+    assert gp.LAUNCHES == before
+
+
+def test_probe_inputs():
+    """The probe's per-run inputs follow the JAX steps' formulas, and every
+    slab lies inside the table."""
+    d = probe.make_data()
+    assert d["src"].shape == (probe.S, 128) and d["idxt"].max() < 128
+    assert d["table16"].shape == (probe.CAP, probe.WIDE)
+    idx = probe.shuffle_inputs(d, 3, "cpu").numpy()
+    np.testing.assert_array_equal(idx[2] - d["idxt"], d["carry_shuffle"] + 3)
+    rows = probe.rows_inputs(d, 9, "cpu").numpy()
+    assert rows.shape == (9, probe.N_ROWS)
+    assert (rows % 8 == 0).all() and rows.min() >= 0
+    assert rows.max() + 8 <= probe.CAP
+    c = d["carry_rows"] + 1
+    want = ((d["rows0"] + (c & 7) * 8) % (probe.CAP - 8)) // 8 * 8
+    np.testing.assert_array_equal(rows[0], want)
+    # the same seed gives the same data
+    np.testing.assert_array_equal(probe.make_data()["rows0"], d["rows0"])
+
+
+def test_probe_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit):
+        probe.main([])

@@ -1,4 +1,5 @@
-"""Tests of the port's CUDA kernels on the card (marker ``gpu``).  They skip
+"""Tests of the port's CUDA kernels on the card (marker ``gpu``): each
+kernel against its plain twin.  They skip
 without a CUDA device.  This file imports neither JAX nor the JAX package,
 so it also runs where only PyTorch is installed:
 
@@ -10,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from supereight_tpu_torch.ops import gather_probe as gp
 from supereight_tpu_torch.ops import integrate_kernel as ik
+from supereight_tpu_torch.probes import gather_probe as probe
 
 VS = 0.0375
 MU = 0.1
@@ -68,10 +71,10 @@ def test_kernel_matches_twin(cuda, H, W, seed):
     """Built with --fmad=false and the twin's multiply-add chains, the
     kernel and its twin agree bit for bit."""
     args = _args(_case(H, W, seed), cuda)
-    before = ik.LAUNCHES
+    before = ik.LAUNCHES["fuse_sdf"]
     out = ik.fuse_sdf(*args)
     torch.cuda.synchronize()
-    assert ik.LAUNCHES == before + 1
+    assert ik.LAUNCHES["fuse_sdf"] == before + 1
     ref = ik.fuse_sdf_reference(*args)
     assert bool(ref[2].any()) and not bool(ref[2].all())
     assert int((ref[1] != args[3]).sum()) > 0
@@ -97,3 +100,63 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     bad[0] = args[0].cpu()                        # bc on another device
     with pytest.raises(ValueError):
         ik.fuse_sdf(*bad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,W,seed", [(60, 80, 4), (240, 320, 5)])
+def test_ofusion_kernel_matches_twin(cuda, H, W, seed):
+    """visible and timestamp bit for bit; occupancy within 1e-5 relative
+    (1e-6 absolute where log-odds cancel toward 0), the last bits of
+    logf."""
+    c = _case(H, W, seed)
+    rng = np.random.default_rng(seed)
+    n = len(c["bc"])
+    bc, live, _, _, depth, T_cw, K = _args(c, cuda)[:7]
+    occ = torch.from_numpy(rng.uniform(-20, 20, (n, 512)).astype(
+        np.float32)).to(cuda)
+    ts = torch.from_numpy(rng.uniform(0, 1.2, (n, 512)).astype(
+        np.float32)).to(cuda)
+    now = float(np.float32(1 / 30) * np.float32(40))
+    args = (bc, live, occ, ts, depth, T_cw, K, 0.05, 2 * VS, now, VS, 16)
+    before = ik.LAUNCHES["fuse_ofusion"]
+    out = ik.fuse_ofusion(*args)
+    torch.cuda.synchronize()
+    assert ik.LAUNCHES["fuse_ofusion"] == before + 1
+    ref = ik.fuse_ofusion_reference(*args)
+    assert bool(ref[2].any()) and int((ref[1] == now).sum()) > 100
+    assert torch.equal(out[2], ref[2])
+    assert torch.equal(out[1], ref[1])
+    torch.testing.assert_close(out[0], ref[0], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_gather_probe_kernels_match_twins(cuda):
+    """K2 and K3 at the probe's shapes, bit for bit."""
+    d = probe.make_data()
+    src = torch.from_numpy(d["src"]).to(cuda)
+    idx = probe.shuffle_inputs(d, 2, cuda)[1]
+    table = probe.table16(d, cuda)
+    rows = probe.rows_inputs(d, 2, cuda)[1]
+    before = dict(gp.LAUNCHES)
+    out = gp.lane_shuffle_sum(src, idx, probe.KREP)
+    slab = gp.slab_row_sum(rows, table)
+    torch.cuda.synchronize()
+    assert gp.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    assert torch.equal(out, gp.lane_shuffle_sum_reference(src, idx,
+                                                           probe.KREP))
+    assert torch.equal(slab, gp.slab_row_sum_reference(rows, table))
+
+
+@pytest.mark.gpu
+def test_gather_probe_kernels_reject_what_they_do_not_take(cuda):
+    src = torch.zeros((4, 128), device=cuda)
+    idx = torch.zeros((4, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        gp.lane_shuffle_sum(src, idx.long(), 3)
+    with pytest.raises(ValueError):
+        gp.lane_shuffle_sum(src[:, :64].contiguous(), idx[:, :64], 3)
+    table = torch.zeros((16, 32), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        gp.slab_row_sum(idx[0, :6], table)
+    with pytest.raises(ValueError):
+        gp.slab_row_sum(idx[0, :4], table.float())

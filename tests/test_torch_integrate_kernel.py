@@ -1,4 +1,4 @@
-"""SDF fusion kernel of the PyTorch port (`ops/integrate_kernel.py`).
+"""Fusion kernels of the PyTorch port (`ops/integrate_kernel.py`).
 
 (a) The plain twin ``fuse_sdf_reference`` against the JAX pipeline's
     ``integration.fuse_rows`` on the same rows: blocks off-frame, behind the
@@ -9,7 +9,11 @@
     tests/test_pallas_kernel.py runs it, with ``scal`` built from the
     fuse_rows formulas.  tsdf/weight within 2e-5 (K1's visibility flag is
     depth-gated, unlike the pipeline's, so it is not compared).
-The CUDA kernel itself is held against the twin on the card by
+(c) The OFusion twin ``fuse_ofusion_reference`` against ``fuse_rows`` with
+    the JAX ``OFusionField`` on the same rows: ``visible`` and timestamp bit
+    for bit, occupancy within 1e-5 relative (1e-6 absolute where log-odds
+    cancel toward 0; the logarithm rounds differently in the last bit).
+The CUDA kernels themselves are held against the twins on the card by
 tests/test_torch_gpu.py.
 """
 
@@ -18,6 +22,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from supereight_tpu.fields.ofusion import OFusionField as JaxOFusion
 from supereight_tpu.fields.sdf import SDFField as JaxSDF
 from supereight_tpu.pipeline import camera as jcam
 from supereight_tpu.pipeline import integration as jint
@@ -163,10 +168,58 @@ def test_twin_matches_pallas_kernel(jax_runs):
 def test_cpu_tensors_take_the_twin():
     c = _case(60, 80, 0, n=8)
     t = {k: torch.from_numpy(np.array(v)) for k, v in c.items()}
-    before = ik.LAUNCHES
+    before = dict(ik.LAUNCHES)
     out = ik.fuse_sdf(t["bc"], t["live"], t["tsdf"], t["weight"], t["depth"],
                       t["T_cw"], t["K"], MU, 100.0, VS, PATCH)
     ref = _twin(c)
-    assert ik.LAUNCHES == before
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
+    oc = _ofusion_case(c)
+    out = ik.fuse_ofusion(*_ofusion_args(oc))
+    ref = ik.fuse_ofusion_reference(*_ofusion_args(oc))
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert ik.LAUNCHES == before
+
+
+OF_MU = 0.05
+NOW = float(np.float32(1 / 30) * np.float32(40))
+
+
+def _ofusion_case(c):
+    """An SDF case's rows and frame with occupancy and timestamp channels."""
+    rng = np.random.default_rng(len(c["bc"]))
+    n = len(c["bc"])
+    oc = {k: c[k] for k in ("bc", "live", "depth", "T_cw", "K")}
+    oc["occupancy"] = rng.uniform(-20, 20, (n, 512)).astype(np.float32)
+    oc["timestamp"] = rng.uniform(0, 1.2, (n, 512)).astype(np.float32)
+    return oc
+
+
+def _ofusion_args(oc):
+    t = {k: torch.from_numpy(np.array(v)) for k, v in oc.items()}
+    # the sigma floor 2 * voxel_size of the 128^3 map
+    return (t["bc"], t["live"], t["occupancy"], t["timestamp"], t["depth"],
+            t["T_cw"], t["K"], OF_MU, 2.0 * VS, NOW, VS, PATCH)
+
+
+@pytest.mark.parametrize("H,W,seed", CASES)
+def test_ofusion_twin_matches_fuse_rows(H, W, seed):
+    oc = _ofusion_case(_case(H, W, seed))
+    rows, vis = jint.fuse_rows(
+        JaxOFusion(mu=OF_MU, voxel_size=VS), jnp.asarray(oc["bc"]),
+        jnp.asarray(oc["live"]),
+        {"occupancy": jnp.asarray(oc["occupancy"]),
+         "timestamp": jnp.asarray(oc["timestamp"])},
+        jnp.asarray(oc["depth"]), jnp.asarray(oc["T_cw"]),
+        jnp.asarray(oc["K"]), jnp.float32(NOW), VS, patch=PATCH)
+    occ, ts, visible = ik.fuse_ofusion_reference(*_ofusion_args(oc))
+    np.testing.assert_array_equal(visible.numpy(), np.asarray(vis))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(rows["timestamp"]))
+    np.testing.assert_allclose(occ.numpy(), np.asarray(rows["occupancy"]),
+                               rtol=1e-5, atol=1e-6)
+    fused = ts.numpy() == np.float32(NOW)
+    assert fused.sum() > 1000 and not fused[~oc["live"]].any()
+    # rows that are not live come back unchanged
+    dead = ~oc["live"]
+    np.testing.assert_array_equal(occ.numpy()[dead], oc["occupancy"][dead])

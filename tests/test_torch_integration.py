@@ -1,9 +1,11 @@
-"""SDF allocation and fusion of the PyTorch port against the JAX package,
-from a JAX map carried over mid-sequence (headline knobs, 160x120, 128^3).
+"""Allocation and fusion of the PyTorch port against the JAX package, from a
+JAX map carried over mid-sequence (the headline's SDF map and the
+``ofusion`` preset's map, 160x120, 128^3).
 
 The band-march mask, the allocation, the budget's block selection,
-``active`` and ``overflow`` must match bit for bit; fused voxel rows
-within 1e-5."""
+``active`` and ``overflow`` must match bit for bit; fused SDF rows within
+1e-5; fused OFusion rows with timestamps bit for bit and occupancy within
+1e-5 relative (1e-6 absolute where log-odds cancel toward 0)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +14,7 @@ import torch
 
 from supereight_tpu.config import Configuration, apply_preset
 from supereight_tpu.core import octree as joct
+from supereight_tpu.fields.ofusion import OFusionField as JaxOFusion
 from supereight_tpu.fields.sdf import SDFField as JaxSDF
 from supereight_tpu.pipeline import DenseSLAMSystem as JaxSLAM
 from supereight_tpu.pipeline import camera as jcam
@@ -19,7 +22,7 @@ from supereight_tpu.pipeline import integration as jint
 from supereight_tpu.pipeline import preprocessing as jpre
 from supereight_tpu_torch import convert
 from supereight_tpu_torch.core import octree
-from supereight_tpu_torch.fields import SDFField
+from supereight_tpu_torch.fields import OFusionField, SDFField
 from supereight_tpu_torch.pipeline import integration
 
 from torch_port_util import K_FULL, load_frames, map_to_numpy
@@ -30,12 +33,11 @@ FRAME = 6
 K = K_FULL / 2
 
 
-@pytest.fixture(scope="module")
-def scene():
-    """The JAX map after frames 0..FRAME-1, and frame FRAME's depth and
-    true pose."""
+def _scene(preset):
+    """The JAX map of ``preset`` after frames 0..FRAME-1, and frame FRAME's
+    depth and true pose."""
     depths, poses = load_frames()
-    cfg = apply_preset("headline", Configuration(
+    cfg = apply_preset(preset, Configuration(
         volume_resolution=(128,) * 3, volume_size=(4.8,) * 3,
         block_capacity=4096, compute_size_ratio=2))
     slam = JaxSLAM((240, 320), cfg)
@@ -46,6 +48,16 @@ def scene():
     return dict(map=slam.state.map, depth=np.asarray(depth),
                 pose=poses[FRAME].astype(np.float32),
                 K=np.asarray(jcam.camera_matrix(jnp.asarray(K))))
+
+
+@pytest.fixture(scope="module")
+def scene():
+    return _scene("headline")
+
+
+@pytest.fixture(scope="module")
+def of_scene():
+    return _scene("ofusion")
 
 
 def _port_map(s):
@@ -121,3 +133,36 @@ def test_slot_mask_and_coords_of_carried_map(scene):
                                   np.asarray(joct.slot_mask(jm)))
     np.testing.assert_array_equal(octree.block_coords_table(tm).numpy(),
                                   np.asarray(joct.block_coords_table(jm)))
+
+
+@pytest.mark.parametrize("budget", [64, 1024])
+def test_integrate_ofusion_matches_jax(of_scene, budget):
+    """OFusion fusion at frame FRAME's timestamp; budget 64 drops frustum
+    candidates into overflow, 1024 holds them all.  The node pyramid's
+    values are updated as well."""
+    jm = of_scene["map"]
+    now = float(np.float32(1 / 30) * np.float32(FRAME))
+    args = (of_scene["depth"], of_scene["pose"], of_scene["K"])
+    jm2 = jint.integrate(jm, JaxOFusion(mu=0.05, voxel_size=4.8 / 128),
+                         *(jnp.asarray(a) for a in args),
+                         timestamp=jnp.float32(now), budget=budget)
+    tm2 = integration.integrate(
+        convert.map_from_numpy(map_to_numpy(jm), "cpu"),
+        OFusionField(mu=0.05, voxel_size=4.8 / 128), *(_t(a) for a in args),
+        timestamp=now, budget=budget)
+    dropped = int(jm2.overflow) - int(jm.overflow)
+    assert (dropped > 0) == (budget == 64)
+    _assert_maps_equal(tm2, jm2)
+    got, want = tm2.voxels["timestamp"].numpy(), \
+        np.asarray(jm2.voxels["timestamp"])
+    np.testing.assert_array_equal(got, want)
+    assert (want == np.float32(now)).any(1).sum() > 10
+    np.testing.assert_allclose(tm2.voxels["occupancy"].numpy(),
+                               np.asarray(jm2.voxels["occupancy"]),
+                               rtol=1e-5, atol=1e-6)
+    for level in range(1, tm2.block_level + 1):
+        for name in ("occupancy", "timestamp"):
+            np.testing.assert_allclose(
+                tm2.node_values[level][name].numpy(),
+                np.asarray(jm2.node_values[level][name]), rtol=1e-5,
+                atol=1e-6, err_msg=f"level {level} {name}")

@@ -7,6 +7,14 @@ raycast-fired pattern, ``n_blocks`` and ``overflow`` are equal and the
 pose translations agree within 1e-3 m (ICP amplifies rounding: the JAX
 package's own fused and staged runs part by ~3e-4 m over these frames).
 The port's ``step_staged`` equals its ``step`` bit for bit.
+
+The ``ofusion`` preset (OFusion, integration every 4th frame, held read
+view) runs the same frames.  Its ICP moves by up to ~2.4e-4 m from one
+identical state (the JAX system under ``jit`` against the port), and that
+compounds over free-running frames, so each port frame starts from the JAX
+state of the frame before (``convert.state_from_numpy``); its pose must
+agree within 1e-3 m.  A free-running port keeps the JAX run's tracked,
+integrated and block counts.
 """
 
 import dataclasses
@@ -19,7 +27,7 @@ from supereight_tpu.config import Configuration, apply_preset
 from supereight_tpu.pipeline import DenseSLAMSystem as JaxSLAM
 from supereight_tpu_torch import convert
 from supereight_tpu_torch.pipeline import DenseSLAMSystem, SlamConfig
-from supereight_tpu_torch.pipeline import system
+from supereight_tpu_torch.pipeline import raycast, system
 
 from torch_port_util import K_FULL, load_frames, state_to_numpy
 
@@ -29,8 +37,8 @@ N_FRAMES = 8
 K = K_FULL / 2
 
 
-def _config(**kw):
-    cfg = apply_preset("headline", Configuration(
+def _config(preset="headline", **kw):
+    cfg = apply_preset(preset, Configuration(
         volume_resolution=(128,) * 3, volume_size=(4.8,) * 3,
         block_capacity=4096, compute_size_ratio=2))
     return dataclasses.replace(cfg, **kw)
@@ -134,7 +142,7 @@ def test_slam_config_defaults_match_configuration():
         assert getattr(SlamConfig(), f.name) == getattr(cfg, f.name), f.name
 
 
-@pytest.mark.parametrize("knob", [dict(field_type="ofusion"),
+@pytest.mark.parametrize("knob", [dict(alloc_on_demand=0.01),
                                   dict(bilateral_filter=True),
                                   dict(raycast_normals="exact"),
                                   dict(incremental_view=True),
@@ -150,3 +158,74 @@ def test_headline_config_is_ported():
     assert (cfg.raycast_normals, cfg.integrate_budget, cfg.alloc_rate,
             cfg.raycast_adaptive_deg) == ("hybrid", 3072, 3, 3.8)
     assert system.SlamConfig.of(cfg) == cfg
+
+
+@pytest.fixture(scope="module")
+def of_runs():
+    """The JAX ``ofusion`` preset over N_FRAMES (its state after each frame
+    as numpy), the port stepped from each of those states, and a
+    free-running port (``step`` and ``step_staged``)."""
+    depths, poses = load_frames()
+    cfg = _config("ofusion")
+    jax_slam = JaxSLAM((240, 320), cfg)
+    free = DenseSLAMSystem((240, 320), cfg, "cpu")
+    staged = DenseSLAMSystem((240, 320), cfg, "cpu")
+    forced = DenseSLAMSystem((240, 320), cfg, "cpu")
+    for s in (jax_slam, free, staged, forced):
+        s.setPose(poses[0])
+    out = dict(jax=[], forced=[], free=[], staged=[])
+    for f in range(N_FRAMES):
+        jst = jax_slam.step(depths[f], K, f)
+        out["jax"].append(dict(_record(jst), integrated=bool(jst.integrated),
+                               alloc_count=int(jst.alloc_count)))
+        out["forced"].append(forced.step(depths[f], K, f))
+        forced.state = convert.state_from_numpy(state_to_numpy(jst), "cpu")
+        out["free"].append(free.step(depths[f], K, f))
+        out["staged"].append(staged.step_staged(depths[f], K, f)[0])
+    return out
+
+
+def test_ofusion_frames_match_jax(of_runs):
+    fired = []
+    for f, (j, st) in enumerate(zip(of_runs["jax"], of_runs["forced"])):
+        t = _record(st)
+        assert t["tracked"] == j["tracked"], f
+        assert st.integrated == j["integrated"], f
+        assert t["n_blocks"] == j["n_blocks"], f
+        assert t["overflow"] == j["overflow"] == 0, f
+        assert st.alloc_count == j["alloc_count"], f
+        j_fired = np.array_equal(j["raycast_pose"], j["pose"])
+        assert np.array_equal(t["raycast_pose"], t["pose"]) == j_fired, f
+        fired.append(j_fired)
+        np.testing.assert_allclose(t["pose"][:3, 3], j["pose"][:3, 3],
+                                   rtol=0, atol=1e-3, err_msg=f"frame {f}")
+    # bootstrap fusion, then tracked frames that integrate every 4th
+    assert [j["integrated"] for j in of_runs["jax"]] == [True] * 5 \
+        + [False] * 3
+    assert [j["tracked"] for j in of_runs["jax"]][4:] == [True] * 4
+    assert fired == [False] * 3 + [True] * 5
+
+
+def test_ofusion_free_run_matches_jax(of_runs):
+    for f, (j, st) in enumerate(zip(of_runs["jax"], of_runs["free"])):
+        assert st.tracked == j["tracked"], f
+        assert st.integrated == j["integrated"], f
+        assert int(st.map.n_blocks) == j["n_blocks"], f
+        assert int(st.map.overflow) == j["overflow"], f
+
+
+def test_ofusion_view_and_staged_run(of_runs):
+    """The held view is the view of the map it was built from, and
+    ``step_staged`` equals ``step`` bit for bit."""
+    field = DenseSLAMSystem((240, 320), _config("ofusion"), "cpu").field
+    for f, (a, b) in enumerate(zip(of_runs["free"], of_runs["staged"])):
+        assert a.view.dtype == torch.bfloat16
+        rebuilt = raycast.pack_view(a.map, field)["F"]
+        assert torch.equal(torch.isnan(a.view), torch.isnan(rebuilt)), f
+        assert torch.equal(torch.nan_to_num(a.view),
+                           torch.nan_to_num(rebuilt)), f
+        assert torch.equal(a.pose, b.pose) and a.tracked == b.tracked, f
+        for name in a.map.voxels:
+            assert torch.equal(a.map.voxels[name], b.map.voxels[name]), f
+        assert torch.equal(torch.nan_to_num(a.view),
+                           torch.nan_to_num(b.view)), f

@@ -43,4 +43,5 @@ def state_to_numpy(st) -> dict:
                       "integrated", "alloc_pose", "alloc_count", "prev_pose",
                       "model_ref")}
     d["map"] = map_to_numpy(st.map)
+    d["view"] = None if st.view is None else np.asarray(st.view)
     return d
