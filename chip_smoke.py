@@ -5,29 +5,37 @@ GPU.
 1. Requires a CUDA device and prints its name and power limit, then builds
    every kernel from ``supereight_tpu_torch/csrc`` (one nvcc per source,
    all started together).
-2. Holds the SDF fusion kernel against its plain PyTorch twin at main-path
-   shapes (3072 rows of a real map, a 320x240 depth), with the median
-   device time of each.
+2. Holds the SDF and the OFusion fusion kernel against their plain
+   PyTorch twins at main-path shapes (3072 rows of a real map, a 320x240
+   depth), with the median device time of each.
 3. Holds the gather-probe kernels (K2 ``lane_shuffle_sum``, K3
    ``slab_row_sum``) against their twins at the probe's shapes, bit for
    bit, then runs the probe (``probes/gather_probe.py``), the kernels' own
    path, and prints its four measurements.
-4. Runs the headline SLAM configuration (SDF, 256^3 over 4.8 m, 320x240,
-   ICP pyramid (10,5,4), capacity 6144, fusion budget 3072) on the 96
-   cached frames of ``bench_data/synthetic_256_frames.npz`` and checks
-   tracked frames, ATE, blocks and overflow against the JAX package's
-   record, and that the frame went through the kernel.
-5. Holds the OFusion fusion kernel against its twin on 3072 rows of a real
-   OFusion map.
-6. Runs the ``ofusion`` preset (OFusion, mu 0.05, integration every 4th
-   frame, held read view; 256^3, capacity 6144) on the same frames with the
-   same kinds of checks against its JAX record.
+4. Runs the nine presets of ``supereight_tpu_torch/config.py``
+   (``headline``: SDF, 256^3 over 4.8 m, 320x240, capacity 6144, fusion
+   budget 3072; ``ofusion``; then the seven others), each at the size of
+   its JAX record over the 96 frames of its cached sequence in
+   ``bench_data/``, and checks tracked frames, ATE, blocks and overflow
+   against the record (the ATE gate is the record + ~1.1 cm, ~2 cm for
+   ``noise``; overflow is gated only where the record's is 0), that the
+   frames went through the kernel, and that ``headline`` and ``ofusion``
+   repeat the earlier runs' counts.  After each run the fusion kernel is
+   held against its twin on the operands the run's fusion takes (the whole
+   table with its dead rows, or the budget's rows), the held SDF view of
+   ``demo512-sdf`` against a full rebuild; each run prints its peak device
+   memory.
+
+Every preset is built with ``config.apply_preset``.  Each run prints its
+wall time, the median ms per frame and the median of each stage (from a
+second run through ``step_staged``).
 
 Run from the repository root:  python3 chip_smoke.py
 It exits non-zero, printing no result line, if there is no CUDA device or
 any check fails.  The last line of its output is one JSON object; the line
-before it lists every kernel with its launches on its main path, its
-largest difference from its twin and the median device times of both.
+before it lists every kernel with its launches summed over the runs that
+took it, its largest difference from its twin and the median device times
+of both at the 3072-row shapes.
 """
 
 from __future__ import annotations
@@ -42,17 +50,51 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-FRAMES = os.path.join(HERE, "bench_data", "synthetic_256_frames.npz")
+BENCH_DATA = os.path.join(HERE, "bench_data")
+FRAMES = os.path.join(BENCH_DATA, "synthetic_256_frames.npz")
 K = np.array([240.6, 240.0, 160.0, 120.0], np.float32)   # 320x240 frames
+#: the size every preset runs on unless it sets its own (its JAX record's)
+BASE = dict(volume_resolution=(256,) * 3, volume_size=(4.8,) * 3,
+            block_capacity=6144)
 
-# the JAX package's records of the two runs
-# (bench_data/ate_icp_256_hybrid_ad3.8x0.07_id2_ib3072_ss1_ar3_gd2.json,
-#  bench_data/ate_icp_ofusion_256_hybrid_id2_ib3072_ss1_iv_nr_z4.json)
-JAX_RECORD = dict(tracked=92, ate_cm=1.85, blocks=3049, overflow=0)
-OF_RECORD = dict(tracked=92, ate_cm=2.21, blocks=3852, overflow=0)
+#: preset: (cached sequence, the JAX package's record in bench_data/, ATE
+#: gate in m: the record + ~1.1 cm of knob chaos, ~2 cm for noise)
+RUNS = {
+    "headline": ("synthetic_256_frames",
+                 "ate_icp_256_hybrid_ad3.8x0.07_id2_ib3072_ss1_ar3_gd2.json",
+                 0.030),
+    "ofusion": ("synthetic_256_frames",
+                "ate_icp_ofusion_256_hybrid_id2_ib3072_ss1_iv_nr_z4.json",
+                0.033),
+    "quality": ("synthetic_256_frames", "ate_icp_256_sy_nr.json", 0.026),
+    "trans": ("synthetic_256_frames_trans",
+              "ate_icp_ofusion_256_trans_nr_z4.json", 0.069),
+    "noise": ("synthetic_256_frames_noisy",
+              "ate_icp_ofusion_256_bf_noisy_nr_z4.json", 0.120),
+    "demo512-sdf": ("synthetic_256_frames",
+                    "ate_icp_512_hybrid_id2_ib24576_ss1_sy_gd2_iv_fr.json",
+                    0.024),
+    "demo512-ofusion": (
+        "synthetic_256_frames",
+        "ate_icp_ofusion_512_hybrid_id2_ib6144_ss1_aod0.01_iv_nr_z4.json",
+        0.034),
+    "ofusion-fidelity": ("synthetic_256_frames",
+                         "ate_icp_ofusion_256_exact_pl_nr_z4_mu0.008.json",
+                         0.026),
+    "1024-quality": (
+        "synthetic_256_frames",
+        "ate_icp_ofusion_1024_id2_ib98304_ss1_aad16x0.3_iv_nr_z4.json",
+        0.041),
+}
+#: the counts the earlier slice's runs gave on the card; the path is
+#: deterministic, so they repeat exactly
+REPEAT = {"headline": dict(tracked=92, ate_cm=0.97, blocks=2768, overflow=0),
+          "ofusion": dict(tracked=92, ate_cm=0.99, blocks=3674, overflow=0)}
 MIN_TRACKED = 88
-MAX_ATE_M = 0.030        # headline: its record + ~1.1 cm of knob chaos
-OF_MAX_ATE_M = 0.033     # ofusion: the same margin over its record
+#: least share of the last raycast's pixels that hit the map; ``noise``
+#: fills its table (its record overflows by 1891 blocks), so surface past
+#: the capacity is never allocated and cannot be hit
+MIN_HIT = dict(noise=0.4)
 KERNEL_ATOL = 1e-5       # tsdf/weight; visible must match exactly
 OF_RTOL, OF_ATOL = 1e-5, 1e-6   # occupancy: the last bits of logf
 TIMED_RUNS = 25
@@ -80,26 +122,22 @@ def ate_rmse(est: np.ndarray, gt: np.ndarray) -> float:
     return float(np.sqrt(np.mean(err ** 2)))
 
 
-def headline_config():
-    from supereight_tpu_torch.pipeline import SlamConfig
-    return SlamConfig(volume_resolution=(256,) * 3, volume_size=(4.8,) * 3,
-                      block_capacity=6144, integration_rate=1,
-                      raycast_normals="hybrid", integrate_budget=3072,
-                      icp_finest_decimate=2, raycast_scan_stride=1.0,
-                      alloc_rate=3, raycast_adaptive_deg=3.8,
-                      raycast_adaptive_dist=0.07, raycast_grad_decim=2)
+def preset_config(name: str):
+    """The named preset of the port's config on BASE."""
+    from supereight_tpu_torch.config import SlamConfig, apply_preset
+    return apply_preset(name, SlamConfig(**BASE))
 
 
-def ofusion_config():
-    """The ``ofusion`` preset (`supereight_tpu/config.py:307-313`) at the
-    size of its record."""
-    from supereight_tpu_torch.pipeline import SlamConfig
-    return SlamConfig(volume_resolution=(256,) * 3, volume_size=(4.8,) * 3,
-                      block_capacity=6144, field_type="ofusion", mu=0.05,
-                      raycast_normals="hybrid", icp_finest_decimate=2,
-                      integrate_budget=3072, raycast_scan_stride=1.0,
-                      incremental_view=True, raycast_near_rescue=False,
-                      integration_rate=4)
+def load_sequence(name: str):
+    z = np.load(os.path.join(BENCH_DATA, name + ".npz"))
+    return z["depths"], z["poses"]
+
+
+def load_record(file: str) -> dict:
+    with open(os.path.join(BENCH_DATA, file)) as f:
+        r = json.load(f)
+    return dict(tracked=r["tracked_frames"], ate_cm=100 * r["ate_rmse_m"],
+                blocks=r["blocks"], overflow=r["overflow"])
 
 
 def times(fn, plain):
@@ -156,7 +194,7 @@ def check_fuse_sdf(torch, depths, poses, dev):
     """SDF kernel vs twin on 3072 rows of the map after the first frames."""
     from supereight_tpu_torch.ops import integrate_kernel as ik
 
-    slam = warm_map(headline_config(), depths, poses, dev, 6)
+    slam = warm_map(preset_config("headline"), depths, poses, dev, 6)
     r = fusion_rows(torch, slam, depths, dev, 6)
     field = slam.field
     args = (r["bc"], r["live"], r["rows"]["tsdf"], r["rows"]["weight"],
@@ -188,7 +226,7 @@ def check_fuse_sdf(torch, depths, poses, dev):
     return dict(name="fuse_sdf", route="cuda",
                 source="supereight_tpu_torch/csrc/integrate.cu",
                 replaces="supereight_tpu/ops/integrate_kernel.py:38",
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+                launches=0, max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
 
 
 def check_fuse_ofusion(torch, depths, poses, dev):
@@ -197,7 +235,7 @@ def check_fuse_ofusion(torch, depths, poses, dev):
     occupancy within OF_RTOL relative (OF_ATOL absolute)."""
     from supereight_tpu_torch.ops import integrate_kernel as ik
 
-    slam = warm_map(ofusion_config(), depths, poses, dev, 8)
+    slam = warm_map(preset_config("ofusion"), depths, poses, dev, 8)
     r = fusion_rows(torch, slam, depths, dev, 8)
     field = slam.field
     now = float(np.float32(1.0 / 30.0) * np.float32(8))
@@ -233,7 +271,7 @@ def check_fuse_ofusion(torch, depths, poses, dev):
     return dict(name="fuse_ofusion", route="cuda",
                 source="supereight_tpu_torch/csrc/integrate.cu",
                 replaces="supereight_tpu/pipeline/integration.py:396",
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+                launches=0, max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
 
 
 def check_probe_kernels(torch, dev):
@@ -287,10 +325,9 @@ def check_probe_kernels(torch, dev):
     return kernels
 
 
-def run_slam(torch, cfg, depths, poses, dev, counter: str):
+def run_slam(torch, cfg, depths, poses, dev):
     """A main path: every cached frame through DenseSLAMSystem.step, with
-    the fusion kernels' counts set to 0 just before; returns the run, with
-    ``counter``'s count read just after."""
+    the fusion kernels' counts set to 0 just before and read just after."""
     from supereight_tpu_torch.ops import integrate_kernel as ik
     from supereight_tpu_torch.pipeline import DenseSLAMSystem
 
@@ -308,9 +345,9 @@ def run_slam(torch, cfg, depths, poses, dev, counter: str):
         est.append(st.pose.cpu().numpy())
         tracked.append(st.tracked)
         integrated.append(st.integrated)
-    launches = ik.LAUNCHES[counter]
+    launches = dict(ik.LAUNCHES)
     st = slam.state
-    return dict(est=np.stack(est), tracked=sum(tracked),
+    return dict(slam=slam, est=np.stack(est), tracked=sum(tracked),
                 integrated=sum(integrated), ms=ms, launches=launches,
                 wall=time.perf_counter() - t0,
                 blocks=int(st.map.n_blocks), overflow=int(st.map.overflow),
@@ -321,12 +358,14 @@ def check_run(torch, name, r, poses, record, max_ate, counter):
     """Print a run beside its JAX record and apply the gates."""
     n = len(r["est"])
     ate = ate_rmse(r["est"][:, :3, 3], poses[:n, :3, 3])
+    launches = r["launches"][counter]
     print(f"# {name}, {n} frames in {r['wall']:.1f} s: tracked "
           f"{r['tracked']}/{n} (JAX {record['tracked']}/96), ATE "
-          f"{100 * ate:.2f} cm (JAX {record['ate_cm']} cm), blocks "
-          f"{r['blocks']} (JAX {record['blocks']}), overflow "
-          f"{r['overflow']} (JAX {record['overflow']})")
-    print(f"# {name}: {counter} LAUNCHES {r['launches']} over "
+          f"{100 * ate:.2f} cm (JAX {record['ate_cm']:.2f} cm, gate "
+          f"{100 * max_ate:.1f}), blocks {r['blocks']} (JAX "
+          f"{record['blocks']}), overflow {r['overflow']} (JAX "
+          f"{record['overflow']})")
+    print(f"# {name}: {counter} LAUNCHES {launches} over "
           f"{r['integrated']} integrated frames")
     print(f"# {name}: median ms/frame after the first 16 frames: "
           f"{statistics.median(r['ms'][16:]):.2f} (first frame "
@@ -337,21 +376,115 @@ def check_run(torch, name, r, poses, record, max_ate, counter):
             not bool(torch.isfinite(r["ref_vertex"]).all()) or \
             not bool(torch.isfinite(r["ref_normal"]).all()):
         fail(f"{name}: reference maps are not finite [240, 320, 3] maps")
-    if float(hit.float().mean()) < 0.5:
-        fail(f"{name}: the last raycast hit only "
-             f"{float(hit.float().mean()):.2f} of the pixels")
+    hit_share = float(hit.float().mean())
+    print(f"# {name}: the last raycast hit {hit_share:.3f} of the pixels")
+    if hit_share < MIN_HIT.get(name, 0.5):
+        fail(f"{name}: the last raycast hit only {hit_share:.3f} of the "
+             "pixels")
     if not np.isfinite(r["est"]).all():
         fail(f"{name}: non-finite pose")
-    if r["integrated"] == 0 or r["launches"] < r["integrated"]:
-        fail(f"{name}: {counter} LAUNCHES {r['launches']} < "
+    if r["integrated"] == 0 or launches < r["integrated"]:
+        fail(f"{name}: {counter} LAUNCHES {launches} < "
              f"{r['integrated']} integrated frames: the main path did not "
              "go through the kernel")
     if r["tracked"] < MIN_TRACKED:
         fail(f"{name}: tracked {r['tracked']} < {MIN_TRACKED}")
-    if r["overflow"] != 0:
+    if record["overflow"] == 0 and r["overflow"] != 0:
         fail(f"{name}: overflow {r['overflow']} != 0")
     if ate > max_ate:
         fail(f"{name}: ATE {100 * ate:.2f} cm > {100 * max_ate:.1f} cm")
+    want = REPEAT.get(name)
+    if want is not None:
+        got = dict(tracked=r["tracked"], ate_cm=round(100 * ate, 2),
+                   blocks=r["blocks"], overflow=r["overflow"])
+        if got != want:
+            fail(f"{name}: {got} does not repeat the earlier runs' {want}")
+        print(f"# {name}: repeats the earlier runs' counts {want}")
+
+
+def check_path_kernel(torch, name, slam, cfg):
+    """The run's fusion kernel against its twin on the operands its fusion
+    takes at the last frame (`integration.fusion_operands`): the whole
+    table with its dead rows when the budget is 0 or the capacity, else the
+    budget's rows (the frustum candidates, repeated up to the budget).
+    Dead rows must come back unchanged.  Returns (kernel, max abs err)."""
+    from supereight_tpu_torch.core import octree
+    from supereight_tpu_torch.ops import integrate_kernel as ik
+    from supereight_tpu_torch.pipeline import camera, integration
+
+    st, field = slam.state, slam.field
+    m = st.map
+    depth = st.scaled_depth if cfg.fuse_filtered else st.float_depth
+    T_cw = torch.linalg.inv(st.pose).contiguous()
+    Km = camera.camera_matrix(torch.from_numpy(K).to(depth.device))
+    sel, bc, live, rows, _ = integration.fusion_operands(
+        m, T_cw, Km, depth.shape, cfg.integrate_budget)
+    if sel is not None:
+        idx = sel[torch.arange(cfg.integrate_budget, device=sel.device)
+                  % sel.numel()]
+        bc = octree.block_coords_table(m)[idx].contiguous()
+        live = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
+        rows = {k: v[idx].contiguous() for k, v in m.voxels.items()}
+    now = float(np.float32(1.0 / 30.0) * np.float32(95))
+    if field.name == "ofusion":
+        kernel, names = "fuse_ofusion", ("occupancy", "timestamp")
+        params = (field.mu, field.sigma_lo, now)
+    else:
+        kernel, names = "fuse_sdf", ("tsdf", "weight")
+        params = (field.mu, field.max_weight)
+    args = (bc, live, rows[names[0]], rows[names[1]], depth, T_cw, Km,
+            *params, m.voxel_size, ik.PATCH)
+    fn = getattr(ik, kernel)
+    plain = getattr(ik, kernel + "_reference")
+    out, ref = fn(*args), plain(*args)
+    torch.cuda.synchronize()
+    dead = ~live
+    n_dead = int(dead.sum())
+    dead_changed = sum(int((o[dead] != a[dead]).sum())
+                       for o, a in zip(out[:2], args[2:4]))
+    vis_mismatch = int((out[2] != ref[2]).sum())
+    err = [(o - r).abs() for o, r in zip(out[:2], ref[:2])]
+    max_err = max(float(e.max()) for e in err)
+    if kernel == "fuse_ofusion":
+        # occupancy within tolerance, timestamp exact
+        beyond = int((err[0] > OF_ATOL + OF_RTOL * ref[0].abs()).sum()) \
+            + int((err[1] != 0).sum())
+        fused = int((out[1] == now).sum())
+    else:
+        beyond = sum(int((e > KERNEL_ATOL).sum()) for e in err)
+        fused = int((out[1] != args[3]).sum())
+    branch = "all rows" if sel is None else \
+        f"budget rows ({sel.numel()} candidates)"
+    print(f"# {name}: {kernel} vs twin on {bc.shape[0]} rows, {branch}, "
+          f"{n_dead} dead: {fused} voxels fused, {int(out[2].sum())} rows "
+          f"visible; mismatches visible {vis_mismatch}, {names[0]} "
+          f"{int((out[0] != ref[0]).sum())}, {names[1]} "
+          f"{int((out[1] != ref[1]).sum())} ({beyond} beyond the "
+          f"tolerance); dead rows changed {dead_changed}; max abs err "
+          f"{max_err:.3g}")
+    if fused == 0:
+        fail(f"{name}: the {kernel} comparison fused no voxel")
+    if vis_mismatch or beyond or dead_changed:
+        fail(f"{name}: {kernel} and twin disagree")
+    ms, plain_ms = times(lambda: fn(*args), lambda: plain(*args))
+    print(f"# {name}: {kernel} median device time at {bc.shape[0]} rows "
+          f"over {TIMED_RUNS} runs: kernel {ms:.4f} ms, plain twin "
+          f"{plain_ms:.4f} ms")
+    return kernel, max_err
+
+
+def check_held_view(torch, name, slam):
+    """The held SDF view against a full ``pack_view`` of the same map, bit
+    for bit."""
+    from supereight_tpu_torch.pipeline import raycast
+    view = slam.state.view
+    rebuilt = raycast.pack_view(slam.state.map, slam.field)["F"]
+    same = torch.equal(torch.isnan(view), torch.isnan(rebuilt)) and \
+        torch.equal(torch.nan_to_num(view), torch.nan_to_num(rebuilt))
+    print(f"# {name}: held view {tuple(view.shape)} {view.dtype} equals a "
+          f"full pack_view rebuild bit for bit: {same}")
+    if not same:
+        fail(f"{name}: the held view differs from pack_view of its map")
 
 
 def print_stage_times(name, cfg, depths, poses, dev):
@@ -361,14 +494,43 @@ def print_stage_times(name, cfg, depths, poses, dev):
     slam = DenseSLAMSystem((240, 320), cfg, dev)
     slam.setPose(poses[0])
     rows = []
+    t0 = time.perf_counter()
     for f in range(len(depths)):
         _, stage_s = slam.step_staged(depths[f], K, f)
         if f >= 16:
             rows.append(stage_s)
     print(f"# {name}: median ms per stage after the first 16 frames "
-          "(step_staged): " + ", ".join(
+          f"(step_staged, {time.perf_counter() - t0:.1f} s): " + ", ".join(
               f"{k} {1e3 * statistics.median(r[k] for r in rows):.2f}"
-              for k in rows[0]))
+              for k in rows[0]) + ", total " +
+          f"{1e3 * statistics.median(sum(r.values()) for r in rows):.2f}")
+
+
+def run_preset(torch, name, dev, kernels):
+    """One preset over its sequence: the run and its gates, the kernel of
+    its fusion path against the twin, and its stage medians."""
+    sequence, record_file, max_ate = RUNS[name]
+    cfg = preset_config(name)
+    depths, poses = load_sequence(sequence)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    r = run_slam(torch, cfg, depths, poses, dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    counter = "fuse_ofusion" if cfg.field_type == "ofusion" else "fuse_sdf"
+    for k, n in r["launches"].items():
+        kernels[k]["launches"] += n
+    print(f"# {name}: {cfg.volume_resolution[0]}^3, capacity "
+          f"{cfg.block_capacity}, budget {cfg.integrate_budget}, sequence "
+          f"{sequence}; peak device memory {peak / 2 ** 30:.2f} GiB")
+    check_run(torch, name, r, poses, load_record(record_file), max_ate,
+              counter)
+    if cfg.incremental_view and cfg.field_type == "sdf":
+        check_held_view(torch, name, r["slam"])
+    kernel, err = check_path_kernel(torch, name, r["slam"], cfg)
+    kernels[kernel]["max_abs_err"] = max(kernels[kernel]["max_abs_err"], err)
+    del r
+    torch.cuda.empty_cache()
+    print_stage_times(name, cfg, depths, poses, dev)
 
 
 def main():
@@ -376,6 +538,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this test runs on a GPU")
     sys.path.insert(0, HERE)
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -387,24 +550,15 @@ def main():
     for need in (FRAMES, os.path.join(HERE, "supereight_tpu_torch")):
         if not os.path.exists(need):
             fail(f"{need} is missing: run from the root of a checkout")
-    z = np.load(FRAMES)
-    depths, poses = z["depths"], z["poses"]
+    depths, poses = load_sequence("synthetic_256_frames")
 
     build_kernels()
-    kernels = {"fuse_sdf": check_fuse_sdf(torch, depths, poses, dev)}
+    kernels = {"fuse_sdf": check_fuse_sdf(torch, depths, poses, dev),
+               "fuse_ofusion": check_fuse_ofusion(torch, depths, poses, dev)}
     kernels.update(check_probe_kernels(torch, dev))
-
-    r = run_slam(torch, headline_config(), depths, poses, dev, "fuse_sdf")
-    kernels["fuse_sdf"]["launches"] = r["launches"]
-    check_run(torch, "headline", r, poses, JAX_RECORD, MAX_ATE_M, "fuse_sdf")
-    print_stage_times("headline", headline_config(), depths, poses, dev)
-
-    kernels["fuse_ofusion"] = check_fuse_ofusion(torch, depths, poses, dev)
-    r = run_slam(torch, ofusion_config(), depths, poses, dev, "fuse_ofusion")
-    kernels["fuse_ofusion"]["launches"] = r["launches"]
-    check_run(torch, "ofusion", r, poses, OF_RECORD, OF_MAX_ATE_M,
-              "fuse_ofusion")
-    print_stage_times("ofusion", ofusion_config(), depths, poses, dev)
+    for name in RUNS:
+        run_preset(torch, name, dev, kernels)
+    print(f"# all runs done in {time.perf_counter() - t_start:.1f} s")
 
     order = ("fuse_sdf", "fuse_ofusion", "lane_shuffle_sum", "slab_row_sum")
     print(json.dumps({"kernels": [kernels[k] for k in order]}))

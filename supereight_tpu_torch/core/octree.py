@@ -20,6 +20,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from . import morton
+from .numerics import trunc_i32
 
 BLOCK_SIDE = 8
 BLOCK_VOXELS = BLOCK_SIDE ** 3
@@ -204,17 +205,146 @@ def node_fill(m: VoxelMap, channel: str) -> torch.Tensor:
     return fill.reshape(B * B * B)
 
 
+def block_rows(m: VoxelMap) -> torch.Tensor:
+    """int64[capacity]: each slot's row in a brick-tiled ``[B^3, 512]``
+    view, ``(bx * B + by) * B + bz``."""
+    B = m.blocks_per_edge
+    bc = block_coords_table(m)
+    return ((bc[:, 0] * B + bc[:, 1]) * B + bc[:, 2]).long()
+
+
+def tile_rows(fill: torch.Tensor, m: VoxelMap,
+              rows: torch.Tensor) -> torch.Tensor:
+    """Brick-tiled ``[B^3, 512]``: the live slots' ``rows`` ([capacity,
+    512]) at their blocks' rows, every other row its cell's ``fill``
+    ([B^3], cast to the rows' dtype).  One write of the view and one row
+    scatter (the live slots are a prefix of the table)."""
+    n = int(m.n_blocks)
+    out = fill.to(rows.dtype)[:, None].expand(-1, BLOCK_VOXELS).contiguous()
+    return out.index_copy_(0, block_rows(m)[:n], rows[:n])
+
+
 def pack_tiled_multiscale(m: VoxelMap, channel: str) -> torch.Tensor:
     """Brick-tiled rows ``[B^3, 512]`` of one channel: allocated blocks
     carry their voxels, every other row its cell's :func:`node_fill` value
     (`octree.py:pack_tiled_multiscale`)."""
-    spec = next(c for c in m.channels if c.name == channel)
+    return tile_rows(node_fill(m, channel), m, m.voxels[channel])
+
+
+# ----------------------------------------------------------------------
+# Voxel reads at integer and fractional coordinates
+# ----------------------------------------------------------------------
+
+def _channel(m: VoxelMap, name: str) -> ChannelSpec:
+    return next(c for c in m.channels if c.name == name)
+
+
+def fetch(m: VoxelMap, vx, vy, vz) -> torch.Tensor:
+    """Slot of the block holding int32 voxel (vx, vy, vz); -1 where it is
+    unallocated or out of bounds.  The block index is read at the clamped
+    block coordinates."""
     B = m.blocks_per_edge
-    bc = block_coords_table(m)
-    lin = (bc[:, 0] * B + bc[:, 1]) * B + bc[:, 2]
-    flat = torch.full((B * B * B, BLOCK_VOXELS), spec.empty,
-                      dtype=spec.dtype, device=m.device)
-    flat = scatter_drop(flat, torch.where(slot_mask(m), lin, B * B * B),
-                        m.voxels[channel])
-    has_leaf = (m.block_index >= 0).reshape(-1)
-    return torch.where(has_leaf[:, None], flat, node_fill(m, channel)[:, None])
+    inb = ((vx >= 0) & (vx < m.size) & (vy >= 0) & (vy < m.size)
+           & (vz >= 0) & (vz < m.size))
+    b = [(v >> BLOCK_BITS).clamp(0, B - 1).long() for v in (vx, vy, vz)]
+    return torch.where(inb, m.block_index[b[0], b[1], b[2]], -1)
+
+
+def _voxel_linear(vx, vy, vz) -> torch.Tensor:
+    """Linear index inside a brick, x + 8y + 64z."""
+    m7 = BLOCK_SIDE - 1
+    return (vx & m7) + (vy & m7) * BLOCK_SIDE \
+        + (vz & m7) * (BLOCK_SIDE * BLOCK_SIDE)
+
+
+def get(m: VoxelMap, channel: str, vx, vy, vz) -> torch.Tensor:
+    """Voxel value at int32 coordinates; the channel's ``empty`` outside
+    the allocated blocks (a clamped slot, then a select)."""
+    slot = fetch(m, vx, vy, vz)
+    val = m.voxels[channel][slot.clamp(min=0).long(),
+                            _voxel_linear(vx, vy, vz).long()]
+    return torch.where(slot >= 0, val, _channel(m, channel).empty)
+
+
+def get_multiscale(m: VoxelMap, channel: str, vx, vy, vz) -> torch.Tensor:
+    """Value of the deepest allocated octant holding the voxel: the block's
+    voxel where allocated, else the deepest allocated node-pyramid cell,
+    else ``empty``."""
+    spec = _channel(m, channel)
+    val = torch.full(vx.shape, spec.empty, dtype=spec.dtype, device=vx.device)
+    for level in range(1, m.block_level + 1):
+        shift = m.max_depth - level
+        s = 1 << level
+        o = [(v >> shift).clamp(0, s - 1).long() for v in (vx, vy, vz)]
+        val = torch.where(m.node_alloc[level][o[0], o[1], o[2]],
+                          m.node_values[level][channel][o[0], o[1], o[2]],
+                          val)
+    slot = fetch(m, vx, vy, vz)
+    leaf = m.voxels[channel][slot.clamp(min=0).long(),
+                             _voxel_linear(vx, vy, vz).long()]
+    return torch.where(slot >= 0, leaf, val)
+
+
+def _corner_offsets(device) -> torch.Tensor:
+    """int32[8, 3]: corner i has x-bit i&1, y-bit (i>>1)&1, z-bit
+    (i>>2)&1."""
+    o = torch.arange(8, dtype=torch.int32, device=device)
+    return torch.stack([o & 1, (o >> 1) & 1, (o >> 2) & 1], dim=-1)
+
+
+def _trilinear(vals: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
+    """Blend corner values [..., 8] by the fractional position [..., 3]:
+    weight (wx * wy) * wz per corner, summed corner by corner."""
+    w = [torch.stack([1 - factor[..., a], factor[..., a]], dim=-1)
+         for a in range(3)]
+    acc = None
+    for i in range(8):
+        term = vals[..., i] * (w[0][..., i & 1] * w[1][..., (i >> 1) & 1]
+                               * w[2][..., (i >> 2) & 1])
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def _corners(pos: torch.Tensor):
+    """(int32 corners [..., 8, 3] from floor(pos) clamped at 0, the
+    fractional position [..., 3])."""
+    base = trunc_i32(torch.floor(pos))
+    lower = base.clamp(min=0)
+    return lower[..., None, :] + _corner_offsets(pos.device), pos - base
+
+
+def interp(m: VoxelMap, channel: str, pos: torch.Tensor) -> torch.Tensor:
+    """Trilinear interpolation of the leaf data at fractional voxel
+    coordinates ``pos`` [..., 3] (``empty`` outside allocated blocks)."""
+    corner, factor = _corners(pos)
+    vals = get(m, channel, corner[..., 0], corner[..., 1], corner[..., 2])
+    return _trilinear(vals.to(torch.float32), factor)
+
+
+def interp_multiscale(m: VoxelMap, channel: str,
+                      pos: torch.Tensor) -> torch.Tensor:
+    """Trilinear interpolation whose corners fall back to the deepest
+    allocated node value where leaf blocks are missing."""
+    corner, factor = _corners(pos)
+    vals = get_multiscale(m, channel, corner[..., 0], corner[..., 1],
+                          corner[..., 2])
+    return _trilinear(vals.to(torch.float32), factor)
+
+
+def grad(m: VoxelMap, channel: str, pos: torch.Tensor) -> torch.Tensor:
+    """Trilinearly blended central-difference gradient [..., 3]: per
+    corner, the difference of the border-clamped neighbours along each
+    axis, blended by the interpolation weights and scaled by
+    ``0.5 * dim / size``."""
+    corner, factor = _corners(pos)
+    grads = []
+    for axis in range(3):
+        step = torch.zeros(3, dtype=torch.int32, device=pos.device)
+        step[axis] = 1
+        hi = (corner + step).clamp(0, m.size - 1)
+        lo = (corner - step).clamp(0, m.size - 1)
+        v_hi = get(m, channel, hi[..., 0], hi[..., 1], hi[..., 2])
+        v_lo = get(m, channel, lo[..., 0], lo[..., 1], lo[..., 2])
+        grads.append(_trilinear(v_hi.to(torch.float32)
+                                - v_lo.to(torch.float32), factor))
+    return torch.stack(grads, dim=-1) * (0.5 * m.dim / m.size)

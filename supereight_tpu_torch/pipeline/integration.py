@@ -7,7 +7,9 @@ the distance-adaptive octant march of ``buildOctantList``, one dense request
 mask per octree level.  Fusion compacts the frustum candidates into at most
 ``budget`` rows and fuses them through the field's kernel
 (`ops/integrate_kernel.py`: ``fuse_sdf`` or ``fuse_ofusion``), then updates
-the coarse node pyramid.
+the coarse node pyramid and, for a held SDF read view, the fused rows of
+the view.  ``unallocated_fraction`` is the on-demand allocation gate's
+signal.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from supereight_tpu_torch.core.octree import BLOCK_SIDE, VoxelMap
 from supereight_tpu_torch.fields.ofusion import (compute_stepsize,
                                                  step_to_depth)
 from supereight_tpu_torch.ops import integrate_kernel
+from . import raycast
 from .constants import FAR_PLANE
 from .preprocessing import norm
 
@@ -196,6 +199,27 @@ def allocate_ofusion(m: VoxelMap, depth, pose, K, band: float,
     return octree.allocate_octant_masks(m, masks)
 
 
+def unallocated_fraction(m: VoxelMap, depth, pose, K, decim: int = 4,
+                         border: float = 0.0) -> torch.Tensor:
+    """float32[]: the fraction of the (decimated) valid depth pixels whose
+    surface block is not allocated, the signal of the on-demand allocation
+    gate.  ``border`` crops that fraction of the image on each side
+    first."""
+    d, vertex, _, _, _ = _pixel_rays(depth, pose, K, decim)
+    if border > 0.0:
+        Hd, Wd = d.shape
+        by, bx = int(Hd * border), int(Wd * border)
+        d, vertex = d[by:Hd - by, bx:Wd - bx], vertex[by:Hd - by, bx:Wd - bx]
+    bc = trunc_i32(torch.floor(vertex * m.inverse_voxel_size)) \
+        >> octree.BLOCK_BITS
+    B = m.blocks_per_edge
+    inside = (bc >= 0).all(-1) & (bc < B).all(-1) & (d > 0)
+    b = bc.clamp(0, B - 1).long()
+    unalloc = (m.block_index[b[..., 0], b[..., 1], b[..., 2]] < 0) & inside
+    return unalloc.sum().to(torch.float32) \
+        / inside.sum().clamp(min=1).to(torch.float32)
+
+
 def frustum_candidates(m: VoxelMap, T_cw, K, frame_hw):
     """bool[capacity]: live active blocks whose centre projects into the
     frame dilated by the block's footprint and that are not fully behind
@@ -212,53 +236,79 @@ def frustum_candidates(m: VoxelMap, T_cw, K, frame_hw):
             & (cpy >= -foot) & (cpy <= H - 1 + foot))
 
 
+def fusion_operands(m: VoxelMap, T_cw, K, frame_hw, budget: int = 0):
+    """What a fusion kernel takes for this map: ``(sel, bc, live, rows,
+    dropped)``.  With ``0 < budget < capacity``: the first ``budget``
+    frustum candidates in slot order (``sel`` their slots, all live) and
+    the count of candidates past the budget.  Otherwise every slot of the
+    table (``sel`` None), live where allocated and active."""
+    if budget and budget < m.capacity:
+        idx = torch.nonzero(frustum_candidates(m, T_cw, K, frame_hw))[:, 0]
+        sel = idx[:budget]                        # ascending slot order
+        return (sel, octree.block_coords_table(m)[sel],
+                torch.ones(sel.shape, dtype=torch.bool, device=sel.device),
+                {name: v[sel] for name, v in m.voxels.items()},
+                max(idx.numel() - budget, 0))
+    return (None, octree.block_coords_table(m),
+            octree.slot_mask(m) & m.active, m.voxels, 0)
+
+
+def fuse(field, bc, live, rows, depth, T_cw, K, timestamp: float,
+         voxel_size: float, patch: int = PATCH):
+    """The field's fusion kernel on ``fusion_operands``: ``(names,
+    (channel 0', channel 1', visible))``."""
+    if field.name == "ofusion":
+        names = ("occupancy", "timestamp")
+        return names, integrate_kernel.fuse_ofusion(
+            bc, live, rows[names[0]], rows[names[1]], depth, T_cw, K,
+            field.mu, field.sigma_lo, timestamp, voxel_size, patch)
+    names = ("tsdf", "weight")
+    return names, integrate_kernel.fuse_sdf(
+        bc, live, rows[names[0]], rows[names[1]], depth, T_cw, K, field.mu,
+        field.max_weight, voxel_size, patch)
+
+
 def integrate(m: VoxelMap, field, depth, pose, K, timestamp: float = 0.0,
-              budget: int = 0, patch: int = PATCH) -> VoxelMap:
+              budget: int = 0, patch: int = PATCH, view=None):
     """Fuse one depth frame taken at ``timestamp`` (a float32 value) with
     the field's kernel.  With ``0 < budget < capacity`` only the first
     ``budget`` frustum candidates (in slot order) fuse; the rest keep their
     voxels and active flag and count into ``overflow``.  Fused rows refresh
-    ``active`` from visibility."""
+    ``active`` from visibility.
+
+    ``view`` (single-scale fields): the raycaster's held read view; the
+    fused live rows are re-encoded and written into it in place, and
+    ``(map, view)`` is returned.  Bricks change only here, so the view
+    stays equal to ``raycast.pack_view`` of the map."""
     T_cw = torch.linalg.inv(pose).contiguous()
     K = K.contiguous()
     depth = depth.contiguous()
-    vs = m.voxel_size
-    bc_full = octree.block_coords_table(m)
-    live_full = octree.slot_mask(m) & m.active
-
-    if budget and budget < m.capacity:
-        cand = frustum_candidates(m, T_cw, K, depth.shape)
-        idx = torch.nonzero(cand)[:, 0]           # ascending slot order
-        sel = idx[:budget]
-        m = m.replace(overflow=m.overflow + max(idx.numel() - budget, 0))
-        bc = bc_full[sel]
-        live = torch.ones(sel.shape, dtype=torch.bool, device=sel.device)
-        rows = {name: v[sel] for name, v in m.voxels.items()}
-    else:
-        sel = None
-        bc, live, rows = bc_full, live_full, m.voxels
-
-    if field.name == "ofusion":
-        names = ("occupancy", "timestamp")
-        fused = integrate_kernel.fuse_ofusion(
-            bc, live, rows[names[0]], rows[names[1]], depth, T_cw, K,
-            field.mu, field.sigma_lo, timestamp, vs, patch)
-    else:
-        names = ("tsdf", "weight")
-        fused = integrate_kernel.fuse_sdf(
-            bc, live, rows[names[0]], rows[names[1]], depth, T_cw, K,
-            field.mu, field.max_weight, vs, patch)
+    sel, bc, live, rows, dropped = fusion_operands(m, T_cw, K, depth.shape,
+                                                   budget)
+    names, fused = fuse(field, bc, live, rows, depth, T_cw, K, timestamp,
+                        m.voxel_size, patch)
     visible = fused[2]
 
     if sel is not None:
         voxels = {name: m.voxels[name].index_copy(0, sel, new)
                   for name, new in zip(names, fused)}
         active = m.active.index_copy(0, sel, visible)
+        slots = sel
     else:
         voxels = dict(zip(names, fused))
-        active = torch.where(live_full, visible, m.active)
-    m = m.replace(voxels=voxels, active=active)
-    return _update_nodes(m, field, depth, T_cw, K, timestamp)
+        active = torch.where(live, visible, m.active)
+        slots = torch.nonzero(live)[:, 0]
+    m = m.replace(voxels=voxels, active=active,
+                  overflow=m.overflow + dropped)
+    m = _update_nodes(m, field, depth, T_cw, K, timestamp)
+    if view is None:
+        return m
+    if field.multiscale_alloc:
+        raise ValueError("a held view is updated by fusion for single-scale "
+                         "fields only (the multiscale view is rebuilt)")
+    enc = raycast.encode_view_rows(field, {name: m.voxels[name][slots]
+                                           for name in names})
+    return m, view.index_copy_(0, octree.block_rows(m)[slots], enc)
 
 
 def _update_nodes(m: VoxelMap, field, depth, T_cw, K,

@@ -1,6 +1,5 @@
 """Depth preprocessing over whole images (counterpart of
-`supereight_tpu/pipeline/preprocessing.py`; the bilateral filter is not
-ported yet)."""
+`supereight_tpu/pipeline/preprocessing.py`)."""
 
 from __future__ import annotations
 
@@ -10,7 +9,7 @@ import torch
 
 from supereight_tpu_torch.core.numerics import div, fma
 from . import camera
-from .constants import E_DELTA, INVALID
+from .constants import E_DELTA, GAUSSIAN_DELTA, INVALID, RADIUS
 
 
 def mm_to_meters(depth_mm: torch.Tensor,
@@ -32,6 +31,35 @@ def _shifted(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
     rows = (torch.arange(H, device=img.device) + dy).clamp(0, H - 1)
     cols = (torch.arange(W, device=img.device) + dx).clamp(0, W - 1)
     return img[rows][:, cols]
+
+
+def gaussian_weights(radius: int = RADIUS,
+                     delta: float = GAUSSIAN_DELTA) -> torch.Tensor:
+    """Spatial Gaussian row (the reference's ``x = i - 2`` whatever the
+    radius)."""
+    x = torch.arange(2 * radius + 1, dtype=torch.float32) - 2.0
+    return torch.exp(-(x * x) / (2.0 * delta * delta))
+
+
+def bilateral_filter(depth: torch.Tensor, e_d: float = E_DELTA,
+                     radius: int = RADIUS) -> torch.Tensor:
+    """5x5 bilateral filter: spatial Gaussian times intensity Gaussian over
+    the neighbours with depth > 0; zero depth stays 0."""
+    g = gaussian_weights(radius).to(depth.device)
+    inv_2ed2 = 1.0 / (2.0 * e_d * e_d)
+    t = torch.zeros_like(depth)
+    s = torch.zeros_like(depth)
+    for i in range(-radius, radius + 1):
+        for j in range(-radius, radius + 1):
+            cur = _shifted(depth, j, i)      # i over x, j over y
+            diff = cur - depth
+            factor = (g[i + radius] * g[j + radius]) \
+                * torch.exp(-(diff * diff) * inv_2ed2)
+            valid = cur > 0
+            t = t + torch.where(valid, factor * cur, 0.0)
+            s = s + torch.where(valid, factor, 0.0)
+    out = t / torch.clamp(s, min=1e-20)
+    return torch.where(depth == 0, 0.0, out)
 
 
 def half_sample_robust(depth: torch.Tensor, e_d: float = E_DELTA * 3,

@@ -4,11 +4,13 @@
 Phase 1 (`_splat_bounds`) projects the blocks holding an inside voxel into
 a coarse image grid and takes min/max camera depths as each ray's start and
 far bounds.  Phase 2 (`_fine_scan`) samples a short window per ray at half
-ray resolution, finds the first valid outside -> inside crossing and solves
-it linearly; a compacted second window re-scans the rays whose far bound
-reaches deeper.  A full-resolution secant re-solve (`_refine`) then gives
-per-pixel depth, and normals come from 6-tap central differences (hybrid:
-at quarter resolution with a per-pixel along-ray correction).
+ray resolution (or every pixel, ``full_res_scan``), finds the first valid
+outside -> inside crossing and solves it linearly; a compacted second
+window re-scans the rays whose far bound reaches deeper.  After a half-res
+scan a full-resolution secant re-solve (`_refine`, optionally from
+trilinear samples) gives per-pixel depth.  Normals come from 6-tap central
+differences (hybrid: at quarter resolution with a per-pixel along-ray
+correction) or from the blended gradient of the brick table (exact).
 """
 
 from __future__ import annotations
@@ -60,36 +62,55 @@ def encode_view_rows(field, rows):
                        float("nan")).to(view_dtype(field))
 
 
+def _fill_value(m: VoxelMap, field, attr: str) -> float:
+    """The view's encoding of a voxel whose channels all hold their
+    ``attr`` value ("empty" or "init"): that value of the select channel,
+    or NaN where the field does not count it as a valid sample."""
+    vals = {c.name: torch.full((), getattr(c, attr)) for c in m.channels}
+    if bool(field.sample_valid(vals)):
+        return float(vals[field.select_channel])
+    return float("nan")
+
+
 def pack_view(m: VoxelMap, field):
     """Brick-tiled read view ``{"F": [B^3, 512]}``: one row per block-grid
     cell, the NaN-encoded select channel for allocated blocks and the
     field's empty value (NaN if empty is not a valid sample) elsewhere.
     For a multiscale field (OFusion) the view is bf16 and rows without a
     block read the NaN-encoded node-pyramid value of their cell
-    (``octree.node_fill``)."""
+    (``octree.node_fill``).  Both encode on the ``[capacity, 512]`` table
+    and scatter its live rows once (``octree.tile_rows``)."""
     if field.multiscale_alloc:
         return {"F": _pack_view_multiscale(m, field)}
-    spec = next(c for c in m.channels if c.name == field.select_channel)
-    empties = {c.name: torch.full((), c.empty) for c in m.channels}
-    fill = spec.empty if bool(field.sample_valid(empties)) else float("nan")
     B = m.blocks_per_edge
-    bc = octree.block_coords_table(m)
-    lin = (bc[:, 0] * B + bc[:, 1]) * B + bc[:, 2]
-    flat = torch.full((B * B * B, octree.BLOCK_VOXELS), fill,
-                      dtype=view_dtype(field), device=m.device)
-    tgt = torch.where(octree.slot_mask(m), lin, B * B * B)
-    return {"F": octree.scatter_drop(flat, tgt, encode_view_rows(field,
-                                                                 m.voxels))}
+    fill = torch.full((B * B * B,), _fill_value(m, field, "empty"),
+                      device=m.device)
+    return {"F": octree.tile_rows(fill, m, encode_view_rows(field, m.voxels))}
 
 
 def _pack_view_multiscale(m: VoxelMap, field) -> torch.Tensor:
-    """bf16 ``[B^3, 512]``: the NaN-encoded select channel of the tiled
-    multiscale rows (voxels of allocated blocks, their cell's node fill in
-    every other row)."""
-    rows = {c.name: octree.pack_tiled_multiscale(m, c.name).to(torch.float32)
-            for c in m.channels}
-    return torch.where(field.sample_valid(rows), rows[field.select_channel],
-                       float("nan")).to(torch.bfloat16)
+    """bf16 ``[B^3, 512]``: the NaN-encoded select channel of the live
+    blocks' voxels at their rows, every other row the NaN-encoded
+    :func:`octree.node_fill` value of its cell (the JAX form,
+    `raycast.py:pack_view`)."""
+    fills = {c.name: octree.node_fill(m, c.name).to(torch.float32)
+             for c in m.channels}
+    fill_cell = torch.where(field.sample_valid(fills),
+                            fills[field.select_channel], float("nan"))
+    return octree.tile_rows(fill_cell, m, encode_view_rows(
+        field, m.voxels).to(torch.bfloat16))
+
+
+def view_alloc_fill(view: torch.Tensor, m: VoxelMap, live_before,
+                    field) -> torch.Tensor:
+    """The held view after an allocation, updated in place: the rows of
+    the blocks that became live since ``live_before`` (bool[capacity])
+    flip from the unallocated fill to the encoding of fresh voxels (weight
+    0 -> NaN).  Fusion updates every later change
+    (``integration.integrate(view=)``)."""
+    newly = torch.nonzero(octree.slot_mask(m) & ~live_before)[:, 0]
+    return view.index_fill_(0, octree.block_rows(m)[newly],
+                            _fill_value(m, field, "init"))
 
 
 def _sample_volume(vol, pos_vox, size: int, fill: float):
@@ -97,14 +118,37 @@ def _sample_volume(vol, pos_vox, size: int, fill: float):
     returns (value f32, in-bounds)."""
     v = trunc_i32(torch.floor(pos_vox))
     inb = ((v >= 0) & (v < size)).all(-1)
-    vc = v.clamp(0, size - 1)
+    val = vol[_tiled_index(v.clamp(0, size - 1), size)].to(torch.float32)
+    return torch.where(inb, val, fill), inb
+
+
+def _tiled_index(vc, size: int):
+    """(row, column) of in-bounds int32 voxels ``vc`` [..., 3] in the
+    tiled view."""
     B = size // BLOCK_SIDE
     b = vc >> 3
     l = vc & 7
     row = (b[..., 0] * B + b[..., 1]) * B + b[..., 2]
     col = l[..., 0] + l[..., 1] * 8 + l[..., 2] * 64
-    val = vol[row.long(), col.long()].to(torch.float32)
-    return torch.where(inb, val, fill), inb
+    return row.long(), col.long()
+
+
+def _sample_volume_interp(vol, pos_vox, size: int, nan_sub: float):
+    """Trilinear sample of the tiled view: 8 corner reads blended by the
+    fractional position; NaN (unobserved) and out-of-bounds taps read
+    ``nan_sub``."""
+    base = trunc_i32(torch.floor(pos_vox))
+    frac = pos_vox - base
+    out = 0.0
+    for i in range(8):
+        off = (i & 1, (i >> 1) & 1, (i >> 2) & 1)
+        v = base + torch.tensor(off, dtype=torch.int32, device=base.device)
+        inb = ((v >= 0) & (v < size)).all(-1)
+        val = vol[_tiled_index(v.clamp(0, size - 1), size)].to(torch.float32)
+        val = torch.where(inb & ~torch.isnan(val), val, nan_sub)
+        w = [frac[..., a] if off[a] else 1.0 - frac[..., a] for a in range(3)]
+        out = out + val * (w[0] * w[1] * w[2])
+    return out
 
 
 def _max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -230,18 +274,23 @@ def raycast(m: VoxelMap, field, view, H: int, W: int, near: float,
             far: float, dense=None, *, normals: str = "volume",
             second_window: bool = True, span_factor: float = 1.6,
             w2_budget: int = 8192, scan_stride: float = 0.5,
-            near_rescue: bool = True, grad_decim: int = 1) -> RaycastResult:
+            near_rescue: bool = True, grad_decim: int = 1,
+            refine: str = "secant",
+            full_res_scan: bool = False) -> RaycastResult:
     """Vertex + normal maps from ``view`` (= pose @ inv(K)).
 
-    The fine scan runs at half ray resolution when H and W are even and
-    W >= 160, followed by the full-res ``_refine``; ``normals`` is "volume"
-    (full-res 6-tap gradient) or "hybrid" (half-res, or 1/``grad_decim``
-    of that, lateral gradient + per-pixel along-ray correction; without
-    the half-res scan it falls back to "volume")."""
-    if normals not in ("volume", "hybrid"):
-        raise NotImplementedError(
-            f"raycast normals {normals!r} are not ported yet "
-            "(ROADMAP queue 1, item 10)")
+    The fine scan runs at half ray resolution when H and W are even,
+    W >= 160 and not ``full_res_scan``, followed by the full-res
+    ``_refine`` ("secant": the two-sample re-solve; "interp": the same
+    from trilinear samples).  ``normals`` is "volume" (full-res 6-tap
+    gradient), "hybrid" (half-res, or 1/``grad_decim`` of that, lateral
+    gradient + per-pixel along-ray correction; without the half-res scan
+    it falls back to "volume") or "exact" (``octree.grad``, the trilinearly
+    blended gradient of the raw brick table)."""
+    if normals not in ("volume", "hybrid", "exact"):
+        raise ValueError(f"unknown normals mode {normals!r}")
+    if refine not in ("secant", "interp"):
+        raise ValueError(f"unknown refine mode {refine!r}")
     origin, dirs = ray_directions(view, H, W)
     if dense is None:
         dense = pack_view(m, field)
@@ -252,7 +301,7 @@ def raycast(m: VoxelMap, field, view, H: int, W: int, near: float,
     inv_vs = m.inverse_voxel_size
     thickness = field.mu if field.invert_normals else 2.0 * vs
     diag = 1.7320508 * BLOCK_SIDE * vs
-    half_res = H % 2 == 0 and W % 2 == 0 and W >= 160
+    half_res = H % 2 == 0 and W % 2 == 0 and W >= 160 and not full_res_scan
     fine_step = scan_stride * thickness
     fine_span = span_factor * diag + 2.0 * thickness
     n_fine = int(np.clip(np.ceil(fine_span / fine_step) + 1, 8, 48))
@@ -294,8 +343,13 @@ def raycast(m: VoxelMap, field, view, H: int, W: int, near: float,
     z_half, hit_half = z_hit, hit
     if half_res:
         delta = 0.7 * thickness
+        # interp: unobserved taps blend the select channel's raw init value
+        interp_sub = next(c.init for c in m.channels
+                          if c.name == field.select_channel) \
+            if refine == "interp" else None
         z_hit, hit, rf_lo, rf_hi, rf_pair = _refine(
-            m, dense, field, origin, dirs, _up2(z_hit), _up2(hit), delta)
+            m, dense, field, origin, dirs, _up2(z_hit), _up2(hit), delta,
+            interp_sub)
 
     vertex = origin + dirs * z_hit[..., None]
     ray_norm = norm(dirs)
@@ -320,6 +374,9 @@ def raycast(m: VoxelMap, field, view, H: int, W: int, near: float,
         corr = torch.where(have, d_ray - (g_m * rhat).sum(-1), 0.0)
         g_ = g_m + corr[..., None] * rhat
         bad_grad = ~_up2(grad_ok_h)
+    elif normals == "exact":
+        g_ = octree.grad(m, field.select_channel, vertex * inv_vs)
+        bad_grad = torch.zeros_like(hit)
     else:
         g_ = _grad6(m, dense, field, vertex)
         bad_grad = torch.zeros_like(hit)
@@ -336,13 +393,17 @@ def raycast(m: VoxelMap, field, view, H: int, W: int, near: float,
 
 
 def _refine(m: VoxelMap, dense, field, origin, dirs, z_hit, hit,
-            delta: float):
+            delta: float, interp_sub=None):
     """Full-res re-solve within +/-delta of ``z_hit``: a valid outside ->
     inside pair re-solves the crossing, a valid pair without a crossing
-    drops the hit.  Also returns the two samples and the pair flag (the
-    hybrid normals' along-ray derivative)."""
+    drops the hit.  With ``interp_sub`` the samples are trilinear, with
+    that value for unobserved taps (so they always pair).  Also returns
+    the two samples and the pair flag (the hybrid normals' along-ray
+    derivative)."""
     def sample(z):
         pos = (origin + dirs * z[..., None]) * m.inverse_voxel_size
+        if interp_sub is not None:
+            return _sample_volume_interp(dense["F"], pos, m.size, interp_sub)
         return _sample_volume(dense["F"], pos, m.size, float("nan"))[0]
 
     f_lo = sample(z_hit - delta)

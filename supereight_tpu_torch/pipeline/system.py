@@ -1,6 +1,6 @@
 """DenseSLAMSystem: the pipeline facade (counterpart of
-`supereight_tpu/pipeline/system.py`: the SDF and OFusion fields, the knobs
-of the ``headline`` and ``ofusion`` presets and the defaults they sit on).
+`supereight_tpu/pipeline/system.py`: the SDF and OFusion fields and the
+knobs of every preset in `supereight_tpu_torch/config.py`).
 
 All per-frame state lives in one :class:`FrameState`.  A frame runs four
 stages, preprocess -> track -> integrate -> raycast; each stage is one
@@ -19,93 +19,12 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from supereight_tpu_torch.config import SlamConfig
 from supereight_tpu_torch.core import octree
 from supereight_tpu_torch.fields import make_field
 from . import camera, integration, preprocessing, raycast, tracking
 from .constants import FAR_PLANE, INVALID, NEAR_PLANE
 from .preprocessing import norm
-
-
-@dataclasses.dataclass(frozen=True)
-class SlamConfig:
-    """The knobs the port runs, with the defaults of
-    ``supereight_tpu.config.Configuration``."""
-    compute_size_ratio: int = 1
-    tracking_rate: int = 1
-    integration_rate: int = 2
-    volume_resolution: Tuple[int, int, int] = (256, 256, 256)
-    volume_size: Tuple[float, float, float] = (2.0, 2.0, 2.0)
-    initial_pos_factor: Tuple[float, float, float] = (0.5, 0.5, 0.0)
-    pyramid: Tuple[int, ...] = (10, 5, 4)
-    mu: float = 0.1
-    icp_threshold: float = 1e-5
-    block_capacity: Optional[int] = None
-    raycast_normals: str = "volume"
-    raycast_second_window: bool = True
-    icp_finest_decimate: int = 1
-    raycast_span_factor: float = 1.6
-    raycast_near_rescue: bool = True
-    raycast_scan_stride: float = 0.5
-    raycast_grad_decim: int = 1
-    alloc_rate: int = 1
-    raycast_w2_budget: int = 8192
-    raycast_rate: int = 1
-    raycast_adaptive_deg: float = 0.0
-    raycast_adaptive_dist: float = 0.12
-    alloc_stride: float = 1.0
-    integrate_budget: int = 0
-    integrate_patch: int = 16
-    bootstrap_frames: int = 3
-    raycast_from_frame: int = 3
-    icp_symmetric: bool = False
-    field_type: str = "sdf"
-    incremental_view: bool = False
-    ofusion_sigma_floor: float = 0.0
-
-    @classmethod
-    def of(cls, config) -> "SlamConfig":
-        """The ported knobs of ``config``: a SlamConfig or any object with
-        the same attribute names (``supereight_tpu.config.Configuration``).
-        Raises NotImplementedError where ``config`` sets a knob whose code
-        is not ported."""
-        for name, (default, why) in _UNPORTED.items():
-            value = getattr(config, name, default)
-            if value != default:
-                raise NotImplementedError(f"{name}={value!r}: {why}")
-        if getattr(config, "raycast_normals", "volume") not in ("volume",
-                                                                "hybrid"):
-            raise NotImplementedError(
-                f"raycast_normals={config.raycast_normals!r}: {_LATER}")
-        if getattr(config, "icp_symmetric", False) not in (False, True):
-            raise NotImplementedError(
-                f"icp_symmetric={config.icp_symmetric!r}: {_NEGATIVE}")
-        if getattr(config, "incremental_view", False) and \
-                getattr(config, "field_type", "sdf") == "sdf":
-            raise NotImplementedError(
-                "incremental_view=True on an SDF field (view_alloc_fill, "
-                "integrate(view=)): not ported yet (ROADMAP queue 1, "
-                "item 10)")
-        return cls(**{f.name: getattr(config, f.name)
-                      for f in dataclasses.fields(cls)
-                      if hasattr(config, f.name)})
-
-
-_LATER = "not ported yet (ROADMAP queue 1, item 10)"
-_NEGATIVE = "measured negative in the JAX package; not ported"
-_UNPORTED = {
-    "bilateral_filter": (False, _LATER),
-    "fuse_filtered": (False, _LATER),
-    "raycast_full_res_scan": (False, _LATER),
-    "raycast_refine": ("secant", _LATER),
-    "alloc_adaptive_deg": (0.0, _LATER),
-    "alloc_on_demand": (0.0, _LATER),
-    "map_partitions": (1, "not ported yet (ROADMAP queue 1, item 12)"),
-    "raycast_midsolve": (False, _NEGATIVE),
-    "icp_robust": ("none", _NEGATIVE),
-    "icp_assoc": ("nearest", _NEGATIVE),
-    "bootstrap_f2f": (False, _NEGATIVE),
-    "f2f_fallback": (False, _NEGATIVE),
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,9 +43,11 @@ class FrameState:
     alloc_count: int             # allocation marches so far
     prev_pose: torch.Tensor      # pose before the last tracked frame
     model_ref: bool              # reference maps come from a model raycast
-    #: the raycaster's read view [B^3, 512] held across frames and rebuilt
-    #: on integration frames (multiscale fields with incremental_view), or
-    #: None to build it in every raycast
+    #: the raycaster's read view [B^3, 512] held across frames
+    #: (incremental_view), or None to build it in every raycast.  A
+    #: multiscale field's view is rebuilt on integration frames; an SDF
+    #: view is updated in place there (allocated and fused rows only), so
+    #: an earlier FrameState's view is the same tensor
     view: Optional[torch.Tensor] = None
 
     def replace(self, **kw) -> "FrameState":
@@ -154,16 +75,20 @@ def init_state(size: int, dim: float, field, H: int, W: int, init_pose,
         view=raycast.pack_view(m, field)["F"] if incremental_view else None)
 
 
-def preprocessing_stage(state: FrameState, depth_mm) -> FrameState:
+def preprocessing_stage(state: FrameState, depth_mm,
+                        cfg: SlamConfig) -> FrameState:
     """Integer depth is millimetres, float depth is metres; both are
-    decimated to the state's resolution."""
+    decimated to the state's resolution.  With ``bilateral_filter`` the
+    tracking pyramid's depth is filtered."""
     H, W = state.float_depth.shape
     if depth_mm.dtype.is_floating_point:
         ratio = depth_mm.shape[1] // W
         float_depth = depth_mm[::ratio, ::ratio].to(torch.float32)
     else:
         float_depth = preprocessing.mm_to_meters(depth_mm, (H, W))
-    return state.replace(float_depth=float_depth, scaled_depth=float_depth)
+    scaled_depth = preprocessing.bilateral_filter(float_depth) \
+        if cfg.bilateral_filter else float_depth
+    return state.replace(float_depth=float_depth, scaled_depth=scaled_depth)
 
 
 def tracking_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
@@ -182,25 +107,56 @@ def tracking_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
                          track_result=result, prev_pose=state.pose)
 
 
+def _moved(pose, ref_pose, deg: float, dist: float) -> bool:
+    """Whether ``pose`` rotated more than ``deg`` degrees or moved more
+    than ``dist`` metres since ``ref_pose`` (the motion gates)."""
+    dR = pose[:3, :3] @ ref_pose[:3, :3].T
+    cos_ang = 0.5 * (torch.trace(dR) - 1.0)
+    d = norm(pose[:3, 3] - ref_pose[:3, 3])
+    return bool((cos_ang < math.cos(math.radians(deg))) | (d > dist))
+
+
+def _alloc_fires(state: FrameState, depth, K, frame: int,
+                 cfg: SlamConfig) -> bool:
+    """The allocation gate, always open up to frame 5: the unallocated
+    fraction of the depth above ``alloc_on_demand``, else motion past
+    ``alloc_adaptive_deg`` / ``alloc_adaptive_dist`` since the last march,
+    else every ``alloc_rate``-th frame."""
+    if frame <= 5:
+        return True
+    if cfg.alloc_on_demand > 0.0:
+        frac = integration.unallocated_fraction(
+            state.map, depth, state.pose, K,
+            border=cfg.alloc_on_demand_border)
+        return bool(frac > cfg.alloc_on_demand)
+    if cfg.alloc_adaptive_deg > 0.0:
+        return _moved(state.pose, state.alloc_pose, cfg.alloc_adaptive_deg,
+                      cfg.alloc_adaptive_dist)
+    return cfg.alloc_rate <= 1 or frame % cfg.alloc_rate == 0
+
+
 def integration_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
                       field) -> FrameState:
     """Fuse when tracked against a model map or during the bootstrap
-    frames; the allocation march fires every ``alloc_rate``-th frame and
-    on the first six.  OFusion's march rotates its coarse ray grid with the
-    allocation count.  A held read view is rebuilt here, the only stage
-    that changes the map."""
+    frames (the filtered depth with ``fuse_filtered``); the allocation
+    march runs when its gate opens (`_alloc_fires`).  OFusion's march
+    rotates its coarse ray grid with the allocation count.  A held read
+    view changes here, the only stage that changes the map: an SDF view
+    takes the allocated and fused rows, a multiscale view is rebuilt."""
     boot = frame <= cfg.bootstrap_frames
     do_integrate = ((state.tracked and state.model_ref) or boot) and \
         (frame % cfg.integration_rate == 0 or boot)
     if not do_integrate:
         return state.replace(integrated=False)
     K = camera.camera_matrix(k)
-    depth, pose = state.float_depth, state.pose
+    depth = state.scaled_depth if cfg.fuse_filtered else state.float_depth
+    pose = state.pose
     # the float32 product the JAX stage computes
     timestamp = float(np.float32(1.0 / 30.0) * np.float32(frame))
-    m = state.map
+    m, view = state.map, state.view
+    live_before = octree.slot_mask(m)
     a_pose, a_count = state.alloc_pose, state.alloc_count
-    if cfg.alloc_rate <= 1 or frame % cfg.alloc_rate == 0 or frame <= 5:
+    if _alloc_fires(state, depth, K, frame, cfg):
         if field.multiscale_alloc:
             m = integration.allocate_ofusion(m, depth, pose, K,
                                              field.alloc_band(),
@@ -210,10 +166,16 @@ def integration_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
                                          field.alloc_band(),
                                          stride=cfg.alloc_stride)
         a_pose, a_count = pose.clone(), a_count + 1
-    m = integration.integrate(m, field, depth, pose, K, timestamp=timestamp,
-                              budget=cfg.integrate_budget,
-                              patch=cfg.integrate_patch)
-    view = None if state.view is None else raycast.pack_view(m, field)["F"]
+    args = dict(timestamp=timestamp, budget=cfg.integrate_budget,
+                patch=cfg.integrate_patch)
+    if view is not None and not field.multiscale_alloc:
+        view = raycast.view_alloc_fill(view, m, live_before, field)
+        m, view = integration.integrate(m, field, depth, pose, K, view=view,
+                                        **args)
+    else:
+        m = integration.integrate(m, field, depth, pose, K, **args)
+        if view is not None:
+            view = raycast.pack_view(m, field)["F"]
     return state.replace(map=m, alloc_pose=a_pose, alloc_count=a_count,
                          integrated=True, view=view)
 
@@ -227,12 +189,9 @@ def raycasting_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
     do_raycast = frame >= cfg.raycast_from_frame
     if do_raycast and frame > 5:
         if cfg.raycast_adaptive_deg > 0.0:
-            dR = state.pose[:3, :3] @ state.raycast_pose[:3, :3].T
-            cos_ang = 0.5 * (torch.trace(dR) - 1.0)
-            dist = norm(state.pose[:3, 3] - state.raycast_pose[:3, 3])
-            do_raycast = bool(
-                (cos_ang < math.cos(math.radians(cfg.raycast_adaptive_deg)))
-                | (dist > cfg.raycast_adaptive_dist))
+            do_raycast = _moved(state.pose, state.raycast_pose,
+                                cfg.raycast_adaptive_deg,
+                                cfg.raycast_adaptive_dist)
         elif cfg.raycast_rate > 1:
             do_raycast = frame % cfg.raycast_rate == 0
     if not do_raycast:
@@ -247,7 +206,8 @@ def raycasting_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
         span_factor=cfg.raycast_span_factor, w2_budget=cfg.raycast_w2_budget,
         scan_stride=cfg.raycast_scan_stride,
         near_rescue=cfg.raycast_near_rescue,
-        grad_decim=cfg.raycast_grad_decim)
+        grad_decim=cfg.raycast_grad_decim, refine=cfg.raycast_refine,
+        full_res_scan=cfg.raycast_full_res_scan)
     return state.replace(ref_vertex=rc.vertex, ref_normal=rc.normal,
                          raycast_pose=state.pose.clone(), model_ref=True)
 
@@ -255,7 +215,7 @@ def raycasting_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
 def process_frame(state: FrameState, depth_mm, k, frame: int, *,
                   cfg: SlamConfig, field, neg_y: bool = False) -> FrameState:
     """One full SLAM frame."""
-    state = preprocessing_stage(state, depth_mm)
+    state = preprocessing_stage(state, depth_mm, cfg)
     state = tracking_stage(state, k, frame, cfg, neg_y)
     state = integration_stage(state, k, frame, cfg, field)
     return raycasting_stage(state, k, frame, cfg, field)
@@ -263,8 +223,10 @@ def process_frame(state: FrameState, depth_mm, k, frame: int, *,
 
 class DenseSLAMSystem:
     """Stateful facade over the functional pipeline on an explicit
-    ``device``.  ``step()`` runs one frame; ``step_staged()`` runs the same
-    stages and times each."""
+    ``device``, configured by a :class:`SlamConfig` (e.g.
+    ``config.apply_preset(name, SlamConfig(...))``) or any object with its
+    attribute names.  ``step()`` runs one frame; ``step_staged()`` runs the
+    same stages and times each."""
 
     def __init__(self, input_size: Tuple[int, int], config, device):
         self.config = cfg = SlamConfig.of(config)
@@ -328,7 +290,8 @@ class DenseSLAMSystem:
         host clock is read after the device finished each stage."""
         depth, kd, neg_y = self._inputs(depth_mm, k)
         stages = (
-            ("preprocessing", lambda s: preprocessing_stage(s, depth)),
+            ("preprocessing", lambda s: preprocessing_stage(s, depth,
+                                                            self.config)),
             ("tracking", lambda s: tracking_stage(s, kd, frame, self.config,
                                                   neg_y)),
             ("integration", lambda s: integration_stage(

@@ -129,6 +129,51 @@ def test_ofusion_kernel_matches_twin(cuda, H, W, seed):
     torch.testing.assert_close(out[0], ref[0], rtol=1e-5, atol=1e-6)
 
 
+def _ofusion_channels(n, seed, dev):
+    rng = np.random.default_rng(seed)
+    occ = rng.uniform(-20, 20, (n, 512)).astype(np.float32)
+    ts = rng.uniform(0, 1.2, (n, 512)).astype(np.float32)
+    return (torch.from_numpy(occ).to(dev), torch.from_numpy(ts).to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["fuse_sdf", "fuse_ofusion"])
+@pytest.mark.parametrize("n", [6144, 24576, 98304])
+def test_kernels_on_whole_tables(cuda, kernel, n):
+    """The all-rows fusion branch at the table sizes of the presets
+    (capacity 6144 and 24576, the 98304-row budget of 1024^3): about a
+    fifth of the rows are dead (not live) and come back unchanged bit for
+    bit.  ``fuse_sdf``: tsdf and weight within 1e-5, visible exact;
+    ``fuse_ofusion``: occupancy within rtol 1e-5 / atol 1e-6, visible and
+    timestamp exact."""
+    c = _case(240, 320, n % 1000, n=n)
+    assert len(c["bc"]) == n
+    args = list(_args(c, cuda))
+    now = float(np.float32(1 / 30) * np.float32(95))
+    if kernel == "fuse_ofusion":
+        args[2:4] = _ofusion_channels(n, n, cuda)
+        args[7:9] = [0.05, 2 * VS, now]
+    fn, plain = getattr(ik, kernel), getattr(ik, kernel + "_reference")
+    before = ik.LAUNCHES[kernel]
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert ik.LAUNCHES[kernel] == before + 1
+    ref = plain(*args)
+    dead = ~args[1]
+    assert int(dead.sum()) > n // 10
+    for o, a in zip(out[:2], args[2:4]):
+        assert torch.equal(o[dead], a[dead])
+    assert torch.equal(out[2], ref[2])
+    if kernel == "fuse_ofusion":
+        assert int((ref[1] == now).sum()) > 100
+        assert torch.equal(out[1], ref[1])
+        torch.testing.assert_close(out[0], ref[0], rtol=1e-5, atol=1e-6)
+    else:
+        assert int((ref[1] != args[3]).sum()) > 100
+        for o, r in zip(out[:2], ref[:2]):
+            torch.testing.assert_close(o, r, rtol=0, atol=1e-5)
+
+
 @pytest.mark.gpu
 def test_gather_probe_kernels_match_twins(cuda):
     """K2 and K3 at the probe's shapes, bit for bit."""

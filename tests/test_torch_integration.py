@@ -20,10 +20,11 @@ from supereight_tpu.pipeline import DenseSLAMSystem as JaxSLAM
 from supereight_tpu.pipeline import camera as jcam
 from supereight_tpu.pipeline import integration as jint
 from supereight_tpu.pipeline import preprocessing as jpre
+from supereight_tpu.pipeline import raycast as jrc
 from supereight_tpu_torch import convert
 from supereight_tpu_torch.core import octree
 from supereight_tpu_torch.fields import OFusionField, SDFField
-from supereight_tpu_torch.pipeline import integration
+from supereight_tpu_torch.pipeline import integration, raycast
 
 from torch_port_util import K_FULL, load_frames, map_to_numpy
 
@@ -166,3 +167,85 @@ def test_integrate_ofusion_matches_jax(of_scene, budget):
                 tm2.node_values[level][name].numpy(),
                 np.asarray(jm2.node_values[level][name]), rtol=1e-5,
                 atol=1e-6, err_msg=f"level {level} {name}")
+
+
+@pytest.mark.parametrize("border", [0.0, 0.1, 0.25])
+def test_unallocated_fraction_matches_jax(scene, border):
+    """From the true pose and from a moved camera (new surface in view):
+    the same float32 fraction, bit for bit."""
+    for shift in ((0.0, 0.0, 0.0), (0.3, 0.0, 0.4)):
+        pose = scene["pose"].copy()
+        pose[:3, 3] += shift
+        args = (scene["depth"], pose, scene["K"])
+        want = np.asarray(jint.unallocated_fraction(
+            scene["map"], *(jnp.asarray(a) for a in args), border=border))
+        got = integration.unallocated_fraction(
+            _port_map(scene), *(_t(a) for a in args), border=border)
+        assert got.dtype == torch.float32
+        assert got.numpy() == want, (shift, got, want)
+    assert want > 0.05
+
+
+def _view_f32(v):
+    return np.asarray(v, dtype=np.float32) if not isinstance(
+        v, torch.Tensor) else v.to(torch.float32).numpy()
+
+
+def _assert_views_equal(got, want, msg):
+    """bf16 views bit for bit, compared in float32 (NaN where NaN)."""
+    got, want = _view_f32(got), _view_f32(want)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want), msg)
+    ok = ~np.isnan(want)
+    np.testing.assert_array_equal(got[ok], want[ok], msg)
+
+
+def _jax_map(tm, like):
+    """The port's map ``tm`` as a JAX map (the static fields of
+    ``like``)."""
+    a = lambda t: jnp.asarray(t.numpy())
+    return like.replace(
+        block_index=a(tm.block_index), keys=a(tm.keys).astype(jnp.uint32),
+        n_blocks=a(tm.n_blocks), active=a(tm.active),
+        overflow=a(tm.overflow), part_counts=a(tm.n_blocks)[None],
+        voxels={k: a(v) for k, v in tm.voxels.items()})
+
+
+@pytest.mark.parametrize("budget", [0, 1024])
+def test_held_view_matches_pack_view(scene, budget):
+    """Four frames of allocation, ``view_alloc_fill`` and
+    ``integrate(view=)`` from the headline map, updating the held view in
+    place: after each, it equals the port's ``pack_view`` and the JAX
+    package's ``pack_view`` of the same map bit for bit, and after the
+    allocation the JAX ``view_alloc_fill`` of the same view.  Budget 0 is
+    the all-rows path, whose table has dead rows."""
+    depths, poses = load_frames()
+    field, jfield = SDFField(mu=0.1), JaxSDF(mu=0.1)
+    K = _t(scene["K"])
+    tm = _port_map(scene)
+    view = raycast.pack_view(tm, field)["F"]
+    grew = 0
+    for f in range(FRAME, FRAME + 4):
+        depth = _t(np.asarray(jpre.mm_to_meters(jnp.asarray(depths[f]),
+                                                (120, 160))))
+        pose = _t(poses[f].astype(np.float32))
+        live = octree.slot_mask(tm)
+        n_before = int(tm.n_blocks)
+        tm = integration.allocate_sdf(tm, depth, pose, K, 0.2)
+        grew += int(tm.n_blocks) - n_before
+        want = jrc.view_alloc_fill(jnp.asarray(view.to(torch.float32)
+                                               .numpy()).astype(jnp.bfloat16),
+                                   _jax_map(tm, scene["map"]),
+                                   jnp.asarray(live.numpy()), jfield)
+        view = raycast.view_alloc_fill(view, tm, live, field)
+        _assert_views_equal(view, want, f"frame {f}: view_alloc_fill")
+        dead = int((~(octree.slot_mask(tm) & tm.active)).sum())
+        tm, held = integration.integrate(tm, field, depth, pose, K,
+                                         budget=budget, view=view)
+        assert held is view and held.dtype == torch.bfloat16
+        _assert_views_equal(view, raycast.pack_view(tm, field)["F"],
+                            f"frame {f}: held vs pack_view")
+        _assert_views_equal(view, jrc.pack_view(_jax_map(tm, scene["map"]),
+                                                jfield)["F"],
+                            f"frame {f}: held vs JAX pack_view")
+        assert dead > 0
+    assert grew > 0

@@ -207,15 +207,23 @@ def test_node_fill_and_tiled_rows_match_jax(scene, channel):
 
 
 def test_pack_view_multiscale_matches_jax(scene):
+    """The view encoded on the [capacity, 512] table equals JAX's and the
+    earlier form (both channels tiled to [B^3, 512] in float32, encoded
+    there) bit for bit."""
     want = np.asarray(jrc.pack_view(scene["jmap"], scene["field"])["F"]
                       .astype(jnp.float32))
     field = make_field("ofusion", mu=MU, voxel_size=VS)
     got = raycast.pack_view(scene["tmap"], field)["F"]
     assert got.dtype == torch.bfloat16
     got = got.to(torch.float32).numpy()
-    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
-    ok = ~np.isnan(want)
-    np.testing.assert_array_equal(got[ok], want[ok])
+    tiled = {c.name: octree.pack_tiled_multiscale(scene["tmap"], c.name)
+             for c in scene["tmap"].channels}
+    earlier = torch.where(field.sample_valid(tiled), tiled["occupancy"],
+                          float("nan")).to(torch.bfloat16).float().numpy()
+    for other in (want, earlier):
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(other))
+        ok = ~np.isnan(other)
+        np.testing.assert_array_equal(got[ok], other[ok])
     # fused voxels, free space (< 0) and node fill all appear
     assert np.isnan(want).any() and (want[ok] < 0).any() \
         and (want[ok] > 0).any()

@@ -65,6 +65,28 @@ def test_build_pyramid_matches_jax(frames, frame, ratio):
         np.testing.assert_allclose(got_n, want_n, rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("sequence,frame,ratio", [
+    ("synthetic_256_frames_noisy", 10, 2),
+    ("synthetic_256_frames_noisy", 60, 1),
+    ("synthetic_256_frames", 40, 2)])
+def test_bilateral_filter_matches_jax(sequence, frame, ratio):
+    """Within 1e-6 relative; zero depth stays exactly 0 (a hole and the
+    sequence's own dropouts)."""
+    H, W = 240 // ratio, 320 // ratio
+    depth = np.asarray(jpre.mm_to_meters(
+        jnp.asarray(load_frames(sequence)[0][frame]), (H, W))).copy()
+    depth[H // 3:H // 2, W // 4:W // 3] = 0.0
+    want = np.asarray(jpre.bilateral_filter(jnp.asarray(depth)))
+    got = preprocessing.bilateral_filter(torch.from_numpy(depth)).numpy()
+    np.testing.assert_array_equal(got == 0, want == 0)
+    np.testing.assert_array_equal(got == 0, depth == 0)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    assert np.abs(want - depth).max() > 1e-3          # it does filter
+    np.testing.assert_array_equal(
+        preprocessing.gaussian_weights().numpy(),
+        np.asarray(jpre.gaussian_weights()))
+
+
 def test_se3_exp_matches_jax():
     rng = np.random.default_rng(0)
     twists = [rng.normal(0, s, 6).astype(np.float32)

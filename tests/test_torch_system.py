@@ -142,10 +142,10 @@ def test_slam_config_defaults_match_configuration():
         assert getattr(SlamConfig(), f.name) == getattr(cfg, f.name), f.name
 
 
-@pytest.mark.parametrize("knob", [dict(alloc_on_demand=0.01),
-                                  dict(bilateral_filter=True),
-                                  dict(raycast_normals="exact"),
-                                  dict(incremental_view=True),
+@pytest.mark.parametrize("knob", [dict(map_partitions=2),
+                                  dict(raycast_normals="stored"),
+                                  dict(raycast_refine="plane"),
+                                  dict(raycast_midsolve=True),
                                   dict(icp_symmetric="auto"),
                                   dict(icp_robust="huber")])
 def test_unported_knobs_raise(knob):

@@ -9,13 +9,15 @@ import os
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-FRAMES = os.path.join(HERE, "..", "bench_data", "synthetic_256_frames.npz")
+BENCH_DATA = os.path.join(HERE, "..", "bench_data")
 #: intrinsics of the cached 320x240 frames
 K_FULL = np.array([240.6, 240.0, 160.0, 120.0], np.float32)
 
 
-def load_frames():
-    z = np.load(FRAMES)
+def load_frames(sequence: str = "synthetic_256_frames"):
+    """(depths uint16 [96, 240, 320], poses [96, 4, 4]) of a cached
+    sequence in ``bench_data/``."""
+    z = np.load(os.path.join(BENCH_DATA, sequence + ".npz"))
     return z["depths"], z["poses"]
 
 
