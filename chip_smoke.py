@@ -5,9 +5,11 @@ GPU.
 1. Requires a CUDA device and prints its name and power limit, then builds
    every kernel from ``supereight_tpu_torch/csrc`` (one nvcc per source,
    all started together).
-2. Holds the SDF and the OFusion fusion kernel against their plain
-   PyTorch twins at main-path shapes (3072 rows of a real map, a 320x240
-   depth), with the median device time of each.
+2. Holds the SDF and the OFusion fusion kernel, each updating a map's
+   block table in place, against their plain PyTorch twins on clones of
+   the same table at main-path shapes (3072 distinct slots of a real map,
+   a 320x240 depth): whole tables and ``active`` compared, with the
+   median device time of each and the kernel's bound.
 3. Holds the gather-probe kernels (K2 ``lane_shuffle_sum``, K3
    ``slab_row_sum``) against their twins at the probe's shapes, bit for
    bit, then runs the probe (``probes/gather_probe.py``), the kernels' own
@@ -21,10 +23,15 @@ GPU.
    ``noise``; overflow is gated only where the record's is 0), that the
    frames went through the kernel, and that ``headline`` and ``ofusion``
    repeat the earlier runs' counts.  After each run the fusion kernel is
-   held against its twin on the operands the run's fusion takes (the whole
-   table with its dead rows, or the budget's rows), the held SDF view of
-   ``demo512-sdf`` against a full rebuild; each run prints its peak device
-   memory.
+   held against its twin on clones of the run's map with the slots its
+   fusion takes (every live slot, or the budget's frustum candidates):
+   whole tables, ``active`` and the held SDF view compared, the slots not
+   fused unchanged; the device time of that in-place launch is the fusion
+   step's.  Where the candidates are fewer than the budget, it is held
+   again at the budget's shape: a table of that many distinct slots
+   repeating the candidates' blocks.  The held SDF view of
+   ``demo512-sdf`` is held against a full rebuild; each run prints its
+   peak device memory.
 
 Every preset is built with ``config.apply_preset``.  Each run prints its
 wall time, the median ms per frame and the median of each stage (from a
@@ -34,12 +41,19 @@ Run from the repository root:  python3 chip_smoke.py
 It exits non-zero, printing no result line, if there is no CUDA device or
 any check fails.  The last line of its output is one JSON object; the line
 before it lists every kernel with its launches summed over the runs that
-took it, its largest difference from its twin and the median device times
-of both at the 3072-row shapes.
+took it, its largest difference from its twin, the median device times of
+both at the 3072-row shapes (the probe's for K2 and K3), the least time
+the card could take for that work (``bound_ms``: the bytes the call must
+move at 3.35 TB/s or its float32 operations at 67 TFLOP/s, the larger;
+for a fusion kernel, the bytes of the voxels this data updates) and,
+where one PyTorch call computes the same function, that call's time.
+Each fusion hold also prints the least time its warps take to issue
+their instructions, from the compiled code (`probes/sass_count.py`).
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -95,9 +109,17 @@ MIN_TRACKED = 88
 #: fills its table (its record overflows by 1891 blocks), so surface past
 #: the capacity is never allocated and cannot be hit
 MIN_HIT = dict(noise=0.4)
-KERNEL_ATOL = 1e-5       # tsdf/weight; visible must match exactly
-OF_RTOL, OF_ATOL = 1e-5, 1e-6   # occupancy: the last bits of logf
+OF_RTOL, OF_ATOL = 1e-5, 1e-6   # occupancy: the last bits of logf; the
+#                                 SDF, visible and timestamp bit for bit
 TIMED_RUNS = 25
+#: the H100 SXM's device memory rate and float32 rate outside the tensor
+#: cores (NVIDIA's data sheet, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+#: float operations (an fma counts two) of a voxel's projection and patch
+#: test, and of a fused voxel's update, counted in csrc/integrate.cu
+PROJECT_FLOPS = 34
+UPDATE_FLOPS = {"fuse_sdf": 19, "fuse_ofusion": 50}
 
 
 def fail(msg: str):
@@ -140,11 +162,16 @@ def load_record(file: str) -> dict:
                 blocks=r["blocks"], overflow=r["overflow"])
 
 
+def median_ms(fn, setup=None) -> float:
+    """Median device time (ms) of ``fn`` over TIMED_RUNS runs, each after
+    an untimed ``setup``."""
+    from supereight_tpu_torch.probes.timing import device_times_ms
+    return statistics.median(device_times_ms(fn, TIMED_RUNS, setup))
+
+
 def times(fn, plain):
     """Median device times (ms) of a kernel call and of its twin."""
-    from supereight_tpu_torch.probes.timing import device_times_ms
-    return (statistics.median(device_times_ms(fn, TIMED_RUNS)),
-            statistics.median(device_times_ms(plain, TIMED_RUNS)))
+    return median_ms(fn), median_ms(plain)
 
 
 def build_kernels():
@@ -158,27 +185,155 @@ def build_kernels():
         print(f"#   {os.path.relpath(lib_path, HERE)}")
         log = lib_path.with_name(lib_path.name + ".log")
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line:
+                print(f"#   ptxas: {line.split(chr(39))[1]}")
+            elif "registers" in line or "spill" in line:
                 print(f"#   ptxas: {line.strip()}")
 
 
-def fusion_rows(torch, slam, depths, dev, frame):
-    """3072 rows of the map of ``slam`` (its live blocks, repeated), frame
-    ``frame``'s depth, T_cw and K, all on the card."""
-    from supereight_tpu_torch.core import octree
-    from supereight_tpu_torch.pipeline import camera, preprocessing
-    m = slam.state.map
-    n = int(m.n_blocks)
-    idx = torch.arange(3072, device=dev) % n
-    depth = preprocessing.mm_to_meters(
-        torch.from_numpy(depths[frame].astype(np.int32)).to(dev), (240, 320))
-    return dict(n=n, bc=octree.block_coords_table(m)[idx].contiguous(),
-                live=m.active[idx].contiguous(),
-                rows={k: v[idx].contiguous() for k, v in m.voxels.items()},
-                depth=depth,
-                T_cw=torch.linalg.inv(slam.state.pose).contiguous(),
-                K=camera.camera_matrix(torch.from_numpy(K).to(dev))
-                .contiguous(), voxel_size=m.voxel_size)
+def bound(nbytes: float, flops: float):
+    """(bound ms, what binds): the larger of the bytes at the memory rate
+    and the float32 operations at the float32 rate."""
+    b_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    o_ms = 1e3 * flops / FP32_FLOPS_PER_S
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+@functools.lru_cache(maxsize=None)
+def issue_model():
+    """The fusion kernels' compiled main bodies (``cuobjdump -sass``) and
+    the card's warp-instruction issue rate, for the issue lower bound."""
+    from supereight_tpu_torch.probes import sass_count
+    return sass_count.kernel_bodies(), sass_count.card_issue_rate()[4]
+
+
+def clone_tables(m):
+    """``m`` with its own copy of the tables a fusion updates."""
+    return m.replace(voxels={k: v.clone() for k, v in m.voxels.items()},
+                     active=m.active.clone())
+
+
+def hold_kernel(torch, label, kernel, m, field, frame, now, slots=None,
+                view=None):
+    """The in-place fusion kernel and its twin on clones of ``m``'s
+    tables (and of ``view``) with ``slots`` (None: every live slot).
+    Whole tables and ``active`` must agree (the SDF and its view, visible
+    and timestamp bit for bit, occupancy within OF_RTOL / OF_ATOL), the
+    slots not fused must keep their rows and flags, and some voxel must
+    fuse.  Then both are timed, launching again on their clones.  Returns
+    dict(rows, max_abs_err, ms, plain_ms, bound_ms, bound_by, issue_ms)."""
+    from supereight_tpu_torch.core import morton, octree
+    from supereight_tpu_torch.ops import integrate_kernel as ik
+    from supereight_tpu_torch.probes import sass_count
+
+    if kernel == "fuse_ofusion":
+        names, params = ik.OFUSION_CHANNELS, (field.mu, field.sigma_lo, now)
+    else:
+        names, params = ik.SDF_CHANNELS, (field.mu, field.max_weight)
+    fn, plain = getattr(ik, kernel), getattr(ik, kernel + "_twin")
+    km, tm = clone_tables(m), clone_tables(m)
+    kw = [{}, {}] if view is None else [dict(view=view.clone()),
+                                         dict(view=view.clone())]
+    run = lambda: fn(km, *frame, *params, slots=slots, **kw[0])
+    run_plain = lambda: plain(tm, *frame, *params, slots=slots, **kw[1])
+    run()
+    run_plain()
+    torch.cuda.synchronize()
+
+    rows = (torch.nonzero(octree.slot_mask(m) & m.active)[:, 0]
+            if slots is None else slots.long())
+    kept = torch.ones(m.capacity, dtype=torch.bool, device=m.device)
+    kept[rows] = False
+    err = [(km.voxels[k] - tm.voxels[k]).abs() for k in names]
+    max_err = max(float(e.max()) for e in err)
+    if kernel == "fuse_ofusion":
+        beyond = int((err[0] > OF_ATOL + OF_RTOL
+                      * tm.voxels[names[0]].abs()).sum()) \
+            + int((err[1] != 0).sum())
+    else:
+        beyond = sum(int((e != 0).sum()) for e in err)
+    vis_mismatch = int((km.active != tm.active).sum())
+    changed_kept = sum(int((km.voxels[k][kept] != m.voxels[k][kept]).sum())
+                       for k in names) \
+        + int((km.active[kept] != m.active[kept]).sum())
+    changed = [tm.voxels[k] != m.voxels[k] for k in names]
+    updated = changed[0] | changed[1]
+    fused = int(updated.sum())
+    view_mismatch, view_note, view_sectors = 0, "", 0
+    if view is not None:
+        kv, tv = kw[0]["view"], kw[1]["view"]
+        view_mismatch = int((torch.isnan(kv) != torch.isnan(tv)).sum()) \
+            + int((torch.nan_to_num(kv) != torch.nan_to_num(tv)).sum())
+        view_note = f", held view {view_mismatch}"
+        same = (tv == view) | (torch.isnan(tv) & torch.isnan(view))
+        view_sectors = int((~same).view(-1, 16).any(-1).sum())
+    print(f"# {label}: {kernel} vs twin in place on {rows.numel()} of "
+          f"{m.capacity} slots ({'live' if slots is None else 'listed'}): "
+          f"{fused} voxels updated, {int(tm.active[rows].sum())} rows "
+          f"visible; mismatches active {vis_mismatch}, {beyond} voxels "
+          f"beyond the tolerance{view_note}; slots not fused changed "
+          f"{changed_kept}; max abs err {max_err:.3g}")
+    if fused == 0:
+        fail(f"{label}: the {kernel} comparison fused no voxel")
+    if vis_mismatch or beyond or view_mismatch or changed_kept:
+        fail(f"{label}: {kernel} and twin disagree")
+
+    # every timed launch fuses the same rows: on the whole-table branch the
+    # live set depends on `active`, which each launch rewrites
+    ms = median_ms(run, lambda: km.active.copy_(m.active))
+    plain_ms = median_ms(run_plain, lambda: tm.active.copy_(m.active))
+
+    # What the function needs to move: whether a voxel updates depends on
+    # the pose, the depth and the field, never on the stored values, so
+    # only the 32-byte sectors (8 voxels) holding updated voxels are read
+    # (both channels) and written (where a channel changed), and the
+    # view's changed sectors (16 voxels) written; besides, each row's key
+    # and `active`, the slots (or every slot's `active` and n_blocks), the
+    # depth image, T_cw and K.
+    depth, T_cw, Km = frame
+    n = rows.numel()
+    sectors = lambda x: int(x.view(-1, 8).any(-1).sum())
+    nbytes = 32 * (2 * sectors(updated) + sum(sectors(c) for c in changed)
+                   + view_sectors) \
+        + n * (8 + 1) + (m.capacity + 4 if slots is None else 4 * n) \
+        + depth.numel() * 4 + 2 * 64
+    b_ms, b_by = bound(nbytes, n * 512 * PROJECT_FLOPS
+                       + fused * UPDATE_FLOPS[kernel])
+    # the fewest instructions the launch's warps can issue, from the
+    # compiled code and which voxels of each warp this data updates
+    bc = torch.stack(morton.block_key_decode(m.keys[rows]), -1)
+    _, ds, _, _ = ik._sample_rows(bc, torch.ones_like(rows, dtype=torch.bool),
+                                  depth, T_cw, Km, m.voxel_size, ik.PATCH)
+    bodies, issue_per_s = issue_model()
+    dead_warps = sass_count.WARPS * (m.capacity - n) if slots is None else 0
+    issue_ms = sass_count.issue_lower_bound_ms(
+        bodies[kernel][0], sass_count.warp_classes(ds > 0, updated[rows]),
+        dead_warps, issue_per_s)
+    del ds
+    print(f"# {label}: {kernel} median device time over {TIMED_RUNS} runs "
+          f"at {n} rows: kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms; "
+          f"bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB of "
+          f"{fused} updated voxels), {100 * b_ms / ms:.0f} % of it; "
+          f"issue lower bound {issue_ms:.4f} ms, "
+          f"{100 * issue_ms / ms:.0f} % of it")
+    return dict(rows=n, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, issue_ms=issue_ms)
+
+
+def synthetic_table(torch, m, n_rows: int, rows=None):
+    """A table of ``n_rows`` distinct slots holding the blocks of ``m``'s
+    slots ``rows`` (default: its live slots), repeated with their voxels to
+    fill it, all live, and the slots int32[n_rows] that list them."""
+    if rows is None:
+        rows = torch.nonzero(m.active[:int(m.n_blocks)])[:, 0]
+    rows = rows.long()
+    idx = rows[torch.arange(n_rows, device=rows.device) % rows.numel()]
+    table = m.replace(
+        capacity=n_rows, keys=m.keys[idx].contiguous(),
+        active=torch.ones(n_rows, dtype=torch.bool, device=idx.device),
+        n_blocks=torch.tensor(n_rows, dtype=torch.int32, device=idx.device),
+        voxels={k: v[idx].contiguous() for k, v in m.voxels.items()})
+    return table, torch.arange(n_rows, dtype=torch.int32, device=idx.device)
 
 
 def warm_map(cfg, depths, poses, dev, frames: int):
@@ -190,88 +345,30 @@ def warm_map(cfg, depths, poses, dev, frames: int):
     return slam
 
 
-def check_fuse_sdf(torch, depths, poses, dev):
-    """SDF kernel vs twin on 3072 rows of the map after the first frames."""
-    from supereight_tpu_torch.ops import integrate_kernel as ik
-
-    slam = warm_map(preset_config("headline"), depths, poses, dev, 6)
-    r = fusion_rows(torch, slam, depths, dev, 6)
-    field = slam.field
-    args = (r["bc"], r["live"], r["rows"]["tsdf"], r["rows"]["weight"],
-            r["depth"], r["T_cw"], r["K"], field.mu, field.max_weight,
-            r["voxel_size"], ik.PATCH)
-
-    out = ik.fuse_sdf(*args)
-    ref = ik.fuse_sdf_reference(*args)
-    torch.cuda.synchronize()
-    vis_mismatch = int((out[2] != ref[2]).sum())
-    t_mismatch = int((out[0] != ref[0]).sum())
-    w_mismatch = int((out[1] != ref[1]).sum())
-    max_err = max(float((out[0] - ref[0]).abs().max()),
-                  float((out[1] - ref[1]).abs().max()))
-    fused = int((out[1] != args[3]).sum())
-    print(f"# fuse_sdf vs twin, 3072 rows of a {r['n']}-block map, "
-          f"320x240 depth: {fused} voxels fused, {int(out[2].sum())} rows "
-          f"visible; mismatches visible {vis_mismatch}, tsdf {t_mismatch}, "
-          f"weight {w_mismatch}; max abs err {max_err:.3g}")
-    if fused == 0:
-        fail("the fuse_sdf comparison fused no voxel")
-    if vis_mismatch or max_err > KERNEL_ATOL:
-        fail(f"fuse_sdf and twin disagree (visible {vis_mismatch}, max abs "
-             f"err {max_err} > {KERNEL_ATOL})")
-    ms, plain_ms = times(lambda: ik.fuse_sdf(*args),
-                         lambda: ik.fuse_sdf_reference(*args))
-    print(f"# fuse_sdf median device time over {TIMED_RUNS} runs: kernel "
-          f"{ms:.4f} ms, plain twin {plain_ms:.4f} ms")
-    return dict(name="fuse_sdf", route="cuda",
+def check_fusion_kernel(torch, kernel, preset, frames, depths, poses, dev):
+    """A fusion kernel against its twin on 3072 distinct slots holding the
+    live blocks of ``preset``'s map after its first ``frames`` frames,
+    fused with the next frame (the budget branch at the headline's
+    budget)."""
+    from supereight_tpu_torch.pipeline import camera, preprocessing
+    slam = warm_map(preset_config(preset), depths, poses, dev, frames)
+    m, slots = synthetic_table(torch, slam.state.map, 3072)
+    depth = preprocessing.mm_to_meters(
+        torch.from_numpy(depths[frames].astype(np.int32)).to(dev), (240, 320))
+    frame = (depth, torch.linalg.inv(slam.state.pose).contiguous(),
+             camera.camera_matrix(torch.from_numpy(K).to(dev)).contiguous())
+    now = float(np.float32(1.0 / 30.0) * np.float32(frames))
+    label = f"3072 slots of the {preset} map after {frames} frames " \
+        f"({int(slam.state.map.n_blocks)} blocks)"
+    r = hold_kernel(torch, label, kernel, m, slam.field, frame, now, slots)
+    replaces = ("supereight_tpu/ops/integrate_kernel.py:38"
+                if kernel == "fuse_sdf"
+                else "supereight_tpu/pipeline/integration.py:396")
+    return dict(name=kernel, route="cuda",
                 source="supereight_tpu_torch/csrc/integrate.cu",
-                replaces="supereight_tpu/ops/integrate_kernel.py:38",
-                launches=0, max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
-
-
-def check_fuse_ofusion(torch, depths, poses, dev):
-    """OFusion kernel vs twin on 3072 rows of the ofusion map after its
-    first 8 frames, fused with frame 8: visible and timestamp exact,
-    occupancy within OF_RTOL relative (OF_ATOL absolute)."""
-    from supereight_tpu_torch.ops import integrate_kernel as ik
-
-    slam = warm_map(preset_config("ofusion"), depths, poses, dev, 8)
-    r = fusion_rows(torch, slam, depths, dev, 8)
-    field = slam.field
-    now = float(np.float32(1.0 / 30.0) * np.float32(8))
-    args = (r["bc"], r["live"], r["rows"]["occupancy"],
-            r["rows"]["timestamp"], r["depth"], r["T_cw"], r["K"], field.mu,
-            field.sigma_lo, now, r["voxel_size"], ik.PATCH)
-
-    out = ik.fuse_ofusion(*args)
-    ref = ik.fuse_ofusion_reference(*args)
-    torch.cuda.synchronize()
-    vis_mismatch = int((out[2] != ref[2]).sum())
-    ts_mismatch = int((out[1] != ref[1]).sum())
-    occ_mismatch = int((out[0] != ref[0]).sum())
-    err = (out[0] - ref[0]).abs()
-    max_err = float(err.max())
-    beyond = int((err > OF_ATOL + OF_RTOL * ref[0].abs()).sum())
-    fused = int((out[1] == now).sum())
-    print(f"# fuse_ofusion vs twin, 3072 rows of a {r['n']}-block map, "
-          f"320x240 depth: {fused} voxels fused, {int(out[2].sum())} rows "
-          f"visible; mismatches visible {vis_mismatch}, timestamp "
-          f"{ts_mismatch}, occupancy {occ_mismatch} ({beyond} beyond the "
-          f"tolerance); max abs err {max_err:.3g}")
-    if fused == 0:
-        fail("the fuse_ofusion comparison fused no voxel")
-    if vis_mismatch or ts_mismatch or beyond:
-        fail(f"fuse_ofusion and twin disagree (visible {vis_mismatch}, "
-             f"timestamp {ts_mismatch}, occupancy beyond the tolerance "
-             f"{beyond})")
-    ms, plain_ms = times(lambda: ik.fuse_ofusion(*args),
-                         lambda: ik.fuse_ofusion_reference(*args))
-    print(f"# fuse_ofusion median device time over {TIMED_RUNS} runs: "
-          f"kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms")
-    return dict(name="fuse_ofusion", route="cuda",
-                source="supereight_tpu_torch/csrc/integrate.cu",
-                replaces="supereight_tpu/pipeline/integration.py:396",
-                launches=0, max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+                replaces=replaces, launches=0, max_abs_err=r["max_abs_err"],
+                ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], library_ms=None)
 
 
 def check_probe_kernels(torch, dev):
@@ -286,16 +383,30 @@ def check_probe_kernels(torch, dev):
     idx = probe.shuffle_inputs(d, 1, dev)[0]
     table = probe.table16(d, dev)
     rows = probe.rows_inputs(d, 1, dev)[0]
+    slabs = table.view(-1, gp.SLAB_ROWS * table.shape[1])
+    bags = (rows // gp.SLAB_ROWS).long()[None]
+    n_slabs = int(torch.unique(rows).numel())
+    # bytes each input read once and the output written once; K3 reads the
+    # distinct slabs its rows name, not the whole table
+    k2_bytes = src.nbytes + idx.nbytes + src.nbytes
+    k3_bytes = rows.nbytes + n_slabs * slabs.shape[1] * 2 \
+        + gp.SLAB_ROWS * table.shape[1] * 4
     cases = (
         ("lane_shuffle_sum", "scripts/pallas_gather_probe.py:105",
          lambda: gp.lane_shuffle_sum(src, idx, probe.KREP),
-         lambda: gp.lane_shuffle_sum_reference(src, idx, probe.KREP)),
+         lambda: gp.lane_shuffle_sum_reference(src, idx, probe.KREP),
+         bound(k2_bytes, src.numel() * probe.KREP), None),
+        # one call that gathers and sums the same slabs: embedding_bag
+        # (it sums in its own order and returns bf16)
         ("slab_row_sum", "scripts/pallas_gather_probe.py:146",
          lambda: gp.slab_row_sum(rows, table),
-         lambda: gp.slab_row_sum_reference(rows, table)),
+         lambda: gp.slab_row_sum_reference(rows, table),
+         bound(k3_bytes, rows.numel() * slabs.shape[1]),
+         lambda: torch.nn.functional.embedding_bag(bags, slabs,
+                                                   mode="sum")),
     )
     kernels = {}
-    for name, replaces, fn, plain in cases:
+    for name, replaces, fn, plain, (b_ms, b_by), library in cases:
         out, ref = fn(), plain()
         torch.cuda.synchronize()
         mismatch = int((out != ref).sum())
@@ -305,12 +416,16 @@ def check_probe_kernels(torch, dev):
         if mismatch:
             fail(f"{name} and its twin are not bit-identical")
         ms, plain_ms = times(fn, plain)
+        library_ms = None if library is None else median_ms(library)
         print(f"# {name} median device time over {TIMED_RUNS} runs: kernel "
-              f"{ms:.4f} ms, plain twin {plain_ms:.4f} ms")
+              f"{ms:.4f} ms, plain twin {plain_ms:.4f} ms, one PyTorch call "
+              f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}; "
+              f"bound {b_ms:.5f} ms ({b_by}), {100 * b_ms / ms:.1f} % of it")
         kernels[name] = dict(
             name=name, route="cuda",
             source="supereight_tpu_torch/csrc/gather_probe.cu",
-            replaces=replaces, max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+            replaces=replaces, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
 
     for k in gp.LAUNCHES:
         gp.LAUNCHES[k] = 0
@@ -403,73 +518,43 @@ def check_run(torch, name, r, poses, record, max_ate, counter):
 
 
 def check_path_kernel(torch, name, slam, cfg):
-    """The run's fusion kernel against its twin on the operands its fusion
-    takes at the last frame (`integration.fusion_operands`): the whole
-    table with its dead rows when the budget is 0 or the capacity, else the
-    budget's rows (the frustum candidates, repeated up to the budget).
-    Dead rows must come back unchanged.  Returns (kernel, max abs err)."""
-    from supereight_tpu_torch.core import octree
-    from supereight_tpu_torch.ops import integrate_kernel as ik
+    """The run's fusion kernel against its twin on clones of the run's map
+    (and held SDF view), with the slots its fusion takes at the last frame
+    (`integration.fusion_operands`): every live slot when the budget is 0
+    or the capacity, else the budget's frustum candidates.  The device
+    time of that launch is the fusion step's.  When the candidates are
+    fewer than the budget, the kernel is held again at the budget's shape:
+    a table of ``budget`` distinct slots repeating the candidates' blocks
+    (`synthetic_table`).  Returns (kernel, max abs err)."""
     from supereight_tpu_torch.pipeline import camera, integration
 
     st, field = slam.state, slam.field
     m = st.map
-    depth = st.scaled_depth if cfg.fuse_filtered else st.float_depth
+    depth = (st.scaled_depth if cfg.fuse_filtered else st.float_depth) \
+        .contiguous()
     T_cw = torch.linalg.inv(st.pose).contiguous()
-    Km = camera.camera_matrix(torch.from_numpy(K).to(depth.device))
-    sel, bc, live, rows, _ = integration.fusion_operands(
-        m, T_cw, Km, depth.shape, cfg.integrate_budget)
-    if sel is not None:
-        idx = sel[torch.arange(cfg.integrate_budget, device=sel.device)
-                  % sel.numel()]
-        bc = octree.block_coords_table(m)[idx].contiguous()
-        live = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
-        rows = {k: v[idx].contiguous() for k, v in m.voxels.items()}
+    Km = camera.camera_matrix(torch.from_numpy(K).to(depth.device)) \
+        .contiguous()
+    slots, _ = integration.fusion_operands(m, T_cw, Km, depth.shape,
+                                           cfg.integrate_budget)
     now = float(np.float32(1.0 / 30.0) * np.float32(95))
-    if field.name == "ofusion":
-        kernel, names = "fuse_ofusion", ("occupancy", "timestamp")
-        params = (field.mu, field.sigma_lo, now)
-    else:
-        kernel, names = "fuse_sdf", ("tsdf", "weight")
-        params = (field.mu, field.max_weight)
-    args = (bc, live, rows[names[0]], rows[names[1]], depth, T_cw, Km,
-            *params, m.voxel_size, ik.PATCH)
-    fn = getattr(ik, kernel)
-    plain = getattr(ik, kernel + "_reference")
-    out, ref = fn(*args), plain(*args)
-    torch.cuda.synchronize()
-    dead = ~live
-    n_dead = int(dead.sum())
-    dead_changed = sum(int((o[dead] != a[dead]).sum())
-                       for o, a in zip(out[:2], args[2:4]))
-    vis_mismatch = int((out[2] != ref[2]).sum())
-    err = [(o - r).abs() for o, r in zip(out[:2], ref[:2])]
-    max_err = max(float(e.max()) for e in err)
-    if kernel == "fuse_ofusion":
-        # occupancy within tolerance, timestamp exact
-        beyond = int((err[0] > OF_ATOL + OF_RTOL * ref[0].abs()).sum()) \
-            + int((err[1] != 0).sum())
-        fused = int((out[1] == now).sum())
-    else:
-        beyond = sum(int((e > KERNEL_ATOL).sum()) for e in err)
-        fused = int((out[1] != args[3]).sum())
-    branch = "all rows" if sel is None else \
-        f"budget rows ({sel.numel()} candidates)"
-    print(f"# {name}: {kernel} vs twin on {bc.shape[0]} rows, {branch}, "
-          f"{n_dead} dead: {fused} voxels fused, {int(out[2].sum())} rows "
-          f"visible; mismatches visible {vis_mismatch}, {names[0]} "
-          f"{int((out[0] != ref[0]).sum())}, {names[1]} "
-          f"{int((out[1] != ref[1]).sum())} ({beyond} beyond the "
-          f"tolerance); dead rows changed {dead_changed}; max abs err "
-          f"{max_err:.3g}")
-    if fused == 0:
-        fail(f"{name}: the {kernel} comparison fused no voxel")
-    if vis_mismatch or beyond or dead_changed:
-        fail(f"{name}: {kernel} and twin disagree")
-    ms, plain_ms = times(lambda: fn(*args), lambda: plain(*args))
-    print(f"# {name}: {kernel} median device time at {bc.shape[0]} rows "
-          f"over {TIMED_RUNS} runs: kernel {ms:.4f} ms, plain twin "
-          f"{plain_ms:.4f} ms")
+    kernel = "fuse_ofusion" if field.name == "ofusion" else "fuse_sdf"
+    view = st.view if kernel == "fuse_sdf" else None
+    frame = (depth, T_cw, Km)
+    r = hold_kernel(torch, name, kernel, m, field, frame, now, slots, view)
+    print(f"# {name}: fusion step (in-place {kernel} on the run's "
+          f"{r['rows']} {'live' if slots is None else 'listed'} slots"
+          f"{', held view' if view is not None else ''}) device time "
+          f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
+    max_err = r["max_abs_err"]
+    if slots is not None and slots.numel() < cfg.integrate_budget:
+        table, budget_slots = synthetic_table(torch, m, cfg.integrate_budget,
+                                              slots)
+        r = hold_kernel(torch, f"{name} (budget shape: {cfg.integrate_budget}"
+                        f" slots repeating the {slots.numel()} candidates)",
+                        kernel, table, field, frame, now, budget_slots, view)
+        max_err = max(max_err, r["max_abs_err"])
+        del table
     return kernel, max_err
 
 
@@ -553,8 +638,11 @@ def main():
     depths, poses = load_sequence("synthetic_256_frames")
 
     build_kernels()
-    kernels = {"fuse_sdf": check_fuse_sdf(torch, depths, poses, dev),
-               "fuse_ofusion": check_fuse_ofusion(torch, depths, poses, dev)}
+    kernels = {
+        "fuse_sdf": check_fusion_kernel(torch, "fuse_sdf", "headline", 6,
+                                        depths, poses, dev),
+        "fuse_ofusion": check_fusion_kernel(torch, "fuse_ofusion", "ofusion",
+                                            8, depths, poses, dev)}
     kernels.update(check_probe_kernels(torch, dev))
     for name in RUNS:
         run_preset(torch, name, dev, kernels)

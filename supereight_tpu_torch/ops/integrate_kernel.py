@@ -1,22 +1,33 @@
-"""Projective fusion over compacted block rows: the hand-written CUDA
+"""Projective fusion in place on the block table: the hand-written CUDA
 kernels (`csrc/integrate.cu`) and their plain PyTorch twins, for the SDF
 (:func:`fuse_sdf`) and the OFusion field (:func:`fuse_ofusion`).
 
 Counterparts of `supereight_tpu/ops/integrate_kernel.py` (the Pallas TPU
 kernel K1, SDF only) and of the body of `supereight_tpu/pipeline/
-integration.py:fuse_rows`, which computes both.  A wrapper launches its
-kernel for CUDA tensors and takes its twin only for CPU tensors; there is no
-fallback between the two.
+integration.py:fuse_rows`, which computes both, with the row gather before
+it and the scatter after it.  A call updates the map's two channel tables
+and its ``active`` flags in place (and, for the SDF, the rows of a held read
+view): on the budget branch the listed ``slots``, else every live slot.
+That is the update JAX's ``.at[slots].set`` makes when XLA donates the
+table.  A wrapper launches its kernel for CUDA tensors and takes its twin
+only for CPU tensors; there is no fallback between the two.
+
+``fuse_sdf_reference`` and ``fuse_ofusion_reference`` are the row function
+the twins apply to the gathered rows (``fuse_rows``' function, held against
+the JAX package by the CPU tests).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
+from supereight_tpu_torch.core import morton, octree
 from supereight_tpu_torch.core.numerics import matvec, trunc_i32
-from supereight_tpu_torch.core.octree import BLOCK_SIDE, BLOCK_VOXELS
+from supereight_tpu_torch.core.octree import (BLOCK_SIDE, BLOCK_VOXELS,
+                                              VoxelMap)
 from supereight_tpu_torch.fields.ofusion import OFusionField
 from supereight_tpu_torch.fields.sdf import SDFField
 
@@ -88,8 +99,8 @@ def _sample_rows(bc, live, depth, T_cw, K, voxel_size: float, patch: int):
 def fuse_sdf_reference(bc, live, tsdf, weight, depth, T_cw, K, mu: float,
                        max_weight: float, voxel_size: float,
                        patch: int = PATCH):
-    """Plain PyTorch version of the SDF kernel: ``fuse_rows``' function
-    with :class:`SDFField`.
+    """The SDF row function: ``fuse_rows``' function with
+    :class:`SDFField`, on gathered rows.
 
     ``bc`` int32[n,3] block coords, ``live`` bool[n], ``tsdf``/``weight``
     f32[n,512], ``depth`` f32[H,W], ``T_cw``/``K`` f32[4,4].  Returns
@@ -103,23 +114,11 @@ def fuse_sdf_reference(bc, live, tsdf, weight, depth, T_cw, K, mu: float,
     return new["tsdf"], new["weight"], visible
 
 
-def fuse_sdf(bc, live, tsdf, weight, depth, T_cw, K, mu: float,
-             max_weight: float, voxel_size: float, patch: int = PATCH):
-    """SDF fusion of block rows (see :func:`fuse_sdf_reference` for the
-    arguments).  CPU tensors go through the plain twin; CUDA tensors
-    launch the kernel, which raises if it cannot."""
-    if tsdf.device.type == "cpu":
-        return fuse_sdf_reference(bc, live, tsdf, weight, depth, T_cw, K,
-                                  mu, max_weight, voxel_size, patch)
-    return _launch("fuse_sdf", bc, live, tsdf, weight, depth, T_cw, K,
-                   (mu, max_weight), voxel_size, patch)
-
-
 def fuse_ofusion_reference(bc, live, occupancy, timestamp, depth, T_cw, K,
                            mu: float, sigma_lo: float, now: float,
                            voxel_size: float, patch: int = PATCH):
-    """Plain PyTorch version of the OFusion kernel: ``fuse_rows``' function
-    with :class:`OFusionField` (``sigma_lo`` its sensor-model sigma's lower
+    """The OFusion row function: ``fuse_rows``' function with
+    :class:`OFusionField` (``sigma_lo`` its sensor-model sigma's lower
     bound, ``now`` the frame's float32 timestamp).  Arguments and results as
     :func:`fuse_sdf_reference`, with the channels occupancy and
     timestamp."""
@@ -132,64 +131,157 @@ def fuse_ofusion_reference(bc, live, occupancy, timestamp, depth, T_cw, K,
     return new["occupancy"], new["timestamp"], visible
 
 
-def fuse_ofusion(bc, live, occupancy, timestamp, depth, T_cw, K, mu: float,
-                 sigma_lo: float, now: float, voxel_size: float,
-                 patch: int = PATCH):
-    """OFusion fusion of block rows (see :func:`fuse_ofusion_reference`).
-    CPU tensors go through the plain twin; CUDA tensors launch the kernel,
-    which raises if it cannot."""
-    if occupancy.device.type == "cpu":
-        return fuse_ofusion_reference(bc, live, occupancy, timestamp, depth,
-                                      T_cw, K, mu, sigma_lo, now, voxel_size,
-                                      patch)
-    return _launch("fuse_ofusion", bc, live, occupancy, timestamp, depth,
-                   T_cw, K, (mu, sigma_lo, now), voxel_size, patch)
+#: each field's two channels, in the kernels' order
+SDF_CHANNELS = ("tsdf", "weight")
+OFUSION_CHANNELS = ("occupancy", "timestamp")
 
 
-def _launch(fn: str, bc, live, a, b, depth, T_cw, K, params, voxel_size,
-            patch):
-    """Check the operands, launch kernel ``fn`` of `csrc/integrate.cu` on
-    two channels ``a``/``b`` with the field's float ``params``, and return
-    (a', b', visible)."""
+def _twin(row_fn, names, m: VoxelMap, depth, T_cw, K, params,
+          slots: Optional[torch.Tensor], patch: int):
+    """The in-place contract in plain PyTorch: gather the rows of ``slots``
+    (every live slot when None), apply ``row_fn``, scatter the channels and
+    ``active`` back with ``index_copy_``.  Returns (block coordinates,
+    channel 0', channel 1') of the fused rows."""
+    if slots is None:
+        slots = torch.nonzero(octree.slot_mask(m) & m.active)[:, 0]
+    slots = slots.long()
+    bc = torch.stack(morton.block_key_decode(m.keys[slots]), dim=-1)
+    a, b = (m.voxels[name] for name in names)
+    ones = torch.ones(slots.shape, dtype=torch.bool, device=slots.device)
+    a_new, b_new, visible = row_fn(bc, ones, a[slots], b[slots], depth, T_cw,
+                                   K, *params, m.voxel_size, patch)
+    a.index_copy_(0, slots, a_new)
+    b.index_copy_(0, slots, b_new)
+    m.active.index_copy_(0, slots, visible)
+    return bc, a_new, b_new
+
+
+def fuse_sdf_twin(m: VoxelMap, depth, T_cw, K, mu: float, max_weight: float,
+                  slots: Optional[torch.Tensor] = None,
+                  view: Optional[torch.Tensor] = None,
+                  patch: int = PATCH) -> None:
+    """Plain PyTorch version of the SDF kernel, with its in-place contract
+    (see :func:`fuse_sdf`)."""
+    bc, tsdf, weight = _twin(fuse_sdf_reference, SDF_CHANNELS, m, depth,
+                             T_cw, K, (mu, max_weight), slots, patch)
+    if view is not None:
+        B = m.blocks_per_edge
+        rows = ((bc[:, 0] * B + bc[:, 1]) * B + bc[:, 2]).long()
+        enc = torch.where(weight != 0, tsdf, float("nan")).to(view.dtype)
+        view.index_copy_(0, rows, enc)
+
+
+def fuse_sdf(m: VoxelMap, depth, T_cw, K, mu: float, max_weight: float,
+             slots: Optional[torch.Tensor] = None,
+             view: Optional[torch.Tensor] = None,
+             patch: int = PATCH) -> None:
+    """SDF fusion of one depth frame into the map ``m``, in place.
+
+    ``slots`` int32[n], ascending and unique, inside the table (the budget
+    branch): the slots to fuse, live or not; at most ``capacity`` of them
+    (checked), and on the card a repeated slot races and a slot outside
+    the table is skipped.  None (the whole-table branch): every live slot
+    (below ``n_blocks`` and active); the others keep their voxels and
+    ``active``.  Each fused slot's ``tsdf``/``weight`` rows take the update
+    of :func:`fuse_sdf_reference` and its ``active`` flag becomes its
+    visibility (any voxel in frame and in its block's patch).  ``view``: a
+    held bf16 read view ``[B^3, 512]`` holding the encoding (``weight != 0
+    ? tsdf : NaN``) of the table's rows, as a held view does; the fused
+    blocks' rows take their new encoding (the kernel rewrites only the
+    entries of updated voxels, which is the same while that holds).
+    ``depth`` f32[H,W], ``T_cw``/``K`` f32[4,4].  CPU tensors take the
+    plain twin; CUDA tensors launch the kernel, which raises if it
+    cannot."""
+    if m.voxels["tsdf"].device.type == "cpu":
+        return fuse_sdf_twin(m, depth, T_cw, K, mu, max_weight, slots, view,
+                             patch)
+    _launch("fuse_sdf", m, SDF_CHANNELS, slots, view, depth, T_cw, K,
+            (mu, max_weight), patch)
+
+
+def fuse_ofusion_twin(m: VoxelMap, depth, T_cw, K, mu: float,
+                      sigma_lo: float, now: float,
+                      slots: Optional[torch.Tensor] = None,
+                      patch: int = PATCH) -> None:
+    """Plain PyTorch version of the OFusion kernel, with its in-place
+    contract (see :func:`fuse_ofusion`)."""
+    _twin(fuse_ofusion_reference, OFUSION_CHANNELS, m, depth, T_cw, K,
+          (mu, sigma_lo, now), slots, patch)
+
+
+def fuse_ofusion(m: VoxelMap, depth, T_cw, K, mu: float, sigma_lo: float,
+                 now: float, slots: Optional[torch.Tensor] = None,
+                 patch: int = PATCH) -> None:
+    """OFusion fusion of one depth frame taken at ``now`` (a float32 value)
+    into the map ``m``, in place: the contract of :func:`fuse_sdf` with the
+    channels occupancy and timestamp and the update of
+    :func:`fuse_ofusion_reference` (no view: a multiscale view is
+    rebuilt).  CPU tensors take the plain twin; CUDA tensors launch the
+    kernel, which raises if it cannot."""
+    if m.voxels["occupancy"].device.type == "cpu":
+        return fuse_ofusion_twin(m, depth, T_cw, K, mu, sigma_lo, now, slots,
+                                 patch)
+    _launch("fuse_ofusion", m, OFUSION_CHANNELS, slots, None, depth, T_cw, K,
+            (mu, sigma_lo, now), patch)
+
+
+def _check(fn: str, dev, specs) -> None:
+    for name, t, dt, shape, align in specs:
+        if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
+                or not t.is_contiguous() or t.data_ptr() % align):
+            raise ValueError(f"{fn}: {name} must be a contiguous {dt} "
+                             f"{shape} tensor on {dev}, {align}-byte aligned,"
+                             f" got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _launch(fn: str, m: VoxelMap, names: Tuple[str, str],
+            slots: Optional[torch.Tensor], view: Optional[torch.Tensor],
+            depth, T_cw, K, params, patch: int) -> None:
+    """Check the operands and launch kernel ``fn`` of `csrc/integrate.cu`
+    on the map's channels ``names`` with the field's float ``params``:
+    one CTA per listed slot, or per slot of the table."""
+    a, b = (m.voxels[name] for name in names)
     dev = a.device
     if dev.type != "cuda":
         raise ValueError(f"{fn}: no kernel for device {dev}")
-    n = bc.shape[0]
+    cap = m.capacity
     H, W = depth.shape
-    for name, t, dt, shape in (("bc", bc, torch.int32, (n, 3)),
-                               ("live", live, torch.bool, (n,)),
-                               ("channel 0", a, torch.float32,
-                                (n, BLOCK_VOXELS)),
-                               ("channel 1", b, torch.float32,
-                                (n, BLOCK_VOXELS)),
-                               ("depth", depth, torch.float32, (H, W)),
-                               ("T_cw", T_cw, torch.float32, (4, 4)),
-                               ("K", K, torch.float32, (4, 4))):
-        if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(f"{fn}: {name} must be a contiguous {dt} "
-                             f"{shape} tensor on {dev}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-    a_out = torch.empty_like(a)
-    b_out = torch.empty_like(b)
-    visible = torch.empty((n,), dtype=torch.bool, device=dev)
-    if n == 0:
-        return a_out, b_out, visible
+    specs = [("channel 0", a, torch.float32, (cap, BLOCK_VOXELS), 16),
+             ("channel 1", b, torch.float32, (cap, BLOCK_VOXELS), 16),
+             ("active", m.active, torch.bool, (cap,), 1),
+             ("keys", m.keys, torch.int64, (cap,), 8),
+             ("n_blocks", m.n_blocks, torch.int32, (), 4),
+             ("depth", depth, torch.float32, (H, W), 4),
+             ("T_cw", T_cw, torch.float32, (4, 4), 4),
+             ("K", K, torch.float32, (4, 4), 4)]
+    if slots is not None:
+        if slots.dim() != 1 or slots.shape[0] > cap:
+            raise ValueError(f"{fn}: slots must list at most the {cap} "
+                             f"slots of the table, got {tuple(slots.shape)}")
+        specs.append(("slots", slots, torch.int32, (slots.shape[0],), 4))
+    B = m.blocks_per_edge
+    if view is not None:
+        specs.append(("view", view, torch.bfloat16,
+                      (B * B * B, BLOCK_VOXELS), 8))
+    _check(fn, dev, specs)
+    n_rows = cap if slots is None else slots.shape[0]
+    if n_rows == 0:
+        return
 
     from . import _build
     c_fn = getattr(_build.load("integrate"), fn)
     P = ctypes.c_void_p
-    c_fn.argtypes = [P] * 10 + [ctypes.c_int] * 3 \
+    ptrs = [slots, m.keys, m.n_blocks, m.active, a, b] \
+        + ([view] if fn == "fuse_sdf" else []) + [depth, T_cw, K]
+    ints = [n_rows, cap, H, W] + ([B] if fn == "fuse_sdf" else [])
+    c_fn.argtypes = [P] * len(ptrs) + [ctypes.c_int] * len(ints) \
         + [ctypes.c_float] * (len(params) + 2) + [ctypes.c_int, P]
     c_fn.restype = ctypes.c_int
-    diag = 1.7320508 * BLOCK_SIDE * voxel_size
+    diag = 1.7320508 * BLOCK_SIDE * m.voxel_size
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = c_fn(bc.data_ptr(), live.data_ptr(), a.data_ptr(), b.data_ptr(),
-                   depth.data_ptr(), T_cw.data_ptr(), K.data_ptr(),
-                   a_out.data_ptr(), b_out.data_ptr(), visible.data_ptr(), n,
-                   H, W, *params, voxel_size, diag, patch, stream)
+        err = c_fn(*(None if t is None else t.data_ptr() for t in ptrs),
+                   *ints, *params, m.voxel_size, diag, patch, stream)
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")
     LAUNCHES[fn] += 1
-    return a_out, b_out, visible

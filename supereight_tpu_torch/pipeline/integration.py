@@ -4,12 +4,12 @@
 SDF allocation is the per-pixel band march of ``buildAllocationList`` over a
 (decimated) pixel grid, deduplicated by one dense block mask; OFusion's is
 the distance-adaptive octant march of ``buildOctantList``, one dense request
-mask per octree level.  Fusion compacts the frustum candidates into at most
-``budget`` rows and fuses them through the field's kernel
-(`ops/integrate_kernel.py`: ``fuse_sdf`` or ``fuse_ofusion``), then updates
-the coarse node pyramid and, for a held SDF read view, the fused rows of
-the view.  ``unallocated_fraction`` is the on-demand allocation gate's
-signal.
+mask per octree level.  Fusion picks at most ``budget`` frustum candidates
+(or every live slot) and fuses them in place on the map's block table
+through the field's kernel (`ops/integrate_kernel.py`: ``fuse_sdf`` or
+``fuse_ofusion``, which also writes a held SDF read view's fused rows),
+then updates the coarse node pyramid.  ``unallocated_fraction`` is the
+on-demand allocation gate's signal.
 """
 
 from __future__ import annotations
@@ -25,7 +25,6 @@ from supereight_tpu_torch.core.octree import BLOCK_SIDE, VoxelMap
 from supereight_tpu_torch.fields.ofusion import (compute_stepsize,
                                                  step_to_depth)
 from supereight_tpu_torch.ops import integrate_kernel
-from . import raycast
 from .constants import FAR_PLANE
 from .preprocessing import norm
 
@@ -237,35 +236,29 @@ def frustum_candidates(m: VoxelMap, T_cw, K, frame_hw):
 
 
 def fusion_operands(m: VoxelMap, T_cw, K, frame_hw, budget: int = 0):
-    """What a fusion kernel takes for this map: ``(sel, bc, live, rows,
-    dropped)``.  With ``0 < budget < capacity``: the first ``budget``
-    frustum candidates in slot order (``sel`` their slots, all live) and
-    the count of candidates past the budget.  Otherwise every slot of the
-    table (``sel`` None), live where allocated and active."""
+    """The slots a fusion takes for this map: ``(slots, dropped)``.  With
+    ``0 < budget < capacity``: ``slots`` int32, the first ``budget``
+    frustum candidates in ascending slot order, and the count of candidates
+    past the budget.  Otherwise ``(None, 0)``: every live slot fuses."""
     if budget and budget < m.capacity:
         idx = torch.nonzero(frustum_candidates(m, T_cw, K, frame_hw))[:, 0]
-        sel = idx[:budget]                        # ascending slot order
-        return (sel, octree.block_coords_table(m)[sel],
-                torch.ones(sel.shape, dtype=torch.bool, device=sel.device),
-                {name: v[sel] for name, v in m.voxels.items()},
+        return (idx[:budget].to(torch.int32).contiguous(),
                 max(idx.numel() - budget, 0))
-    return (None, octree.block_coords_table(m),
-            octree.slot_mask(m) & m.active, m.voxels, 0)
+    return None, 0
 
 
-def fuse(field, bc, live, rows, depth, T_cw, K, timestamp: float,
-         voxel_size: float, patch: int = PATCH):
-    """The field's fusion kernel on ``fusion_operands``: ``(names,
-    (channel 0', channel 1', visible))``."""
+def fuse(field, m: VoxelMap, slots, depth, T_cw, K, timestamp: float,
+         patch: int = PATCH, view=None) -> None:
+    """The field's fusion kernel on the map ``m``, in place: its channel
+    tables and ``active`` (and ``view``'s fused rows) take the update of
+    the ``slots`` of ``fusion_operands``."""
     if field.name == "ofusion":
-        names = ("occupancy", "timestamp")
-        return names, integrate_kernel.fuse_ofusion(
-            bc, live, rows[names[0]], rows[names[1]], depth, T_cw, K,
-            field.mu, field.sigma_lo, timestamp, voxel_size, patch)
-    names = ("tsdf", "weight")
-    return names, integrate_kernel.fuse_sdf(
-        bc, live, rows[names[0]], rows[names[1]], depth, T_cw, K, field.mu,
-        field.max_weight, voxel_size, patch)
+        integrate_kernel.fuse_ofusion(m, depth, T_cw, K, field.mu,
+                                      field.sigma_lo, timestamp, slots,
+                                      patch)
+    else:
+        integrate_kernel.fuse_sdf(m, depth, T_cw, K, field.mu,
+                                  field.max_weight, slots, view, patch)
 
 
 def integrate(m: VoxelMap, field, depth, pose, K, timestamp: float = 0.0,
@@ -276,39 +269,27 @@ def integrate(m: VoxelMap, field, depth, pose, K, timestamp: float = 0.0,
     voxels and active flag and count into ``overflow``.  Fused rows refresh
     ``active`` from visibility.
 
+    The update is made in place: the returned map holds the voxel tables
+    and ``active`` of ``m``, updated, so ``m`` itself must not be read as
+    the map before this frame afterwards (clone its tables first to keep
+    it).  That is the update JAX's ``.at[slots].set`` makes when XLA
+    donates the table.
+
     ``view`` (single-scale fields): the raycaster's held read view; the
-    fused live rows are re-encoded and written into it in place, and
+    kernel writes the fused live rows' encoding into it in place, and
     ``(map, view)`` is returned.  Bricks change only here, so the view
     stays equal to ``raycast.pack_view`` of the map."""
+    if view is not None and field.multiscale_alloc:
+        raise ValueError("a held view is updated by fusion for single-scale "
+                         "fields only (the multiscale view is rebuilt)")
     T_cw = torch.linalg.inv(pose).contiguous()
     K = K.contiguous()
     depth = depth.contiguous()
-    sel, bc, live, rows, dropped = fusion_operands(m, T_cw, K, depth.shape,
-                                                   budget)
-    names, fused = fuse(field, bc, live, rows, depth, T_cw, K, timestamp,
-                        m.voxel_size, patch)
-    visible = fused[2]
-
-    if sel is not None:
-        voxels = {name: m.voxels[name].index_copy(0, sel, new)
-                  for name, new in zip(names, fused)}
-        active = m.active.index_copy(0, sel, visible)
-        slots = sel
-    else:
-        voxels = dict(zip(names, fused))
-        active = torch.where(live, visible, m.active)
-        slots = torch.nonzero(live)[:, 0]
-    m = m.replace(voxels=voxels, active=active,
-                  overflow=m.overflow + dropped)
-    m = _update_nodes(m, field, depth, T_cw, K, timestamp)
-    if view is None:
-        return m
-    if field.multiscale_alloc:
-        raise ValueError("a held view is updated by fusion for single-scale "
-                         "fields only (the multiscale view is rebuilt)")
-    enc = raycast.encode_view_rows(field, {name: m.voxels[name][slots]
-                                           for name in names})
-    return m, view.index_copy_(0, octree.block_rows(m)[slots], enc)
+    slots, dropped = fusion_operands(m, T_cw, K, depth.shape, budget)
+    fuse(field, m, slots, depth, T_cw, K, timestamp, patch, view)
+    m = _update_nodes(m.replace(overflow=m.overflow + dropped), field, depth,
+                      T_cw, K, timestamp)
+    return m if view is None else (m, view)
 
 
 def _update_nodes(m: VoxelMap, field, depth, T_cw, K,

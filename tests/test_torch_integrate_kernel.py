@@ -13,6 +13,11 @@
     the JAX ``OFusionField`` on the same rows: ``visible`` and timestamp bit
     for bit, occupancy within 1e-5 relative (1e-6 absolute where log-odds
     cancel toward 0; the logarithm rounds differently in the last bit).
+(d) The in-place twins (``fuse_sdf_twin``, ``fuse_ofusion_twin``) on a
+    map's table: listed slots take the row function's rows and visibility,
+    every other slot (and, on the whole-table branch, every dead slot)
+    keeps its voxels and ``active``; the SDF view rows equal
+    ``encode_view_rows`` + ``index_copy_`` bit for bit.
 The CUDA kernels themselves are held against the twins on the card by
 tests/test_torch_gpu.py.
 """
@@ -26,6 +31,8 @@ from supereight_tpu.fields.ofusion import OFusionField as JaxOFusion
 from supereight_tpu.fields.sdf import SDFField as JaxSDF
 from supereight_tpu.pipeline import camera as jcam
 from supereight_tpu.pipeline import integration as jint
+from supereight_tpu_torch.core import morton, octree
+from supereight_tpu_torch.fields import OFusionField, SDFField
 from supereight_tpu_torch.ops import integrate_kernel as ik
 
 from test_pallas_kernel import run_interpret
@@ -165,21 +172,154 @@ def test_twin_matches_pallas_kernel(jax_runs):
                                atol=2e-5)
 
 
+def _table_map(c, channels, names, cap=None, n_blocks=None, dead=None):
+    """A 256^3 port map whose table holds the case's rows in slots 0..n-1
+    (``active`` = live), then ``cap - n`` slots past ``n_blocks`` that hold
+    garbage, so that a write to them shows."""
+    n = len(c["bc"])
+    cap = cap or n
+    rng = np.random.default_rng(cap)
+    m = octree.init(256, 256 * VS, channels, "cpu", capacity=cap)
+    bc = torch.from_numpy(c["bc"]).long()
+    keys = torch.zeros(cap, dtype=torch.int64)
+    keys[:n] = morton.block_key(bc[:, 0], bc[:, 1], bc[:, 2])
+    keys[n:] = torch.from_numpy(rng.integers(0, 1 << 15, cap - n))
+    active = torch.from_numpy(rng.random(cap) < 0.5)
+    active[:n] = torch.from_numpy(c["live"])
+    # a block that repeats in several slots repeats its channels too, so
+    # that the view row they all write is the same whatever the order
+    _, first, inv = np.unique(c["bc"], axis=0, return_index=True,
+                              return_inverse=True)
+    voxels = {}
+    for name in names:
+        v = torch.from_numpy(rng.uniform(-5, 5, (cap, 512)).astype(
+            np.float32))
+        v[:n] = torch.from_numpy(c[name][first[inv.reshape(-1)]])
+        voxels[name] = v
+    return m.replace(keys=keys, active=active, voxels=voxels,
+                     n_blocks=torch.tensor(n if n_blocks is None
+                                           else n_blocks, dtype=torch.int32))
+
+
+def _clone(m):
+    return m.replace(voxels={k: v.clone() for k, v in m.voxels.items()},
+                     active=m.active.clone())
+
+
+def _frame(c):
+    return tuple(torch.from_numpy(np.array(c[k]))
+                 for k in ("depth", "T_cw", "K"))
+
+
+SDF_NAMES = ik.SDF_CHANNELS
+
+
 def test_cpu_tensors_take_the_twin():
     c = _case(60, 80, 0, n=8)
-    t = {k: torch.from_numpy(np.array(v)) for k, v in c.items()}
+    m = _table_map(c, SDFField().channels, SDF_NAMES)
     before = dict(ik.LAUNCHES)
-    out = ik.fuse_sdf(t["bc"], t["live"], t["tsdf"], t["weight"], t["depth"],
-                      t["T_cw"], t["K"], MU, 100.0, VS, PATCH)
-    ref = _twin(c)
-    for a, b in zip(out, ref):
-        assert torch.equal(a, b)
+    out, ref = _clone(m), _clone(m)
+    ik.fuse_sdf(out, *_frame(c), MU, 100.0)
+    ik.fuse_sdf_twin(ref, *_frame(c), MU, 100.0)
+    for name in SDF_NAMES:
+        assert torch.equal(out.voxels[name], ref.voxels[name])
+    assert torch.equal(out.active, ref.active)
     oc = _ofusion_case(c)
-    out = ik.fuse_ofusion(*_ofusion_args(oc))
-    ref = ik.fuse_ofusion_reference(*_ofusion_args(oc))
-    for a, b in zip(out, ref):
-        assert torch.equal(a, b)
+    m = _table_map(oc, OFusionField().channels, ik.OFUSION_CHANNELS)
+    out, ref = _clone(m), _clone(m)
+    ik.fuse_ofusion(out, *_frame(oc), OF_MU, 2.0 * VS, NOW)
+    ik.fuse_ofusion_twin(ref, *_frame(oc), OF_MU, 2.0 * VS, NOW)
+    for name in ik.OFUSION_CHANNELS:
+        assert torch.equal(out.voxels[name], ref.voxels[name])
+    assert torch.equal(out.active, ref.active)
     assert ik.LAUNCHES == before
+
+
+def test_twin_fuses_listed_slots_in_place():
+    """Budget branch: the listed slots (dead ones too) take the row
+    function's rows and their visibility as ``active``; every other slot
+    keeps its voxels and flag; the tables stay the same tensors."""
+    c = _case(120, 160, 2)
+    n = len(c["bc"])
+    m = _table_map(c, SDFField().channels, SDF_NAMES, cap=n + 40)
+    before = _clone(m)
+    ptrs = [m.voxels[k].data_ptr() for k in SDF_NAMES]
+    rng = np.random.default_rng(5)
+    slots = np.sort(rng.choice(n + 40, n // 2, replace=False))
+    sel = torch.from_numpy(slots.astype(np.int32))
+    ik.fuse_sdf_twin(m, *_frame(c), MU, 100.0, slots=sel)
+    assert [m.voxels[k].data_ptr() for k in SDF_NAMES] == ptrs
+    idx = torch.from_numpy(slots)
+    bc = torch.stack(morton.block_key_decode(before.keys[idx]), -1)
+    t, w, vis = ik.fuse_sdf_reference(
+        bc, torch.ones(len(slots), dtype=torch.bool),
+        before.voxels["tsdf"][idx], before.voxels["weight"][idx],
+        *_frame(c), MU, 100.0, VS, PATCH)
+    assert torch.equal(m.voxels["tsdf"][idx], t)
+    assert torch.equal(m.voxels["weight"][idx], w)
+    assert torch.equal(m.active[idx], vis)
+    assert int((w != before.voxels["weight"][idx]).sum()) > 100
+    rest = torch.ones(n + 40, dtype=torch.bool)
+    rest[idx] = False
+    for k in SDF_NAMES:
+        assert torch.equal(m.voxels[k][rest], before.voxels[k][rest])
+    assert torch.equal(m.active[rest], before.active[rest])
+
+
+@pytest.mark.parametrize("budget", [True, False])
+def test_twin_view_epilogue_matches_encode_view_rows(budget):
+    """The held view the SDF twin writes equals ``encode_view_rows`` of
+    the fused rows scattered with ``index_copy_`` at their blocks' rows,
+    bit for bit; rows of other blocks keep their bits."""
+    from supereight_tpu_torch.pipeline import raycast
+    c = _case(120, 160, 2)
+    n = len(c["bc"])
+    m = _table_map(c, SDFField().channels, SDF_NAMES, cap=n + 40)
+    rng = np.random.default_rng(6)
+    B = m.blocks_per_edge
+    view0 = torch.from_numpy(rng.uniform(-1, 1, (B ** 3, 512)).astype(
+        np.float32)).to(torch.bfloat16)
+    sel = torch.from_numpy(np.sort(rng.choice(n, n // 3, replace=False))
+                           .astype(np.int32)) if budget else None
+    got, want = _clone(m), _clone(m)
+    view = view0.clone()
+    ik.fuse_sdf_twin(got, *_frame(c), MU, 100.0, slots=sel, view=view)
+    ik.fuse_sdf_twin(want, *_frame(c), MU, 100.0, slots=sel)
+    slots = sel.long() if budget else \
+        torch.nonzero(octree.slot_mask(m) & m.active)[:, 0]
+    enc = raycast.encode_view_rows(
+        SDFField(), {k: want.voxels[k][slots] for k in SDF_NAMES})
+    ref = view0.clone().index_copy_(0, octree.block_rows(want)[slots], enc)
+    assert torch.equal(view.view(torch.int16), ref.view(torch.int16))
+    assert int((view.view(torch.int16) != view0.view(torch.int16))
+               .any(1).sum()) > 10
+    assert bool(torch.isnan(view).any())
+
+
+@pytest.mark.parametrize("kernel", ["fuse_sdf", "fuse_ofusion"])
+def test_whole_table_branch_leaves_dead_rows(kernel):
+    """Without ``slots`` every live slot (below ``n_blocks`` and active)
+    fuses; inactive slots below ``n_blocks`` and every slot past it keep
+    their voxels and ``active`` bit for bit."""
+    c = _case(120, 160, 2)
+    n = len(c["bc"])
+    if kernel == "fuse_sdf":
+        field, names, params = SDFField(), SDF_NAMES, (MU, 100.0)
+    else:
+        c = dict(_ofusion_case(c), bc=c["bc"], live=c["live"])
+        field, names = OFusionField(), ik.OFUSION_CHANNELS
+        params = (OF_MU, 2.0 * VS, NOW)
+    m = _table_map(c, field.channels, names, cap=n + 40)
+    before = _clone(m)
+    getattr(ik, kernel)(m, *_frame(c), *params)
+    live = octree.slot_mask(before) & before.active
+    dead = ~live
+    assert int(dead[:n].sum()) > 10 and bool(dead[n:].all())
+    for k in names:
+        assert torch.equal(m.voxels[k][dead], before.voxels[k][dead])
+        assert bool((m.voxels[k][live] != before.voxels[k][live]).any())
+    assert torch.equal(m.active[dead], before.active[dead])
+    assert bool((m.active[live] != before.active[live]).any())
 
 
 OF_MU = 0.05

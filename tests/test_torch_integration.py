@@ -127,6 +127,35 @@ def test_integrate_matches_jax(scene, budget):
             != np.asarray(jm.voxels["weight"])).any(1).sum() > 0
 
 
+@pytest.mark.parametrize("budget", [0, 64])
+def test_integrate_updates_in_place(scene, budget):
+    """``integrate`` fuses on the map's own tables: the returned map's
+    channel tables and ``active`` are the input's storage, and the slots
+    that did not fuse (past the budget, inactive, or past ``n_blocks``)
+    keep their voxels and ``active`` bit for bit."""
+    tm = _port_map(scene)
+    before = {k: v.clone() for k, v in tm.voxels.items()}
+    active0 = tm.active.clone()
+    depth, pose, K = (_t(scene[k]) for k in ("depth", "pose", "K"))
+    T_cw = torch.linalg.inv(pose).contiguous()
+    slots, _ = integration.fusion_operands(tm, T_cw, K, depth.shape, budget)
+    fused = torch.zeros(tm.capacity, dtype=torch.bool)
+    if slots is None:
+        fused = octree.slot_mask(tm) & tm.active
+    else:
+        fused[slots.long()] = True
+    out = integration.integrate(tm, SDFField(mu=0.1), depth, pose, K,
+                                budget=budget)
+    for name, v in out.voxels.items():
+        assert v.data_ptr() == tm.voxels[name].data_ptr()
+        assert torch.equal(v[~fused], before[name][~fused])
+    assert out.active.data_ptr() == tm.active.data_ptr()
+    assert torch.equal(out.active[~fused], active0[~fused])
+    assert bool((out.voxels["weight"][fused] != before["weight"][fused])
+                .any())
+    assert int((~fused).sum()) > tm.capacity - int(tm.n_blocks)
+
+
 def test_slot_mask_and_coords_of_carried_map(scene):
     tm = _port_map(scene)
     jm = scene["map"]

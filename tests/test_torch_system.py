@@ -51,6 +51,15 @@ def _record(st):
                 overflow=int(st.map.overflow))
 
 
+def _kept(st):
+    """``st`` with its own copy of the map tables that a later frame's
+    fusion updates in place, so that it stays the state after its frame."""
+    m = st.map
+    return st.replace(map=m.replace(
+        voxels={k: v.clone() for k, v in m.voxels.items()},
+        active=m.active.clone()))
+
+
 @pytest.fixture(scope="module")
 def runs():
     """JAX ``step``, the port's ``step`` and the port's ``step_staged``
@@ -65,9 +74,9 @@ def runs():
     out = dict(jax=[], fused=[], staged=[], times=[], poses=poses)
     for f in range(N_FRAMES):
         out["jax"].append(_record(jax_slam.step(depths[f], K, f)))
-        out["fused"].append(fused.step(depths[f], K, f))
+        out["fused"].append(_kept(fused.step(depths[f], K, f)))
         st, times = staged.step_staged(depths[f], K, f)
-        out["staged"].append(st)
+        out["staged"].append(_kept(st))
         out["times"].append(times)
     return out
 
@@ -178,10 +187,10 @@ def of_runs():
         jst = jax_slam.step(depths[f], K, f)
         out["jax"].append(dict(_record(jst), integrated=bool(jst.integrated),
                                alloc_count=int(jst.alloc_count)))
-        out["forced"].append(forced.step(depths[f], K, f))
+        out["forced"].append(_kept(forced.step(depths[f], K, f)))
         forced.state = convert.state_from_numpy(state_to_numpy(jst), "cpu")
-        out["free"].append(free.step(depths[f], K, f))
-        out["staged"].append(staged.step_staged(depths[f], K, f)[0])
+        out["free"].append(_kept(free.step(depths[f], K, f)))
+        out["staged"].append(_kept(staged.step_staged(depths[f], K, f)[0]))
     return out
 
 
