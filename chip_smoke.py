@@ -11,9 +11,11 @@ GPU.
    a 320x240 depth): whole tables and ``active`` compared, with the
    median device time of each and the kernel's bound.
 3. Holds the gather-probe kernels (K2 ``lane_shuffle_sum``, K3
-   ``slab_row_sum``) against their twins at the probe's shapes, bit for
-   bit, then runs the probe (``probes/gather_probe.py``), the kernels' own
-   path, and prints its four measurements.
+   ``slab_row_sum``) against their twins at the probe's shapes and at a
+   second shape each (K2 at 65536 rows, K3 at 8192 slabs), bit for bit,
+   timed beside the launch floor (an empty kernel) and their bounds, then
+   runs the probe (``probes/gather_probe.py``), the kernels' own path, and
+   prints its four measurements.
 4. Runs the nine presets of ``supereight_tpu_torch/config.py``
    (``headline``: SDF, 256^3 over 4.8 m, 320x240, capacity 6144, fusion
    budget 3072; ``ofusion``; then the seven others), each at the size of
@@ -47,8 +49,13 @@ the card could take for that work (``bound_ms``: the bytes the call must
 move at 3.35 TB/s or its float32 operations at 67 TFLOP/s, the larger;
 for a fusion kernel, the bytes of the voxels this data updates) and,
 where one PyTorch call computes the same function, that call's time.
-Each fusion hold also prints the least time its warps take to issue
-their instructions, from the compiled code (`probes/sass_count.py`).
+Each fusion hold, and each K2 / K3 hold, also prints the least time its
+warps take to issue their instructions, from the compiled code
+(`probes/sass_count.py`); K2's and K3's entries carry it (``issue_ms``),
+K2's its shared-memory bound (``smem_ms``), K3's the time its distinct
+slabs take at the rate one PyTorch reduction reads its L2-resident table
+(``resident_ms``, beside that rate), both the launch floor and their times
+at the second shape (``at_scale``).
 """
 
 from __future__ import annotations
@@ -371,61 +378,165 @@ def check_fusion_kernel(torch, kernel, preset, frames, depths, poses, dev):
                 bound_by=r["bound_by"], library_ms=None)
 
 
-def check_probe_kernels(torch, dev):
-    """K2 and K3 vs their twins at the probe's shapes (bit for bit), then
-    the probe itself, the kernels' main path, with their counts set to 0
-    just before it."""
+def smem_bound_ms(gathers: int, sms: int, mhz: float) -> float:
+    """Least time ``gathers`` 4-byte shared-memory loads take at 32 banks x
+    4 bytes a clock on each of ``sms`` SMs at ``mhz``."""
+    return 1e3 * 4 * gathers / (sms * 32 * 4 * mhz * 1e6)
+
+
+#: passes over the resident table of the reduction that times its read rate
+RESIDENT_PASSES = 64
+
+
+def resident_read_rate(torch, table) -> float:
+    """Bytes a second at which one PyTorch reduction reads ``table`` while
+    it sits in the L2 (K3's 6 MB table; the card's L2 holds 50 MB): an
+    int64 max over RESIDENT_PASSES passes of it, in one launch.  A rate
+    some code reaches, so a time at it is not a lower bound, only a
+    tighter reference than the memory's rate for data that never leaves
+    the L2."""
+    passes = table.view(torch.int64).view(1, -1) \
+        .expand(RESIDENT_PASSES, -1)
+    ms = median_ms(lambda: passes.amax())
+    return RESIDENT_PASSES * table.nbytes / (1e-3 * ms)
+
+
+def probe_cases(torch, dev):
+    """K2 and K3 at the probe's shapes and at their second shapes: {name:
+    (replaces, [(shape label, kernel call, twin call, (byte bound ms, what
+    binds), warp-trips of the main loop, shared-memory gathers or None,
+    bytes read from the resident table or None), ...], the one PyTorch
+    call at the probe's shape or None, the table or None)}."""
     from supereight_tpu_torch.ops import gather_probe as gp
     from supereight_tpu_torch.probes import gather_probe as probe
 
-    d = probe.make_data()
-    src = torch.from_numpy(d["src"]).to(dev)
-    idx = probe.shuffle_inputs(d, 1, dev)[0]
-    table = probe.table16(d, dev)
-    rows = probe.rows_inputs(d, 1, dev)[0]
+    k2, table, k3 = probe.kernel_inputs(dev)
     slabs = table.view(-1, gp.SLAB_ROWS * table.shape[1])
-    bags = (rows // gp.SLAB_ROWS).long()[None]
-    n_slabs = int(torch.unique(rows).numel())
-    # bytes each input read once and the output written once; K3 reads the
-    # distinct slabs its rows name, not the whole table
-    k2_bytes = src.nbytes + idx.nbytes + src.nbytes
-    k3_bytes = rows.nbytes + n_slabs * slabs.shape[1] * 2 \
-        + gp.SLAB_ROWS * table.shape[1] * 4
-    cases = (
-        ("lane_shuffle_sum", "scripts/pallas_gather_probe.py:105",
-         lambda: gp.lane_shuffle_sum(src, idx, probe.KREP),
-         lambda: gp.lane_shuffle_sum_reference(src, idx, probe.KREP),
-         bound(k2_bytes, src.numel() * probe.KREP), None),
-        # one call that gathers and sums the same slabs: embedding_bag
-        # (it sums in its own order and returns bf16)
-        ("slab_row_sum", "scripts/pallas_gather_probe.py:146",
-         lambda: gp.slab_row_sum(rows, table),
-         lambda: gp.slab_row_sum_reference(rows, table),
-         bound(k3_bytes, rows.numel() * slabs.shape[1]),
-         lambda: torch.nn.functional.embedding_bag(bags, slabs,
-                                                   mode="sum")),
-    )
+
+    def k2_case(src, idx):
+        # bytes each input read once and the output written once
+        nbytes = src.nbytes + idx.nbytes + src.nbytes
+        S = src.shape[0]
+        return (f"{S}x{gp.LANES}x{probe.KREP}",
+                lambda: gp.lane_shuffle_sum(src, idx, probe.KREP),
+                lambda: gp.lane_shuffle_sum_reference(src, idx, probe.KREP),
+                bound(nbytes, src.numel() * probe.KREP),
+                gp.shuffle_warp_trips(S), src.numel() * probe.KREP, None)
+
+    def k3_case(rows):
+        # K3 reads the distinct slabs its rows name, not the whole table
+        n_slabs = int(torch.unique(rows).numel())
+        resident = n_slabs * slabs.shape[1] * 2
+        nbytes = rows.nbytes + resident + gp.SLAB_ROWS * table.shape[1] * 4
+        return (f"{rows.numel()} slabs ({n_slabs} distinct)",
+                lambda: gp.slab_row_sum(rows, table),
+                lambda: gp.slab_row_sum_reference(rows, table),
+                bound(nbytes, rows.numel() * slabs.shape[1]),
+                gp.slab_warp_trips(rows.numel(), table.shape[1]), None,
+                resident)
+
+    bags = (k3[0] // gp.SLAB_ROWS).long()[None]
+    return {
+        "lane_shuffle_sum": ("scripts/pallas_gather_probe.py:105",
+                             [k2_case(*x) for x in k2], None, None),
+        # one call that gathers and sums the same slabs: embedding_bag (it
+        # sums in its own order and returns bf16)
+        "slab_row_sum": ("scripts/pallas_gather_probe.py:146",
+                         [k3_case(x) for x in k3],
+                         lambda: torch.nn.functional.embedding_bag(
+                             bags, slabs, mode="sum"), table),
+    }
+
+
+def check_probe_kernels(torch, dev):
+    """K2 and K3 vs their twins at the probe's shapes and at their second
+    shapes (bit for bit), timed beside the launch floor (an empty kernel),
+    the byte bound, the issue lower bound of the main loop (compiled code,
+    `probes/sass_count.py`) and, for K2, the shared-memory bound; then the
+    probe itself, the kernels' main path, with their counts set to 0 just
+    before it."""
+    from supereight_tpu_torch.ops import gather_probe as gp
+    from supereight_tpu_torch.probes import gather_probe as probe
+    from supereight_tpu_torch.probes import sass_count
+
+    _, _, mhz, sms, issue_per_s = sass_count.card_issue_rate()
+    trips = sass_count.gather_trips()
+    floor = median_ms(lambda: gp.empty_launch(dev))
+    print(f"# launch floor (an empty kernel, timed as the kernels are): "
+          f"{floor:.4f} ms; loop trips (SASS instructions): {trips}")
     kernels = {}
-    for name, replaces, fn, plain, (b_ms, b_by), library in cases:
-        out, ref = fn(), plain()
-        torch.cuda.synchronize()
-        mismatch = int((out != ref).sum())
-        max_err = float((out - ref).abs().max())
-        print(f"# {name} vs twin at {tuple(out.shape)}: {mismatch} of "
-              f"{out.numel()} differ, max abs err {max_err:.3g}")
-        if mismatch:
-            fail(f"{name} and its twin are not bit-identical")
-        ms, plain_ms = times(fn, plain)
+    for name, (replaces, shapes, library, table) in \
+            probe_cases(torch, dev).items():
+        rate = None if table is None else resident_read_rate(torch, table)
+        if rate is not None:
+            print(f"# {name}: one reduction reads its resident table at "
+                  f"{rate / 1e12:.3f} TB/s ({RESIDENT_PASSES} passes of "
+                  f"{table.nbytes / 1e6:.2f} MB in one launch)")
+        held = []
+        for label, fn, plain, (b_ms, b_by), warp_trips, gathers, resident \
+                in shapes:
+            out, ref = fn(), plain()
+            torch.cuda.synchronize()
+            mismatch = int((out != ref).sum())
+            max_err = float((out - ref).abs().max())
+            print(f"# {name} vs twin at {label}: {mismatch} of {out.numel()} "
+                  f"differ, max abs err {max_err:.3g}")
+            if mismatch:
+                fail(f"{name} and its twin are not bit-identical at {label}")
+            trip = trips[name + "<64>" if name == "lane_shuffle_sum" else name]
+            issue_ms = sass_count.loop_issue_lower_bound_ms(
+                trip, warp_trips, issue_per_s)
+            smem_ms = None if gathers is None \
+                else smem_bound_ms(gathers, sms, mhz)
+            resident_ms = None if resident is None \
+                else 1e3 * resident / rate
+            ms = median_ms(fn)
+            print(f"# {name} at {label}: median device time over "
+                  f"{TIMED_RUNS} runs {ms:.4f} ms (launch floor {floor:.4f});"
+                  f" byte bound {b_ms:.5f} ms ({b_by}), "
+                  f"{100 * b_ms / ms:.1f} % of it; issue lower bound "
+                  f"{issue_ms:.5f} ms ({trip} instructions x {warp_trips} "
+                  f"warp-trips), {100 * issue_ms / ms:.1f} % of it"
+                  + ("" if smem_ms is None else
+                     f"; shared-memory bound {smem_ms:.5f} ms, "
+                     f"{100 * smem_ms / ms:.1f} % of it")
+                  + ("" if resident_ms is None else
+                     f"; its distinct slabs at the resident read rate "
+                     f"{resident_ms:.5f} ms, {100 * resident_ms / ms:.1f} % "
+                     f"of it"))
+            held.append(dict(shape=label, max_abs_err=max_err, ms=ms,
+                             bound_ms=b_ms, bound_by=b_by, issue_ms=issue_ms,
+                             smem_ms=smem_ms, resident_ms=resident_ms))
+        # the twin and the one PyTorch call at the probe's shape
+        probe_shape, scale = held
+        if name == "slab_row_sum":
+            # one column tile of the probe's rows (a cluster for each slab
+            # row): whether the card or each CTA sets the time
+            d = probe.make_data()
+            rows = probe.rows_inputs(d, 1, dev)[0]
+            tile = probe.table16(d, dev)[:, :gp.TILE_COLS].contiguous()
+            scale["one_tile_ms"] = median_ms(
+                lambda: gp.slab_row_sum(rows, tile))
+            print(f"# slab_row_sum at {probe_shape['shape']} on one "
+                  f"{gp.TILE_COLS}-column tile ({gp.slab_grid(gp.TILE_COLS)}"
+                  f" CTAs): {scale['one_tile_ms']:.4f} ms")
+        plain_ms = median_ms(shapes[0][2])
         library_ms = None if library is None else median_ms(library)
-        print(f"# {name} median device time over {TIMED_RUNS} runs: kernel "
-              f"{ms:.4f} ms, plain twin {plain_ms:.4f} ms, one PyTorch call "
-              f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}; "
-              f"bound {b_ms:.5f} ms ({b_by}), {100 * b_ms / ms:.1f} % of it")
+        print(f"# {name} at {probe_shape['shape']}: plain twin "
+              f"{plain_ms:.4f} ms, one PyTorch call "
+              f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}")
         kernels[name] = dict(
             name=name, route="cuda",
             source="supereight_tpu_torch/csrc/gather_probe.cu",
-            replaces=replaces, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+            replaces=replaces,
+            max_abs_err=max(h["max_abs_err"] for h in held),
+            ms=probe_shape["ms"], plain_ms=plain_ms,
+            bound_ms=probe_shape["bound_ms"],
+            bound_by=probe_shape["bound_by"], library_ms=library_ms,
+            issue_ms=probe_shape["issue_ms"], smem_ms=probe_shape["smem_ms"],
+            resident_ms=probe_shape["resident_ms"],
+            resident_read_tb_s=None if rate is None else rate / 1e12,
+            launch_floor_ms=floor, at_scale=scale)
 
     for k in gp.LAUNCHES:
         gp.LAUNCHES[k] = 0

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -51,6 +52,16 @@ def library_path(name: str) -> Path:
 
 #: every kernel source of the package
 SOURCES = ("integrate", "gather_probe")
+
+
+def constants(name: str) -> Dict[str, int]:
+    """The integer constants that ``csrc/<name>.cu`` defines by a literal
+    (``constexpr int kName = 64;``), read from the source, so that the host
+    code that needs a kernel's geometry (for its bounds) takes it from the
+    one place the kernel does."""
+    src = (CSRC / f"{name}.cu").read_text()
+    return {k: int(v) for k, v in
+            re.findall(r"^constexpr int (k\w+) = (\d+);", src, re.M)}
 
 
 def _start(name: str):

@@ -7,7 +7,9 @@ rate) and :func:`slab_row_sum` of ``rows_kernel`` (K3, the rate of random
 8-row slab loads from a resident table).  A wrapper takes its plain version
 only for CPU tensors; for CUDA tensors it launches the kernel or raises.
 The plain versions are loops in the kernels' summation order, so kernel and
-plain version agree bit for bit.
+plain version agree bit for bit.  The kernels compute their own launch
+grids; the geometry below, which the bounds need, is read from the same
+source (`_build.constants`).
 """
 
 from __future__ import annotations
@@ -16,8 +18,19 @@ import ctypes
 
 import torch
 
-LANES = 128         # K2: lanes per row; lane indices wrap at 128
-SLAB_ROWS = 8       # K3: rows per slab
+from . import _build
+
+_K = _build.constants("gather_probe")
+LANES = _K["kLanes"]             # K2: lanes per row; lane indices wrap at 128
+SLAB_ROWS = _K["kSlabRows"]      # K3: rows per slab
+#: K3: columns a CTA owns (one 128-byte line of a bf16 slab row, one thread
+#: a column), and the four chains a0..a3, one CTA each, of a tile's cluster
+TILE_COLS = _K["kTileCols"]
+CHAINS = _K["kChains"]
+#: K3: slabs a stage of its ring, and chain steps whose indices are staged
+#: in shared memory at a time
+SLAB_STAGE = _K["kStageSlabs"]
+INDEX_CHUNK = _K["kIndexChunk"]
 
 #: kernel launches so far, one counter per kernel
 LAUNCHES = {"lane_shuffle_sum": 0, "slab_row_sum": 0}
@@ -32,17 +45,49 @@ def _check(fn: str, dev, *specs):
                              f"{tuple(t.shape)} on {t.device}")
 
 
-def _launch(fn: str, *args):
-    from . import _build
-    lib = _build.load("gather_probe")
-    c_fn = getattr(lib, fn)
-    c_fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
-        + [ctypes.c_void_p]
+def slab_grid(wide: int) -> int:
+    """K3's grid: a cluster of four CTAs (one a chain) for each tile of
+    TILE_COLS columns (the last masked) of each of the slab's rows."""
+    return CHAINS * SLAB_ROWS * -(-wide // TILE_COLS)
+
+
+def shuffle_warp_trips(s: int) -> int:
+    """Trips of K2's row loop summed over warps: each row is one trip of
+    its CTA's four warps."""
+    return LANES // 32 * s
+
+
+def slab_warp_trips(n: int, wide: int) -> int:
+    """Trips of K3's main loop (one whole stage of SLAB_STAGE slabs a trip)
+    summed over warps: TILE_COLS / 32 warps a CTA, each staged chunk of
+    INDEX_CHUNK steps of a chain taken apart."""
+    steps = n // 4
+    whole = sum(min(INDEX_CHUNK, steps - i) // SLAB_STAGE
+                for i in range(0, steps, INDEX_CHUNK))
+    return TILE_COLS // 32 * slab_grid(wide) * whole
+
+
+def _call(fn: str, ptrs, ints, stream) -> None:
+    c_fn = getattr(_build.load("gather_probe"), fn)
+    c_fn.argtypes = [ctypes.c_void_p] * len(ptrs) \
+        + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
     c_fn.restype = ctypes.c_int
-    err = c_fn(*args)
+    err = c_fn(*ptrs, *ints, stream)
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")
+
+
+def _launch(fn: str, ptrs, ints, stream) -> None:
+    _call(fn, ptrs, ints, stream)
     LAUNCHES[fn] += 1
+
+
+def empty_launch(device) -> None:
+    """Launch an empty kernel on ``device``'s current stream: the fixed cost
+    of a launch, the floor under the kernels' times (not counted)."""
+    with torch.cuda.device(device):
+        _call("empty_launch", (), (),
+              torch.cuda.current_stream(device).cuda_stream)
 
 
 def lane_shuffle_sum_reference(src: torch.Tensor, idx: torch.Tensor,
@@ -68,15 +113,16 @@ def lane_shuffle_sum(src: torch.Tensor, idx: torch.Tensor,
     _check("lane_shuffle_sum", src.device,
            ("src", src, torch.float32, (S, LANES)),
            ("idx", idx, torch.int32, (S, LANES)))
-    if krep < 0:
-        raise ValueError(f"lane_shuffle_sum: krep must be >= 0, got {krep}")
+    if not 0 <= krep < 2 ** 31:
+        raise ValueError(f"lane_shuffle_sum: krep must be in [0, 2^31), got "
+                         f"{krep}")
     out = torch.empty_like(src)
     if S == 0:
         return out
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
-        _launch("lane_shuffle_sum", src.data_ptr(), idx.data_ptr(),
-                out.data_ptr(), S, krep, stream)
+        _launch("lane_shuffle_sum", (src.data_ptr(), idx.data_ptr(),
+                                     out.data_ptr()), (S, krep), stream)
     return out
 
 
@@ -119,6 +165,7 @@ def slab_row_sum(rows: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
         return out
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
-        _launch("slab_row_sum", rows.data_ptr(), table.data_ptr(),
-                out.data_ptr(), n, wide, stream)
+        _launch("slab_row_sum", (rows.data_ptr(), table.data_ptr(),
+                                 out.data_ptr()),
+                (n, wide), stream)
     return out

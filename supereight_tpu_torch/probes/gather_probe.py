@@ -49,6 +49,10 @@ S, KREP = 256, 64            # K2: rows x lanes x in-kernel repetitions
 CAP, WIDE = 6144, 512        # K3: brick table
 N_ROWS = 2048                # K3: slabs per launch
 K_S, NRAY = 14, 19200        # fine scan: samples x rays
+#: K2's and K3's second shapes, where the work outweighs a launch's fixed
+#: cost: rows of K2 (krep KREP) and slabs of K3 (four of the probe's runs)
+K2_SCALE_ROWS = 65536
+K3_SCALE_RUNS = 4
 
 
 def make_data(seed: int = 7) -> Dict[str, object]:
@@ -90,6 +94,27 @@ def rows_inputs(d, runs: int, device) -> torch.Tensor:
 
 def table16(d, device) -> torch.Tensor:
     return torch.from_numpy(d["table16"]).to(device).to(torch.bfloat16)
+
+
+def kernel_inputs(device):
+    """K2's and K3's inputs at the probe's shapes and at their second
+    shapes, as ``chip_smoke.py`` holds them against their twins and
+    ``probes/kernel_times.py`` times them: ``([(src, idx) at S rows, (src,
+    idx) at K2_SCALE_ROWS rows], table, [rows of N_ROWS slabs, rows of
+    K3_SCALE_RUNS * N_ROWS slabs])``.  The second K2 shape draws from
+    ``default_rng(7)`` afresh, lane indices over all of int32."""
+    d = make_data()
+    rng = np.random.default_rng(7)
+    big = (K2_SCALE_ROWS, gp.LANES)
+    k2 = [(torch.from_numpy(d["src"]).to(device),
+           shuffle_inputs(d, 1, device)[0]),
+          (torch.from_numpy(rng.standard_normal(big).astype(np.float32))
+           .to(device),
+           torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, big)
+                            .astype(np.int32)).to(device))]
+    k3 = [rows_inputs(d, 1, device)[0],
+          rows_inputs(d, K3_SCALE_RUNS, device).reshape(-1).contiguous()]
+    return k2, table16(d, device), k3
 
 
 def _bits(seed: int, shape, device) -> torch.Tensor:

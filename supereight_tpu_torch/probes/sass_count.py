@@ -1,5 +1,5 @@
-"""Instruction counts of the fusion kernels from their compiled code, and the
-least time a launch's warps take to issue their instructions.
+"""Instruction counts of the kernels from their compiled code, and the least
+time a launch's warps take to issue their instructions.
 
 ``cuobjdump -sass`` lists the machine code (SASS) of each kernel in the
 built ``csrc/integrate.cu``.  For each kernel this counts the instructions
@@ -22,10 +22,19 @@ instruction a clock.  ``chip_smoke.py`` sorts the warps of a launch into
 these classes from the run's data (:func:`warp_classes`) and sums the
 bound (:func:`issue_lower_bound_ms`).
 
+The gather-probe kernels (``csrc/gather_probe.cu``) spend their time in one
+loop each: :func:`loop_trip` counts the fewest instructions a warp issues
+in one trip of the innermost loop that holds a given instruction run (K2's
+64 shared loads of a row; K3's 32 shared loads of a stage, on a path
+through the stage's copies), and
+:func:`loop_issue_lower_bound_ms` multiplies it by the warp-trips the shapes
+fix, at the same issue rate.
+
 Run on a CUDA device:  python -m supereight_tpu_torch.probes.sass_count
 [--out PATH].  It prints one JSON object: the counts, and the fewest
 instructions of a warp that returns at once, one that only projects and
-one that updates all four of its voxel lanes and stores.
+one that updates all four of its voxel lanes and stores; and the gather
+kernels' loop trips.
 """
 
 from __future__ import annotations
@@ -41,6 +50,8 @@ import subprocess
 import sys
 from typing import Dict, List, Sequence, Tuple
 
+from supereight_tpu_torch.ops.gather_probe import SLAB_STAGE
+
 WARPS = 4                # a row's CTA of 128 threads
 VOXELS_PER_THREAD = 4
 SCHEDULERS_PER_SM = 4
@@ -48,7 +59,15 @@ SCHEDULERS_PER_SM = 4
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _PRED = re.compile(r"^@!?U?P\w+\s+")
 _FUNC = re.compile(r"Function : (\S+)")
-_TARGET = re.compile(r"\bBRA(?:\.\S+)?\s+(0x[0-9a-f]+)")
+# a branch's target, after the predicate it may also test (``BRA P6, 0x..``)
+_TARGET = re.compile(r"\bBRA(?:\.\S+)?\s+(?:(!?U?P\w+),\s*)?(0x[0-9a-f]+)")
+_TEMPLATE = re.compile(r"_kernelILi(n?)(\d+)E")
+
+#: the gather kernels' main loops, as `loop_trip` takes them: (instruction
+#: prefix, how many of them the loop holds at least, prefixes of the
+#: instructions a trip passes)
+GATHER_LOOPS = {"lane_shuffle_sum<64>": ("LDS", 64, ()),
+                "slab_row_sum": ("LDS.U16", SLAB_STAGE, ("LDGSTS",))}
 
 #: (address, instruction) of a kernel's main body
 Body = List[Tuple[int, str]]
@@ -69,6 +88,23 @@ def _op(ins: str) -> str:
     return _PRED.sub("", ins).split()[0]
 
 
+def kernel_name(func: str) -> str:
+    """The package's name of a compiled (mangled) kernel: ``fuse_sdf`` and
+    ``fuse_ofusion`` by their update, ``lane_shuffle_sum<64>`` for a
+    template argument, else the function's own name without ``_kernel``."""
+    if "OFusion" in func:
+        return "fuse_ofusion"
+    if "Sdf" in func:
+        return "fuse_sdf"
+    for name in ("lane_shuffle_sum", "slab_row_sum", "empty"):
+        if name + "_kernel" in func:
+            m = _TEMPLATE.search(func)
+            if m is None:
+                return name
+            return f"{name}<{'-' if m.group(1) else ''}{m.group(2)}>"
+    return func
+
+
 def parse(sass: str) -> Dict[str, Tuple[Body, Body]]:
     """{kernel: (main body, subroutines)}, each a list of (address,
     instruction) as printed (NOPs skipped).  The main body ends at the last
@@ -87,8 +123,7 @@ def parse(sass: str) -> Dict[str, Tuple[Body, Body]]:
             cur.append((int(m.group(1), 16), m.group(2)))
     out = {}
     for func, ins in funcs.items():
-        kernel = ("fuse_ofusion" if "OFusion" in func
-                  else "fuse_sdf" if "Sdf" in func else func)
+        kernel = kernel_name(func)
         rets = [i for i, (_, x) in enumerate(ins) if _op(x).startswith("RET")]
         end = len(ins)
         if rets:
@@ -118,8 +153,9 @@ def successors(body: Body) -> List[List[int]]:
             m = _TARGET.search(ins)
             if m is None:
                 raise ValueError(f"branch without a target: {ins}")
-            tgt = bisect.bisect_left(addrs, int(m.group(1), 16))
-            succ.append((nxt if pred else []) + [tgt])
+            tgt = bisect.bisect_left(addrs, int(m.group(2), 16))
+            cond = pred or m.group(1) not in (None, "PT")
+            succ.append((nxt if cond else []) + [tgt])
         elif op.startswith(("BRX", "JMX", "JMP", "RET")):
             raise ValueError(f"indirect or returning branch in the main "
                              f"body: {ins}")
@@ -214,6 +250,45 @@ def issue_lower_bound_ms(body: Body, classes, dead_warps: int,
     return 1e3 * total / issue_per_s
 
 
+def loop_trip(body: Body, op: str, at_least: int,
+              through: Sequence[str] = ()) -> int:
+    """Fewest instructions a warp issues in one trip of the innermost loop
+    (a backward branch and the instructions from its target to it) whose
+    instructions include at least ``at_least`` with the prefix ``op``: the
+    shortest path from the loop's first instruction to its branch, both
+    counted, that passes the loop's first instruction with each prefix in
+    ``through``."""
+    succ = successors(body)
+    loops = []
+    for e, (_, ins) in enumerate(body):
+        if not _op(ins).startswith("BRA"):
+            continue
+        h = succ[e][-1]                 # the taken branch's target
+        n = sum(_op(x).startswith(op) for _, x in body[h:e + 1])
+        if h <= e and n >= at_least:
+            loops.append((e - h, h, e))
+    if not loops:
+        raise ValueError(f"no loop holds {at_least} {op} instructions")
+    _, h, e = min(loops)
+    stops = sorted(next(i for i in range(h, e + 1)
+                        if _op(body[i][1]).startswith(p)) for p in through)
+    total, at = 1, h
+    for w in stops + [e]:
+        d = _distances(succ, at)
+        if w not in d:
+            raise ValueError(f"instruction {w} is not reachable from {at}")
+        total += d[w] - 1               # `at` is counted once
+        at = w
+    return total
+
+
+def loop_issue_lower_bound_ms(trip: int, warp_trips: int,
+                              issue_per_s: float) -> float:
+    """Least time ``warp_trips`` trips of ``trip`` instructions take to
+    issue at the card's issue rate (warp instructions a second)."""
+    return 1e3 * trip * warp_trips / issue_per_s
+
+
 def card_issue_rate() -> Tuple[str, float, float, int, float]:
     """(name, power limit W, max SM MHz, SMs, warp instructions a second at
     that clock, one a scheduler a clock)."""
@@ -228,14 +303,23 @@ def card_issue_rate() -> Tuple[str, float, float, int, float]:
             sms * SCHEDULERS_PER_SM * float(mhz) * 1e6)
 
 
-def kernel_bodies() -> Dict[str, Tuple[Body, Body]]:
-    """The fusion kernels' SASS, built from the checkout's sources."""
+def kernel_bodies(source: str = "integrate") -> Dict[str, Tuple[Body, Body]]:
+    """The SASS of ``csrc/<source>.cu``'s kernels, built from the
+    checkout's sources."""
     from supereight_tpu_torch.ops import _build
-    _build.load("integrate")
+    _build.load(source)
     sass = subprocess.run([_cuobjdump(), "-sass",
-                           str(_build.library_path("integrate"))],
+                           str(_build.library_path(source))],
                           capture_output=True, text=True, check=True).stdout
     return parse(sass)
+
+
+def gather_trips() -> Dict[str, int]:
+    """The instructions of one trip of each gather-kernel loop
+    (`GATHER_LOOPS`)."""
+    bodies = kernel_bodies("gather_probe")
+    return {kernel: loop_trip(bodies[kernel][0], op, n, through)
+            for kernel, (op, n, through) in GATHER_LOOPS.items()}
 
 
 def main(argv=None) -> Dict[str, object]:
@@ -258,6 +342,7 @@ def main(argv=None) -> Dict[str, object]:
             fuse=min_issue(succ, [wp["sync"], wp["store"]]
                            + list(wp["update"])))
         res["kernels"][kernel] = c
+    res["gather_loop_trips"] = gather_trips()
     print(json.dumps(res))
     if args.out:
         with open(args.out, "w") as f:

@@ -76,3 +76,40 @@ def test_fails_without_cuda():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_smem_bound():
+    """K2 at 65536 rows: 537M 4-byte gathers at 32 banks x 4 B a clock on
+    132 SMs at 1980 MHz take 0.064 ms."""
+    got = chip_smoke.smem_bound_ms(65536 * 128 * 64, 132, 1980.0)
+    assert got == pytest.approx(1e3 * 4 * 65536 * 128 * 64
+                                / (132 * 128 * 1980e6))
+    assert 0.0641 < got < 0.0642
+
+
+def test_probe_cases_bounds():
+    """The byte bounds and warp-trips the smoke prints for K2 and K3, at the
+    probe's shapes and the second ones (computed on the CPU; the kernels
+    run only on the card)."""
+    import torch
+    cases = chip_smoke.probe_cases(torch, "cpu")
+    (_, k2, k2_library, k2_table), (_, k3, k3_library, k3_table) = (
+        cases["lane_shuffle_sum"], cases["slab_row_sum"])
+    assert k2_library is None and k3_library is not None
+    assert k2_table is None and tuple(k3_table.shape) == (6144, 512)
+    (label, _, _, (b_ms, by), trips, gathers, resident) = k2[1]
+    assert label == "65536x128x64" and by == "bytes"
+    assert b_ms == pytest.approx(1e3 * 3 * 65536 * 128 * 4 / 3.35e12)
+    assert trips == 4 * 65536 and gathers == 65536 * 128 * 64
+    assert resident is None
+    assert k2[0][3][0] == pytest.approx(1e3 * 3 * 256 * 512 / 3.35e12)
+    # K3: the distinct slabs of the rows (8 KB each), the rows, the output
+    for (label, _, _, (b_ms, by), trips, gathers, resident), n in zip(
+            k3, (2048, 8192)):
+        assert label.startswith(f"{n} slabs") and by == "bytes"
+        assert gathers is None and trips == 2 * 256 * (n // 128)
+        distinct = int(label.split("(")[1].split()[0])
+        assert 500 < distinct <= 768
+        assert resident == distinct * 8192
+        assert b_ms == pytest.approx(1e3 * (4 * n + distinct * 8192
+                                            + 8 * 512 * 4) / 3.35e12)

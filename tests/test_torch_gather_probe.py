@@ -114,3 +114,52 @@ def test_probe_needs_a_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit):
         probe.main([])
+
+
+def test_constants_reads_literal_definitions(tmp_path, monkeypatch):
+    """The geometry is read from the kernel's source: top-level constants
+    defined by a literal, not those defined by an expression or inside a
+    function."""
+    from supereight_tpu_torch.ops import _build
+    (tmp_path / "k.cu").write_text(
+        "constexpr int kA = 64;            // a comment\n"
+        "constexpr int kB = kA / 8;\n"
+        "constexpr float kC = 0.5;\n"
+        "void f() {\n  constexpr int kD = 3;\n}\n"
+        "constexpr int kE = 2048;\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert _build.constants("k") == {"kA": 64, "kE": 2048}
+
+
+@pytest.mark.parametrize("attr,name", [
+    ("LANES", "kLanes"), ("SLAB_ROWS", "kSlabRows"),
+    ("TILE_COLS", "kTileCols"), ("CHAINS", "kChains"),
+    ("SLAB_STAGE", "kStageSlabs"), ("INDEX_CHUNK", "kIndexChunk")])
+def test_geometry_is_the_kernel_source(attr, name):
+    """Each constant the bounds use is the one the kernel compiles with."""
+    from supereight_tpu_torch.ops import _build
+    assert getattr(gp, attr) == _build.constants("gather_probe")[name]
+
+
+@pytest.mark.parametrize("wide,want", [(512, 256), (520, 288), (32, 32),
+                                       (36, 32), (1, 32), (64, 32),
+                                       (65, 64)])
+def test_slab_grid_covers_the_width(wide, want):
+    """K3: four chains for each 64-column tile of each of a slab's 8 rows,
+    the last tile masked; the probe's width gives 256 CTAs."""
+    assert gp.slab_grid(wide) == want
+
+
+@pytest.mark.parametrize("n,wide,want", [
+    (2048, 512, 2 * 256 * 16),        # 512 steps a chain: 16 whole stages
+    (8192, 512, 2 * 256 * 64),
+    (4, 512, 0),                      # one step: no whole stage
+    (4 * 2048 + 44, 64, 2 * 32 * (64 + 0)),   # a second chunk of 11 steps
+    (4 * 4096 + 4 * 40, 32, 2 * 32 * (64 + 64 + 1)),
+])
+def test_slab_warp_trips(n, wide, want):
+    assert gp.slab_warp_trips(n, wide) == want
+
+
+def test_shuffle_warp_trips():
+    assert gp.shuffle_warp_trips(65536) == 4 * 65536

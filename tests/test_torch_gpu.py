@@ -303,3 +303,71 @@ def test_gather_probe_kernels_reject_what_they_do_not_take(cuda):
         gp.slab_row_sum(idx[0, :6], table)
     with pytest.raises(ValueError):
         gp.slab_row_sum(idx[0, :4], table.float())
+
+
+def _counted(fn, name):
+    """``fn()``, checking that it launched kernel ``name`` once."""
+    before = dict(gp.LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    assert gp.LAUNCHES == {k: v + (k == name) for k, v in before.items()}
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 3, 256, 4097])
+@pytest.mark.parametrize("krep", [0, 1, 5, 64, 200])
+def test_lane_shuffle_sum_shapes(cuda, S, krep):
+    """Any row count (fewer rows than the persistent grid, and more), the
+    unrolled krep = 64 and the loop for any other (200: windows wrap), lane
+    indices near 2^31 (idx + i overflows int32) and negative: bit for bit."""
+    rng = np.random.default_rng(S * 1000 + krep)
+    src = torch.from_numpy(rng.standard_normal((S, 128)).astype(np.float32))
+    idx = rng.integers(-2 ** 31, 2 ** 31, (S, 128))
+    idx[:, :8] = 2 ** 31 - 1 - rng.integers(0, 40, (S, 8))
+    idx[:, 8:16] = rng.integers(-300, 0, (S, 8))
+    idx = torch.from_numpy(idx.astype(np.int32))
+    src, idx = src.to(cuda), idx.to(cuda)
+    out = _counted(lambda: gp.lane_shuffle_sum(src, idx, krep),
+                   "lane_shuffle_sum")
+    assert torch.equal(out, gp.lane_shuffle_sum_reference(src, idx, krep))
+
+
+def _slab_case(dev, n, wide, cap, seed, offset=0):
+    """rows int32[n] of random slabs with repeats and the table's last slab,
+    and a bf16[cap, wide] table on ``dev`` whose data starts ``offset``
+    elements into its storage (an offset that is not a multiple of 8
+    misaligns it)."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, cap // 8, n) * 8
+    rows[: n // 4] = rows[0]                        # one slab repeated
+    rows[-1] = cap - 8                              # the last slab
+    flat = torch.from_numpy(rng.standard_normal(cap * wide + offset)
+                            .astype(np.float32)).to(dev, torch.bfloat16)
+    table = flat[offset:].view(cap, wide)
+    return torch.from_numpy(rows.astype(np.int32)).to(dev), table
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [4, 2048])
+@pytest.mark.parametrize("wide,offset", [(64, 0), (32, 0), (520, 0),
+                                         (36, 0), (512, 3)])
+def test_slab_row_sum_shapes(cuda, n, wide, offset):
+    """One step and the probe's 2048 rows; a width of one whole 64-column
+    tile, half a tile (32), one whose last tile is 8 columns (520), one
+    that is not a multiple of 8 (36) and a misaligned table (both copied
+    element by element); repeated slabs and the table's last one: bit for
+    bit."""
+    rows, table = _slab_case(cuda, n, wide, 256, n + wide, offset)
+    assert table.data_ptr() % 16 == (2 * offset) % 16
+    out = _counted(lambda: gp.slab_row_sum(rows, table), "slab_row_sum")
+    assert out.shape == (8, wide)
+    assert torch.equal(out, gp.slab_row_sum_reference(rows, table))
+
+
+@pytest.mark.gpu
+def test_slab_row_sum_stages_indices_in_chunks(cuda):
+    """More steps than one chunk of staged indices (n / 4 > 2048)."""
+    rows, table = _slab_case(cuda, 4 * 2048 + 44, 64, 128, 11)
+    out = _counted(lambda: gp.slab_row_sum(rows, table), "slab_row_sum")
+    assert torch.equal(out, gp.slab_row_sum_reference(rows, table))

@@ -67,6 +67,19 @@ def test_min_issue_counts_the_shortest_path(through, want):
     assert sc.min_issue(succ, [i for t in through for i in pick(t)]) == want
 
 
+@pytest.mark.parametrize("branch,want", [
+    ("BRA 0x40", [4]),                  # always taken
+    ("@P0 BRA 0x40", [2, 4]),           # guarded: falls through or taken
+    ("@!P5 BRA P6, 0x40", [2, 4]),      # and testing a second predicate
+    ("BRA P6, 0x40", [2, 4]),
+    ("BRA PT, 0x40", [4]),
+])
+def test_successors_of_a_branch(branch, want):
+    body = [(0x00, "S2R R0, SR_TID.X"), (0x10, branch), (0x20, "IADD3 R1"),
+            (0x30, "NOP R2"), (0x40, "EXIT")]
+    assert sc.successors(body)[1] == want
+
+
 def test_issue_lower_bound_sums_warp_classes():
     main, _ = _body()
     called = torch.zeros(2, 512, dtype=torch.bool)
@@ -82,3 +95,74 @@ def test_issue_lower_bound_sums_warp_classes():
     want = 18 + 5 * 10 + 13 + 12 + 2 * 2
     got = sc.issue_lower_bound_ms(main, classes, 2, 1e6)
     assert got == pytest.approx(1e3 * want / 1e6)
+
+
+@pytest.mark.parametrize("func,name", [
+    ("_ZN4anon11fuse_kernelINS_9SdfUpdateEEEvNS_5TableET_", "fuse_sdf"),
+    ("_ZN4anon11fuse_kernelINS_12OFusionUpdateEEEvNS_5TableET_",
+     "fuse_ofusion"),
+    ("_ZN48_GLOBAL__N__0a9509dc_15_gather_probe_cu_f838b53023lane_shuffle_"
+     "sum_kernelILi64EEEvPKfPKiPfii", "lane_shuffle_sum<64>"),
+    ("_ZN48_GLOBAL__N__0a9509dc_15_gather_probe_cu_f838b53023lane_shuffle_"
+     "sum_kernelILin1EEEvPKfPKiPfii", "lane_shuffle_sum<-1>"),
+    ("_ZN48_GLOBAL__N__0a9509dc_15_gather_probe_cu_f838b53019slab_row_sum_"
+     "kernelEPKiPKtPfiii", "slab_row_sum"),
+    ("_ZN48_GLOBAL__N__0a9509dc_15_gather_probe_cu_f838b53012empty_kernelEv",
+     "empty"),
+])
+def test_kernel_names(func, name):
+    assert sc.kernel_name(func) == name
+
+
+# a chunk loop around a stage loop, laid out as csrc/gather_probe.cu's K3
+# compiles: copies skipped on a branch, a spin wait, two shared loads and
+# adds, a barrier; then the self-branch after the EXIT
+_LOOP = [
+    "S2R R0, SR_TID.X",                               # 0
+    "BAR.SYNC.DEFER_BLOCKING 0x0",                    # 1 chunk loop
+    "LDS R2, [R0]",                                   # 2 stage loop
+    "@P0 BRA 0x50",                                   # 3 no copies
+    "LDGSTS.E.BYPASS.128 [R1], desc[UR4][R2.64]",     # 4
+    "LDGDEPBAR",                                      # 5
+    "SYNCS.PHASECHK.TRANS64.TRYWAIT P1, [R3], R4",    # 6 spin wait
+    "@!P1 BRA 0x60",                                  # 7
+    "LDS.U16 R5, [R6]",                               # 8
+    "LDS.U16 R7, [R6+0x100]",                         # 9
+    "FADD R8, R8, R5",                                # 10
+    "FADD R8, R8, R7",                                # 11
+    "BAR.SYNC.DEFER_BLOCKING 0x0",                    # 12
+    "@P2 BRA 0x20",                                   # 13 next stage
+    "@P3 BRA 0x10",                                   # 14 next chunk
+    "EXIT",                                           # 15
+    "BRA 0x100",                                      # 16
+]
+LOOP_SASS = "\tFunction : _ZN4anon19slab_row_sum_kernelEPKiPKtPfiii\n" \
+    + "".join(f"        /*{16 * i:04x}*/    {x} ;    /* 0x0 */\n"
+              for i, x in enumerate(_LOOP))
+
+
+@pytest.mark.parametrize("op,at_least,through,want", [
+    ("LDS.U16", 2, (), 11),            # the stage loop, copies skipped
+    ("LDS.U16", 2, ("LDGSTS",), 12),   # through the copy
+    ("BAR", 2, (), 13),                # only the chunk loop holds two
+    ("FADD", 2, ("SYNCS",), 11),
+])
+def test_loop_trip_counts_the_shortest_trip(op, at_least, through, want):
+    main, subs = sc.parse(LOOP_SASS)["slab_row_sum"]
+    assert len(main) == len(_LOOP) and not subs
+    assert sc.loop_trip(main, op, at_least, through) == want
+
+
+def test_loop_trip_needs_a_loop_holding_the_run():
+    main, _ = sc.parse(LOOP_SASS)["slab_row_sum"]
+    with pytest.raises(ValueError):
+        sc.loop_trip(main, "LDS.U16", 3)
+
+
+def test_loop_issue_lower_bound():
+    # 300 instructions a trip, 4 warps x 65536 rows, 132 SMs x 4
+    # schedulers at 1980 MHz
+    rate = 132 * 4 * 1980e6
+    got = sc.loop_issue_lower_bound_ms(300, 4 * 65536, rate)
+    assert got == pytest.approx(1e3 * 300 * 4 * 65536 / rate)
+    assert 0.075 < got < 0.076
