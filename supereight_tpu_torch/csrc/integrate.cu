@@ -198,7 +198,9 @@ __device__ __forceinline__ VoxelSample project_voxel(const RowParams& p,
   return s;
 }
 
-// SDF update of one voxel (fields/sdf.py), for a sample with ds > 0.
+// SDF update of one voxel (fields/sdf.py), for a sample with ds > 0, rounded
+// as XLA rounds the JAX update: multiply-adds, and the division by mu a
+// product with its reciprocal.
 struct SdfUpdate {
   float mu, max_weight;
   static constexpr bool kView = true;
@@ -207,11 +209,11 @@ struct SdfUpdate {
                                              float& w) const {
     const float nx = s.cx / s.zs;
     const float ny = s.cy / s.zs;
-    const float norm = sqrtf((1.0f + nx * nx) + ny * ny);
+    const float norm = sqrtf(fmaf(ny, ny, fmaf(nx, nx, 1.0f)));
     const float diff = (s.ds - s.cz) * norm;
     if (!(diff > -mu)) return false;
-    const float sdf = fminf(diff / mu, 1.0f);
-    t = fminf(fmaxf((w * t + sdf) / (w + 1.0f), -1.0f), 1.0f);
+    const float sdf = fminf(diff * (1.0f / mu), 1.0f);
+    t = fminf(fmaxf(fmaf(w, t, sdf) / (w + 1.0f), -1.0f), 1.0f);
     w = fminf(w + 1.0f, max_weight);
     return true;
   }

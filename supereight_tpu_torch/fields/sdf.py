@@ -7,9 +7,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
+import numpy as np
 import torch
 
-from supereight_tpu_torch.core.numerics import div
+from supereight_tpu_torch.core.numerics import fma, sqrt
 from supereight_tpu_torch.core.octree import ChannelSpec
 
 
@@ -43,18 +44,24 @@ class SDFField:
         """Per-voxel projective TSDF update (`sdf.py:SDFField.update`):
         ``pos_cam`` [..., 3] camera-space voxel centres, ``depth_sample`` the
         depth at the projected pixel, ``valid`` the in-frame gate.  The
-        frame ``timestamp`` is unused (the SDF keeps no time)."""
+        frame ``timestamp`` is unused (the SDF keeps no time).
+
+        Rounded as the jitted JAX update rounds: the sum of squares and
+        ``w * tsdf + sdf`` are multiply-adds, the root is correctly
+        rounded, and the division by ``mu`` is a product with its float32
+        reciprocal."""
         z = pos_cam[..., 2]
         zsafe = torch.where(z == 0, 1.0, z)
         nx = pos_cam[..., 0] / zsafe
         ny = pos_cam[..., 1] / zsafe
-        norm = torch.sqrt(1.0 + nx * nx + ny * ny)
+        norm = sqrt(fma(ny, ny, fma(nx, nx, torch.ones_like(nx))))
         diff = (depth_sample - z) * norm
         do = valid & (depth_sample > 0) & (diff > -self.mu)
-        sdf = torch.clamp(div(diff, self.mu), max=1.0)
+        inv_mu = float(np.float32(1.0) / np.float32(self.mu))
+        sdf = torch.clamp(diff * inv_mu, max=1.0)
         w = data["weight"]
         tsdf = data["tsdf"]
-        new_tsdf = torch.clamp((w * tsdf + sdf) / (w + 1.0), -1.0, 1.0)
+        new_tsdf = torch.clamp(fma(w, tsdf, sdf) / (w + 1.0), -1.0, 1.0)
         new_w = torch.clamp(w + 1.0, max=self.max_weight)
         return {"tsdf": torch.where(do, new_tsdf, tsdf),
                 "weight": torch.where(do, new_w, w)}

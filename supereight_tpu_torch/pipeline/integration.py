@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from supereight_tpu_torch.core import octree
-from supereight_tpu_torch.core.numerics import matvec, trunc_i32
+from supereight_tpu_torch.core.numerics import inv, matvec, trunc_i32
 from supereight_tpu_torch.core.octree import BLOCK_SIDE, VoxelMap
 from supereight_tpu_torch.fields.ofusion import (compute_stepsize,
                                                  step_to_depth)
@@ -66,7 +66,7 @@ def _pixel_rays(depth, pose, K, decim: int):
     d = depth[iy][:, ix]
     x = (ix.to(torch.float32) + 0.5)[None, :]
     y = (iy.to(torch.float32) + 0.5)[:, None]
-    kpose = pose @ torch.linalg.inv(K)
+    kpose = pose @ inv(K)
     hom = torch.stack([x * d, y * d, d, torch.ones_like(d)], dim=-1)
     vertex = matvec(kpose[:3], hom)
     camera = pose[:3, 3]
@@ -282,7 +282,7 @@ def integrate(m: VoxelMap, field, depth, pose, K, timestamp: float = 0.0,
     if view is not None and field.multiscale_alloc:
         raise ValueError("a held view is updated by fusion for single-scale "
                          "fields only (the multiscale view is rebuilt)")
-    T_cw = torch.linalg.inv(pose).contiguous()
+    T_cw = inv(pose)
     K = K.contiguous()
     depth = depth.contiguous()
     slots, dropped = fusion_operands(m, T_cw, K, depth.shape, budget)

@@ -5,24 +5,30 @@ from __future__ import annotations
 
 from typing import List, Tuple
 
+import numpy as np
 import torch
 
-from supereight_tpu_torch.core.numerics import div, fma
+from supereight_tpu_torch.core.numerics import fma, sqrt
 from . import camera
 from .constants import E_DELTA, GAUSSIAN_DELTA, INVALID, RADIUS
+
+#: 1 / 1000 in float32
+MM_TO_M = float(np.float32(1e-3))
 
 
 def mm_to_meters(depth_mm: torch.Tensor,
                  out_hw: Tuple[int, int]) -> torch.Tensor:
     """Integer mm depth -> float32 m, decimated by pixel striding (output
-    pixel (x, y) samples input pixel (x*ratio, y*ratio); no averaging)."""
+    pixel (x, y) samples input pixel (x*ratio, y*ratio); no averaging).
+    The millimetres are multiplied by float32(0.001), as jitted XLA
+    rewrites the JAX package's division by 1000."""
     H, W = out_hw
     ih, iw = depth_mm.shape
     ratio = iw // W
     if ih // H != ratio or W * ratio != iw or H * ratio != ih:
         raise ValueError(f"invalid decimation {tuple(depth_mm.shape)} -> "
                          f"{out_hw}")
-    return div(depth_mm[::ratio, ::ratio].to(torch.float32), 1000.0)
+    return depth_mm[::ratio, ::ratio].to(torch.float32) * MM_TO_M
 
 
 def _shifted(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
@@ -79,12 +85,13 @@ def half_sample_robust(depth: torch.Tensor, e_d: float = E_DELTA * 3,
 
 
 def depth_to_vertex(depth: torch.Tensor, inv_K: torch.Tensor) -> torch.Tensor:
-    """Back-project depth to camera-space vertices [H, W, 3]."""
+    """Back-project depth to camera-space vertices [H, W, 3]; each pixel
+    ray's coordinate is one multiply-add, as jitted XLA contracts it."""
     H, W = depth.shape
     x = torch.arange(W, dtype=torch.float32, device=depth.device)[None, :]
     y = torch.arange(H, dtype=torch.float32, device=depth.device)[:, None]
-    vx = depth * (inv_K[0, 0] * x + inv_K[0, 2])
-    vy = depth * (inv_K[1, 1] * y + inv_K[1, 2])
+    vx = depth * fma(inv_K[0, 0], x, inv_K[0, 2])
+    vy = depth * fma(inv_K[1, 1], y, inv_K[1, 2])
     v = torch.stack([vx, vy, depth], dim=-1)
     return torch.where(depth[..., None] > 0, v, 0.0)
 
@@ -103,7 +110,7 @@ def norm(v: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     acc = v[..., 0] * v[..., 0]
     for i in range(1, v.shape[-1]):
         acc = fma(v[..., i], v[..., i], acc)
-    n = torch.sqrt(acc)
+    n = sqrt(acc)
     return n[..., None] if keepdim else n
 
 

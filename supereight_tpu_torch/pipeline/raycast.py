@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from supereight_tpu_torch.core import octree
-from supereight_tpu_torch.core.numerics import trunc_i32
+from supereight_tpu_torch.core.numerics import inv, trunc_i32
 from supereight_tpu_torch.core.octree import BLOCK_SIDE, VoxelMap
 from . import camera
 from .constants import INVALID
@@ -167,7 +167,7 @@ def _splat_bounds(m: VoxelMap, field, view, H: int, W: int, near: float,
     gh, gw = H // g, W // g
     dev = view.device
 
-    inv_view = torch.linalg.inv(view)          # = K @ inv(pose)
+    inv_view = inv(view)          # = K @ inv(pose)
     vs = m.voxel_size
     bc = octree.block_coords_table(m).to(torch.float32)
     hom = camera.transform_points(inv_view, (bc + 0.5) * (BLOCK_SIDE * vs))

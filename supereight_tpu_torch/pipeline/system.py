@@ -21,8 +21,9 @@ import torch
 
 from supereight_tpu_torch.config import SlamConfig
 from supereight_tpu_torch.core import octree
+from supereight_tpu_torch.core.volume import Volume
 from supereight_tpu_torch.fields import make_field
-from . import camera, integration, preprocessing, raycast, tracking
+from . import camera, integration, preprocessing, raycast, rendering, tracking
 from .constants import FAR_PLANE, INVALID, NEAR_PLANE
 from .preprocessing import norm
 
@@ -92,8 +93,14 @@ def preprocessing_stage(state: FrameState, depth_mm,
 
 
 def tracking_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
-                   neg_y: bool) -> FrameState:
-    """Coarse-to-fine ICP against the last raycast's reference maps."""
+                   neg_y: bool, gt_pose=None) -> FrameState:
+    """Coarse-to-fine ICP against the last raycast's reference maps.  A
+    ``gt_pose`` (float32 [4,4] on the state's device) bypasses ICP, as the
+    reference's ground-truth mode does: it becomes the pose, the frame
+    counts as tracked and the ICP status image is kept."""
+    if gt_pose is not None:
+        return state.replace(pose=gt_pose.clone(), tracked=True,
+                             prev_pose=state.pose.clone())
     if frame % cfg.tracking_rate != 0:
         return state.replace(tracked=False)
     depths, vertices, normals = preprocessing.build_pyramid(
@@ -213,22 +220,26 @@ def raycasting_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
 
 
 def process_frame(state: FrameState, depth_mm, k, frame: int, *,
-                  cfg: SlamConfig, field, neg_y: bool = False) -> FrameState:
-    """One full SLAM frame."""
+                  cfg: SlamConfig, field, neg_y: bool = False,
+                  gt_pose=None) -> FrameState:
+    """One full SLAM frame (``gt_pose``: see :func:`tracking_stage`)."""
     state = preprocessing_stage(state, depth_mm, cfg)
-    state = tracking_stage(state, k, frame, cfg, neg_y)
+    state = tracking_stage(state, k, frame, cfg, neg_y, gt_pose)
     state = integration_stage(state, k, frame, cfg, field)
     return raycasting_stage(state, k, frame, cfg, field)
 
 
 class DenseSLAMSystem:
-    """Stateful facade over the functional pipeline on an explicit
-    ``device``, configured by a :class:`SlamConfig` (e.g.
+    """Stateful facade over the functional pipeline (the reference's
+    ``DenseSLAMSystem`` API) on ``device``, the card unless the caller asks
+    for another, configured by a :class:`SlamConfig` (e.g.
     ``config.apply_preset(name, SlamConfig(...))``) or any object with its
     attribute names.  ``step()`` runs one frame; ``step_staged()`` runs the
-    same stages and times each."""
+    same stages and times each; ``preprocessing`` .. ``raycasting`` run one
+    stage each."""
 
-    def __init__(self, input_size: Tuple[int, int], config, device):
+    def __init__(self, input_size: Tuple[int, int], config,
+                 device="cuda"):
         self.config = cfg = SlamConfig.of(config)
         self.device = torch.device(device)
         # full float32 products on the card, as the JAX reference sets
@@ -252,48 +263,102 @@ class DenseSLAMSystem:
                                 self.H, self.W, self.init_pose, self.device,
                                 capacity=cfg.block_capacity,
                                 incremental_view=cfg.incremental_view)
+        self._view_pose = None
+
+    # ---- the reference's accessors ----
+
+    def getPosition(self) -> torch.Tensor:
+        return self.state.pose[:3, 3]
 
     def getPose(self) -> torch.Tensor:
         return self.state.pose
 
     def setPose(self, pose) -> None:
-        p = torch.as_tensor(np.asarray(pose), dtype=torch.float32,
-                            device=self.device)
+        p = self._pose(pose)
         self.state = self.state.replace(pose=p.clone(), prev_pose=p.clone())
+
+    def setViewPose(self, pose=None) -> None:
+        self._view_pose = pose
 
     def getMap(self) -> octree.VoxelMap:
         return self.state.map
 
-    def _inputs(self, depth_mm, k):
+    def getVolume(self) -> Volume:
+        """Metric-space continuous view of the map."""
+        return Volume(self.state.map, self.field.select_channel)
+
+    def getInitPos(self) -> torch.Tensor:
+        return self.init_pose[:3, 3]
+
+    def _pose(self, pose) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(pose, np.float32),
+                               device=self.device)
+
+    def _depth(self, depth_mm) -> torch.Tensor:
         if not isinstance(depth_mm, torch.Tensor):
             depth_mm = np.asarray(depth_mm)
             if depth_mm.dtype == np.uint16:
                 depth_mm = depth_mm.astype(np.int32)
             depth_mm = torch.from_numpy(depth_mm)
-        k_host = np.asarray(k, np.float32)
-        return (depth_mm.to(self.device),
-                torch.from_numpy(k_host).to(self.device),
-                bool(k_host[1] < 0))      # NegY normals for a flipped y
+        return depth_mm.to(self.device)
 
-    def step(self, depth_mm, k, frame: int) -> FrameState:
+    def _k(self, k) -> Tuple[torch.Tensor, bool]:
+        """``k`` on the device, and whether fy < 0 (NegY normals for a
+        flipped y)."""
+        k_host = np.asarray(k, np.float32)
+        return torch.from_numpy(k_host).to(self.device), bool(k_host[1] < 0)
+
+    # ---- one stage each (the reference's preprocessing / tracking /
+    # integration / raycasting) ----
+
+    def preprocessing(self, depth_mm) -> bool:
+        self.state = preprocessing_stage(self.state, self._depth(depth_mm),
+                                         self.config)
+        return True
+
+    def tracking(self, k, frame: int, gt_pose=None) -> bool:
+        kd, neg_y = self._k(k)
+        gt = None if gt_pose is None else self._pose(gt_pose)
+        self.state = tracking_stage(self.state, kd, frame, self.config,
+                                    neg_y, gt)
+        return self.state.tracked
+
+    def integration(self, k, frame: int) -> bool:
+        kd, _ = self._k(k)
+        self.state = integration_stage(self.state, kd, frame, self.config,
+                                       self.field)
+        return self.state.integrated
+
+    def raycasting(self, k, frame: int) -> bool:
+        kd, _ = self._k(k)
+        self.state = raycasting_stage(self.state, kd, frame, self.config,
+                                      self.field)
+        return frame > 2
+
+    # ---- a whole frame ----
+
+    def step(self, depth_mm, k, frame: int, gt_pose=None) -> FrameState:
         """Process one frame: ``depth_mm`` [H_in, W_in] integer millimetres,
-        ``k`` (fx, fy, cx, cy) at computation resolution."""
-        depth, kd, neg_y = self._inputs(depth_mm, k)
+        ``k`` (fx, fy, cx, cy) at computation resolution; ``gt_pose``
+        [4,4] bypasses ICP (the reference's ground-truth mode)."""
+        depth, (kd, neg_y) = self._depth(depth_mm), self._k(k)
+        gt = None if gt_pose is None else self._pose(gt_pose)
         self.state = process_frame(self.state, depth, kd, frame,
                                    cfg=self.config, field=self.field,
-                                   neg_y=neg_y)
+                                   neg_y=neg_y, gt_pose=gt)
         return self.state
 
-    def step_staged(self, depth_mm, k, frame: int
+    def step_staged(self, depth_mm, k, frame: int, gt_pose=None
                     ) -> Tuple[FrameState, Dict[str, float]]:
         """Like :meth:`step`, returning ``(state, {stage: seconds})``; the
         host clock is read after the device finished each stage."""
-        depth, kd, neg_y = self._inputs(depth_mm, k)
+        depth, (kd, neg_y) = self._depth(depth_mm), self._k(k)
+        gt = None if gt_pose is None else self._pose(gt_pose)
         stages = (
             ("preprocessing", lambda s: preprocessing_stage(s, depth,
                                                             self.config)),
             ("tracking", lambda s: tracking_stage(s, kd, frame, self.config,
-                                                  neg_y)),
+                                                  neg_y, gt)),
             ("integration", lambda s: integration_stage(
                 s, kd, frame, self.config, self.field)),
             ("raycasting", lambda s: raycasting_stage(
@@ -304,8 +369,33 @@ class DenseSLAMSystem:
         for name, fn in stages:
             t0 = time.perf_counter()
             st = fn(st)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self.synchronize()
             times[name] = time.perf_counter() - t0
         self.state = st
         return st, times
+
+    def synchronize(self) -> None:
+        """Wait for the device to finish the work queued so far."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ---- renderers (uint8 [H, W, 4] images) ----
+
+    def renderDepth(self) -> torch.Tensor:
+        return rendering.render_depth(self.state.scaled_depth)
+
+    def renderTrack(self) -> torch.Tensor:
+        return rendering.render_track(self.state.track_result)
+
+    def renderVolume(self, view_pose=None, k=None) -> torch.Tensor:
+        """The shaded surface of the last raycast's reference maps, or,
+        given ``view_pose`` and ``k``, of a raycast from that view."""
+        st = self.state
+        if view_pose is None:
+            return rendering.render_volume(
+                st.map, self.field, None, self.H, self.W,
+                vertex=st.ref_vertex, normal=st.ref_normal)
+        kd, _ = self._k(k)
+        view = self._pose(view_pose) @ camera.inverse_camera_matrix(kd)
+        return rendering.render_volume(st.map, self.field, view,
+                                       self.H, self.W)

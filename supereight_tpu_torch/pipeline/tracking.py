@@ -13,7 +13,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from supereight_tpu_torch.core.numerics import trunc_i32
+from supereight_tpu_torch.core.numerics import inv, trunc_i32
 from . import camera
 from .constants import (DIST_THRESHOLD, INVALID, NORMAL_THRESHOLD,
                         TRACK_THRESHOLD)
@@ -149,7 +149,7 @@ def track(pose, depths, vertices, normals, ref_vertex, ref_normal,
     """Coarse-to-fine tracking.  Returns (new_pose, tracked: bool tensor,
     full-res status image of the last level-0 iteration).
     ``finest_decimate`` strides the finest level's input maps."""
-    view = camera.camera_matrix(k) @ torch.linalg.inv(raycast_pose)
+    view = camera.camera_matrix(k) @ inv(raycast_pose)
     zero = torch.zeros((), dtype=torch.float32, device=pose.device)
     st = TrackState(pose=pose, error2=zero, count=zero)
     d = finest_decimate

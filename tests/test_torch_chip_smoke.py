@@ -1,7 +1,8 @@
 """``chip_smoke.py``'s own checks, runnable without a card: its ATE agrees
 with ``supereight_tpu.apps.evaluate.ate`` (to 1e-9 m), its runs are the
-configurations of the JAX records they are held against, and without CUDA
-it exits non-zero and prints no result."""
+configurations of the JAX records they are held against, its gates are the
+JAX package's CPU figures plus the stated margins, and without CUDA it exits
+non-zero and prints no result."""
 
 import json
 import os
@@ -27,7 +28,7 @@ def test_ate_matches_evaluate():
                                              [0, 0, 1]]).T + 0.3
     est[:, :3, 3] += rng.normal(0, 0.01, (40, 3))
     want = evaluate.ate(list(est), list(gt))["rmse"]
-    got = chip_smoke.ate_rmse(est[:, :3, 3], gt[:, :3, 3])
+    got = chip_smoke.ate_rmse(est, gt)
     assert want > 0.005
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
 
@@ -51,8 +52,9 @@ RECORD_KEYS = dict(
 @pytest.mark.parametrize("name", sorted(chip_smoke.RUNS))
 def test_runs_are_the_records(name):
     """Each preset the smoke runs is the configuration of the JAX record it
-    is held against, on the record's sequence at its size, and the ATE gate
-    lies at most ~2 cm above the record."""
+    is held against, on the record's sequence at its size; the ATE gate is
+    the JAX package's CPU figure plus a margin of at most 2.5 cm, and no
+    looser than the record + ~2 cm the gates allowed before."""
     from supereight_tpu.config import PRESETS
     assert set(chip_smoke.RUNS) == set(PRESETS)
     sequence, record_file, max_ate = chip_smoke.RUNS[name]
@@ -63,7 +65,12 @@ def test_runs_are_the_records(name):
         (sequence, 96, cfg.volume_resolution[0])
     for knob, key in RECORD_KEYS.items():
         assert getattr(cfg, knob) == rec[key], knob
-    assert rec["ate_rmse_m"] < max_ate <= rec["ate_rmse_m"] + 0.0215
+    margin = chip_smoke.ATE_MARGIN_CM.get(name,
+                                          chip_smoke.ATE_MARGIN_DEFAULT_CM)
+    assert 0 < margin <= 2.5
+    assert max_ate == pytest.approx(0.01 * (chip_smoke.JAX_CPU[name][0]
+                                            + margin), abs=1e-12)
+    assert max_ate <= rec["ate_rmse_m"] + 0.0215
     record = chip_smoke.load_record(record_file)
     assert record["tracked"] == rec["tracked_frames"] >= chip_smoke.MIN_TRACKED
 
@@ -113,3 +120,65 @@ def test_probe_cases_bounds():
         assert resident == distinct * 8192
         assert b_ms == pytest.approx(1e3 * (4 * n + distinct * 8192
                                             + 8 * 512 * 4) / 3.35e12)
+
+
+def test_jax_cpu_figures():
+    """The JAX package's CPU figures the gates hold to (printed by
+    `jax_cpu_reference.py`): every preset, the app phases and the
+    runner."""
+    assert set(chip_smoke.JAX_CPU) == set(chip_smoke.RUNS)
+    for name, (ate_cm, blocks) in chip_smoke.JAX_CPU.items():
+        assert 0.5 < ate_cm < 6.0 and blocks > 2000, name
+    assert chip_smoke.JAX_CPU_APP == dict(
+        gt_blocks=2607, icp_ate_cm=4.03, icp_blocks=2914,
+        facade_gt_blocks=2658, runner_ate_cm=2.98, runner_tracked=0.967)
+    assert chip_smoke.TPU_GT_BLOCKS == 2686
+
+
+def test_app_phase_gates():
+    """Phases A-D: blocks within 0.5 %, ground-truth ATE below 1e-4 m, the
+    ICP app's ATE gate 5.03 cm, the runner's 4.48 cm and 92 % tracked, half
+    the last volume rendering shaded, the app's own flags."""
+    assert chip_smoke.BLOCKS_RTOL == 0.005
+    assert chip_smoke.GT_MAX_ATE_M == 1e-4
+    assert chip_smoke.JAX_CPU_APP["icp_ate_cm"] \
+        + chip_smoke.APP_ICP_ATE_MARGIN_CM == pytest.approx(5.03)
+    assert chip_smoke.JAX_CPU_APP["runner_ate_cm"] \
+        + chip_smoke.RUNNER_ATE_MARGIN_CM == pytest.approx(4.48)
+    assert chip_smoke.RUNNER_MIN_TRACKED == 0.92
+    assert chip_smoke.MIN_SHADED == 0.5
+    assert chip_smoke.MIN_TRACKED == 88
+    from supereight_tpu_torch.apps import benchmark
+    args = benchmark.parse_args(["-i", "x.raw"] + chip_smoke.APP_ARGS
+                                + chip_smoke.APP_ICP_START)
+    assert (args.volume_size, args.volume_resolution, args.camera,
+            args.preset, args.init_pose, args.rendering_rate) == (
+        "4.8", "256", "240.6,240,160,120", "headline", "0.5,0.5,0.23", 4)
+
+
+def test_check_blocks():
+    chip_smoke.check_blocks("x", 2607 + 13, 2607)
+    chip_smoke.check_blocks("x", 2607 - 13, 2607)
+    with pytest.raises(SystemExit, match="0.5 %"):
+        chip_smoke.check_blocks("x", 2607 + 14, 2607)
+
+
+def test_check_launched():
+    chip_smoke.check_launched("x", {"fuse_sdf": 96, "fuse_ofusion": 0}, 96)
+    for counts, integrated in (({"fuse_sdf": 95}, 96), ({"fuse_sdf": 0}, 0)):
+        with pytest.raises(SystemExit, match="kernel"):
+            chip_smoke.check_launched("x", counts, integrated)
+
+
+def test_write_sequence(tmp_path):
+    """The app phases' stream and trajectory, read back with the JAX
+    package's readers."""
+    from supereight_tpu.io import groundtruth, raw
+    depths, poses = chip_smoke.load_sequence("synthetic_256_frames")
+    rawp, gtp = chip_smoke.write_sequence(str(tmp_path), depths[:3],
+                                          poses[:3])
+    r = raw.RawReader(rawp)
+    assert (r.width, r.height, len(r)) == (320, 240, 3)
+    np.testing.assert_array_equal(r.read(2)[0], depths[2])
+    got = groundtruth.read_poses(gtp)
+    np.testing.assert_allclose(np.stack(got), poses[:3], rtol=0, atol=1e-6)

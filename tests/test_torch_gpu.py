@@ -1,11 +1,14 @@
-"""Tests of the port's CUDA kernels on the card (marker ``gpu``): each
-kernel against its plain twin.  They skip
-without a CUDA device.  This file imports neither JAX nor the JAX package,
-so it also runs where only PyTorch is installed:
+"""Tests of the port on the card (marker ``gpu``): each CUDA kernel against
+its plain twin, and the slice's entry points (the benchmark app, the
+renderers, the sphere trace, the multiply-add) against their CPU results.
+They skip without a CUDA device.  This file imports neither JAX nor the
+JAX package, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_gpu.py
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -371,3 +374,159 @@ def test_slab_row_sum_stages_indices_in_chunks(cuda):
     rows, table = _slab_case(cuda, 4 * 2048 + 44, 64, 128, 11)
     out = _counted(lambda: gp.slab_row_sum(rows, table), "slab_row_sum")
     assert torch.equal(out, gp.slab_row_sum_reference(rows, table))
+
+
+# ---- the slice's entry points on the card against their CPU results ----
+
+BENCH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                     "bench_data", "synthetic_256_frames.npz")
+APP_FRAMES = 8
+
+
+def _sequence(tmp_path):
+    """The first APP_FRAMES cached frames as a .raw stream and a TUM
+    trajectory."""
+    from supereight_tpu_torch.io import groundtruth, raw
+    z = np.load(BENCH)
+    w = raw.RawWriter(str(tmp_path / "seq.raw"), 320, 240)
+    for d in z["depths"][:APP_FRAMES]:
+        w.write(d)
+    w.close()
+    groundtruth.write_poses(str(tmp_path / "seq.gt"),
+                            z["poses"][:APP_FRAMES])
+    return str(tmp_path / "seq.raw"), str(tmp_path / "seq.gt")
+
+
+@pytest.mark.gpu
+def test_app_ground_truth_on_card(cuda, tmp_path):
+    """``apps.benchmark`` in ground-truth mode for 8 frames at 64^3: the
+    card's run (through the fusion kernel) and the CPU's (its twin) give
+    the same TSV flags and poses, the same blocks, slots and tables, the
+    same depth and track images, and volume images whose shaded pixels
+    part at most at 0.1 % (the raycast's)."""
+    from supereight_tpu_torch.apps import benchmark
+    rawp, gtp = _sequence(tmp_path)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        log = str(tmp_path / f"{dev}.tsv")
+        before = ik.LAUNCHES["fuse_sdf"]
+        r = benchmark.run(["-i", rawp, "-g", gtp, "-s", "4.8", "-v", "64",
+                           "-r", "2", "-k", "240.6,240,160,120", "-z", "1",
+                           "-c", "2", "-q", "-o", log, "--device", dev])
+        launched = ik.LAUNCHES["fuse_sdf"] - before
+        runs[dev] = (np.loadtxt(log, skiprows=1, ndmin=2), r, launched)
+    (tc, rc, nc), (tp, rp, np_) = runs["cuda"], runs["cpu"]
+    assert nc == APP_FRAMES and np_ == 0
+    np.testing.assert_array_equal(tc[:, 9:], tp[:, 9:])
+    assert tc[:, 12].sum() == APP_FRAMES
+    np.testing.assert_array_equal(np.stack(rc.est_poses),
+                                  np.stack(rp.est_poses))
+    mc, mp = rc.system.state.map, rp.system.state.map
+    assert int(mc.n_blocks) == int(mp.n_blocks) > 0
+    for name in ("keys", "block_index", "active"):
+        assert torch.equal(getattr(mc, name).cpu(), getattr(mp, name))
+    for k in mc.voxels:
+        assert torch.equal(mc.voxels[k].cpu(), mp.voxels[k]), k
+    for a, b in zip(rc.images[:2], rp.images[:2]):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    # the shaded reference maps of maps that part by rounding
+    shaded = [(x[..., :3].amax(-1) > 0).float() for x in
+              (rc.images[2].cpu(), rp.images[2])]
+    assert float((shaded[0] != shaded[1]).float().mean()) <= 1e-3
+
+
+def _to(x, dev):
+    """A state, map or tensor (nested in dataclasses, lists and dicts) on
+    ``dev``."""
+    import dataclasses
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: _to(getattr(x, f.name), dev)
+            for f in dataclasses.fields(x)})
+    if isinstance(x, dict):
+        return {k: _to(v, dev) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_to(v, dev) for v in x]
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset", ["headline", "ofusion"])
+def test_renderers_match_cpu(cuda, preset):
+    """``renderDepth``, ``renderTrack`` and ``renderVolume`` (reference maps
+    and a free view) of one state, on the card and on the CPU: bit for bit
+    but for a free view's raycast, which may part at 0.1 % of the
+    pixels."""
+    from supereight_tpu_torch.config import SlamConfig, apply_preset
+    from supereight_tpu_torch.pipeline import DenseSLAMSystem
+    z = np.load(BENCH)
+    cfg = apply_preset(preset, SlamConfig(
+        volume_resolution=(64,) * 3, volume_size=(4.8,) * 3,
+        compute_size_ratio=2))
+    k = np.array([120.3, 120.0, 80.0, 60.0], np.float32)
+    cpu = DenseSLAMSystem((240, 320), cfg, "cpu")
+    cpu.setPose(z["poses"][0])
+    for f in range(6):
+        cpu.step(z["depths"][f], k, f)
+    card = DenseSLAMSystem((240, 320), cfg, cuda)
+    card.state = _to(cpu.state, cuda)
+    for name in ("renderDepth", "renderTrack", "renderVolume"):
+        a, b = getattr(card, name)(), getattr(cpu, name)()
+        assert a.device.type == "cuda" and a.dtype == torch.uint8
+        assert torch.equal(a.cpu(), b), name
+    a = card.renderVolume(z["poses"][7], k).cpu()
+    b = cpu.renderVolume(z["poses"][7], k)
+    assert float((a != b).any(-1).float().mean()) <= 1e-3
+    assert float((b[..., :3].amax(-1) > 0).float().mean()) > 0.5
+
+
+@pytest.mark.gpu
+def test_sphere_trace_matches_cpu(cuda):
+    """The synthetic sequence's sphere trace on the card and on the CPU,
+    both scene variants: the same depth bit for bit."""
+    from supereight_tpu_torch.io import synthetic
+    pose = synthetic.orbit_poses(120, 4.8)[40]
+    k = np.array([120.0, 120.0, 160.0, 120.0], np.float32)
+    for variant in (0, 1):
+        args = (4.8, 240, 320)
+        a = synthetic.render_depth(torch.from_numpy(pose).to(cuda),
+                                   torch.from_numpy(k).to(cuda), *args,
+                                   variant=variant).cpu()
+        b = synthetic.render_depth(torch.from_numpy(pose),
+                                   torch.from_numpy(k), *args,
+                                   variant=variant)
+        assert float((b > 0).float().mean()) > 0.9
+        assert torch.equal(a, b), variant
+
+
+@pytest.mark.gpu
+def test_fma_on_card_rounds_once(cuda):
+    """``numerics.fma`` on the card (``addcmul`` where nvcc contracts it,
+    else the float64 fallback) equals the CPU's on products that nearly
+    cancel, where rounding twice differs."""
+    from supereight_tpu_torch.core import numerics
+    rng = np.random.default_rng(0)
+    n = 1 << 20
+    a, b = (torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+            for _ in range(2))
+    c = (-(a.double() * b) * (1 + torch.from_numpy(
+        rng.standard_normal(n)) * 1e-7)).float()
+    want = numerics.fma(a, b, c)
+    got = numerics.fma(a.to(cuda), b.to(cuda), c.to(cuda)).cpu()
+    assert torch.equal(got, want)
+    assert torch.equal(numerics._fma_round_to_odd(
+        a.to(cuda), b.to(cuda), c.to(cuda)).cpu(), want)
+    print("addcmul fuses on the card:",
+          numerics._addcmul_fuses("cuda"))
+
+
+@pytest.mark.gpu
+def test_inv_on_card(cuda):
+    """``numerics.inv`` of a pose on the card: on the card, the CPU's bits."""
+    from supereight_tpu_torch.core import numerics
+    pose = torch.from_numpy(np.load(BENCH)["poses"][17])
+    got = numerics.inv(pose.to(cuda))
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), numerics.inv(pose))

@@ -96,8 +96,9 @@ def test_map_from_numpy_carries_every_field():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports with JAX and flax made
-    unimportable, and none of them loads the JAX package."""
+    """Every module of the port (its io, apps, tools and utils too) and
+    ``chip_smoke.py`` import with JAX and flax made unimportable, and none
+    of them loads the JAX package."""
     code = r"""
 import importlib, pkgutil, sys
 for name in list(sys.modules):
@@ -111,8 +112,13 @@ class Block:
 
 sys.meta_path.insert(0, Block())
 import supereight_tpu_torch as pkg
-for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
-    importlib.import_module(m.name)
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                              pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+for sub in ("io", "apps", "tools", "utils"):
+    assert any(n.startswith(f"supereight_tpu_torch.{sub}.") for n in names)
+import chip_smoke
 bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "flax")
        or n.split(".")[0] == "supereight_tpu"]
 assert not bad, bad
