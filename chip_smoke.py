@@ -31,7 +31,15 @@ GPU.
       the JAX CPU run's;
    D. ``apps.runner.run("synthetic-room", resolution=256)``, its 120 frames
       sphere-traced on the card (the trace timed alone first): tracked
-      share >= 0.92, ATE <= the JAX CPU run's + 1.5 cm.
+      share >= 0.92, ATE <= the JAX CPU run's + 1.5 cm;
+   E. the map outputs: A's command line with ``-d E.npz --dump-mesh
+      E.vtk``: the mesh's triangles within 0.5 % of the JAX package's on
+      the CPU, the triangles of the first 2048 live blocks meshed on the
+      card and on the CPU from the same map equal in count, order and bits,
+      ``serialise.load_map`` of the checkpoint equal to the live map's
+      tables bit for bit, and ``save_se`` -> ``load_se`` on the card giving
+      back the same blocks, slots and voxel tables; the mesh is timed
+      (CUDA events and the host clock) beside the VTK write.
 5. Runs the nine presets of ``supereight_tpu_torch/config.py``
    (``headline``: SDF, 256^3 over 4.8 m, 320x240, capacity 6144, fusion
    budget 3072; ``ofusion``; then the seven others), each at the size of
@@ -50,7 +58,8 @@ GPU.
    again at the budget's shape: a table of that many distinct slots
    repeating the candidates' blocks.  The held SDF view of
    ``demo512-sdf`` is held against a full rebuild; each run prints its
-   peak device memory.
+   peak device memory.  After ``1024-quality`` its whole map is meshed on
+   the card: blocks, triangles, device and host time, peak memory.
 
 Every preset is built with ``config.apply_preset``.  Each run prints its
 wall time, the median ms per frame and the median of each stage (from a
@@ -72,7 +81,8 @@ warps take to issue their instructions, from the compiled code
 K2's its shared-memory bound (``smem_ms``), K3's the time its distinct
 slabs take at the rate one PyTorch reduction reads its L2-resident table
 (``resident_ms``, beside that rate), both the launch floor and their times
-at the second shape (``at_scale``).
+at the second shape (``at_scale``: the kernel's, the twin's and the one
+PyTorch call's).
 """
 
 from __future__ import annotations
@@ -149,11 +159,12 @@ APP_ICP_START = ["-p", "0.5,0.5,0.23"]
 #: (`jax_cpu_reference.py`): blocks of the app in ground-truth mode, ATE
 #: (cm) and blocks of the app in ICP mode, blocks of the facade in
 #: ground-truth mode at the configuration of bench_data/ate_icp_256_gt.json
-#: (whose TPU run allocated 2686), and the runner's ATE (cm) and tracked
-#: share on its synthetic room
+#: (whose TPU run allocated 2686), the runner's ATE (cm) and tracked
+#: share on its synthetic room, and the triangles of the mesh the app in
+#: ground-truth mode dumps (phase E)
 JAX_CPU_APP = dict(gt_blocks=2607, icp_ate_cm=4.03, icp_blocks=2914,
                    facade_gt_blocks=2658, runner_ate_cm=2.98,
-                   runner_tracked=0.967)
+                   runner_tracked=0.967, gt_triangles=606182)
 TPU_GT_BLOCKS = 2686
 BLOCKS_RTOL = 0.005          # blocks within 0.5 % of the JAX run's
 GT_MAX_ATE_M = 1e-4          # ground-truth poses come back unchanged
@@ -164,6 +175,11 @@ RUNNER_ATE_MARGIN_CM = 1.5
 MIN_SHADED = 0.5
 #: runs of the sphere trace timed by CUDA events
 TRACE_RUNS = 5
+#: phase E meshes this many live blocks on the card and on the CPU and
+#: holds the triangles equal
+MESH_HOLD_BLOCKS = 2048
+#: the preset whose whole map is meshed on the card after its run
+MESH_AT_SCALE = "1024-quality"
 
 #: the counts the earlier runs of this code gave on the card; the path is
 #: deterministic, so they repeat exactly
@@ -484,16 +500,19 @@ def probe_cases(torch, dev):
                 gp.slab_warp_trips(rows.numel(), table.shape[1]), None,
                 resident)
 
-    bags = (k3[0] // gp.SLAB_ROWS).long()[None]
+    def bag_sum(rows):
+        bags = (rows // gp.SLAB_ROWS).long()[None]
+        return lambda: torch.nn.functional.embedding_bag(bags, slabs,
+                                                         mode="sum")
+
     return {
         "lane_shuffle_sum": ("scripts/pallas_gather_probe.py:105",
                              [k2_case(*x) for x in k2], None, None),
-        # one call that gathers and sums the same slabs: embedding_bag (it
-        # sums in its own order and returns bf16)
+        # one call that gathers and sums the same slabs, at each shape:
+        # embedding_bag (it sums in its own order and returns bf16)
         "slab_row_sum": ("scripts/pallas_gather_probe.py:146",
                          [k3_case(x) for x in k3],
-                         lambda: torch.nn.functional.embedding_bag(
-                             bags, slabs, mode="sum"), table),
+                         [bag_sum(x) for x in k3], table),
     }
 
 
@@ -570,10 +589,17 @@ def check_probe_kernels(torch, dev):
                   f"{gp.TILE_COLS}-column tile ({gp.slab_grid(gp.TILE_COLS)}"
                   f" CTAs): {scale['one_tile_ms']:.4f} ms")
         plain_ms = median_ms(shapes[0][2])
-        library_ms = None if library is None else median_ms(library)
+        library_ms = None if library is None else median_ms(library[0])
         print(f"# {name} at {probe_shape['shape']}: plain twin "
               f"{plain_ms:.4f} ms, one PyTorch call "
               f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}")
+        scale["plain_ms"] = median_ms(shapes[1][2])
+        scale["library_ms"] = None if library is None \
+            else median_ms(library[1])
+        print(f"# {name} at {scale['shape']}: plain twin "
+              f"{scale['plain_ms']:.4f} ms, one PyTorch call "
+              + ("none" if library is None
+                 else f"{scale['library_ms']:.4f} ms"))
         kernels[name] = dict(
             name=name, route="cuda",
             source="supereight_tpu_torch/csrc/gather_probe.cu",
@@ -776,6 +802,8 @@ def run_preset(torch, name, dev, kernels):
         check_held_view(torch, name, r["slam"])
     kernel, err = check_path_kernel(torch, name, r["slam"], cfg)
     kernels[kernel]["max_abs_err"] = max(kernels[kernel]["max_abs_err"], err)
+    if name == MESH_AT_SCALE:
+        mesh_whole_map(torch, name, r["slam"], dev)
     del r
     torch.cuda.empty_cache()
     print_stage_times(name, cfg, depths, poses, dev)
@@ -840,7 +868,7 @@ def app_phase(torch, label, argv, poses, tmp):
                ate=ate_rmse(np.stack(r.est_poses), poses[:len(r.est_poses)]),
                blocks=int(st.map.n_blocks), overflow=int(st.map.overflow),
                ms=statistics.median(1e3 * rows[16:, 7]), wall=wall,
-               images=r.images)
+               images=r.images, system=r.system)
     print(f"# {label}: {out['rows']} TSV rows in {wall:.1f} s, tracked "
           f"{out['tracked']}, integrated {out['integrated']}, ATE "
           f"{100 * out['ate']:.4f} cm, blocks {out['blocks']}, overflow "
@@ -931,7 +959,8 @@ def check_apps(torch, depths, poses, dev):
     if c["overflow"] or c["ate"] >= GT_MAX_ATE_M:
         fail(f"C: overflow {c['overflow']}, ATE {c['ate']:.3g} m")
     for name, r in (("A", a), ("B", b), ("C", c)):
-        figures[name] = {k: v for k, v in r.items() if k != "images"}
+        figures[name] = {k: v for k, v in r.items()
+                         if k not in ("images", "system")}
     return total, figures
 
 
@@ -990,6 +1019,145 @@ def check_runner(torch, dev):
                             wall=wall, **res)
 
 
+def timed_mesh(torch, slam):
+    """``marching_cubes`` over the system's map as ``dump_mesh`` runs it:
+    (triangles, CUDA-event ms, host-clock ms)."""
+    from supereight_tpu_torch.core import meshing
+    field = slam.field
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    tris = meshing.marching_cubes(slam.state.map, field.select_channel,
+                                  inside=field.is_inside)
+    end.record()
+    torch.cuda.synchronize()
+    return tris, start.elapsed_time(end), 1e3 * (time.perf_counter() - t0)
+
+
+def same_tables(torch, a, b, n=None) -> bool:
+    """Whether two maps hold the same blocks (block index, counter, keys)
+    and voxel tables bit for bit: the first ``n`` slots if given (a
+    reference binary keeps no ``active`` flags and no empty slots), else
+    every table of the map, the node pyramid included."""
+    cut = (lambda t: t) if n is None else (lambda t: t[:n])
+    same = torch.equal(a.block_index, b.block_index) and \
+        torch.equal(a.n_blocks, b.n_blocks) and \
+        torch.equal(cut(a.keys), cut(b.keys)) and \
+        all(torch.equal(cut(a.voxels[k]), cut(b.voxels[k]))
+            for k in a.voxels)
+    if n is None:
+        same = same and torch.equal(a.active, b.active) and \
+            torch.equal(a.overflow, b.overflow) and \
+            all(torch.equal(x, y) for x, y in zip(a.node_alloc, b.node_alloc)) \
+            and all(torch.equal(x[k], y[k]) for x, y in
+                    zip(a.node_values, b.node_values) for k in x)
+    return same
+
+
+def check_map_outputs(torch, depths, poses, dev):
+    """Phase E: the app in ground-truth mode with ``-d`` and
+    ``--dump-mesh``, then the mesh, the checkpoint and the reference binary
+    held as the docstring says.  Returns the fusion launches and the
+    figures."""
+    import tempfile
+    from supereight_tpu_torch.core import meshing
+    from supereight_tpu_torch.io import serialise, vtk
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rawp, gtp = write_sequence(tmp, depths, poses)
+        npz, vtk_path, se_path = (os.path.join(tmp, f) for f in
+                                  ("E.npz", "E.vtk", "E.bin"))
+        e = app_phase(torch, "E app map outputs",
+                      ["-i", rawp] + APP_ARGS + ["-c", "0", "-g", gtp,
+                                                 "-d", npz,
+                                                 "--dump-mesh", vtk_path],
+                      poses, tmp)
+        counts = launches()
+        slam = e.pop("system")
+        m = slam.state.map
+        with open(vtk_path) as f:
+            dumped = int(next(ln for ln in f
+                              if ln.startswith("POLYGONS")).split()[1])
+        tris, dev_ms, host_ms = timed_mesh(torch, slam)
+        t0 = time.perf_counter()
+        vtk.write_vtk_mesh(os.path.join(tmp, "again.vtk"), tris)
+        vtk_ms = 1e3 * (time.perf_counter() - t0)
+        want = JAX_CPU_APP["gt_triangles"]
+        print(f"# E: {e['blocks']} blocks, mesh of {tris.shape[0]} "
+              f"triangles (the app's file {dumped}; JAX on the CPU {want}): "
+              f"marching_cubes {dev_ms:.2f} ms (CUDA events), "
+              f"{host_ms:.2f} ms (host clock); VTK write {vtk_ms:.1f} ms")
+        if tris.shape[0] != dumped or not bool(torch.isfinite(tris).all()):
+            fail(f"E: the mesh ({tris.shape[0]} triangles) is not finite or "
+                 f"differs from the app's file ({dumped})")
+        if abs(dumped - want) > BLOCKS_RTOL * want:
+            fail(f"E: {dumped} triangles, not within "
+                 f"{100 * BLOCKS_RTOL:.1f} % of the JAX run's {want}")
+
+        # the first MESH_HOLD_BLOCKS live blocks on the card and on the CPU
+        n_hold = min(int(m.n_blocks), MESH_HOLD_BLOCKS)
+        sub = m.replace(n_blocks=torch.tensor(n_hold, dtype=torch.int32,
+                                              device=dev))
+        on_card = meshing.marching_cubes(sub, slam.field.select_channel,
+                                         inside=slam.field.is_inside)
+        cpu = sub.replace(
+            block_index=sub.block_index.cpu(), keys=sub.keys.cpu(),
+            n_blocks=sub.n_blocks.cpu(), active=sub.active.cpu(),
+            overflow=sub.overflow.cpu(),
+            voxels={k: v.cpu() for k, v in sub.voxels.items()},
+            node_values=[{k: v.cpu() for k, v in lv.items()}
+                         for lv in sub.node_values],
+            node_alloc=[a.cpu() for a in sub.node_alloc])
+        on_cpu = meshing.marching_cubes(cpu, slam.field.select_channel,
+                                        inside=slam.field.is_inside)
+        same = on_card.shape == on_cpu.shape and \
+            torch.equal(on_card.cpu(), on_cpu)
+        err = float((on_card.cpu() - on_cpu).abs().max()) \
+            if on_card.shape == on_cpu.shape else float("inf")
+        print(f"# E: the first {n_hold} live blocks meshed on the card "
+              f"({on_card.shape[0]} triangles) and on the CPU "
+              f"({on_cpu.shape[0]}): equal bit for bit {same}, max abs err "
+              f"{err:.3g} m")
+        if not same:
+            fail("E: the card's mesh differs from the CPU's")
+
+        loaded = serialise.load_map(npz, device=dev)
+        same_ckpt = same_tables(torch, loaded, m)
+        serialise.save_se(se_path, m)
+        back = serialise.load_se(se_path, slam.field.channels,
+                                 capacity=m.capacity, device=dev)
+        n = int(m.n_blocks)
+        same_se = same_tables(torch, back, m, n)
+        print(f"# E: load_map of the checkpoint ({os.path.getsize(npz)} B) "
+              f"equals the live map bit for bit: {same_ckpt}; save_se -> "
+              f"load_se on the card ({os.path.getsize(se_path)} B) gives "
+              f"back its {n} blocks, slots and voxel tables: {same_se}")
+        if not (same_ckpt and same_se):
+            fail("E: a checkpoint does not give back the live map")
+    check_launched("E", counts, e["integrated"])
+    return counts, dict(e, triangles=int(tris.shape[0]), mesh_ms=dev_ms,
+                        mesh_host_ms=host_ms, vtk_ms=vtk_ms)
+
+
+def mesh_whole_map(torch, name, slam, dev):
+    """``marching_cubes`` over a preset's whole map on the card: blocks,
+    triangles, device and host time, and the peak device memory over what
+    the run's state already held."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    tris, dev_ms, host_ms = timed_mesh(torch, slam)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"# {name}: marching_cubes over the whole map, "
+          f"{int(slam.state.map.n_blocks)} blocks -> {tris.shape[0]} "
+          f"triangles: {dev_ms:.1f} ms (CUDA events), {host_ms:.1f} ms "
+          f"(host clock); peak device memory {peak / 2 ** 30:.2f} GiB "
+          f"({held / 2 ** 30:.2f} GiB held before)")
+    if tris.shape[0] == 0 or not bool(torch.isfinite(tris).all()):
+        fail(f"{name}: the whole map's mesh is empty or not finite")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1018,7 +1186,8 @@ def main():
     kernels.update(check_probe_kernels(torch, dev))
     app_launches, _ = check_apps(torch, depths, poses, dev)
     runner_launches, _ = check_runner(torch, dev)
-    for counts in (app_launches, runner_launches):
+    map_launches, _ = check_map_outputs(torch, depths, poses, dev)
+    for counts in (app_launches, runner_launches, map_launches):
         for k, n in counts.items():
             kernels[k]["launches"] += n
     for name in RUNS:

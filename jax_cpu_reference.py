@@ -16,7 +16,9 @@ JAX package on the CPU and prints one JSON object:
   ``bench_data/ate_icp_256_gt.json`` (SDF, volume normals, every frame,
   no budget, capacity 6144);
 - ``runner``: ``supereight_tpu.apps.runner.run("synthetic-room",
-  resolution=256)``.
+  resolution=256)``;
+- ``mesh``: the app in ground-truth mode with ``--dump-mesh`` (phase E of
+  the smoke): the triangles of the final map's mesh.
 
 Run from the repository root (JAX on the CPU; 1024-quality takes minutes):
     JAX_PLATFORMS=cpu python3 jax_cpu_reference.py [--parts app,runner]
@@ -33,7 +35,7 @@ import tempfile
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PARTS = ("presets", "app", "facade_gt", "runner")
+PARTS = ("presets", "app", "facade_gt", "runner", "mesh")
 
 
 def _ate_cm(est, gt) -> float:
@@ -63,20 +65,28 @@ def presets():
     return out
 
 
+def _write_sequence(tmp):
+    """The cached base sequence as ``seq.raw`` and ``seq.gt`` in ``tmp``,
+    written with the JAX package's io; returns (paths, poses)."""
+    import chip_smoke
+    from supereight_tpu.io import groundtruth, raw
+    depths, poses = chip_smoke.load_sequence("synthetic_256_frames")
+    rawp, gtp = os.path.join(tmp, "seq.raw"), os.path.join(tmp, "seq.gt")
+    w = raw.RawWriter(rawp, 320, 240)
+    for d in depths:
+        w.write(d)
+    w.close()
+    groundtruth.write_poses(gtp, poses)
+    return (rawp, gtp), poses
+
+
 def app():
     import chip_smoke
     from supereight_tpu.apps import benchmark
-    from supereight_tpu.io import groundtruth, raw
     from supereight_tpu.pipeline import system
-    depths, poses = chip_smoke.load_sequence("synthetic_256_frames")
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        rawp, gtp = os.path.join(tmp, "seq.raw"), os.path.join(tmp, "seq.gt")
-        w = raw.RawWriter(rawp, 320, 240)
-        for d in depths:
-            w.write(d)
-        w.close()
-        groundtruth.write_poses(gtp, poses)
+        (rawp, gtp), poses = _write_sequence(tmp)
         made = []
         cls = system.DenseSLAMSystem
 
@@ -127,6 +137,19 @@ def runner():
     return {k: res[k] for k in ("frames", "ate_rmse_m", "tracked_ratio",
                                 "rpe_trans_rmse_m", "rpe_rot_rmse_deg")} \
         | {"auto_regime": res.get("auto_regime")}
+
+
+def mesh():
+    import chip_smoke
+    from supereight_tpu.apps import benchmark
+    with tempfile.TemporaryDirectory() as tmp:
+        (rawp, gtp), _ = _write_sequence(tmp)
+        path = os.path.join(tmp, "E.vtk")
+        benchmark.main(["-i", rawp] + chip_smoke.APP_ARGS
+                       + ["-c", "0", "-g", gtp, "-q", "--dump-mesh", path])
+        with open(path) as f:
+            polygons = next(ln for ln in f if ln.startswith("POLYGONS"))
+    return dict(gt_triangles=int(polygons.split()[1]))
 
 
 def main(argv=None):

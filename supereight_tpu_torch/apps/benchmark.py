@@ -24,14 +24,9 @@ import numpy as np
 from supereight_tpu_torch import io as seio
 from supereight_tpu_torch.config import (SlamConfig, apply_noise_regime,
                                          apply_preset)
-from supereight_tpu_torch.io import groundtruth
+from supereight_tpu_torch.io import groundtruth, serialise
 from supereight_tpu_torch.pipeline import DenseSLAMSystem
 from supereight_tpu_torch.utils.perfstats import Stats
-
-#: what -d and --dump-mesh need, which the port does not have yet
-MAP_OUTPUTS = ("the map outputs are not ported yet (ROADMAP queue 1, "
-               "'Map outputs': io/serialise.py for -d, core/meshing.py and "
-               "io/vtk.py for --dump-mesh)")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -59,8 +54,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="16 comma-separated row-major floats")
     p.add_argument("-F", "--bilateral-filter", action="store_true")
     p.add_argument("-d", "--dump-volume", default="",
-                   help="save the map checkpoint at the end (not ported)")
-    p.add_argument("--dump-mesh", default="", help="(not ported)")
+                   help="save the map checkpoint (.npz) at the end")
+    p.add_argument("--dump-mesh", default="",
+                   help="write the surface mesh (legacy VTK) at the end")
     p.add_argument("-f", "--fps", type=int, default=0)
     p.add_argument("-q", "--quiet", action="store_true")
     p.add_argument("--max-frames", type=int, default=0)
@@ -210,9 +206,6 @@ class Run(NamedTuple):
 def run(argv=None) -> Run:
     """The benchmark loop over the stream the flags name."""
     args = parse_args(argv)
-    if args.dump_volume or args.dump_mesh:
-        raise NotImplementedError(
-            f"{'-d' if args.dump_volume else '--dump-mesh'}: {MAP_OUTPUTS}")
     argv_l = sys.argv[1:] if argv is None else list(argv)
     reader = seio.create_reader(args.input_file)
     if args.camera:
@@ -255,6 +248,11 @@ def run(argv=None) -> Run:
         print(f"WARNING: {overflow} block-allocation requests dropped — "
               f"map capacity ({slam.state.map.capacity}) exhausted; "
               f"re-run with a larger --block-capacity", file=sys.stderr)
+
+    if args.dump_volume:
+        serialise.save_map(args.dump_volume, slam.state.map)
+    if args.dump_mesh:
+        slam.dump_mesh(args.dump_mesh)
     return Run(est_poses, slam, images)
 
 

@@ -80,7 +80,7 @@ _GRADMAP = ("needs the stored gradient table (pipeline/gradmap.py), which "
             "no preset uses; not ported")
 #: knobs the port does not run: {name: (the only value taken, why)}
 _UNPORTED = {
-    "map_partitions": (1, "not ported yet (ROADMAP queue 1, item 12)"),
+    "map_partitions": (1, "not ported yet (ROADMAP queue 1, item 6)"),
     "raycast_midsolve": (False, _NEGATIVE),
     "icp_robust": ("none", _NEGATIVE),
     "icp_assoc": ("nearest", _NEGATIVE),

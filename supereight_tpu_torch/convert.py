@@ -5,15 +5,19 @@
 arrays of the JAX pytree under their field names, plus the map's static
 fields), and return the port's map and state on ``device``.  They let a
 port stage start from a JAX mid-sequence state, of either field (SDF or
-OFusion, told apart by the voxel channels).
+OFusion, told apart by the voxel channels) or of any channel set whose
+ChannelSpecs the caller or the dict gives.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import numpy as np
 import torch
 
-from supereight_tpu_torch.core.octree import VoxelMap
+from supereight_tpu_torch.core.octree import (PARTITIONED, ChannelSpec,
+                                               VoxelMap, channel_specs)
 from supereight_tpu_torch.fields import OFusionField, SDFField
 from supereight_tpu_torch.pipeline.system import FrameState
 
@@ -23,37 +27,45 @@ def _t(a, dtype, device) -> torch.Tensor:
 
 
 _CHANNELS = {frozenset(c.name for c in f.channels): f.channels
-             for f in (SDFField(), OFusionField())}
+                   for f in (SDFField(), OFusionField())}
 
 
-def map_from_numpy(d, device) -> VoxelMap:
+def map_from_numpy(d, device,
+                   channels: Optional[Tuple[ChannelSpec, ...]] = None
+                   ) -> VoxelMap:
     """``d``: ``size``, ``dim``, ``capacity``, ``partitions`` (1),
     ``block_index``, ``keys``, ``n_blocks``, ``active``, ``overflow``,
     ``voxels`` {name: array}, ``node_values`` [{name: array}] and
-    ``node_alloc`` [array]; ``part_counts`` must equal ``[n_blocks]``."""
+    ``node_alloc`` [array]; ``part_counts`` must equal ``[n_blocks]``.
+    The channels are ``channels``, else ``d["channels"]`` (tuples for
+    :func:`channel_specs`), else the field's whose channel names the
+    voxels carry."""
     if int(d.get("partitions", 1)) != 1:
-        raise NotImplementedError("partitioned maps are not ported yet "
-                                  "(ROADMAP queue 1, item 12)")
-    channels = _CHANNELS.get(frozenset(d["voxels"]))
+        raise NotImplementedError(PARTITIONED)
+    if channels is None and d.get("channels") is not None:
+        channels = channel_specs(d["channels"])
+    if channels is None:
+        channels = _CHANNELS.get(frozenset(d["voxels"]))
     if channels is None:
         raise NotImplementedError(
-            f"channels {sorted(d['voxels'])}: no ported field has them")
+            f"channels {sorted(d['voxels'])}: no ported field has them; "
+            "pass their ChannelSpecs")
     if "part_counts" in d and \
             np.asarray(d["part_counts"]).tolist() != [int(d["n_blocks"])]:
         raise ValueError("part_counts disagrees with n_blocks")
-    f32, i32 = torch.float32, torch.int32
+    i32 = torch.int32
     return VoxelMap(
         size=int(d["size"]), dim=float(d["dim"]), capacity=int(d["capacity"]),
-        channels=channels,
+        channels=tuple(channels),
         block_index=_t(d["block_index"], i32, device),
         keys=_t(np.asarray(d["keys"]).astype(np.int64), torch.int64, device),
         n_blocks=_t(d["n_blocks"], i32, device),
         active=_t(d["active"], torch.bool, device),
         overflow=_t(d["overflow"], i32, device),
-        voxels={c.name: _t(d["voxels"][c.name], f32, device)
+        voxels={c.name: _t(d["voxels"][c.name], c.dtype, device)
                 for c in channels},
-        node_values=[{c.name: _t(lv[c.name], f32, device) for c in channels}
-                     for lv in d["node_values"]],
+        node_values=[{c.name: _t(lv[c.name], c.dtype, device)
+                      for c in channels} for lv in d["node_values"]],
         node_alloc=[_t(a, torch.bool, device) for a in d["node_alloc"]])
 
 

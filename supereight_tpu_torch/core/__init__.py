@@ -1,4 +1,10 @@
-from supereight_tpu_torch.core import morton, octree  # noqa: F401
+from supereight_tpu_torch.core import (  # noqa: F401
+    algorithms,
+    collision,
+    meshing,
+    morton,
+    octree,
+)
 from supereight_tpu_torch.core.octree import (  # noqa: F401
     BLOCK_SIDE,
     BLOCK_VOXELS,

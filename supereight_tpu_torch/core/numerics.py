@@ -75,6 +75,37 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).to(x.dtype)
 
 
+#: the float32 constants of XLA's CPU ``exp`` (Cephes' ``expf``): the
+#: argument's clamp, log2(e), log(2) split in two, and the polynomial
+_EXP_LO, _EXP_HI = np.float32(-87.80000305), np.float32(88.80000305)
+_LOG2E = np.float32(1.44269502162933349609375)
+_EXP_C1, _EXP_C2 = np.float32(0.693359375), np.float32(-2.12194440e-4)
+_EXP_P = tuple(np.float32(c) for c in (1.9875691500e-4, 1.3981999507e-3,
+                                       8.3334519073e-3, 4.1665795894e-2,
+                                       1.6666665459e-1, 0.5))
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """``exp`` of float32 ``x`` rounded as XLA's CPU code computes it (the
+    JAX package's ``jnp.exp``): Cephes' range reduction by n = floor(x
+    log2(e) + 1/2) clamped to [-127, 127], its degree-5 polynomial in
+    multiply-adds, and 2^n from the exponent bits; XLA flushes subnormal
+    results to 0.  PyTorch's own CPU ``exp`` parts from it in the last bit
+    for some inputs."""
+    f = lambda v: torch.full((), float(v), dtype=torch.float32,
+                             device=x.device)
+    x = x.to(torch.float32).clamp(float(_EXP_LO), float(_EXP_HI))
+    n = torch.floor(fma(x, f(_LOG2E), f(0.5))).clamp(-127.0, 127.0)
+    r = fma(f(-_EXP_C2), n, fma(f(-_EXP_C1), n, x))
+    p = f(_EXP_P[0]).expand_as(r)
+    for c in _EXP_P[1:]:
+        p = fma(p, r, f(c))
+    y = fma(p, r * r, r) + 1.0
+    scale = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    out = y * scale
+    return torch.where(out < np.finfo(np.float32).tiny, 0.0, out)
+
+
 def _fma_host(a, b, c) -> np.float32:
     """:func:`fma` of three float32 scalars on the host (round to odd in
     float64, as :func:`_fma_round_to_odd`)."""

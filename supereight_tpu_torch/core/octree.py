@@ -25,6 +25,9 @@ from .numerics import trunc_i32
 BLOCK_SIDE = 8
 BLOCK_VOXELS = BLOCK_SIDE ** 3
 BLOCK_BITS = 3
+#: why a map of more than one owner partition is refused
+PARTITIONED = ("partitioned maps (partitions > 1) are not ported yet "
+               "(ROADMAP queue 1, item 6)")
 
 
 def _log2i(v: int) -> int:
@@ -42,6 +45,13 @@ class ChannelSpec:
     dtype: torch.dtype
     init: float
     empty: float
+
+
+def channel_specs(specs) -> Tuple[ChannelSpec, ...]:
+    """ChannelSpecs from ``(name, dtype name, init, empty)`` tuples, the
+    form the JAX package's checkpoints store (``np.dtype(...).name``)."""
+    return tuple(ChannelSpec(n, getattr(torch, str(d)), float(i), float(e))
+                 for n, d, i, e in specs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,6 +180,70 @@ def allocate_block_mask(m: VoxelMap, wanted: torch.Tensor) -> VoxelMap:
                      overflow=m.overflow + torch.clamp(n_new - cap, min=0))
 
 
+def _mark(mask: torch.Tensor, idx, sel: torch.Tensor) -> torch.Tensor:
+    """``mask`` (bool) with ``True`` added at the cells ``idx`` (a tuple of
+    index tensors) where ``sel``, dropping cells outside the mask as JAX's
+    scatter drops them: an int32 max-scatter, so that duplicate cells keep
+    any ``True`` and the host never syncs."""
+    lin = torch.zeros_like(idx[0], dtype=torch.int64)
+    for i, n in zip(idx, mask.shape):
+        sel = sel & (i >= 0) & (i < n)
+        lin = lin * n + i.long().clamp(0, n - 1)
+    hit = torch.zeros(mask.numel(), dtype=torch.int32, device=mask.device)
+    hit.scatter_reduce_(0, lin.reshape(-1), sel.reshape(-1).to(torch.int32),
+                        "amax")
+    return mask | (hit > 0).reshape(mask.shape)
+
+
+def allocate_blocks(m: VoxelMap, block_coords: torch.Tensor,
+                    valid: torch.Tensor) -> VoxelMap:
+    """Allocate the blocks ``block_coords`` int[N, 3] where ``valid`` and
+    in bounds (`octree.py:allocate_blocks`): their dense ``wanted`` mask
+    through :func:`allocate_block_mask`."""
+    B = m.blocks_per_edge
+    wanted = _mark(torch.zeros((B, B, B), dtype=torch.bool, device=m.device),
+                   block_coords.unbind(1), valid)
+    return allocate_block_mask(m, wanted)
+
+
+def allocate_octants(m: VoxelMap, coords: torch.Tensor, levels: torch.Tensor,
+                     valid: torch.Tensor) -> VoxelMap:
+    """Allocate octants at tree ``levels`` of voxel ``coords`` int[N, 3]
+    (`octree.py:allocate_octants`): a request at or below the block level
+    allocates a block; one at level l < block_level marks the 2x2x2 child
+    group of ``node_alloc[l + 1]`` holding its coordinates."""
+    m = allocate_blocks(m, coords >> BLOCK_BITS,
+                        valid & (levels >= m.block_level))
+    node_alloc = list(m.node_alloc)
+    for level in range(m.block_level):
+        store = level + 1
+        s = 1 << store
+        shift = m.max_depth - store
+        sel = valid & (levels == level)
+        o = [((coords[:, a] >> shift) & ~1).clamp(0, s - 1) for a in range(3)]
+        for cid in range(8):
+            node_alloc[store] = _mark(
+                node_alloc[store], (o[0] + (cid & 1), o[1] + ((cid >> 1) & 1),
+                                    o[2] + ((cid >> 2) & 1)), sel)
+    return m.replace(node_alloc=node_alloc)
+
+
+def set_voxels(m: VoxelMap, channel: str, vx, vy, vz, values) -> VoxelMap:
+    """Write ``values`` into voxels (`octree.py:set_voxels`): no
+    allocation, writes to unallocated or out-of-bounds voxels are
+    dropped."""
+    slot = fetch(m, vx, vy, vz)
+    flat = m.voxels[channel].reshape(-1)
+    idx = torch.where(slot >= 0, slot.clamp(min=0).long() * BLOCK_VOXELS
+                      + _voxel_linear(vx, vy, vz).long(), flat.shape[0])
+    values = torch.as_tensor(values, dtype=flat.dtype, device=flat.device)
+    vox = dict(m.voxels)
+    vox[channel] = scatter_drop(flat, idx.reshape(-1),
+                                values.expand(idx.shape).reshape(-1)) \
+        .reshape(m.voxels[channel].shape)
+    return m.replace(voxels=vox)
+
+
 def allocate_octant_masks(m: VoxelMap, masks: List[torch.Tensor]) -> VoxelMap:
     """Allocate octants from per-level request masks
     (`octree.py:allocate_octant_masks`): ``masks[l]`` bool[2^l]^3 requests
@@ -229,6 +303,80 @@ def pack_tiled_multiscale(m: VoxelMap, channel: str) -> torch.Tensor:
     carry their voxels, every other row its cell's :func:`node_fill` value
     (`octree.py:pack_tiled_multiscale`)."""
     return tile_rows(node_fill(m, channel), m, m.voxels[channel])
+
+
+def leaves_count(m: VoxelMap) -> torch.Tensor:
+    """Allocated blocks (`octree.py:leaves_count`)."""
+    return m.n_blocks
+
+
+def nodes_count(m: VoxelMap) -> torch.Tensor:
+    """Allocated nodes plus blocks (`octree.py:nodes_count`): each marked
+    2x2x2 child group of level l is one node of level l - 1."""
+    n = m.n_blocks
+    for level in range(1, m.block_level + 1):
+        n = n + m.node_alloc[level].sum(dtype=torch.int32) // 8
+    return n
+
+
+def axis_aligned_map(m: VoxelMap, fn) -> VoxelMap:
+    """Apply ``fn(values_dict, coords) -> values_dict`` to every voxel of
+    every live block (`octree.py:axis_aligned_map`); ``coords`` is
+    int32[capacity, 512, 3]."""
+    i = torch.arange(BLOCK_VOXELS, dtype=torch.int32, device=m.device)
+    offs = torch.stack([i % BLOCK_SIDE, (i // BLOCK_SIDE) % BLOCK_SIDE,
+                        i // (BLOCK_SIDE * BLOCK_SIDE)], dim=-1)
+    coords = (block_coords_table(m) * BLOCK_SIDE)[:, None, :] + offs
+    new_vals = fn(dict(m.voxels), coords)
+    live = slot_mask(m)[:, None]
+    return m.replace(voxels={
+        name: torch.where(live, torch.as_tensor(new_vals[name]).to(v.dtype),
+                          v)
+        for name, v in m.voxels.items()})
+
+
+def pack_tiled(m: VoxelMap, channel: str) -> torch.Tensor:
+    """Brick-tiled rows ``[B^3, 512]`` of one channel with ``empty`` in the
+    unallocated rows (`octree.py:pack_tiled`)."""
+    B = m.blocks_per_edge
+    fill = torch.full((B * B * B,), _channel(m, channel).empty,
+                      dtype=m.voxels[channel].dtype, device=m.device)
+    return tile_rows(fill, m, m.voxels[channel])
+
+
+def _untile(m: VoxelMap, tiled: torch.Tensor) -> torch.Tensor:
+    """``[B^3, 512]`` brick rows -> the dense ``[S, S, S]`` volume (a
+    brick's linear index is x + 8y + 64z, so its 512 unpack as (z, y, x))."""
+    B = m.blocks_per_edge
+    return tiled.reshape(B, B, B, BLOCK_SIDE, BLOCK_SIDE, BLOCK_SIDE) \
+        .permute(0, 5, 1, 4, 2, 3).reshape(m.size, m.size, m.size)
+
+
+def pack_dense(m: VoxelMap, channel: str) -> torch.Tensor:
+    """One channel as a dense ``[S, S, S]`` volume with ``empty`` in
+    unallocated space (`octree.py:pack_dense`)."""
+    return _untile(m, pack_tiled(m, channel))
+
+
+def pack_dense_multiscale(m: VoxelMap, channel: str) -> torch.Tensor:
+    """Like :func:`pack_dense`, but unallocated space reads the deepest
+    allocated node-pyramid value (`octree.py:pack_dense_multiscale`);
+    coarse octants are block-sized or larger, so the block-cell fill of
+    :func:`pack_tiled_multiscale` is exact."""
+    return _untile(m, pack_tiled_multiscale(m, channel))
+
+
+def unpack_dense(m: VoxelMap, channel: str, dense: torch.Tensor) -> VoxelMap:
+    """Write a dense ``[S, S, S]`` volume back into the live blocks
+    (`octree.py:unpack_dense`, the inverse of :func:`pack_dense`)."""
+    B = m.blocks_per_edge
+    flat = dense.reshape(B, BLOCK_SIDE, B, BLOCK_SIDE, B, BLOCK_SIDE) \
+        .permute(0, 2, 4, 5, 3, 1).reshape(B * B * B, BLOCK_VOXELS)
+    bricks = flat[block_rows(m).clamp(0, B * B * B - 1)]
+    vox = dict(m.voxels)
+    vox[channel] = torch.where(slot_mask(m)[:, None],
+                               bricks.to(vox[channel].dtype), vox[channel])
+    return m.replace(voxels=vox)
 
 
 # ----------------------------------------------------------------------

@@ -16,7 +16,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from supereight_tpu_torch.core.numerics import div
+from supereight_tpu_torch.core.numerics import div, sqrt
 from supereight_tpu_torch.core.octree import ChannelSpec
 
 CAPITAL_T = 4.0
@@ -94,7 +94,7 @@ class OFusionField:
         zsafe = torch.where(z == 0, 1.0, z)
         nx = pos_cam[..., 0] / zsafe
         ny = pos_cam[..., 1] / zsafe
-        norm = torch.sqrt(1.0 + nx * nx + ny * ny)
+        norm = sqrt(1.0 + nx * nx + ny * ny)
         diff = (z - depth_sample) * norm
         # max(lo, min(v, hi)): the lower bound wins when lo > hi
         sigma = torch.clamp(torch.clamp(self.mu * z * z, max=0.05),

@@ -1,12 +1,16 @@
-"""IO: dataset streams and ground truth (counterpart of
-`supereight_tpu/io`): the ``.raw`` reader and writer, ICL-NUIM scene
-directories, the live replay reader, TUM trajectories and the synthetic
-sequence generator.
+"""IO: dataset streams, ground truth, checkpoints, mesh and slice export
+(counterpart of `supereight_tpu/io`): the ``.raw`` reader and writer,
+ICL-NUIM scene directories, the live replay reader, TUM trajectories, the
+synthetic sequence generator, map checkpoints (``serialise``) and the
+VTK / PLY writers (``vtk``).
 
-Reference layers: `se_apps/include/interface.h` (readers).
+Reference layers: `se_apps/include/interface.h` (readers),
+`se_core/include/se/io/` (serialization), `se_denseslam/include/se/vtk-io.h`.
 """
 
 import os
+
+from . import groundtruth, raw, serialise, synthetic, vtk  # noqa: F401
 
 
 def create_reader(path: str):

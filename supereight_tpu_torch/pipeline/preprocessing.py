@@ -8,7 +8,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from supereight_tpu_torch.core.numerics import fma, sqrt
+from supereight_tpu_torch.core.numerics import exp, fma, sqrt
 from . import camera
 from .constants import E_DELTA, GAUSSIAN_DELTA, INVALID, RADIUS
 
@@ -44,7 +44,7 @@ def gaussian_weights(radius: int = RADIUS,
     """Spatial Gaussian row (the reference's ``x = i - 2`` whatever the
     radius)."""
     x = torch.arange(2 * radius + 1, dtype=torch.float32) - 2.0
-    return torch.exp(-(x * x) / (2.0 * delta * delta))
+    return exp(-(x * x) / (2.0 * delta * delta))
 
 
 def bilateral_filter(depth: torch.Tensor, e_d: float = E_DELTA,
@@ -60,7 +60,7 @@ def bilateral_filter(depth: torch.Tensor, e_d: float = E_DELTA,
             cur = _shifted(depth, j, i)      # i over x, j over y
             diff = cur - depth
             factor = (g[i + radius] * g[j + radius]) \
-                * torch.exp(-(diff * diff) * inv_2ed2)
+                * exp(-(diff * diff) * inv_2ed2)
             valid = cur > 0
             t = t + torch.where(valid, factor * cur, 0.0)
             s = s + torch.where(valid, factor, 0.0)

@@ -399,3 +399,17 @@ class DenseSLAMSystem:
         view = self._pose(view_pose) @ camera.inverse_camera_matrix(kd)
         return rendering.render_volume(st.map, self.field, view,
                                        self.H, self.W)
+
+    # ---- map outputs ----
+
+    def dump_mesh(self, filename: str) -> torch.Tensor:
+        """Mesh the map in place on its device (``marching_cubes`` on the
+        field's select channel and inside test), write the triangles as a
+        legacy VTK file and return them (float32 [n, 3, 3], metres)."""
+        from supereight_tpu_torch.core import meshing
+        from supereight_tpu_torch.io import vtk
+        tris = meshing.marching_cubes(self.state.map,
+                                      self.field.select_channel,
+                                      inside=self.field.is_inside)
+        vtk.write_vtk_mesh(filename, tris)
+        return tris

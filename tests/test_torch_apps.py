@@ -3,7 +3,9 @@ the CPU with ``--device cpu``) against the JAX package's on the same
 fabricated 8-frame 60x80 ``.raw`` stream of the synthetic room:
 
 - ground-truth mode (``-g``) at 64^3: the TSV's tracked and integrated
-  columns equal, X/Y/Z within 1e-3 m, the blocks equal;
+  columns equal, X/Y/Z within 1e-3 m, the blocks equal, and the files of
+  ``-d`` (the checkpoint's tables equal) and ``--dump-mesh`` (byte for
+  byte);
 - ICP mode (``-p``) at 128^3 (at 64^3, 7.5 cm voxels, ICP's divergence
   gate never passes and nothing would be compared): the same, but the
   blocks;
@@ -12,7 +14,8 @@ then the app's own contract: its flags are the JAX app's plus
 ``--device``, the TSV has one row a frame (``--staged`` fills the stage
 columns, ``-f`` pacing drops frames and keeps rows, ``--live`` replays
 the sensor), presets and pinned flags, the overflow warning, the -G
-transform, and ``-d`` / ``--dump-mesh`` and unported knobs raise."""
+transform, ``-d`` / ``--dump-mesh`` write their files, and unported
+knobs raise."""
 
 import numpy as np
 import pytest
@@ -21,7 +24,7 @@ import torch
 from supereight_tpu.apps import benchmark as jbench
 from supereight_tpu.pipeline import system as jsystem
 from supereight_tpu_torch.apps import benchmark
-from supereight_tpu_torch.io import synthetic
+from supereight_tpu_torch.io import serialise, synthetic
 
 torch.set_num_threads(1)
 
@@ -64,14 +67,18 @@ def _run_jax(argv, monkeypatch):
 
 @pytest.mark.parametrize("mode", ["ground-truth", "icp"])
 def test_app_matches_jax(seq, mode, monkeypatch):
+    out = {p: {k: str(seq["dir"] / f"{p}-{mode}.{k}")
+               for k in ("tsv", "npz", "vtk")} for p in "jt"}
     if mode == "ground-truth":
         argv = _base(seq, 64) + ["-g", seq["gt"]]
+        maps = {p: ["-d", out[p]["npz"], "--dump-mesh", out[p]["vtk"]]
+                for p in "jt"}
     else:
         argv = _base(seq, 128) + ["-p", "0.5,0.5,0.23"]
-    jlog, tlog = str(seq["dir"] / f"j-{mode}.tsv"), \
-        str(seq["dir"] / f"t-{mode}.tsv")
-    jest, jslam = _run_jax(argv + ["-o", jlog], monkeypatch)
-    run = benchmark.run(argv + ["-o", tlog, "--device", "cpu"])
+        maps = {"j": [], "t": []}
+    jlog, tlog = out["j"]["tsv"], out["t"]["tsv"]
+    jest, jslam = _run_jax(argv + ["-o", jlog] + maps["j"], monkeypatch)
+    run = benchmark.run(argv + ["-o", tlog, "--device", "cpu"] + maps["t"])
     J, T = _rows(jlog), _rows(tlog)
     assert J.shape == T.shape == (N_FRAMES, 14)
     np.testing.assert_array_equal(T[:, 0], np.arange(N_FRAMES))
@@ -86,6 +93,18 @@ def test_app_matches_jax(seq, mode, monkeypatch):
         assert T[:, 12].all()
         assert int(run.system.state.map.n_blocks) == \
             int(jslam.state.map.n_blocks)
+        # -d and --dump-mesh: the same checkpoint, read by the port from
+        # both files, and the same mesh file byte for byte
+        a, b = (serialise.load_map(out[p]["npz"], device="cpu")
+                for p in "tj")
+        for name in ("block_index", "keys", "n_blocks", "active"):
+            assert torch.equal(getattr(a, name), getattr(b, name)), name
+        for name in a.voxels:
+            assert torch.equal(a.voxels[name], b.voxels[name]), name
+        with open(out["t"]["vtk"], "rb") as ft, \
+                open(out["j"]["vtk"], "rb") as fj:
+            mesh = ft.read()
+            assert mesh == fj.read() and b"POLYGONS 0 " not in mesh
     else:
         assert T[:, 12].sum() >= 4             # it tracks past bootstrap
     # the triptych of the last rendered frame, and the final state's
@@ -106,8 +125,17 @@ def test_flags_are_the_jax_apps():
 @pytest.mark.parametrize("flag", [["-d", "map.npz"],
                                   ["--dump-mesh", "mesh.vtk"]])
 def test_map_outputs_raise(seq, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        benchmark.run(_base(seq, 64) + flag + ["--device", "cpu"])
+    """-d and --dump-mesh no longer raise: each writes its file at the end
+    of the run, from the final map."""
+    path = str(seq["dir"] / flag[1])
+    run = benchmark.run(_base(seq, 64) + ["-g", seq["gt"], flag[0], path,
+                                          "--device", "cpu"])
+    if flag[0] == "-d":
+        m = serialise.load_map(path, device="cpu")
+        assert int(m.n_blocks) == int(run.system.state.map.n_blocks) > 0
+    else:
+        head = open(path).read(200)
+        assert head.startswith("# vtk DataFile") and "POINTS" in head
 
 
 @pytest.mark.parametrize("flags", [["--midsolve"], ["--normals", "stored"]])

@@ -102,7 +102,7 @@ def test_probe_cases_bounds():
     cases = chip_smoke.probe_cases(torch, "cpu")
     (_, k2, k2_library, k2_table), (_, k3, k3_library, k3_table) = (
         cases["lane_shuffle_sum"], cases["slab_row_sum"])
-    assert k2_library is None and k3_library is not None
+    assert k2_library is None and len(k3_library) == len(k3) == 2
     assert k2_table is None and tuple(k3_table.shape) == (6144, 512)
     (label, _, _, (b_ms, by), trips, gathers, resident) = k2[1]
     assert label == "65536x128x64" and by == "bytes"
@@ -131,7 +131,8 @@ def test_jax_cpu_figures():
         assert 0.5 < ate_cm < 6.0 and blocks > 2000, name
     assert chip_smoke.JAX_CPU_APP == dict(
         gt_blocks=2607, icp_ate_cm=4.03, icp_blocks=2914,
-        facade_gt_blocks=2658, runner_ate_cm=2.98, runner_tracked=0.967)
+        facade_gt_blocks=2658, runner_ate_cm=2.98, runner_tracked=0.967,
+        gt_triangles=606182)
     assert chip_smoke.TPU_GT_BLOCKS == 2686
 
 
@@ -182,3 +183,42 @@ def test_write_sequence(tmp_path):
     np.testing.assert_array_equal(r.read(2)[0], depths[2])
     got = groundtruth.read_poses(gtp)
     np.testing.assert_allclose(np.stack(got), poses[:3], rtol=0, atol=1e-6)
+
+
+def test_map_output_phase_constants():
+    """Phase E: the app's ground-truth command line with both map flags,
+    the mesh held to the JAX CPU run's triangles within BLOCKS_RTOL (0.5 %:
+    3030 of 606182), 2048 blocks meshed on the card and the CPU, and the
+    largest preset's whole map meshed after its run."""
+    from supereight_tpu_torch.apps import benchmark
+    assert chip_smoke.MESH_HOLD_BLOCKS == 2048
+    assert chip_smoke.MESH_AT_SCALE == "1024-quality"
+    assert chip_smoke.MESH_AT_SCALE in chip_smoke.RUNS
+    assert int(chip_smoke.BLOCKS_RTOL
+               * chip_smoke.JAX_CPU_APP["gt_triangles"]) == 3030
+    args = benchmark.parse_args(["-i", "x.raw"] + chip_smoke.APP_ARGS
+                                + ["-c", "0", "-g", "x.gt", "-d", "E.npz",
+                                   "--dump-mesh", "E.vtk"])
+    assert (args.dump_volume, args.dump_mesh, args.ground_truth,
+            args.rendering_rate) == ("E.npz", "E.vtk", "x.gt", 0)
+
+
+def test_same_tables():
+    """The smoke's table comparison: the whole map, or the first n slots
+    without the ``active`` flags (what a reference binary keeps)."""
+    import torch
+    from supereight_tpu_torch.core import octree
+    from supereight_tpu_torch.fields import SDFField
+    m = octree.init(64, 4.8, SDFField().channels, "cpu", capacity=64)
+    m = octree.allocate_blocks(m, torch.tensor([[1, 2, 3], [4, 0, 0]]),
+                               torch.ones(2, dtype=torch.bool))
+    assert chip_smoke.same_tables(torch, m, m)
+    flags = m.replace(active=~m.active)
+    assert not chip_smoke.same_tables(torch, flags, m)
+    assert chip_smoke.same_tables(torch, flags, m, 2)
+    vox = dict(m.voxels, tsdf=m.voxels["tsdf"].clone())
+    vox["tsdf"][1, 7] = 0.5
+    assert not chip_smoke.same_tables(torch, m.replace(voxels=vox), m, 2)
+    vox["tsdf"][1, 7] = 1.0
+    vox["tsdf"][5, 7] = 0.5             # past the blocks: not compared
+    assert chip_smoke.same_tables(torch, m.replace(voxels=vox), m, 2)

@@ -1,6 +1,7 @@
 """Tests of the port on the card (marker ``gpu``): each CUDA kernel against
-its plain twin, and the slice's entry points (the benchmark app, the
-renderers, the sphere trace, the multiply-add) against their CPU results.
+its plain twin, and the slice's entry points (the benchmark app with its
+map outputs, the renderers, the sphere trace, the multiply-add, meshing,
+collision queries and the checkpoints) against their CPU results.
 They skip without a CUDA device.  This file imports neither JAX nor the
 JAX package, so it also runs where only PyTorch is installed:
 
@@ -406,13 +407,16 @@ def test_app_ground_truth_on_card(cuda, tmp_path):
     part at most at 0.1 % (the raycast's)."""
     from supereight_tpu_torch.apps import benchmark
     rawp, gtp = _sequence(tmp_path)
+    from supereight_tpu_torch.io import serialise
     runs = {}
     for dev in ("cuda", "cpu"):
         log = str(tmp_path / f"{dev}.tsv")
         before = ik.LAUNCHES["fuse_sdf"]
         r = benchmark.run(["-i", rawp, "-g", gtp, "-s", "4.8", "-v", "64",
                            "-r", "2", "-k", "240.6,240,160,120", "-z", "1",
-                           "-c", "2", "-q", "-o", log, "--device", dev])
+                           "-c", "2", "-q", "-o", log, "--device", dev,
+                           "-d", str(tmp_path / f"{dev}.npz"),
+                           "--dump-mesh", str(tmp_path / f"{dev}.vtk")])
         launched = ik.LAUNCHES["fuse_sdf"] - before
         runs[dev] = (np.loadtxt(log, skiprows=1, ndmin=2), r, launched)
     (tc, rc, nc), (tp, rp, np_) = runs["cuda"], runs["cpu"]
@@ -433,6 +437,14 @@ def test_app_ground_truth_on_card(cuda, tmp_path):
     shaded = [(x[..., :3].amax(-1) > 0).float() for x in
               (rc.images[2].cpu(), rp.images[2])]
     assert float((shaded[0] != shaded[1]).float().mean()) <= 1e-3
+    # -d and --dump-mesh: the same checkpoint and the same mesh file
+    a, b = (serialise.load_map(str(tmp_path / f"{d}.npz"), device="cpu")
+            for d in ("cuda", "cpu"))
+    for k in a.voxels:
+        assert torch.equal(a.voxels[k], b.voxels[k]), k
+    assert torch.equal(a.block_index, b.block_index)
+    assert (tmp_path / "cuda.vtk").read_bytes() == \
+        (tmp_path / "cpu.vtk").read_bytes()
 
 
 def _to(x, dev):
@@ -530,3 +542,97 @@ def test_inv_on_card(cuda):
     got = numerics.inv(pose.to(cuda))
     assert got.device.type == "cuda"
     assert torch.equal(got.cpu(), numerics.inv(pose))
+
+
+@pytest.mark.gpu
+def test_exp_on_card_matches_cpu(cuda):
+    """``numerics.exp`` (XLA's ``exp``, which the bilateral filter takes)
+    gives the same bits on the card as on the CPU."""
+    from supereight_tpu_torch.core import numerics
+    x = torch.linspace(-120, 120, 1 << 20, dtype=torch.float64).float()
+    assert torch.equal(numerics.exp(x.to(cuda)).cpu(), numerics.exp(x))
+
+
+def _sphere_map(size=64, dim=4.8, radius=1.0):
+    """An analytic-sphere SDF map (every block allocated) on the CPU, with
+    a few blocks' weights zeroed (unobserved corners)."""
+    chans = (octree.ChannelSpec("v", torch.float32, 1.0, 1.0),
+             octree.ChannelSpec("w", torch.float32, 0.0, -1.0))
+    m = octree.init(size, dim, chans, "cpu", capacity=(size // 8) ** 3)
+    r = torch.arange(size // 8)
+    coords = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), -1) \
+        .reshape(-1, 3)
+    m = octree.allocate_blocks(m, coords, torch.ones(len(coords),
+                                                     dtype=torch.bool))
+    g = torch.arange(size, dtype=torch.float64) * (dim / size) - dim / 2
+    gx, gy, gz = torch.meshgrid(g, g, g, indexing="ij")
+    sdf = (gx ** 2 + gy ** 2 + gz ** 2).sqrt() - radius
+    i = torch.arange(size)
+    ix, iy, iz = (a.reshape(-1) for a in torch.meshgrid(i, i, i,
+                                                         indexing="ij"))
+    m = octree.set_voxels(m, "v", ix, iy, iz, sdf.reshape(-1).float())
+    w = torch.ones(size ** 3)
+    w[torch.randperm(size ** 3, generator=torch.Generator().manual_seed(0))
+      [:size ** 3 // 50]] = 0.0
+    return octree.set_voxels(m, "w", ix, iy, iz, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [64, 1024])
+def test_meshing_on_card_matches_cpu(cuda, chunk):
+    """``marching_cubes`` of one map on the card and on the CPU: the same
+    triangles in the same order, bit for bit."""
+    from supereight_tpu_torch.core import meshing
+    m = _sphere_map()
+    want = meshing.marching_cubes(m, "v")
+    got = meshing.marching_cubes(_to(m, cuda), "v", chunk=chunk)
+    assert got.device.type == "cuda" and want.shape[0] > 1000
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_collision_on_card_matches_cpu(cuda):
+    from supereight_tpu_torch.core import collision
+    m = _sphere_map()
+    m = m.replace(voxels={"tsdf": m.voxels["v"], "weight": m.voxels["w"]},
+                  channels=SDFField().channels,
+                  node_values=[{"tsdf": lv["v"], "weight": lv["w"]}
+                               for lv in m.node_values])
+    rng = np.random.default_rng(0)
+    statuses = set()
+    for _ in range(30):
+        bbox = tuple(int(v) for v in rng.integers(-4, 64, 3))
+        side = tuple(int(v) for v in rng.integers(1, 10, 3))
+        want = collision.collides_with(m, bbox, side,
+                                       collision.sdf_collision_test)
+        got = collision.collides_with(_to(m, cuda), bbox, side,
+                                      collision.sdf_collision_test)
+        assert int(got) == int(want)
+        statuses.add(int(want))
+    assert len(statuses) >= 2
+
+
+@pytest.mark.gpu
+def test_serialise_round_trip_on_card(cuda, tmp_path):
+    """A map on the card writes the bytes its CPU copy writes (npz tables
+    and the reference binary), and reads back onto the card unchanged."""
+    from supereight_tpu_torch.io import serialise
+    m = _sphere_map(size=32)
+    m = m.replace(voxels={"tsdf": m.voxels["v"], "weight": m.voxels["w"]},
+                  channels=SDFField().channels,
+                  node_values=[{"tsdf": lv["v"], "weight": lv["w"]}
+                               for lv in m.node_values])
+    mc = _to(m, cuda)
+    for name, mm in (("cpu", m), ("cuda", mc)):
+        serialise.save_se(str(tmp_path / f"{name}.bin"), mm)
+        serialise.save_map(str(tmp_path / f"{name}.npz"), mm)
+    assert (tmp_path / "cpu.bin").read_bytes() == \
+        (tmp_path / "cuda.bin").read_bytes()
+    back = serialise.load_se(str(tmp_path / "cuda.bin"), m.channels,
+                             capacity=m.capacity, device="cuda")
+    loaded = serialise.load_map(str(tmp_path / "cuda.npz"), device="cuda")
+    for x in (back, loaded):
+        assert x.block_index.device.type == "cuda"
+        assert torch.equal(x.block_index.cpu(), m.block_index)
+        for k in m.voxels:
+            assert torch.equal(x.voxels[k].cpu(), m.voxels[k])

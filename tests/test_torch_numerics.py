@@ -75,6 +75,23 @@ def test_sqrt_is_correctly_rounded():
     np.testing.assert_array_equal(got, np.sqrt(x.numpy()))
 
 
+def test_exp_matches_jitted_jax():
+    """``numerics.exp`` is XLA's CPU ``exp`` bit for bit: over the bilateral
+    filter's arguments, the whole float32 range (clamped ends, subnormal
+    results flushed to 0) and tiny arguments; PyTorch's own ``exp`` is
+    not."""
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.uniform(-20, 0, 200000),
+                        rng.uniform(-120, 120, 200000),
+                        rng.standard_normal(50000) * 1e-3,
+                        [0.0, -0.0, -87.5, 88.7, -1e30, 1e30]]) \
+        .astype(np.float32)
+    want = np.asarray(jax.jit(jnp.exp)(jnp.asarray(x)))
+    got = numerics.exp(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (torch.exp(torch.from_numpy(x)).numpy() != want).any()
+
+
 def test_matvec_rows_are_fma_chains():
     rng = np.random.default_rng(2)
     M = torch.from_numpy(rng.standard_normal((4, 3)).astype(np.float32))

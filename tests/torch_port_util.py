@@ -33,7 +33,9 @@ def map_to_numpy(m) -> dict:
         node_values=[{k: a(v) for k, v in lv.items()}
                      for lv in m.node_values],
         node_alloc=[a(x) for x in m.node_alloc],
-        part_counts=a(m.part_counts))
+        part_counts=a(m.part_counts),
+        channels=[(c.name, np.dtype(c.dtype).name, c.init, c.empty)
+                  for c in m.channels])
 
 
 def state_to_numpy(st) -> dict:
