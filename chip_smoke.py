@@ -61,7 +61,21 @@ GPU.
    peak device memory.  After ``1024-quality`` its whole map is meshed on
    the card: blocks, triangles, device and host time, peak memory.
 
-Every preset is built with ``config.apply_preset``.  Each run prints its
+6. Phase F: the ``headline`` preset over the base sequence with one knob
+   group over it each run (``F_RUNS``): F1 stored normals, F2 stored
+   normals with the plane refine, F3 the midsolve, F4 Huber weights with
+   bilinear association and symmetric ICP, F5 the per-frame symmetric gate
+   (``"auto"``), F6 the frame-to-frame bootstrap and fallback.  Each holds
+   the presets' gates (tracked >= 88, ATE <= the JAX package's CPU run +
+   0.5 cm, overflow 0, a fusion launch every integrated frame, the last
+   raycast hitting half the pixels); with stored normals the held gradient
+   table equals ``gradmap.build_table`` of the final map on the card and
+   the CPU's table of the same map, bit for bit.
+
+The app phases (A, B, E) check that the app read the ``.raw`` stream
+through the native reader (``io.native``, built from
+``supereight_tpu_torch/csrc/io_native.cpp`` with the host compiler beside
+the kernels).  Every preset is built with ``config.apply_preset``.  Each run prints its
 wall time, the median ms per frame and the median of each stage (from a
 second run through ``step_staged``).
 
@@ -123,9 +137,15 @@ ATE_MARGIN_CM = {"trans": 1.0, "noise": 2.5}
 ATE_MARGIN_DEFAULT_CM = 0.5
 
 
+def jax_cpu(name: str):
+    """(ATE cm, blocks) of the JAX package's CPU run of a preset or a
+    phase-F run."""
+    return JAX_CPU[name] if name in JAX_CPU else JAX_CPU_F[name]
+
+
 def ate_gate(name: str) -> float:
-    """A preset's ATE gate in metres."""
-    return 0.01 * (JAX_CPU[name][0]
+    """A preset's or a phase-F run's ATE gate in metres."""
+    return 0.01 * (jax_cpu(name)[0]
                    + ATE_MARGIN_CM.get(name, ATE_MARGIN_DEFAULT_CM))
 
 
@@ -150,6 +170,28 @@ RUNS = {name: (sequence, record, ate_gate(name))
      "ate_icp_ofusion_256_exact_pl_nr_z4_mu0.008.json"),
     ("1024-quality", "synthetic_256_frames",
      "ate_icp_ofusion_1024_id2_ib98304_ss1_aad16x0.3_iv_nr_z4.json"))}
+#: phase F: the headline preset on BASE over the cached base sequence, one
+#: knob group over it each run: {run: (knobs, the JAX package's record in
+#: bench_data/, a TPU run: a reference point, not a gate)}
+F_RUNS = {
+    "F1": (dict(raycast_normals="stored"), "ate_icp_256_stored.json"),
+    "F2": (dict(raycast_normals="stored", raycast_refine="plane"),
+           "ate_icp_256_stored_pl.json"),
+    "F3": (dict(raycast_midsolve=True),
+           "ate_icp_256_hybrid_id2_ib3072_ss1m.json"),
+    "F4": (dict(icp_robust="huber", icp_robust_delta=0.01,
+                icp_assoc="bilinear", icp_symmetric=True),
+           "ate_icp_256_hybrid_ad3.8x0.07_id2_ib3072_ss1_ar3_rbh0.01_bl_sy_"
+           "gd2.json"),
+    "F5": (dict(icp_symmetric="auto"),
+           "ate_icp_256_hybrid_ad3.8x0.07_id2_ib3072_ss1_ar3_sya_gd2.json"),
+    "F6": (dict(bootstrap_f2f=True, f2f_fallback=True),
+           "ate_icp_256_hybrid_ad3.8x0.07_id2_ib3072_ss1_ar3_f2f_gd2.json"),
+}
+#: the JAX package's own run of each phase-F run on the CPU (ATE cm,
+#: blocks; `jax_cpu_reference.py --parts phase_f`)
+JAX_CPU_F = {"F1": (0.97, 2775), "F2": (1.11, 2745), "F3": (0.90, 2802),
+             "F4": (0.97, 2782), "F5": (0.95, 2767), "F6": (0.82, 2733)}
 #: the app phases: the README's command line on the cached base sequence
 #: (the headline preset; -g gives ground-truth poses, -p the ICP start)
 APP_ARGS = ["-s", "4.8", "-v", "256", "-k", "240.6,240,160,120",
@@ -182,9 +224,10 @@ MESH_HOLD_BLOCKS = 2048
 MESH_AT_SCALE = "1024-quality"
 
 #: the counts the earlier runs of this code gave on the card; the path is
-#: deterministic, so they repeat exactly
-REPEAT = {"headline": dict(tracked=92, ate_cm=0.97, blocks=2767, overflow=0),
-          "ofusion": dict(tracked=92, ate_cm=0.91, blocks=3674, overflow=0)}
+#: deterministic, so they repeat exactly (taken again when the normal
+#: equations' sums changed: JTJ a reduction, no longer a GEMM)
+REPEAT = {"headline": dict(tracked=92, ate_cm=0.97, blocks=2769, overflow=0),
+          "ofusion": dict(tracked=92, ate_cm=0.91, blocks=3672, overflow=0)}
 MIN_TRACKED = 88
 #: least share of the last raycast's pixels that hit the map; ``noise``
 #: fills its table (its record overflows by 1891 blocks), so surface past
@@ -229,8 +272,10 @@ def load_sequence(name: str):
 def load_record(file: str) -> dict:
     with open(os.path.join(BENCH_DATA, file)) as f:
         r = json.load(f)
-    return dict(tracked=r["tracked_frames"], ate_cm=100 * r["ate_rmse_m"],
-                blocks=r["blocks"], overflow=r["overflow"])
+    # the older records carry no tracked count
+    return dict(tracked=r.get("tracked_frames"),
+                ate_cm=100 * r["ate_rmse_m"], blocks=r["blocks"],
+                overflow=r["overflow"])
 
 
 def median_ms(fn, setup=None) -> float:
@@ -246,12 +291,15 @@ def times(fn, plain):
 
 
 def build_kernels():
-    """Every kernel source, one nvcc each, started together."""
+    """Every kernel source (one nvcc each) and the native reader (the host
+    compiler), started together."""
     from supereight_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    _build.build_all()
-    print(f"# kernels built in {time.perf_counter() - t0:.1f} s")
-    for name in _build.SOURCES:
+    names = _build.SOURCES + _build.HOST_SOURCES
+    _build.build_all(names)
+    print(f"# kernels and the native reader built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name in names:
         lib_path = _build.library_path(name)
         print(f"#   {os.path.relpath(lib_path, HERE)}")
         log = lib_path.with_name(lib_path.name + ".log")
@@ -660,9 +708,9 @@ def check_run(torch, name, r, poses, record, max_ate, counter):
     n = len(r["est"])
     ate = ate_rmse(r["est"], poses[:n])
     launches = r["launches"][counter]
-    cpu_ate, cpu_blocks = JAX_CPU[name]
+    cpu_ate, cpu_blocks = jax_cpu(name)
     print(f"# {name}, {n} frames in {r['wall']:.1f} s: tracked "
-          f"{r['tracked']}/{n} (TPU record {record['tracked']}/96), ATE "
+          f"{r['tracked']}/{n} (TPU record {record['tracked']}), ATE "
           f"{100 * ate:.2f} cm (JAX on the CPU {cpu_ate:.2f}, TPU record "
           f"{record['ate_cm']:.2f}, gate {100 * max_ate:.2f}), blocks "
           f"{r['blocks']} (JAX on the CPU {cpu_blocks}, TPU record "
@@ -809,6 +857,73 @@ def run_preset(torch, name, dev, kernels):
     print_stage_times(name, cfg, depths, poses, dev)
 
 
+def to_device(x, dev):
+    """A map (its tensors, nested in dataclasses, lists and dicts) on
+    ``dev``."""
+    import dataclasses
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: to_device(getattr(x, f.name), dev)
+            for f in dataclasses.fields(x)})
+    if isinstance(x, dict):
+        return {k: to_device(v, dev) for k, v in x.items()}
+    if isinstance(x, list):
+        return [to_device(v, dev) for v in x]
+    return x
+
+
+def check_held_grad(torch, name, slam):
+    """The stored gradient table the run holds against ``build_table`` of
+    its final map on the card, and that against the CPU's table of the
+    same map: bit for bit, the NaN pattern included."""
+    from supereight_tpu_torch.pipeline import gradmap
+    st = slam.state
+    built = gradmap.build_table(st.map, slam.field)
+    cpu = gradmap.build_table(to_device(st.map, "cpu"), slam.field)
+
+    def same(a, b):
+        a, b = a.float().cpu(), b.float().cpu()
+        return torch.equal(torch.isnan(a), torch.isnan(b)) and \
+            torch.equal(a.nan_to_num(), b.nan_to_num())
+
+    held_ok, cpu_ok = same(st.grad, built), same(built, cpu)
+    print(f"# {name}: held gradient table {tuple(st.grad.shape)} "
+          f"{st.grad.dtype} equals build_table of the final map on the card "
+          f"bit for bit: {held_ok}; the card's table equals the CPU's: "
+          f"{cpu_ok}")
+    if not (held_ok and cpu_ok):
+        fail(f"{name}: the stored gradient table differs")
+
+
+def f_config(name: str):
+    """Phase F's run ``name``: the headline preset on BASE with its knob
+    group over it."""
+    import dataclasses
+    return dataclasses.replace(preset_config("headline"), **F_RUNS[name][0])
+
+
+def run_phase_f(torch, dev, kernels):
+    """Phase F: the headline preset over the base sequence with each knob
+    group of F_RUNS over it, held to the presets' gates; with stored
+    normals the held gradient table is checked too."""
+    depths, poses = load_sequence("synthetic_256_frames")
+    for name, (knobs, record_file) in F_RUNS.items():
+        cfg = f_config(name)
+        print(f"# {name}: headline + {knobs}")
+        r = run_slam(torch, cfg, depths, poses, dev)
+        for k, n in r["launches"].items():
+            kernels[k]["launches"] += n
+        check_run(torch, name, r, poses, load_record(record_file),
+                  ate_gate(name), "fuse_sdf")
+        if cfg.raycast_normals == "stored":
+            check_held_grad(torch, name, r["slam"])
+        del r
+        print_stage_times(name, cfg, depths, poses, dev)
+
+
 def reset_launches():
     from supereight_tpu_torch.ops import integrate_kernel as ik
     for k in ik.LAUNCHES:
@@ -861,6 +976,11 @@ def app_phase(torch, label, argv, poses, tmp):
     r = benchmark.run(argv + ["-q", "-o", log, "--device", "cuda"])
     wall = time.perf_counter() - t0
     counts = launches()
+    from supereight_tpu_torch.io import native
+    print(f"# {label}: the .raw reader is {type(r.reader).__module__}."
+          f"{type(r.reader).__name__}")
+    if not isinstance(r.reader, native.NativeRawReader):
+        fail(f"{label}: the app did not read through the native reader")
     rows = np.loadtxt(log, delimiter="\t", skiprows=1, ndmin=2)
     st = r.system.state
     out = dict(rows=len(rows), tracked=int(rows[:, 12].sum()),
@@ -1192,6 +1312,7 @@ def main():
             kernels[k]["launches"] += n
     for name in RUNS:
         run_preset(torch, name, dev, kernels)
+    run_phase_f(torch, dev, kernels)
     print(f"# all runs done in {time.perf_counter() - t_start:.1f} s")
 
     order = ("fuse_sdf", "fuse_ofusion", "lane_shuffle_sum", "slab_row_sum")

@@ -18,7 +18,9 @@ JAX package on the CPU and prints one JSON object:
 - ``runner``: ``supereight_tpu.apps.runner.run("synthetic-room",
   resolution=256)``;
 - ``mesh``: the app in ground-truth mode with ``--dump-mesh`` (phase E of
-  the smoke): the triangles of the final map's mesh.
+  the smoke): the triangles of the final map's mesh;
+- ``phase_f``: each run of ``chip_smoke.F_RUNS`` (the ``headline`` preset
+  with one knob group over it) as ``presets`` runs a preset.
 
 Run from the repository root (JAX on the CPU; 1024-quality takes minutes):
     JAX_PLATFORMS=cpu python3 jax_cpu_reference.py [--parts app,runner]
@@ -35,7 +37,7 @@ import tempfile
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PARTS = ("presets", "app", "facade_gt", "runner", "mesh")
+PARTS = ("presets", "app", "facade_gt", "runner", "mesh", "phase_f")
 
 
 def _ate_cm(est, gt) -> float:
@@ -43,24 +45,43 @@ def _ate_cm(est, gt) -> float:
     return 100 * evaluate.ate(list(est), list(gt))["rmse"]
 
 
+def _run(cfg, sequence):
+    """The JAX system over a cached sequence from ``setPose(poses[0])``:
+    tracked frames, ATE (cm), blocks, overflow."""
+    import chip_smoke
+    from supereight_tpu.pipeline import DenseSLAMSystem
+    depths, poses = chip_smoke.load_sequence(sequence)
+    slam = DenseSLAMSystem((240, 320), cfg)
+    slam.setPose(poses[0])
+    est, tracked = [], 0
+    for f in range(len(depths)):
+        st = slam.step(depths[f], chip_smoke.K, f)
+        est.append(np.asarray(st.pose))
+        tracked += bool(st.tracked)
+    return dict(tracked=tracked, ate_cm=_ate_cm(est, poses),
+                blocks=int(st.map.n_blocks), overflow=int(st.map.overflow))
+
+
 def presets():
     import chip_smoke
     from supereight_tpu.config import Configuration, apply_preset
-    from supereight_tpu.pipeline import DenseSLAMSystem
     out = {}
     for name, (sequence, _, _) in chip_smoke.RUNS.items():
-        depths, poses = chip_smoke.load_sequence(sequence)
         cfg = apply_preset(name, Configuration(**chip_smoke.BASE))
-        slam = DenseSLAMSystem((240, 320), cfg)
-        slam.setPose(poses[0])
-        est, tracked = [], 0
-        for f in range(len(depths)):
-            st = slam.step(depths[f], chip_smoke.K, f)
-            est.append(np.asarray(st.pose))
-            tracked += bool(st.tracked)
-        out[name] = dict(tracked=tracked, ate_cm=_ate_cm(est, poses),
-                         blocks=int(st.map.n_blocks),
-                         overflow=int(st.map.overflow))
+        out[name] = _run(cfg, sequence)
+        print(f"# {name}: {out[name]}", file=sys.stderr, flush=True)
+    return out
+
+
+def phase_f():
+    import dataclasses
+    import chip_smoke
+    from supereight_tpu.config import Configuration, apply_preset
+    out = {}
+    for name, (knobs, _) in chip_smoke.F_RUNS.items():
+        cfg = dataclasses.replace(apply_preset(
+            "headline", Configuration(**chip_smoke.BASE)), **knobs)
+        out[name] = _run(cfg, "synthetic_256_frames")
         print(f"# {name}: {out[name]}", file=sys.stderr, flush=True)
     return out
 

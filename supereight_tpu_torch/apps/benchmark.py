@@ -94,7 +94,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--scan-stride", type=float, default=0.5,
                    help="fine-scan step in band thicknesses")
     p.add_argument("--midsolve", action="store_true",
-                   help="half-res secant re-solve (not ported)")
+                   help="half-res secant re-solve (pairs with a coarse "
+                        "--scan-stride)")
     p.add_argument("--int-budget", type=int, default=0,
                    help="fuse at most this many frustum-candidate blocks "
                         "per frame (0 = the whole table)")
@@ -141,7 +142,8 @@ _FLAG2FIELD = {
 def make_config(args, argv) -> SlamConfig:
     """The run's SlamConfig from the flags, with ``--preset`` or, without
     one, the noise regime when -F is on (pinned flags win either way).
-    Raises NotImplementedError for a knob the port does not run."""
+    Raises NotImplementedError for a knob the port does not run
+    (``SlamConfig.of``)."""
     knobs = dict(
         compute_size_ratio=args.compute_size_ratio,
         tracking_rate=args.tracking_rate,
@@ -196,11 +198,13 @@ def _row(frame, times, pos, tracked, integrated) -> str:
 
 class Run(NamedTuple):
     """What a run leaves: the estimated poses (numpy [4,4], one per sensor
-    frame), the system in its final state, and the last rendered
-    (depth, track, volume) images or None."""
+    frame), the system in its final state, the last rendered
+    (depth, track, volume) images or None, and the reader it streamed
+    from."""
     est_poses: List[np.ndarray]
     system: DenseSLAMSystem
     images: Optional[Tuple]
+    reader: object
 
 
 def run(argv=None) -> Run:
@@ -253,7 +257,7 @@ def run(argv=None) -> Run:
         serialise.save_map(args.dump_volume, slam.state.map)
     if args.dump_mesh:
         slam.dump_mesh(args.dump_mesh)
-    return Run(est_poses, slam, images)
+    return Run(est_poses, slam, images, reader)
 
 
 def _stream(args, reader, slam, k, gt_poses, n: int, t_start: float, log):

@@ -54,45 +54,32 @@ class SlamConfig:
     raycast_from_frame: int = 3
     fuse_filtered: bool = False
     ofusion_sigma_floor: float = 0.0
-    icp_symmetric: bool = False
+    raycast_midsolve: bool = False
+    icp_robust: str = "none"              # "none" | "huber" | "tukey"
+    icp_robust_delta: float = 0.01        # Huber delta / Tukey c (m)
+    icp_assoc: str = "nearest"            # "nearest" | "bilinear"
+    #: False | True | "auto" (symmetric only while the last pose step
+    #: rotated between icp_sym_min_deg and icp_sym_max_deg)
+    icp_symmetric: object = False
+    icp_sym_min_deg: float = 0.5
+    icp_sym_max_deg: float = 4.5
+    bootstrap_f2f: bool = False
+    f2f_fallback: bool = False
 
     @classmethod
     def of(cls, config) -> "SlamConfig":
         """The ported knobs of ``config``: a SlamConfig or any object with
         the same attribute names (``supereight_tpu.config.Configuration``).
-        Raises NotImplementedError where ``config`` sets a knob whose code
-        is not ported."""
-        for name, (default, why) in _UNPORTED.items():
-            value = getattr(config, name, default)
-            if value != default:
-                raise NotImplementedError(f"{name}={value!r}: {why}")
-        for name, (ported, why) in _CHOICES.items():
-            value = getattr(config, name, ported[0])
-            if value not in ported:
-                raise NotImplementedError(f"{name}={value!r}: {why}")
+        Raises NotImplementedError where ``config`` partitions the map
+        over several devices, which the port does not run."""
+        partitions = getattr(config, "map_partitions", 1)
+        if partitions != 1:
+            raise NotImplementedError(
+                f"map_partitions={partitions!r}: not ported yet (ROADMAP "
+                "queue 1, item 6)")
         return cls(**{f.name: getattr(config, f.name)
                       for f in dataclasses.fields(cls)
                       if hasattr(config, f.name)})
-
-
-_NEGATIVE = "measured negative in the JAX package; not ported"
-_GRADMAP = ("needs the stored gradient table (pipeline/gradmap.py), which "
-            "no preset uses; not ported")
-#: knobs the port does not run: {name: (the only value taken, why)}
-_UNPORTED = {
-    "map_partitions": (1, "not ported yet (ROADMAP queue 1, item 6)"),
-    "raycast_midsolve": (False, _NEGATIVE),
-    "icp_robust": ("none", _NEGATIVE),
-    "icp_assoc": ("nearest", _NEGATIVE),
-    "bootstrap_f2f": (False, _NEGATIVE),
-    "f2f_fallback": (False, _NEGATIVE),
-}
-#: knobs with a choice of modes: {name: (the ported values, why not others)}
-_CHOICES = {
-    "raycast_normals": (("volume", "hybrid", "exact"), _GRADMAP),
-    "raycast_refine": (("secant", "interp"), _GRADMAP),
-    "icp_symmetric": ((False, True), _NEGATIVE),
-}
 
 
 #: Named configuration presets: the validated knob stacks of the JAX

@@ -74,12 +74,16 @@ def state_from_numpy(d, device) -> FrameState:
     FrameState arrays ``pose``, ``raycast_pose``, ``float_depth``,
     ``scaled_depth``, ``ref_vertex``, ``ref_normal``, ``track_result``,
     ``tracked``, ``integrated``, ``alloc_pose``, ``alloc_count``,
-    ``prev_pose`` and ``model_ref``, and ``view`` (the held read view, or
-    None; it may be bf16)."""
+    ``prev_pose`` and ``model_ref``, ``view`` (the held read view, or
+    None; it may be bf16) and ``grad`` (the stored gradient table, bf16,
+    or None)."""
     f32 = torch.float32
-    view = d.get("view")
+    view, grad = d.get("view"), d.get("grad")
     if view is not None:      # bf16 -> f32 -> bf16 is exact
         view = _t(np.asarray(view, np.float32), f32, device) \
+            .to(torch.bfloat16)
+    if grad is not None:
+        grad = _t(np.asarray(grad, np.float32), f32, device) \
             .to(torch.bfloat16)
     return FrameState(
         map=map_from_numpy(d["map"], device),
@@ -90,4 +94,4 @@ def state_from_numpy(d, device) -> FrameState:
         track_result=_t(d["track_result"], torch.int32, device),
         tracked=bool(d["tracked"]), integrated=bool(d["integrated"]),
         alloc_count=int(d["alloc_count"]), model_ref=bool(d["model_ref"]),
-        view=view)
+        view=view, grad=grad)

@@ -4,8 +4,9 @@
 Reference: `se_apps/include/interface.h:179-284` — reads per-frame text
 files of euclidean ray lengths and converts to planar depth with the Scene
 intrinsics.  Prefer converting once with tools/scene2raw for speed; this
-reader exists for parity and ad-hoc use.  The conversion is the numpy one
-of `supereight_tpu/io/native.py:euclidean_to_depth_mm`, copied here.
+reader exists for parity and ad-hoc use.  The conversion is the native one
+(``io.native``) where it builds, else :func:`euclidean_to_depth_mm`, the
+numpy one of `supereight_tpu/io/native.py`, copied here.
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ class SceneDepthReader:
         """Returns (depth_mm uint16 [H, W], rgb zeros [H, W, 3])."""
         vals = np.fromfile(self.files[frame], dtype=np.float32, sep=" ")
         eu = vals.reshape(self.height, self.width)
-        mm = euclidean_to_depth_mm(eu, self.k)
+        from .native import euclidean_to_depth_mm as convert
+        mm = convert(eu, self.k)
         return mm, np.zeros((self.height, self.width, 3), np.uint8)
 
     def __len__(self):

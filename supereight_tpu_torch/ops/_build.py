@@ -1,10 +1,12 @@
-"""Build the package's CUDA sources into shared libraries at first use.
+"""Build the package's native sources into shared libraries at first use.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so``, where
-the hash covers the source and the flags, then loaded with ``ctypes``.  The
-build directory is not committed; a checkout builds on its first launch, or
-all at once with :func:`build_all`.
+the hash covers the source and the flags, then loaded with ``ctypes``.
+Each ``csrc/<name>.cpp`` (host code: the ``.raw`` reader) is compiled the
+same way with the host C++ compiler.  The build directory is not
+committed; a checkout builds on its first use, or all at once with
+:func:`build_all`.
 """
 
 from __future__ import annotations
@@ -29,6 +31,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
+#: the host sources' compiler flags (those of the JAX package's
+#: ``csrc/Makefile``, so that both builds round alike)
+CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-shared",
+             "-pthread")
+
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -42,16 +49,42 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _source(name: str) -> Path:
+    return CSRC / (f"{name}.cpp" if name in HOST_SOURCES else f"{name}.cu")
+
+
+def _command(name: str):
+    """The compiler and its flags for ``name``."""
+    if name in HOST_SOURCES:
+        return [os.environ.get("CXX") or shutil.which("c++") or "g++",
+                *CXX_FLAGS]
+    return [_nvcc(), *NVCC_FLAGS]
+
+
+def _host_cpu() -> str:
+    """The host CPU's feature flags (``-march=native`` builds for them)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            return next((ln for ln in f if ln.startswith("flags")), "")
+    except OSError:
+        return ""
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()) \
-        .hexdigest()[:16]
+    """Where ``csrc/<name>.cu`` (or ``.cpp``) builds to, keyed by source
+    and flags (and, for host code, the CPU's features)."""
+    flags = " ".join(NVCC_FLAGS)
+    if name in HOST_SOURCES:
+        flags = " ".join(CXX_FLAGS) + _host_cpu()
+    digest = hashlib.sha256(_source(name).read_bytes()
+                            + flags.encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 #: every kernel source of the package
 SOURCES = ("integrate", "gather_probe")
+#: host sources, built with the C++ compiler
+HOST_SOURCES = ("io_native",)
 
 
 def constants(name: str) -> Dict[str, int]:
@@ -65,7 +98,7 @@ def constants(name: str) -> Dict[str, int]:
 
 
 def _start(name: str):
-    """Start ``nvcc`` on ``csrc/<name>.cu`` unless it is built; returns
+    """Start the compiler on ``name``'s source unless it is built; returns
     (library, temporary output, process) or None."""
     so = library_path(name)
     if so.exists():
@@ -73,7 +106,7 @@ def _start(name: str):
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     proc = subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        [*_command(name), "-o", str(tmp), str(_source(name))],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     return so, tmp, proc
 
@@ -82,7 +115,7 @@ def _finish(name: str, so: Path, tmp: Path, proc) -> None:
     out, err = proc.communicate()
     so.with_name(so.name + ".log").write_text(out + err)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed building {name}:\n{err}")
+        raise RuntimeError(f"the compiler failed building {name}:\n{err}")
     os.replace(tmp, so)        # atomic: concurrent builds never race
 
 
@@ -96,9 +129,9 @@ def build_all(names=SOURCES) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu``, compiling it if needed.
-    The compiler's output (``-Xptxas -v``: registers, spills) is kept
-    beside it in ``<library>.log``."""
+    """The built library of ``csrc/<name>.cu`` (or ``.cpp``), compiling it
+    if needed.  The compiler's output (for a kernel ``-Xptxas -v``:
+    registers, spills) is kept beside it in ``<library>.log``."""
     if name in _loaded:
         return _loaded[name]
     build_all((name,))

@@ -8,9 +8,11 @@ ray resolution (or every pixel, ``full_res_scan``), finds the first valid
 outside -> inside crossing and solves it linearly; a compacted second
 window re-scans the rays whose far bound reaches deeper.  After a half-res
 scan a full-resolution secant re-solve (`_refine`, optionally from
-trilinear samples) gives per-pixel depth.  Normals come from 6-tap central
-differences (hybrid: at quarter resolution with a per-pixel along-ray
-correction) or from the blended gradient of the brick table (exact).
+trilinear samples, or from the stored surface plane) gives per-pixel depth;
+``midsolve`` re-solves the scan's crossing at half resolution before it.
+Normals come from 6-tap central differences (hybrid: at quarter resolution
+with a per-pixel along-ray correction), from the stored gradient table
+(`gradmap.py`) or from the blended gradient of the brick table (exact).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch.nn.functional as F
 from supereight_tpu_torch.core import octree
 from supereight_tpu_torch.core.numerics import inv, trunc_i32
 from supereight_tpu_torch.core.octree import BLOCK_SIDE, VoxelMap
-from . import camera
+from . import camera, gradmap
 from .constants import INVALID
 from .preprocessing import norm
 
@@ -275,25 +277,33 @@ def raycast(m: VoxelMap, field, view, H: int, W: int, near: float,
             second_window: bool = True, span_factor: float = 1.6,
             w2_budget: int = 8192, scan_stride: float = 0.5,
             near_rescue: bool = True, grad_decim: int = 1,
-            refine: str = "secant",
-            full_res_scan: bool = False) -> RaycastResult:
+            refine: str = "secant", full_res_scan: bool = False,
+            midsolve: bool = False, grad_table=None) -> RaycastResult:
     """Vertex + normal maps from ``view`` (= pose @ inv(K)).
 
     The fine scan runs at half ray resolution when H and W are even,
-    W >= 160 and not ``full_res_scan``, followed by the full-res
-    ``_refine`` ("secant": the two-sample re-solve; "interp": the same
-    from trilinear samples).  ``normals`` is "volume" (full-res 6-tap
-    gradient), "hybrid" (half-res, or 1/``grad_decim`` of that, lateral
-    gradient + per-pixel along-ray correction; without the half-res scan
-    it falls back to "volume") or "exact" (``octree.grad``, the trilinearly
-    blended gradient of the raw brick table)."""
-    if normals not in ("volume", "hybrid", "exact"):
+    W >= 160 and not ``full_res_scan``; ``midsolve`` then re-solves its
+    crossings from two samples inside the band, and the full-res re-solve
+    follows: ``refine`` "secant" (`_refine`'s two-sample re-solve),
+    "interp" (the same from trilinear samples) or "plane" (with stored
+    normals: each pixel's ray meets the surface plane at its half-res
+    parent's hit, no field samples).  ``normals`` is "volume" (full-res
+    6-tap gradient), "hybrid" (half-res, or 1/``grad_decim`` of that,
+    lateral gradient + per-pixel along-ray correction; without the half-res
+    scan it falls back to "volume"), "stored" (the gradient table
+    ``grad_table``, built from the map if None, at the hit voxel) or
+    "exact" (``octree.grad``, the trilinearly blended gradient of the raw
+    brick table)."""
+    if normals not in ("volume", "hybrid", "exact", "stored"):
         raise ValueError(f"unknown normals mode {normals!r}")
-    if refine not in ("secant", "interp"):
+    if refine not in ("secant", "interp", "plane"):
         raise ValueError(f"unknown refine mode {refine!r}")
     origin, dirs = ray_directions(view, H, W)
     if dense is None:
         dense = pack_view(m, field)
+    use_stored = normals == "stored"
+    if use_stored and grad_table is None:
+        grad_table = gradmap.build_table(m, field)
     tgrid, tmax_grid, g = _splat_bounds(m, field, view, H, W, near, far,
                                         near_rescue=near_rescue)
 
@@ -339,23 +349,44 @@ def raycast(m: VoxelMap, field, view, H: int, W: int, near: float,
             .index_copy(0, idx, f2.z_hit).reshape(h, w)
         hit = f1.hit | hit2
         z_hit = torch.where(f1.hit, f1.z_hit, z2)
+    if midsolve:
+        z_hit = _midsolve(m, dense, field, origin, fd, z_hit, hit,
+                          0.35 * thickness)
 
     z_half, hit_half = z_hit, hit
     if half_res:
         delta = 0.7 * thickness
-        # interp: unobserved taps blend the select channel's raw init value
-        interp_sub = next(c.init for c in m.channels
-                          if c.name == field.select_channel) \
-            if refine == "interp" else None
-        z_hit, hit, rf_lo, rf_hi, rf_pair = _refine(
-            m, dense, field, origin, dirs, _up2(z_hit), _up2(hit), delta,
-            interp_sub)
+        if use_stored and refine == "plane":
+            # each full-res ray meets the plane of its half-res parent's
+            # hit (stored normal there), inside the refine window
+            vert_h = origin + fd * z_half[..., None]
+            g_h, _, _ = gradmap.sample(m, grad_table, vert_h * inv_vs)
+            n_f, v_f = _up2(g_h), _up2(vert_h)
+            z_hit, hit = _up2(z_hit), _up2(hit)
+            denom = (dirs * n_f).sum(-1)
+            numer = ((v_f - origin) * n_f).sum(-1)
+            okp = torch.abs(denom) > 1e-9
+            z_pl = torch.where(okp, numer / torch.where(okp, denom, 1.0),
+                               z_hit)
+            z_hit = torch.where(hit, torch.minimum(torch.maximum(
+                z_pl, z_hit - delta), z_hit + delta), z_hit)
+        else:
+            # interp: unobserved taps blend the select channel's raw init
+            interp_sub = next(c.init for c in m.channels
+                              if c.name == field.select_channel) \
+                if refine == "interp" else None
+            z_hit, hit, rf_lo, rf_hi, rf_pair = _refine(
+                m, dense, field, origin, dirs, _up2(z_hit), _up2(hit), delta,
+                interp_sub)
 
     vertex = origin + dirs * z_hit[..., None]
     ray_norm = norm(dirs)
     t_hit = torch.where(hit, z_hit * ray_norm, 0.0)
 
-    if normals == "hybrid" and half_res:
+    bad_grad = torch.zeros_like(hit)
+    if use_stored:
+        g_, _, _ = gradmap.sample(m, grad_table, vertex * inv_vs)
+    elif normals == "hybrid" and half_res:
         vert_h = origin + fd * z_half[..., None]
         gd = int(grad_decim)
         if gd > 1 and h % gd == 0 and w % gd == 0:
@@ -376,10 +407,8 @@ def raycast(m: VoxelMap, field, view, H: int, W: int, near: float,
         bad_grad = ~_up2(grad_ok_h)
     elif normals == "exact":
         g_ = octree.grad(m, field.select_channel, vertex * inv_vs)
-        bad_grad = torch.zeros_like(hit)
     else:
         g_ = _grad6(m, dense, field, vertex)
-        bad_grad = torch.zeros_like(hit)
     if field.invert_normals:
         g_ = -g_
     gn = norm(g_, keepdim=True)
@@ -416,6 +445,26 @@ def _refine(m: VoxelMap, dense, field, origin, dirs, z_hit, hit,
     frac = (f_hi - field.surf_boundary) / denom
     z_new = z_hit + delta + 2.0 * delta * frac
     return torch.where(crossing, z_new, z_hit), hit & ~miss, f_lo, f_hi, pair
+
+
+def _midsolve(m: VoxelMap, dense, field, origin, dirs, z_hit, hit,
+              delta: float):
+    """Half-res secant correction of the scan's crossings: a valid outside
+    -> inside pair at ``z_hit`` +/- ``delta`` re-solves the crossing; it
+    never drops a hit (the rays are the scan's own)."""
+    def sample(z):
+        pos = (origin + dirs * z[..., None]) * m.inverse_voxel_size
+        return _sample_volume(dense["F"], pos, m.size, float("nan"))[0]
+
+    f_lo = sample(z_hit - delta)
+    f_hi = sample(z_hit + delta)
+    pair = ~torch.isnan(f_lo) & ~torch.isnan(f_hi)
+    crossing = pair & ~field.is_inside(f_lo) & field.is_inside(f_hi) & hit
+    denom = f_lo - f_hi
+    denom = torch.where(torch.abs(denom) < 1e-12, -1e-12, denom)
+    frac = (f_hi - field.surf_boundary) / denom
+    z_new = z_hit + delta + 2.0 * delta * frac
+    return torch.where(crossing, z_new, z_hit)
 
 
 def _grad6(m: VoxelMap, dense, field, pos_world):

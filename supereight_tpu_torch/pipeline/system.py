@@ -23,7 +23,8 @@ from supereight_tpu_torch.config import SlamConfig
 from supereight_tpu_torch.core import octree
 from supereight_tpu_torch.core.volume import Volume
 from supereight_tpu_torch.fields import make_field
-from . import camera, integration, preprocessing, raycast, rendering, tracking
+from . import (camera, gradmap, integration, preprocessing, raycast,
+               rendering, tracking)
 from .constants import FAR_PLANE, INVALID, NEAR_PLANE
 from .preprocessing import norm
 
@@ -50,6 +51,10 @@ class FrameState:
     #: view is updated in place there (allocated and fused rows only), so
     #: an earlier FrameState's view is the same tensor
     view: Optional[torch.Tensor] = None
+    #: the stored gradient table bf16 [capacity, 512, 4]
+    #: (``gradmap.build_table``), rebuilt on integration frames, or None
+    #: unless ``raycast_normals == "stored"``
+    grad: Optional[torch.Tensor] = None
 
     def replace(self, **kw) -> "FrameState":
         return dataclasses.replace(self, **kw)
@@ -57,9 +62,11 @@ class FrameState:
 
 def init_state(size: int, dim: float, field, H: int, W: int, init_pose,
                device, capacity: Optional[int] = None,
-               incremental_view: bool = False) -> FrameState:
+               incremental_view: bool = False,
+               grad_normals: bool = False) -> FrameState:
     """Empty map at ``init_pose``; every pose field is its own buffer.
-    With ``incremental_view`` the state holds the map's read view."""
+    With ``incremental_view`` the state holds the map's read view, with
+    ``grad_normals`` an empty stored gradient table."""
     m = octree.init(size, dim, field.channels, device, capacity=capacity)
     pose = torch.as_tensor(init_pose, dtype=torch.float32, device=device)
     ref_normal = torch.zeros((H, W, 3), dtype=torch.float32, device=device)
@@ -73,7 +80,9 @@ def init_state(size: int, dim: float, field, H: int, W: int, init_pose,
         track_result=torch.zeros((H, W), dtype=torch.int32, device=device),
         tracked=False, integrated=False, alloc_pose=pose.clone(),
         alloc_count=0, prev_pose=pose.clone(), model_ref=True,
-        view=raycast.pack_view(m, field)["F"] if incremental_view else None)
+        view=raycast.pack_view(m, field)["F"] if incremental_view else None,
+        grad=gradmap.empty_table(m.capacity, device) if grad_normals
+        else None)
 
 
 def preprocessing_stage(state: FrameState, depth_mm,
@@ -105,13 +114,34 @@ def tracking_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
         return state.replace(tracked=False)
     depths, vertices, normals = preprocessing.build_pyramid(
         state.scaled_depth, k, len(cfg.pyramid), neg_y=neg_y)
+    sym = cfg.icp_symmetric
+    if sym == "auto":
+        sym = _sym_auto_gate(state, cfg.icp_sym_min_deg, cfg.icp_sym_max_deg)
     new_pose, ok, result = tracking.track(
         state.pose, depths, vertices, normals, state.ref_vertex,
         state.ref_normal, state.raycast_pose, k, cfg.pyramid,
         cfg.icp_threshold, finest_decimate=cfg.icp_finest_decimate,
-        symmetric=cfg.icp_symmetric)
+        symmetric=sym, robust=cfg.icp_robust,
+        robust_delta=cfg.icp_robust_delta, assoc=cfg.icp_assoc)
     return state.replace(pose=new_pose, tracked=bool(ok),
                          track_result=result, prev_pose=state.pose)
+
+
+def sym_auto_angle(state: FrameState) -> torch.Tensor:
+    """The rotation (degrees, float32 on the device) of the last pose step,
+    ``prev_pose`` -> ``pose``: what ``icp_symmetric="auto"`` gates on."""
+    dR = state.pose[:3, :3] @ state.prev_pose[:3, :3].T
+    cos_ang = torch.clamp(0.5 * (torch.trace(dR) - 1.0), -1.0, 1.0)
+    return torch.rad2deg(torch.arccos(cos_ang))
+
+
+def _sym_auto_gate(state: FrameState, min_deg: float,
+                   max_deg: float) -> torch.Tensor:
+    """``icp_symmetric="auto"``: symmetric point-to-plane only while the
+    last pose step rotated between ``min_deg`` and ``max_deg`` degrees (a
+    bool tensor on the device: no host sync)."""
+    ang = sym_auto_angle(state)
+    return (ang >= min_deg) & (ang <= max_deg)
 
 
 def _moved(pose, ref_pose, deg: float, dist: float) -> bool:
@@ -183,16 +213,24 @@ def integration_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
         m = integration.integrate(m, field, depth, pose, K, **args)
         if view is not None:
             view = raycast.pack_view(m, field)["F"]
+    grad = None if state.grad is None else gradmap.build_table(m, field)
     return state.replace(map=m, alloc_pose=a_pose, alloc_count=a_count,
-                         integrated=True, view=view)
+                         integrated=True, view=view, grad=grad)
 
 
 def raycasting_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
-                     field) -> FrameState:
+                     field, neg_y: bool = False) -> FrameState:
     """Refresh the reference maps from the current pose, from frame
     ``raycast_from_frame`` on; with ``raycast_adaptive_deg`` > 0 only once
     the pose has rotated or moved past the thresholds since the last
-    refresh (always up to frame 5)."""
+    refresh (always up to frame 5).
+
+    Frame-to-frame publication: with ``bootstrap_f2f`` before the first
+    model raycast, and with ``f2f_fallback`` whenever this frame's tracking
+    failed, this frame's own vertex and normal maps (world space; ``neg_y``
+    as in tracking) become the reference, so the next frame tracks against
+    it; ``model_ref`` then turns False and suppresses fusion until the
+    next model raycast."""
     do_raycast = frame >= cfg.raycast_from_frame
     if do_raycast and frame > 5:
         if cfg.raycast_adaptive_deg > 0.0:
@@ -201,22 +239,39 @@ def raycasting_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
                                 cfg.raycast_adaptive_dist)
         elif cfg.raycast_rate > 1:
             do_raycast = frame % cfg.raycast_rate == 0
-    if not do_raycast:
+    if do_raycast:
+        H, W = state.float_depth.shape
+        rc = raycast.raycast(
+            state.map, field, state.pose @ camera.inverse_camera_matrix(k),
+            H, W, NEAR_PLANE, FAR_PLANE,
+            dense=None if state.view is None else {"F": state.view},
+            normals=cfg.raycast_normals, grad_table=state.grad,
+            second_window=cfg.raycast_second_window,
+            span_factor=cfg.raycast_span_factor,
+            w2_budget=cfg.raycast_w2_budget,
+            scan_stride=cfg.raycast_scan_stride,
+            near_rescue=cfg.raycast_near_rescue,
+            grad_decim=cfg.raycast_grad_decim, refine=cfg.raycast_refine,
+            full_res_scan=cfg.raycast_full_res_scan,
+            midsolve=cfg.raycast_midsolve)
+        state = state.replace(ref_vertex=rc.vertex, ref_normal=rc.normal,
+                              raycast_pose=state.pose.clone(),
+                              model_ref=True)
+    publish = (cfg.bootstrap_f2f and not do_raycast
+               and frame < cfg.raycast_from_frame) or \
+        (cfg.f2f_fallback and not state.tracked
+         and frame >= cfg.raycast_from_frame)
+    if not publish:
         return state
-    H, W = state.float_depth.shape
-    rc = raycast.raycast(
-        state.map, field, state.pose @ camera.inverse_camera_matrix(k), H, W,
-        NEAR_PLANE, FAR_PLANE,
-        dense=None if state.view is None else {"F": state.view},
-        normals=cfg.raycast_normals,
-        second_window=cfg.raycast_second_window,
-        span_factor=cfg.raycast_span_factor, w2_budget=cfg.raycast_w2_budget,
-        scan_stride=cfg.raycast_scan_stride,
-        near_rescue=cfg.raycast_near_rescue,
-        grad_decim=cfg.raycast_grad_decim, refine=cfg.raycast_refine,
-        full_res_scan=cfg.raycast_full_res_scan)
-    return state.replace(ref_vertex=rc.vertex, ref_normal=rc.normal,
-                         raycast_pose=state.pose.clone(), model_ref=True)
+    _, v0, n0 = preprocessing.build_pyramid(state.scaled_depth, k, 1,
+                                            neg_y=neg_y)
+    invalid = n0[0][..., 0] == INVALID
+    w_n = torch.where(invalid[..., None], n0[0],
+                      camera.rotate_vectors(state.pose, n0[0]))
+    return state.replace(ref_vertex=camera.transform_points(state.pose,
+                                                            v0[0]),
+                         ref_normal=w_n, raycast_pose=state.pose.clone(),
+                         model_ref=False)
 
 
 def process_frame(state: FrameState, depth_mm, k, frame: int, *,
@@ -226,7 +281,7 @@ def process_frame(state: FrameState, depth_mm, k, frame: int, *,
     state = preprocessing_stage(state, depth_mm, cfg)
     state = tracking_stage(state, k, frame, cfg, neg_y, gt_pose)
     state = integration_stage(state, k, frame, cfg, field)
-    return raycasting_stage(state, k, frame, cfg, field)
+    return raycasting_stage(state, k, frame, cfg, field, neg_y)
 
 
 class DenseSLAMSystem:
@@ -262,7 +317,8 @@ class DenseSLAMSystem:
                                 float(cfg.volume_size[0]), self.field,
                                 self.H, self.W, self.init_pose, self.device,
                                 capacity=cfg.block_capacity,
-                                incremental_view=cfg.incremental_view)
+                                incremental_view=cfg.incremental_view,
+                                grad_normals=cfg.raycast_normals == "stored")
         self._view_pose = None
 
     # ---- the reference's accessors ----
@@ -330,9 +386,9 @@ class DenseSLAMSystem:
         return self.state.integrated
 
     def raycasting(self, k, frame: int) -> bool:
-        kd, _ = self._k(k)
+        kd, neg_y = self._k(k)
         self.state = raycasting_stage(self.state, kd, frame, self.config,
-                                      self.field)
+                                      self.field, neg_y)
         return frame > 2
 
     # ---- a whole frame ----
@@ -362,7 +418,7 @@ class DenseSLAMSystem:
             ("integration", lambda s: integration_stage(
                 s, kd, frame, self.config, self.field)),
             ("raycasting", lambda s: raycasting_stage(
-                s, kd, frame, self.config, self.field)),
+                s, kd, frame, self.config, self.field, neg_y)),
         )
         st = self.state
         times = {}

@@ -1,6 +1,7 @@
 """Projective point-to-plane ICP tracking (counterpart of
-`supereight_tpu/pipeline/tracking.py`: nearest association, plain or
-symmetric residual, no IRLS weights, single device).
+`supereight_tpu/pipeline/tracking.py`: nearest or bilinear association,
+plain, symmetric or per-frame gated symmetric residual, optional Huber or
+Tukey IRLS weights, single device).
 
 The per-level iteration loop is a host loop: each iteration reads the
 convergence test back, as the JAX ``lax.while_loop`` evaluates it in-graph,
@@ -11,9 +12,10 @@ from __future__ import annotations
 
 from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
 
-from supereight_tpu_torch.core.numerics import inv, trunc_i32
+from supereight_tpu_torch.core.numerics import fma, inv, trunc_i32
 from . import camera
 from .constants import (DIST_THRESHOLD, INVALID, NORMAL_THRESHOLD,
                         TRACK_THRESHOLD)
@@ -42,18 +44,57 @@ def _project(Ttrack, view, in_vertex, rH: int, rW: int):
     return proj_vertex, px, py, in_frame
 
 
-def _gather_ref(ref_vertex, ref_normal, px, py, rH: int, rW: int):
-    """Reference vertex/normal rows at the nearest projected pixel."""
-    ix = trunc_i32(px).clamp(0, rW - 1).long()
-    iy = trunc_i32(py).clamp(0, rH - 1).long()
-    return ref_vertex[iy, ix], ref_normal[iy, ix]
+def _gather_ref(ref_vertex, ref_normal, px, py, rH: int, rW: int,
+                assoc: str = "nearest"):
+    """Reference vertex/normal rows at the projected pixels: the nearest
+    row (``assoc="nearest"``; the +0.5 of ``_project`` makes the cast a
+    round), or ``"bilinear"``: the 4 neighbouring rows blended where all
+    four carry a valid normal (the normal renormalised), else the nearest
+    of them."""
+    if assoc == "nearest":
+        ix = trunc_i32(px).clamp(0, rW - 1).long()
+        iy = trunc_i32(py).clamp(0, rH - 1).long()
+        return ref_vertex[iy, ix], ref_normal[iy, ix]
+    if assoc != "bilinear":
+        raise ValueError(f"assoc {assoc!r}")
+    table = torch.cat([ref_vertex, ref_normal], dim=-1)
+    pxc, pyc = px - 0.5, py - 0.5
+    x0 = trunc_i32(torch.floor(pxc)).clamp(0, rW - 1)
+    y0 = trunc_i32(torch.floor(pyc)).clamp(0, rH - 1)
+    x1 = (x0 + 1).clamp(max=rW - 1)
+    y1 = (y0 + 1).clamp(max=rH - 1)
+    wx = (pxc - x0.to(pxc.dtype)).clamp(0.0, 1.0)[..., None]
+    wy = (pyc - y0.to(pyc.dtype)).clamp(0.0, 1.0)[..., None]
+    x0, y0, x1, y1 = (a.long() for a in (x0, y0, x1, y1))
+    t00, t01 = table[y0, x0], table[y0, x1]
+    t10, t11 = table[y1, x0], table[y1, x1]
+    ux, uy = 1 - wx, 1 - wy
+    # the four-term blend as XLA contracts it: the first term's last
+    # product fused into the second term, then each later term's
+    blend = fma(t00 * ux, uy, t01 * wx * uy)
+    blend = fma(t10 * ux, wy, blend)
+    blend = fma(t11 * wx, wy, blend)
+    n = blend[..., 3:]
+    nn = norm(n, keepdim=True)
+    blend = torch.cat([blend[..., :3], n / torch.where(nn == 0, 1.0, nn)],
+                      dim=-1)
+    valid4 = ((t00[..., 3] != INVALID) & (t01[..., 3] != INVALID)
+              & (t10[..., 3] != INVALID) & (t11[..., 3] != INVALID))
+    # >= : the int cast of px (= pxc + 0.5) rounds half up
+    right, down = wx >= 0.5, wy >= 0.5
+    nearest = torch.where(right, torch.where(down, t11, t01),
+                          torch.where(down, t10, t00))
+    ref_vn = torch.where(valid4[..., None], blend, nearest)
+    return ref_vn[..., :3], ref_vn[..., 3:]
 
 
 def _residuals(proj_vertex, proj_normal, ref_v, ref_n, in_frame,
                no_in_normal, dist_threshold, normal_threshold,
-               symmetric: bool = False) -> TrackData:
+               symmetric=False) -> TrackData:
     """Residual, Jacobian and status codes.  ``symmetric`` projects the
-    residual onto the renormalised bisector of the two normals."""
+    residual onto the renormalised bisector of the two normals: True,
+    False, or a bool tensor (the per-frame gate of ``icp_symmetric=
+    "auto"``) that selects between the two."""
     no_ref_normal = ref_n[..., 0] == INVALID
     diff = ref_v - proj_vertex
     too_far = norm(diff) > dist_threshold
@@ -68,10 +109,12 @@ def _residuals(proj_vertex, proj_normal, ref_v, ref_n, in_frame,
     result = torch.where(no_in_normal, -1, result)
 
     n_c = ref_n
-    if symmetric:
+    if symmetric is not False:
         n_s = ref_n + proj_normal
         nn = norm(n_s, keepdim=True)
-        n_c = n_s / torch.where(nn == 0, 1.0, nn)
+        n_s = n_s / torch.where(nn == 0, 1.0, nn)
+        n_c = n_s if symmetric is True else torch.where(symmetric, n_s,
+                                                        ref_n)
     error = (n_c * diff).sum(-1)
     J = torch.cat([n_c, cross(proj_vertex, n_c)], dim=-1)
     ok = result == 1
@@ -82,27 +125,58 @@ def _residuals(proj_vertex, proj_normal, ref_v, ref_n, in_frame,
 def track_kernel(in_vertex, in_normal, ref_vertex, ref_normal, Ttrack, view,
                  dist_threshold=DIST_THRESHOLD,
                  normal_threshold=NORMAL_THRESHOLD,
-                 symmetric: bool = False) -> TrackData:
+                 symmetric=False, assoc: str = "nearest") -> TrackData:
     """Per-pixel projective data association; ``view`` = K @
     inv(raycast_pose) at the reference maps' resolution."""
     rH, rW = ref_vertex.shape[:2]
     proj_vertex, px, py, in_frame = _project(Ttrack, view, in_vertex, rH, rW)
     no_in_normal = in_normal[..., 0] == INVALID
-    ref_v, ref_n = _gather_ref(ref_vertex, ref_normal, px, py, rH, rW)
+    ref_v, ref_n = _gather_ref(ref_vertex, ref_normal, px, py, rH, rW, assoc)
     proj_normal = camera.rotate_vectors(Ttrack, in_normal)
     return _residuals(proj_vertex, proj_normal, ref_v, ref_n, in_frame,
                       no_in_normal, dist_threshold, normal_threshold,
                       symmetric=symmetric)
 
 
-def reduce_kernel(td: TrackData):
-    """Normal-equation sums: (error2, JTe[6], JTJ[6,6], count)."""
+def robust_weights(td: TrackData, robust: str = "none",
+                   robust_delta: float = 0.01) -> torch.Tensor:
+    """IRLS weight of each pixel (0 where the status is not ok): 1
+    (``"none"``), Huber's min(1, delta / |r|) or Tukey's (1 - (r/c)^2)^2
+    inside c, 0 outside."""
+    ok = (td.result == 1).to(torch.float32)
+    if robust == "none":
+        return ok
+    f32 = lambda v: torch.full((), v, dtype=torch.float32,
+                               device=td.error.device)
+    if robust == "huber":
+        ae = torch.abs(td.error)
+        # a tensor divisor: PyTorch takes ``scalar / t`` as a reciprocal
+        # times the scalar, two roundings
+        return ok * torch.where(ae > robust_delta,
+                                f32(robust_delta)
+                                / torch.clamp(ae, min=1e-12), 1.0)
+    if robust == "tukey":
+        # XLA rewrites x / c as x * (1 / c), the reciprocal in float32
+        r = td.error * f32(np.float32(1.0) / np.float32(robust_delta))
+        r2 = r * r
+        return ok * torch.where(r2 < 1.0, (1.0 - r2) * (1.0 - r2), 0.0)
+    raise ValueError(f"robust {robust!r}")
+
+
+def reduce_kernel(td: TrackData, robust: str = "none",
+                  robust_delta: float = 0.01):
+    """Normal-equation sums: (error2, JTe[6], JTJ[6,6], count).  The IRLS
+    weights (``robust``) enter only JTe and JTJ; ``error2`` and ``count``
+    stay unweighted, so the divergence gate keeps its meaning.  JTJ is a
+    reduction of the per-pixel outer products, as JTe is of its terms: a
+    float32 GEMM over the pixels (one chain each entry on the CPU) is
+    ~1e-5 off the exact sums, XLA's and a reduction's ~1e-7."""
     ok = (td.result == 1).to(torch.float32)
     error2 = (ok * td.error * td.error).sum()
     J = td.J.reshape(-1, 6)
-    w = ok.reshape(-1, 1)
+    w = robust_weights(td, robust, robust_delta).reshape(-1, 1)
     JTe = (w * td.error.reshape(-1, 1) * J).sum(0)
-    JTJ = (w * J).T @ J
+    JTJ = ((w * J)[:, :, None] * J[:, None, :]).sum(0)
     return error2, JTe, JTJ, ok.sum()
 
 
@@ -123,7 +197,8 @@ class TrackState(NamedTuple):
 
 def _level_loop(st: TrackState, n_iters: int, in_vertex, in_normal,
                 ref_vertex, ref_normal, view, icp_threshold: float,
-                symmetric: bool = False):
+                symmetric=False, robust: str = "none",
+                robust_delta: float = 0.01, assoc: str = "nearest"):
     """Iterate track + reduce + update with the early exit on
     ||twist|| < icp_threshold.  Returns (state, status image of the last
     executed iteration, zeros if none ran)."""
@@ -131,8 +206,8 @@ def _level_loop(st: TrackState, n_iters: int, in_vertex, in_normal,
                          device=in_vertex.device)
     for _ in range(n_iters):
         td = track_kernel(in_vertex, in_normal, ref_vertex, ref_normal,
-                          st.pose, view, symmetric=symmetric)
-        error2, JTe, JTJ, count = reduce_kernel(td)
+                          st.pose, view, symmetric=symmetric, assoc=assoc)
+        error2, JTe, JTJ, count = reduce_kernel(td, robust, robust_delta)
         x = solve_normal_equations(JTe, JTJ)
         st = TrackState(pose=camera.se3_exp(x) @ st.pose, error2=error2,
                         count=count)
@@ -145,10 +220,14 @@ def _level_loop(st: TrackState, n_iters: int, in_vertex, in_normal,
 def track(pose, depths, vertices, normals, ref_vertex, ref_normal,
           raycast_pose, k, iterations: Sequence[int], icp_threshold: float,
           track_threshold: float = TRACK_THRESHOLD,
-          finest_decimate: int = 1, symmetric: bool = False):
+          finest_decimate: int = 1, symmetric=False, robust: str = "none",
+          robust_delta: float = 0.01, assoc: str = "nearest"):
     """Coarse-to-fine tracking.  Returns (new_pose, tracked: bool tensor,
     full-res status image of the last level-0 iteration).
-    ``finest_decimate`` strides the finest level's input maps."""
+    ``finest_decimate`` strides the finest level's input maps; ``symmetric``
+    (a bool or a bool tensor), ``robust`` / ``robust_delta`` and ``assoc``
+    as in :func:`_residuals`, :func:`robust_weights` and
+    :func:`_gather_ref`."""
     view = camera.camera_matrix(k) @ inv(raycast_pose)
     zero = torch.zeros((), dtype=torch.float32, device=pose.device)
     st = TrackState(pose=pose, error2=zero, count=zero)
@@ -160,7 +239,8 @@ def track(pose, depths, vertices, normals, ref_vertex, ref_normal,
             iv, inm = iv[::d, ::d], inm[::d, ::d]
         st, result = _level_loop(st, iterations[level], iv, inm, ref_vertex,
                                  ref_normal, view, icp_threshold,
-                                 symmetric=symmetric)
+                                 symmetric=symmetric, robust=robust,
+                                 robust_delta=robust_delta, assoc=assoc)
 
     # divergence check over the finest level actually executed
     n_px = result.shape[0] * result.shape[1]

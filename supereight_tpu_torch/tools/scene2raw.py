@@ -4,7 +4,7 @@
 Reference: `se_tools/scene2raw.cpp` — reads per-frame text files of
 euclidean ray lengths (``scene_00_0000.depth``), converts to planar z depth
 in mm with the Scene intrinsics (`interface.h:171-176`), writes the .raw
-stream (``io.scene.euclidean_to_depth_mm``, in numpy).
+stream.  Uses the native conversion (``io.native``) where it builds.
 
 Usage: python -m supereight_tpu_torch.tools.scene2raw <scene_dir> <out.raw>
 """
@@ -17,7 +17,7 @@ import sys
 
 import numpy as np
 
-from supereight_tpu_torch.io import raw, scene
+from supereight_tpu_torch.io import native, raw, scene
 
 SCENE_K = scene.SCENE_K
 SCENE_W, SCENE_H = scene.SCENE_W, scene.SCENE_H
@@ -35,7 +35,7 @@ def convert(scene_dir: str, out_path: str, k=SCENE_K) -> int:
             raise ValueError(f"{path}: expected {SCENE_W*SCENE_H} values, "
                              f"got {vals.size}")
         eu = vals.reshape(SCENE_H, SCENE_W)
-        mm = scene.euclidean_to_depth_mm(eu, k)
+        mm = native.euclidean_to_depth_mm(eu, k)
         if writer is None:
             writer = raw.RawWriter(out_path, SCENE_W, SCENE_H)
         writer.write(mm)

@@ -14,8 +14,10 @@ then the app's own contract: its flags are the JAX app's plus
 ``--device``, the TSV has one row a frame (``--staged`` fills the stage
 columns, ``-f`` pacing drops frames and keeps rows, ``--live`` replays
 the sensor), presets and pinned flags, the overflow warning, the -G
-transform, ``-d`` / ``--dump-mesh`` write their files, and unported
-knobs raise."""
+transform, ``-d`` / ``--dump-mesh`` write their files, and the knob flags
+(``--midsolve``, ``--normals stored``) run."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -138,10 +140,37 @@ def test_map_outputs_raise(seq, flag):
         assert head.startswith("# vtk DataFile") and "POINTS" in head
 
 
-@pytest.mark.parametrize("flags", [["--midsolve"], ["--normals", "stored"]])
-def test_unported_knobs_raise(seq, flags):
-    with pytest.raises(NotImplementedError):
-        benchmark.run(_base(seq, 64) + flags + ["--device", "cpu"])
+class _Made(Exception):
+    pass
+
+
+def _jax_config(argv, monkeypatch):
+    """The Configuration the JAX app makes from ``argv`` (it stops at its
+    DenseSLAMSystem)."""
+    made = []
+
+    def stop(size, cfg):
+        made.append(cfg)
+        raise _Made
+
+    monkeypatch.setattr(jbench, "DenseSLAMSystem", stop)
+    with pytest.raises(_Made):
+        jbench.main(argv)
+    return made[0]
+
+
+@pytest.mark.parametrize("flags", [["--midsolve"], ["--normals", "stored"]],
+                         ids=["midsolve", "normals-stored"])
+def test_knob_flags_run(seq, flags, monkeypatch):
+    """The flags that raised before their knobs were ported: the app maps
+    them to the JAX app's Configuration and runs a frame on the CPU."""
+    argv = _base(seq, 64) + ["-g", seq["gt"], "--max-frames", "1"] + flags
+    want = _jax_config(argv, monkeypatch)
+    run = benchmark.run(argv + ["--device", "cpu"])
+    cfg = run.system.config
+    for f in dataclasses.fields(cfg):
+        assert getattr(cfg, f.name) == getattr(want, f.name), f.name
+    assert len(run.est_poses) == 1 and run.system.state.integrated
 
 
 def _config(argv):

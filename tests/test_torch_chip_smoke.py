@@ -1,8 +1,8 @@
 """``chip_smoke.py``'s own checks, runnable without a card: its ATE agrees
-with ``supereight_tpu.apps.evaluate.ate`` (to 1e-9 m), its runs are the
-configurations of the JAX records they are held against, its gates are the
-JAX package's CPU figures plus the stated margins, and without CUDA it exits
-non-zero and prints no result."""
+with ``supereight_tpu.apps.evaluate.ate`` (to 1e-9 m), its runs (the
+presets and phase F) are the configurations of the JAX records they are
+held against, its gates are the JAX package's CPU figures plus the stated
+margins, and without CUDA it exits non-zero and prints no result."""
 
 import json
 import os
@@ -75,6 +75,53 @@ def test_runs_are_the_records(name):
     assert record["tracked"] == rec["tracked_frames"] >= chip_smoke.MIN_TRACKED
 
 
+#: the phase-F knobs under their record's keys
+F_RECORD_KEYS = dict(
+    raycast_normals="normals", raycast_refine="refine",
+    raycast_midsolve="midsolve", icp_robust="icp_robust",
+    icp_robust_delta="icp_robust_delta", icp_assoc="icp_assoc",
+    icp_symmetric="icp_symmetric", bootstrap_f2f="bootstrap_f2f")
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.F_RUNS))
+def test_phase_f_runs_are_the_records(name):
+    """Each phase-F run is the JAX package's ``headline`` configuration
+    with its knob group, knob for knob; its record (a TPU run, printed
+    beside the run) names the same knobs, and where the record was taken on
+    the headline base, the base's knobs too; its ATE gate is the JAX
+    package's CPU figure + 0.5 cm."""
+    import dataclasses
+    from supereight_tpu.config import Configuration, apply_preset
+    from supereight_tpu_torch.config import SlamConfig
+    knobs, record_file = chip_smoke.F_RUNS[name]
+    cfg = chip_smoke.f_config(name)
+    jcfg = dataclasses.replace(apply_preset(
+        "headline", Configuration(**chip_smoke.BASE)), **knobs)
+    assert SlamConfig.of(jcfg) == cfg
+    for knob, value in knobs.items():
+        assert getattr(cfg, knob) == value
+    assert any(getattr(SlamConfig(), knob) != v for knob, v in knobs.items())
+    with open(os.path.join(REPO, "bench_data", record_file)) as f:
+        rec = json.load(f)
+    assert (rec["frames"], rec["size"], rec["field"]) == (96, 256, "sdf")
+    keys = dict(F_RECORD_KEYS, **RECORD_KEYS) if "sequence" in rec \
+        else F_RECORD_KEYS
+    for knob, key in keys.items():
+        if key in rec:
+            assert getattr(cfg, knob) == rec[key], knob
+    assert sum(key in rec for key in F_RECORD_KEYS.values()
+               if key != "icp_robust_delta") >= 1
+    assert chip_smoke.ate_gate(name) == pytest.approx(
+        0.01 * (chip_smoke.JAX_CPU_F[name][0] + 0.5), abs=1e-12)
+    record = chip_smoke.load_record(record_file)
+    assert record["overflow"] == 0
+    want = dict(F4=(3.46, 3147, 92), F5=(1.85, 3049, 92),
+                F6=(2.95, 3068, 95)).get(name)
+    if want is not None:
+        assert (round(record["ate_cm"], 2), record["blocks"],
+                record["tracked"]) == want
+
+
 def test_fails_without_cuda():
     import torch
     if torch.cuda.is_available():
@@ -128,6 +175,9 @@ def test_jax_cpu_figures():
     runner."""
     assert set(chip_smoke.JAX_CPU) == set(chip_smoke.RUNS)
     for name, (ate_cm, blocks) in chip_smoke.JAX_CPU.items():
+        assert 0.5 < ate_cm < 6.0 and blocks > 2000, name
+    assert set(chip_smoke.JAX_CPU_F) == set(chip_smoke.F_RUNS)
+    for name, (ate_cm, blocks) in chip_smoke.JAX_CPU_F.items():
         assert 0.5 < ate_cm < 6.0 and blocks > 2000, name
     assert chip_smoke.JAX_CPU_APP == dict(
         gt_blocks=2607, icp_ate_cm=4.03, icp_blocks=2914,

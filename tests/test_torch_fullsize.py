@@ -2,32 +2,29 @@
 320x240, the 96 cached frames), the port stepped from each JAX state.
 
 ICP amplifies rounding, so each port frame starts from the JAX system's
-state before it (``convert.state_from_numpy``); per frame the port must
-give the JAX frame's tracked flag, allocation and raycast patterns, block
-count and overflow, and its pose within 1e-3 m.  This holds full-size
-parity of the main path on the CPU, one thread."""
+state before it (``torch_port_util.step_split``): the port's tracked flag
+equals the JAX frame's and its ICP translation is within 1e-3 m.  XLA's
+own sums round differently on CPUs of different vector widths, and a pose
+that moves by a fraction of a millimetre can flip the allocation of a block
+on its edge, so the mapping half then runs from the JAX frame's pose: its
+allocation and raycast patterns, block count, overflow and the
+``block_index`` / ``keys`` / ``active`` tables equal the JAX frame's bit for
+bit.  This holds full-size parity of the main path on the CPU, one
+thread."""
 
-import numpy as np
 import pytest
 import torch
 
 from supereight_tpu.config import Configuration, apply_preset
 from supereight_tpu.pipeline import DenseSLAMSystem as JaxSLAM
-from supereight_tpu_torch import convert
 from supereight_tpu_torch.pipeline import DenseSLAMSystem
 
-from torch_port_util import K_FULL, load_frames, state_to_numpy
+from torch_port_util import (K_FULL, assert_split, load_frames, split_want,
+                             state_to_numpy, step_split)
 
 torch.set_num_threads(1)
 
 POSE_ATOL = 1e-3
-
-
-def _record(st):
-    return dict(pose=np.array(st.pose), raycast_pose=np.array(st.raycast_pose),
-                tracked=bool(st.tracked), integrated=bool(st.integrated),
-                alloc_count=int(st.alloc_count),
-                n_blocks=int(st.map.n_blocks), overflow=int(st.map.overflow))
 
 
 @pytest.fixture(scope="module")
@@ -40,26 +37,20 @@ def frames():
     port = DenseSLAMSystem((240, 320), cfg, "cpu")
     jax_slam.setPose(poses[0])
     out = []
+    before = state_to_numpy(jax_slam.state)
     for f in range(len(depths)):
-        port.state = convert.state_from_numpy(state_to_numpy(jax_slam.state),
-                                              "cpu")
-        want = _record(jax_slam.step(depths[f], K_FULL, f))
-        got = _record(port.step(depths[f], K_FULL, f))
-        out.append((want, got))
+        jax_slam.step(depths[f], K_FULL, f)
+        after = state_to_numpy(jax_slam.state)
+        got = step_split(port, before, after, depths[f], K_FULL, f)
+        out.append((split_want(after), got))
+        before = after
     return out
 
 
 def test_headline_full_size_matches_jax(frames):
     assert len(frames) == 96
     for f, (want, got) in enumerate(frames):
-        for key in ("tracked", "integrated", "alloc_count", "n_blocks",
-                    "overflow"):
-            assert got[key] == want[key], (f, key)
-        fired = np.array_equal(want["raycast_pose"], want["pose"])
-        assert np.array_equal(got["raycast_pose"], got["pose"]) == fired, f
-        np.testing.assert_allclose(got["pose"][:3, 3], want["pose"][:3, 3],
-                                   rtol=0, atol=POSE_ATOL,
-                                   err_msg=f"frame {f}")
+        assert_split(got, want, f, POSE_ATOL)
 
 
 def test_headline_full_size_covers_the_path(frames):
@@ -70,6 +61,6 @@ def test_headline_full_size_covers_the_path(frames):
     assert all(w["integrated"] for w in want)
     counts = [w["alloc_count"] for w in want]
     assert 30 < counts[-1] < 96
-    fired = [np.array_equal(w["raycast_pose"], w["pose"]) for w in want]
+    fired = [w["fired"] for w in want]
     assert 10 < sum(fired[6:]) < 90
     assert want[-1]["overflow"] == 0 and want[-1]["n_blocks"] > 2500

@@ -9,6 +9,7 @@ JAX package, so it also runs where only PyTorch is installed:
         tests/test_torch_gpu.py
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -636,3 +637,77 @@ def test_serialise_round_trip_on_card(cuda, tmp_path):
         assert torch.equal(x.block_index.cpu(), m.block_index)
         for k in m.voxels:
             assert torch.equal(x.voxels[k].cpu(), m.voxels[k])
+
+
+def _stored_state():
+    """A CPU system with stored normals after 6 cached frames (64^3,
+    160x120), and the intrinsics."""
+    from supereight_tpu_torch.config import SlamConfig, apply_preset
+    from supereight_tpu_torch.pipeline import DenseSLAMSystem
+    z = np.load(BENCH)
+    cfg = apply_preset("headline", SlamConfig(
+        volume_resolution=(64,) * 3, volume_size=(4.8,) * 3,
+        compute_size_ratio=2))
+    cfg = dataclasses.replace(cfg, raycast_normals="stored")
+    k = np.array([120.3, 120.0, 80.0, 60.0], np.float32)
+    cpu = DenseSLAMSystem((240, 320), cfg, "cpu")
+    cpu.setPose(z["poses"][0])
+    for f in range(6):
+        cpu.step(z["depths"][f], k, f)
+    return cpu, k
+
+
+@pytest.mark.gpu
+def test_gradmap_on_card_matches_cpu(cuda):
+    """The stored gradient table of one map, and samples of it, on the
+    card and on the CPU: bit for bit, the NaN pattern included."""
+    from supereight_tpu_torch.pipeline import gradmap
+    cpu, _ = _stored_state()
+    m, field = cpu.state.map, cpu.field
+    want = gradmap.build_table(m, field)
+    got = gradmap.build_table(_to(m, cuda), field)
+    assert got.device.type == "cuda" and got.dtype == torch.bfloat16
+    a, b = got.cpu().float(), want.float()
+    assert torch.equal(torch.isnan(a), torch.isnan(b))
+    assert torch.equal(a.nan_to_num(), b.nan_to_num())
+    assert torch.equal(b.nan_to_num(), cpu.state.grad.float().nan_to_num())
+    pos = torch.rand(20000, 3, generator=torch.Generator().manual_seed(1)) \
+        * 72 - 4
+    for x, y in zip(gradmap.sample(_to(m, cuda), got, pos.to(cuda)),
+                    gradmap.sample(m, want, pos)):
+        assert torch.equal(x.cpu().nan_to_num(), y.nan_to_num())
+
+
+@pytest.mark.gpu
+def test_bilinear_and_robust_on_card_match_cpu(cuda):
+    """The bilinear association of one state's reference maps on the card
+    and on the CPU (bit for bit), and the Huber and Tukey weights (bit for
+    bit) and sums (within 1e-5 relative: the card's reductions sum in
+    another order)."""
+    from supereight_tpu_torch.core import numerics
+    from supereight_tpu_torch.pipeline import camera, preprocessing, tracking
+    cpu, k = _stored_state()
+    st = cpu.state
+    kt = torch.from_numpy(k)
+    _, v, n = preprocessing.build_pyramid(st.scaled_depth, kt, 1, False)
+    view = camera.camera_matrix(kt) @ numerics.inv(st.raycast_pose)
+    pv, px, py, _ = tracking._project(st.pose, view, v[0], 120, 160)
+    want = tracking._gather_ref(st.ref_vertex, st.ref_normal, px, py, 120,
+                                160, "bilinear")
+    got = tracking._gather_ref(st.ref_vertex.to(cuda),
+                               st.ref_normal.to(cuda), px.to(cuda),
+                               py.to(cuda), 120, 160, "bilinear")
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    td = tracking.track_kernel(v[0], n[0], st.ref_vertex, st.ref_normal,
+                               st.pose, view, assoc="bilinear")
+    assert int((td.result == 1).sum()) > 1000
+    tdc = tracking.TrackData(*(x.to(cuda) for x in td))
+    for robust in ("huber", "tukey"):
+        wa = tracking.robust_weights(tdc, robust, 0.01).cpu()
+        assert torch.equal(wa, tracking.robust_weights(td, robust, 0.01))
+        for a, b in zip(tracking.reduce_kernel(tdc, robust, 0.01),
+                        tracking.reduce_kernel(td, robust, 0.01)):
+            a, b = a.cpu().double(), b.double()
+            assert torch.allclose(a, b, rtol=1e-5,
+                                  atol=1e-6 * float(b.abs().max()))

@@ -15,7 +15,7 @@ from supereight_tpu.io import scene as jscene
 from supereight_tpu.utils import perfstats as jps
 import supereight_tpu_torch.io as tio
 from supereight_tpu_torch.apps import evaluate
-from supereight_tpu_torch.io import groundtruth, live, raw, scene
+from supereight_tpu_torch.io import groundtruth, live, native, raw, scene
 from supereight_tpu_torch.utils import perfstats
 
 
@@ -106,14 +106,7 @@ def _scene_dir(tmp_path, n=2):
     return d
 
 
-def test_scene_reader_matches(tmp_path, monkeypatch):
-    """Frame for frame against the JAX reader with its numpy conversion,
-    the one the port copies (the JAX package's native converter, when
-    built, computes in float32 and differs by 1 mm on ~0.02 % of
-    pixels)."""
-    monkeypatch.setattr(jnative, "load_library", lambda: None)
-    d = _scene_dir(tmp_path)
-    assert scene.SCENE_K == jscene.SCENE_K
+def _read_scene(d):
     got, want = scene.SceneDepthReader(str(d)), jscene.SceneDepthReader(str(d))
     assert (got.width, got.height, len(got)) == \
         (want.width, want.height, len(want)) == (640, 480, 2)
@@ -122,6 +115,20 @@ def test_scene_reader_matches(tmp_path, monkeypatch):
         assert a[0].dtype == np.uint16 and (a[0] > 0).mean() > 0.9
         np.testing.assert_array_equal(a[0], b[0])
         np.testing.assert_array_equal(a[1], b[1])
+
+
+def test_scene_reader_matches(tmp_path, monkeypatch):
+    """Frame for frame against the JAX reader, both with their native
+    conversions (``io.native``, float32), then both with their numpy ones
+    (the native converter differs from numpy by 1 mm on ~0.02 % of
+    pixels)."""
+    d = _scene_dir(tmp_path)
+    assert scene.SCENE_K == jscene.SCENE_K
+    assert native.available() and jnative.available()
+    _read_scene(d)
+    monkeypatch.setattr(jnative, "load_library", lambda: None)
+    monkeypatch.setattr(native, "load_library", lambda: None)
+    _read_scene(d)
     assert isinstance(tio.create_reader(str(d)), scene.SceneDepthReader)
     with pytest.raises(FileNotFoundError):
         scene.SceneDepthReader(str(tmp_path))
@@ -134,7 +141,7 @@ def test_create_reader_raw(tmp_path):
         w.write(f)
     w.close()
     r = tio.create_reader(p)
-    assert isinstance(r, raw.RawReader) and len(r) == 2
+    assert isinstance(r, native.NativeRawReader) and len(r) == 2
     np.testing.assert_array_equal(r.read(1)[0], _frames(2, seed=5)[1])
 
 

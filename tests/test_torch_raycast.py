@@ -3,9 +3,9 @@ carried over by ``convert.map_from_numpy`` (headline knobs, 160x120,
 128^3, and an OFusion map of the ``ofusion-fidelity`` preset).
 
 The bf16 read view must match bit for bit; hit masks agree on >= 99.9 % of
-the pixels (the full-res scan, exact normals and interp refine: all of
-them), and where both hit, vertices within 1e-4 m and normals within
-1e-3.
+the pixels (the full-res scan, exact normals and interp refine, stored
+normals, the plane refine and the midsolve: all of them), and where both
+hit, vertices within 1e-4 m and normals within 1e-3.
 """
 
 import jax.numpy as jnp
@@ -162,3 +162,15 @@ def test_raycast_modes_match_jax(scene, of_scene, field, knobs):
     jok, tok = jn[..., 0] != -2.0, tn[..., 0] != -2.0
     np.testing.assert_array_equal(tok, jok)
     np.testing.assert_allclose(tn[jok], jn[jok], rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("field,knobs", [
+    ("sdf", dict(normals="stored")),
+    ("sdf", dict(normals="stored", refine="plane")),
+    ("sdf", dict(normals="hybrid", midsolve=True)),
+    ("ofusion", dict(normals="stored", refine="plane"))],
+    ids=["stored", "stored-plane", "midsolve", "ofusion-stored-plane"])
+def test_raycast_knobs_match_jax(scene, of_scene, field, knobs):
+    """Stored normals (each package's table from the same map), the plane
+    refine on them and the half-res midsolve: every hit mask exactly."""
+    test_raycast_modes_match_jax(scene, of_scene, field, knobs)

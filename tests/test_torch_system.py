@@ -12,9 +12,10 @@ The ``ofusion`` preset (OFusion, integration every 4th frame, held read
 view) runs the same frames.  Its ICP moves by up to ~2.4e-4 m from one
 identical state (the JAX system under ``jit`` against the port), and that
 compounds over free-running frames, so each port frame starts from the JAX
-state of the frame before (``convert.state_from_numpy``); its pose must
-agree within 1e-3 m.  A free-running port keeps the JAX run's tracked,
-integrated and block counts.
+state of the frame before (``torch_port_util.step_split``): tracked equal,
+the pose within 1e-3 m, and, from the JAX frame's pose, the counts, the
+fired patterns and the block tables bit for bit.  A free-running port keeps
+the JAX run's tracked, integrated and block counts.
 """
 
 import dataclasses
@@ -29,7 +30,8 @@ from supereight_tpu_torch import convert
 from supereight_tpu_torch.pipeline import DenseSLAMSystem, SlamConfig
 from supereight_tpu_torch.pipeline import raycast, system
 
-from torch_port_util import K_FULL, load_frames, state_to_numpy
+from torch_port_util import (K_FULL, assert_split, load_frames, split_want,
+                             state_to_numpy, step_split)
 
 torch.set_num_threads(1)
 
@@ -151,15 +153,32 @@ def test_slam_config_defaults_match_configuration():
         assert getattr(SlamConfig(), f.name) == getattr(cfg, f.name), f.name
 
 
-@pytest.mark.parametrize("knob", [dict(map_partitions=2),
-                                  dict(raycast_normals="stored"),
-                                  dict(raycast_refine="plane"),
-                                  dict(raycast_midsolve=True),
-                                  dict(icp_symmetric="auto"),
-                                  dict(icp_robust="huber")])
+@pytest.mark.parametrize("knob", [dict(map_partitions=2)])
 def test_unported_knobs_raise(knob):
     with pytest.raises(NotImplementedError):
         DenseSLAMSystem((240, 320), _config(**knob), "cpu")
+
+
+@pytest.mark.parametrize("knob", [dict(raycast_normals="stored"),
+                                  dict(raycast_refine="plane"),
+                                  dict(raycast_midsolve=True),
+                                  dict(icp_symmetric="auto"),
+                                  dict(icp_robust="huber")],
+                         ids=["stored", "plane", "midsolve", "sym-auto",
+                              "huber"])
+def test_ported_knobs_build_and_step(knob):
+    """The knobs that raised before they were ported: each maps to the
+    JAX Configuration's fields, builds, and steps a frame on the CPU."""
+    jcfg = _config(**knob)
+    cfg = SlamConfig.of(jcfg)
+    for f in dataclasses.fields(SlamConfig):
+        assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+    depths, poses = load_frames()
+    slam = DenseSLAMSystem((240, 320), jcfg, "cpu")
+    slam.setPose(poses[0])
+    st = slam.step(depths[0], K, 0)
+    assert st.integrated and int(st.map.n_blocks) > 0
+    assert (st.grad is not None) == (cfg.raycast_normals == "stored")
 
 
 def test_headline_config_is_ported():
@@ -183,12 +202,15 @@ def of_runs():
     for s in (jax_slam, free, staged, forced):
         s.setPose(poses[0])
     out = dict(jax=[], forced=[], free=[], staged=[])
+    before = state_to_numpy(jax_slam.state)
     for f in range(N_FRAMES):
         jst = jax_slam.step(depths[f], K, f)
         out["jax"].append(dict(_record(jst), integrated=bool(jst.integrated),
                                alloc_count=int(jst.alloc_count)))
-        out["forced"].append(_kept(forced.step(depths[f], K, f)))
-        forced.state = convert.state_from_numpy(state_to_numpy(jst), "cpu")
+        after = state_to_numpy(jst)
+        out["forced"].append((split_want(after), step_split(
+            forced, before, after, depths[f], K, f)))
+        before = after
         out["free"].append(_kept(free.step(depths[f], K, f)))
         out["staged"].append(_kept(staged.step_staged(depths[f], K, f)[0]))
     return out
@@ -196,18 +218,10 @@ def of_runs():
 
 def test_ofusion_frames_match_jax(of_runs):
     fired = []
-    for f, (j, st) in enumerate(zip(of_runs["jax"], of_runs["forced"])):
-        t = _record(st)
-        assert t["tracked"] == j["tracked"], f
-        assert st.integrated == j["integrated"], f
-        assert t["n_blocks"] == j["n_blocks"], f
-        assert t["overflow"] == j["overflow"] == 0, f
-        assert st.alloc_count == j["alloc_count"], f
-        j_fired = np.array_equal(j["raycast_pose"], j["pose"])
-        assert np.array_equal(t["raycast_pose"], t["pose"]) == j_fired, f
-        fired.append(j_fired)
-        np.testing.assert_allclose(t["pose"][:3, 3], j["pose"][:3, 3],
-                                   rtol=0, atol=1e-3, err_msg=f"frame {f}")
+    for f, (want, got) in enumerate(of_runs["forced"]):
+        assert_split(got, want, f)
+        assert got["overflow"] == 0, f
+        fired.append(want["fired"])
     # bootstrap fusion, then tracked frames that integrate every 4th
     assert [j["integrated"] for j in of_runs["jax"]] == [True] * 5 \
         + [False] * 3

@@ -10,14 +10,16 @@ from supereight_tpu.io import raw as jraw
 from supereight_tpu.tools import oni2raw as joni
 from supereight_tpu.tools import scene2raw as jscene
 from supereight_tpu.tools import tum2raw as jtum
-from supereight_tpu_torch.io import raw
+from supereight_tpu_torch.io import native, raw
 from supereight_tpu_torch.tools import oni2raw, scene2raw, tum2raw
 
 
 def test_scene2raw_matches(tmp_path, monkeypatch):
     """ICL text depth -> .raw: euclidean ray lengths become planar z mm,
-    the same file as the JAX tool's with its numpy conversion."""
+    the same file as the JAX tool's, both with their numpy conversions
+    (both native: `tests/test_torch_native_io.py`)."""
     monkeypatch.setattr(jnative, "load_library", lambda: None)
+    monkeypatch.setattr(native, "load_library", lambda: None)
     d = tmp_path / "scene"
     d.mkdir()
     W, H = scene2raw.SCENE_W, scene2raw.SCENE_H

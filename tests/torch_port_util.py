@@ -1,6 +1,7 @@
 """Helpers shared by the ``test_torch_*`` parity tests: JAX pytrees to the
-numpy dicts that ``supereight_tpu_torch.convert`` takes, and the cached
-bench frames."""
+numpy dicts that ``supereight_tpu_torch.convert`` takes, the cached bench
+frames, and :func:`step_split`, which runs one port frame from a JAX state
+with the tracking half and the mapping half held apart."""
 
 from __future__ import annotations
 
@@ -48,4 +49,92 @@ def state_to_numpy(st) -> dict:
                       "model_ref")}
     d["map"] = map_to_numpy(st.map)
     d["view"] = None if st.view is None else np.asarray(st.view)
+    d["grad"] = None if st.grad is None else np.asarray(st.grad)
     return d
+
+
+def step_split(port, jax_before: dict, jax_after: dict, depth, k,
+               frame: int) -> dict:
+    """One frame of the port's ``DenseSLAMSystem`` ``port`` from the JAX
+    state before it, in two halves (``jax_before`` / ``jax_after``: the
+    JAX states before and after the frame, as :func:`state_to_numpy`
+    gives them).
+
+    The port's preprocessing and tracking stages run from ``jax_before``
+    and give ``pose``, ``tracked`` and ``track_result``.  ICP amplifies
+    the last bit of its sums into the pose, and XLA's own sums change with
+    the CPU's vector width, so the pose is compared within a tolerance.
+    Then the state takes the JAX frame's ``pose``, ``tracked``,
+    ``prev_pose`` and ``track_result``, and the port's integration and
+    raycasting stages run: from there everything is defined bit for bit
+    (``alloc_count``, ``n_blocks``, ``overflow``, ``integrated``, the
+    raycast-fired flag and the ``block_index`` / ``keys`` / ``active``
+    tables).  Leaves ``port.state`` at the frame's end."""
+    import torch
+    from supereight_tpu_torch import convert
+    from supereight_tpu_torch.pipeline import system
+
+    cfg, field = port.config, port.field
+    st = convert.state_from_numpy(jax_before, port.device)
+    kd, neg_y = port._k(k)
+    st = system.preprocessing_stage(st, port._depth(depth), cfg)
+    st = system.tracking_stage(st, kd, frame, cfg, neg_y)
+    out = dict(pose=st.pose.cpu().numpy(), tracked=bool(st.tracked),
+               track_result=st.track_result.cpu().numpy())
+    t = lambda name, dtype: torch.as_tensor(np.array(jax_after[name]),
+                                            dtype=dtype, device=port.device)
+    st = st.replace(pose=t("pose", torch.float32),
+                    prev_pose=t("prev_pose", torch.float32),
+                    track_result=t("track_result", torch.int32),
+                    tracked=bool(jax_after["tracked"]))
+    st = system.integration_stage(st, kd, frame, cfg, field)
+    st = system.raycasting_stage(st, kd, frame, cfg, field, neg_y)
+    port.state = st
+    m = st.map
+    out.update(integrated=bool(st.integrated), alloc_count=int(st.alloc_count),
+               n_blocks=int(m.n_blocks), overflow=int(m.overflow),
+               fired=bool(torch.equal(st.raycast_pose, st.pose)),
+               model_ref=bool(st.model_ref),
+               block_index=m.block_index.cpu().numpy(),
+               keys=m.keys.cpu().numpy(), active=m.active.cpu().numpy())
+    return out
+
+
+def split_want(jax_after: dict) -> dict:
+    """The record :func:`step_split` returns, from the JAX state after the
+    frame."""
+    m = jax_after["map"]
+    return dict(pose=np.asarray(jax_after["pose"]),
+                tracked=bool(jax_after["tracked"]),
+                track_result=np.asarray(jax_after["track_result"]),
+                integrated=bool(jax_after["integrated"]),
+                alloc_count=int(jax_after["alloc_count"]),
+                n_blocks=int(m["n_blocks"]), overflow=int(m["overflow"]),
+                fired=bool(np.array_equal(jax_after["raycast_pose"],
+                                          jax_after["pose"])),
+                model_ref=bool(jax_after["model_ref"]),
+                block_index=np.asarray(m["block_index"]),
+                keys=np.asarray(m["keys"]).astype(np.int64),
+                active=np.asarray(m["active"]))
+
+
+#: what :func:`assert_split` holds bit for bit after tracking
+SPLIT_EXACT = ("integrated", "alloc_count", "n_blocks", "overflow", "fired",
+               "model_ref")
+SPLIT_TABLES = ("block_index", "keys", "active")
+
+
+def assert_split(got: dict, want: dict, frame: int,
+                 pose_atol: float = 1e-3) -> None:
+    """Per frame: ``tracked`` equal and the ICP translation within
+    ``pose_atol`` m; given the JAX pose, the counts, the fired flag and
+    the three tables equal bit for bit."""
+    assert got["tracked"] == want["tracked"], (frame, "tracked")
+    np.testing.assert_allclose(got["pose"][:3, 3], want["pose"][:3, 3],
+                               rtol=0, atol=pose_atol,
+                               err_msg=f"frame {frame}")
+    for key in SPLIT_EXACT:
+        assert got[key] == want[key], (frame, key)
+    for key in SPLIT_TABLES:
+        np.testing.assert_array_equal(got[key], want[key],
+                                      err_msg=f"frame {frame}: {key}")
