@@ -71,6 +71,24 @@ GPU.
    raycast hitting half the pixels); with stored normals the held gradient
    table equals ``gradmap.build_table`` of the final map on the card and
    the CPU's table of the same map, bit for bit.
+7. Phase G: the multi-device map (``supereight_tpu_torch/parallel``)
+   through ``multihost.launch_jobs``, 2 ranks (nccl with one card a rank
+   where the host has two, else gloo on CUDA tensors with the ranks
+   sharing the card; the choice is printed), each rank a process that
+   reads the cached frames itself and holds a 3072-slot range of the map
+   (``G_RUNS``): G1 ``headline`` and G2 ``ofusion`` at full size with
+   ``map_partitions=2`` over the 96 frames, held to the JAX package's
+   sharded frame on a 2-device CPU mesh (``JAX_CPU_G``: tracked >= 88,
+   ATE <= its + 0.5 cm, blocks within 0.5 %, the same overflow, part
+   counts summing to the blocks); G3 the first 4 frames of ``headline``
+   held to the one-device partitioned frame on the card
+   (``multihost.compare``).  Each rank's fusion counts are set to 0 just
+   before its frames and read just after (every rank launches on every
+   integrated frame), and the fusion kernel each of G1 / G2 ran is held
+   against its twin on rank 0's operands.  Rank 0 prints its median ms
+   per frame and per stage after frame 16, its time in collectives (host
+   clock around each call, the device synchronised) and the exchange's
+   rows and bytes per refresh.
 
 The app phases (A, B, E) check that the app read the ``.raw`` stream
 through the native reader (``io.native``, built from
@@ -83,8 +101,8 @@ Run from the repository root:  python3 chip_smoke.py
 It exits non-zero, printing no result line, if there is no CUDA device or
 any check fails.  The last line of its output is one JSON object; the line
 before it lists every kernel with its launches summed over the runs that
-took it (the app phases and the presets), its largest difference from its
-twin, the median device times of both at the 3072-row shapes (the
+took it (the app phases, the presets and phase G's ranks), its largest
+difference from its twin, the median device times of both at the 3072-row shapes (the
 probe's for K2 and K3), the least time the card could take for that work (``bound_ms``: the bytes the call must
 move at 3.35 TB/s or its float32 operations at 67 TFLOP/s, the larger;
 for a fusion kernel, the bytes of the voxels this data updates) and,
@@ -192,6 +210,12 @@ F_RUNS = {
 #: blocks; `jax_cpu_reference.py --parts phase_f`)
 JAX_CPU_F = {"F1": (0.97, 2775), "F2": (1.11, 2745), "F3": (0.90, 2802),
              "F4": (0.97, 2782), "F5": (0.95, 2767), "F6": (0.82, 2733)}
+#: phase G: the multi-device map (`supereight_tpu_torch/parallel`) through
+#: ``multihost.launch_jobs``: {run: (preset on BASE with map_partitions =
+#: ranks, ranks, exchange rows a rank, frames of the base sequence)}; G3
+#: is held against the one-device partitioned frame on the card
+G_RUNS = {"G1": ("headline", 2, 3072, 96), "G2": ("ofusion", 2, 3072, 96),
+          "G3": ("headline", 2, 3072, 4)}
 #: the app phases: the README's command line on the cached base sequence
 #: (the headline preset; -g gives ground-truth poses, -p the ICP start)
 APP_ARGS = ["-s", "4.8", "-v", "256", "-k", "240.6,240,160,120",
@@ -924,6 +948,150 @@ def run_phase_f(torch, dev, kernels):
         print_stage_times(name, cfg, depths, poses, dev)
 
 
+#: the JAX package's sharded frame on a 2-device CPU mesh at G1's and G2's
+#: configurations (`jax_cpu_reference.py --parts sharded`): tracked, ATE
+#: cm, blocks, overflow, part_counts
+JAX_CPU_G = {"G1": (92, 0.97, 2762, 0, [1982, 780]),
+             "G2": (92, 0.92, 3675, 0, [2603, 1072])}
+#: seconds a phase-G spawn may take in all, and a collective at most
+G_TIMEOUT, G_GROUP_TIMEOUT = 600, 300
+
+
+def g_backend(torch, ranks: int):
+    """(backend, ranks a card): nccl with one rank a card where the host
+    has a card for every rank, else gloo on CUDA tensors of ranks that
+    share the cards."""
+    count = torch.cuda.device_count()
+    if count >= ranks:
+        return "nccl", 1
+    return "gloo", -(-ranks // count)
+
+
+def hold_rank_kernel(torch, name, ops, dev):
+    """The fusion kernel a rank launched, against its twin on that rank's
+    operands: rank 0's local table (its slot range, its keys and active
+    flags, its partition's count), depth, T_cw and K at the run's end."""
+    from supereight_tpu_torch.config import SlamConfig, apply_preset
+    from supereight_tpu_torch.core import octree
+    from supereight_tpu_torch.pipeline.system import config_field
+    field = config_field(apply_preset(G_RUNS[name][0], SlamConfig(**BASE)))
+    chans = octree.channel_specs(ops["channels"])
+    t = lambda a, dt=None: torch.as_tensor(np.asarray(a), dtype=dt,
+                                           device=dev)
+    m = octree.init(ops["size"], ops["dim"], chans, dev,
+                    capacity=len(ops["keys"]))
+    m = m.replace(keys=t(ops["keys"]), active=t(ops["active"]),
+                  n_blocks=t(ops["n_blocks"], torch.int32),
+                  voxels={k: t(v) for k, v in ops["voxels"].items()})
+    kernel = "fuse_ofusion" if ops["field"] == "ofusion" else "fuse_sdf"
+    frame = (t(ops["depth"]), t(ops["T_cw"]), t(ops["K"]))
+    r = hold_kernel(torch, f"{name} rank 0's operands ({m.capacity}-slot "
+                    f"range, {ops['n_blocks']} live)", kernel, m, field,
+                    frame, ops["timestamp"])
+    return kernel, r["max_abs_err"]
+
+
+def run_phase_g(torch, dev, kernels):
+    """Phase G: the multi-device map through ``multihost.launch_jobs`` at
+    full size, D ranks on the host's cards (nccl with a card a rank, else
+    gloo with ranks sharing a card); G1/G2 gated against the JAX package's
+    sharded CPU run, G3 held against the one-device partitioned frame on
+    the card; each fusion kernel held against its twin on rank 0's
+    operands; launches summed over the ranks."""
+    from supereight_tpu_torch.parallel import multihost
+    for name, (preset, ranks, max_visible, n_frames) in G_RUNS.items():
+        backend, per_card = g_backend(torch, ranks)
+        timed = name != "G3"
+        job = dict(kind="frames", preset=preset, config=BASE, frames=FRAMES,
+                   n_frames=n_frames, max_visible=max_visible, timed=timed,
+                   dump_operands=timed)
+        print(f"# {name}: {preset}, map_partitions={ranks}, "
+              f"{max_visible} exchange rows a rank, {n_frames} frames: "
+              f"{ranks} ranks over {backend}, {per_card} rank(s) a card "
+              f"({torch.cuda.device_count()} card(s))")
+        t0 = time.perf_counter()
+        res = multihost.launch_jobs(ranks, [job], device="cuda",
+                                    backend=backend, timeout=G_TIMEOUT,
+                                    group_timeout=G_GROUP_TIMEOUT)[0]
+        wall = time.perf_counter() - t0
+        multi = multihost.gather_ranks(res)
+        st = multi["state"]
+        counter = "fuse_ofusion" if preset == "ofusion" else "fuse_sdf"
+        integrated = sum(multi["integrated"])
+        for k, n in multi["launches"].items():
+            kernels[k]["launches"] += n
+        per_rank = [r[counter] for r in multi["launches_per_rank"]]
+        print(f"# {name}: {counter} LAUNCHES {per_rank} (ranks) over "
+              f"{integrated} integrated frames; spawn and run {wall:.1f} s")
+        if integrated == 0 or min(per_rank) < integrated:
+            fail(f"{name}: a rank launched {counter} fewer times than the "
+                 f"{integrated} integrated frames")
+        if int(st["part_counts"].sum()) != st["n_blocks"]:
+            fail(f"{name}: part_counts {st['part_counts']} do not sum to "
+                 f"{st['n_blocks']} blocks")
+        if not np.isfinite(multi["est"]).all() or \
+                not np.isfinite(st["ref_vertex"]).all():
+            fail(f"{name}: non-finite pose or reference map")
+        if name == "G3":
+            single = multihost.run_single(job, ranks, "cuda")
+            try:
+                diffs = multihost.compare(multi, single)
+            except AssertionError as e:
+                fail(f"G3: {ranks} ranks != the one-device frame: {e}")
+            print(f"# G3: {ranks} ranks == the one-device partitioned frame "
+                  f"on the card: blocks {st['n_blocks']} "
+                  f"{st['part_counts'].tolist()}, largest differences pose "
+                  f"{diffs['pose']:.3g}, ref_vertex {diffs['ref_vertex']:.3g}"
+                  f", live voxels {diffs['voxels']:.3g}")
+            continue
+        _, poses = load_sequence("synthetic_256_frames")
+        ate = ate_rmse(multi["est"], poses[:n_frames])
+        want = JAX_CPU_G[name]
+        tracked = sum(multi["tracked"])
+        print(f"# {name}: tracked {tracked}/{n_frames}, ATE "
+              f"{100 * ate:.2f} cm, blocks {st['n_blocks']} "
+              f"{st['part_counts'].tolist()}, overflow {st['overflow']}; "
+              f"JAX sharded on the CPU: {want}")
+        ms = multi["ms"][16:]
+        stages = multi["stages"]
+        coll = multi["collectives"]
+        n_t = len(stages)
+        ex = multi["exchange"] or {}
+        refresh = max(ex.get("refreshes", 0), 1)
+        print(f"# {name}: median ms/frame after frame 16: "
+              f"{statistics.median(ms):.2f} (rank 0, host clock, device "
+              f"synchronised; {backend}, {per_card} rank(s) a card)")
+        print(f"# {name}: rank 0 median ms per stage after frame 16: " +
+              ", ".join(f"{k} {1e3 * statistics.median(t[k] for t in stages):.2f}"
+                        for k in stages[0]))
+        print(f"# {name}: rank 0 in collectives after frame 16 (host clock "
+              f"around each call, synchronised): all_reduce "
+              f"{1e3 * coll['seconds']['all_reduce'] / n_t:.2f} ms/frame "
+              f"({coll['calls']['all_reduce'] / n_t:.1f} calls, "
+              f"{coll['bytes']['all_reduce'] / n_t / 1e3:.1f} kB), "
+              f"all_gather {1e3 * coll['seconds']['all_gather'] / n_t:.2f} "
+              f"ms/frame ({coll['calls']['all_gather'] / n_t:.1f} calls, "
+              f"{coll['bytes']['all_gather'] / n_t / 1e6:.2f} MB sent)")
+        print(f"# {name}: exchange: {ex.get('refreshes', 0)} refreshes after "
+              f"frame 16, {ex.get('rows', 0) / refresh:.0f} visible rows of "
+              f"{ex.get('budget_rows', 0) / refresh:.0f} shipped a refresh, "
+              f"{ex.get('bytes', 0) / refresh / 1e6:.2f} MB received a rank "
+              f"a refresh")
+        if want is None:
+            fail(f"{name}: no JAX CPU figures (jax_cpu_reference.py)")
+        if tracked < MIN_TRACKED:
+            fail(f"{name}: tracked {tracked} < {MIN_TRACKED}")
+        if ate > 0.01 * (want[1] + ATE_MARGIN_DEFAULT_CM):
+            fail(f"{name}: ATE {100 * ate:.2f} cm > JAX's {want[1]} + "
+                 f"{ATE_MARGIN_DEFAULT_CM}")
+        check_blocks(name, st["n_blocks"], want[2])
+        if st["overflow"] != want[3]:
+            fail(f"{name}: overflow {st['overflow']} != JAX's {want[3]}")
+        kernel, err = hold_rank_kernel(torch, name, multi["operands"], dev)
+        kernels[kernel]["max_abs_err"] = max(kernels[kernel]["max_abs_err"],
+                                             err)
+
+
 def reset_launches():
     from supereight_tpu_torch.ops import integrate_kernel as ik
     for k in ik.LAUNCHES:
@@ -1313,6 +1481,7 @@ def main():
     for name in RUNS:
         run_preset(torch, name, dev, kernels)
     run_phase_f(torch, dev, kernels)
+    run_phase_g(torch, dev, kernels)
     print(f"# all runs done in {time.perf_counter() - t_start:.1f} s")
 
     order = ("fuse_sdf", "fuse_ofusion", "lane_shuffle_sum", "slab_row_sum")

@@ -20,7 +20,10 @@ JAX package on the CPU and prints one JSON object:
 - ``mesh``: the app in ground-truth mode with ``--dump-mesh`` (phase E of
   the smoke): the triangles of the final map's mesh;
 - ``phase_f``: each run of ``chip_smoke.F_RUNS`` (the ``headline`` preset
-  with one knob group over it) as ``presets`` runs a preset.
+  with one knob group over it) as ``presets`` runs a preset;
+- ``sharded``: each run of ``chip_smoke.G_RUNS`` through the JAX
+  package's sharded frame (``parallel.frame_dist``) over a 2-device CPU
+  mesh: tracked frames, ATE (cm), blocks, overflow, ``part_counts``.
 
 Run from the repository root (JAX on the CPU; 1024-quality takes minutes):
     JAX_PLATFORMS=cpu python3 jax_cpu_reference.py [--parts app,runner]
@@ -37,7 +40,8 @@ import tempfile
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PARTS = ("presets", "app", "facade_gt", "runner", "mesh", "phase_f")
+PARTS = ("presets", "app", "facade_gt", "runner", "mesh", "phase_f",
+         "sharded")
 
 
 def _ate_cm(est, gt) -> float:
@@ -82,6 +86,52 @@ def phase_f():
         cfg = dataclasses.replace(apply_preset(
             "headline", Configuration(**chip_smoke.BASE)), **knobs)
         out[name] = _run(cfg, "synthetic_256_frames")
+        print(f"# {name}: {out[name]}", file=sys.stderr, flush=True)
+    return out
+
+
+def sharded():
+    """Phase G's full-size runs through ``make_process_frame_sharded`` on
+    a mesh of 2 CPU devices (``XLA_FLAGS`` set in :func:`main`)."""
+    import functools
+    import chip_smoke
+    import jax
+    import jax.numpy as jnp
+    from supereight_tpu.config import Configuration, apply_preset
+    from supereight_tpu.parallel import frame_dist, make_mesh
+    from supereight_tpu.pipeline import DenseSLAMSystem
+    from supereight_tpu_torch.config import SlamConfig
+    from supereight_tpu_torch.parallel.frame_dist import frame_knobs
+    out = {}
+    for name, (preset, ranks, max_visible, frames) in \
+            chip_smoke.G_RUNS.items():
+        if name == "G3":
+            continue
+        mesh = make_mesh(ranks)
+        cfg = apply_preset(preset, Configuration(
+            **chip_smoke.BASE, map_partitions=ranks))
+        depths, poses = chip_smoke.load_sequence("synthetic_256_frames")
+        slam = DenseSLAMSystem((240, 320), cfg)
+        slam.setPose(poses[0])
+        st = frame_dist.frame_sharding(mesh)(slam.state)
+        step = jax.jit(functools.partial(
+            frame_dist.make_process_frame_sharded(
+                mesh, slam.field, 240, 320,
+                max_visible_per_device=max_visible,
+                **frame_knobs(SlamConfig.of(cfg))),
+            use_gt=False, neg_y=False))
+        est, tracked = [], 0
+        k = jnp.asarray(chip_smoke.K)
+        eye = jnp.eye(4, dtype=jnp.float32)
+        for f in range(frames):
+            st = step(st, jnp.asarray(depths[f]), k,
+                      jnp.asarray(f, jnp.int32), eye)
+            est.append(np.asarray(st.pose))
+            tracked += bool(st.tracked)
+        out[name] = dict(tracked=tracked, ate_cm=_ate_cm(est, poses[:frames]),
+                         blocks=int(st.map.n_blocks),
+                         overflow=int(st.map.overflow),
+                         part_counts=np.asarray(st.map.part_counts).tolist())
         print(f"# {name}: {out[name]}", file=sys.stderr, flush=True)
     return out
 
@@ -178,6 +228,10 @@ def main(argv=None):
     p.add_argument("--parts", default=",".join(PARTS),
                    help="comma-separated subset of " + ",".join(PARTS))
     args = p.parse_args(argv)
+    if "sharded" in args.parts.split(","):
+        # the sharded part's 2-device mesh: before JAX is imported
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
+                                   " --xla_force_host_platform_device_count=2")
     sys.path.insert(0, HERE)
     out = {}
     for part in args.parts.split(","):

@@ -65,18 +65,15 @@ class SlamConfig:
     icp_sym_max_deg: float = 4.5
     bootstrap_f2f: bool = False
     f2f_fallback: bool = False
+    #: owner partitions of the map's slot space (one per rank of the
+    #: multi-device map, `parallel/`; any count that divides the block
+    #: grid edge and the capacity also runs on one device)
+    map_partitions: int = 1
 
     @classmethod
     def of(cls, config) -> "SlamConfig":
-        """The ported knobs of ``config``: a SlamConfig or any object with
-        the same attribute names (``supereight_tpu.config.Configuration``).
-        Raises NotImplementedError where ``config`` partitions the map
-        over several devices, which the port does not run."""
-        partitions = getattr(config, "map_partitions", 1)
-        if partitions != 1:
-            raise NotImplementedError(
-                f"map_partitions={partitions!r}: not ported yet (ROADMAP "
-                "queue 1, item 6)")
+        """The knobs of ``config``: a SlamConfig or any object with the
+        same attribute names (``supereight_tpu.config.Configuration``)."""
         return cls(**{f.name: getattr(config, f.name)
                       for f in dataclasses.fields(cls)
                       if hasattr(config, f.name)})

@@ -16,8 +16,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from supereight_tpu_torch.core.octree import (PARTITIONED, ChannelSpec,
-                                               VoxelMap, channel_specs)
+from supereight_tpu_torch.core.octree import (ChannelSpec, VoxelMap,
+                                               channel_specs)
 from supereight_tpu_torch.fields import OFusionField, SDFField
 from supereight_tpu_torch.pipeline.system import FrameState
 
@@ -33,15 +33,15 @@ _CHANNELS = {frozenset(c.name for c in f.channels): f.channels
 def map_from_numpy(d, device,
                    channels: Optional[Tuple[ChannelSpec, ...]] = None
                    ) -> VoxelMap:
-    """``d``: ``size``, ``dim``, ``capacity``, ``partitions`` (1),
+    """``d``: ``size``, ``dim``, ``capacity``, ``partitions`` (default 1),
     ``block_index``, ``keys``, ``n_blocks``, ``active``, ``overflow``,
     ``voxels`` {name: array}, ``node_values`` [{name: array}] and
-    ``node_alloc`` [array]; ``part_counts`` must equal ``[n_blocks]``.
-    The channels are ``channels``, else ``d["channels"]`` (tuples for
+    ``node_alloc`` [array], and ``part_counts`` (one count a partition,
+    summing to ``n_blocks``; optional for one partition).  The channels
+    are ``channels``, else ``d["channels"]`` (tuples for
     :func:`channel_specs`), else the field's whose channel names the
     voxels carry."""
-    if int(d.get("partitions", 1)) != 1:
-        raise NotImplementedError(PARTITIONED)
+    partitions = int(d.get("partitions", 1))
     if channels is None and d.get("channels") is not None:
         channels = channel_specs(d["channels"])
     if channels is None:
@@ -50,8 +50,10 @@ def map_from_numpy(d, device,
         raise NotImplementedError(
             f"channels {sorted(d['voxels'])}: no ported field has them; "
             "pass their ChannelSpecs")
-    if "part_counts" in d and \
-            np.asarray(d["part_counts"]).tolist() != [int(d["n_blocks"])]:
+    counts = np.asarray(d["part_counts"] if "part_counts" in d
+                        else np.reshape(d["n_blocks"], 1), np.int32)
+    if counts.shape != (partitions,) or \
+            int(counts.sum()) != int(d["n_blocks"]):
         raise ValueError("part_counts disagrees with n_blocks")
     i32 = torch.int32
     return VoxelMap(
@@ -66,7 +68,8 @@ def map_from_numpy(d, device,
                 for c in channels},
         node_values=[{c.name: _t(lv[c.name], c.dtype, device)
                       for c in channels} for lv in d["node_values"]],
-        node_alloc=[_t(a, torch.bool, device) for a in d["node_alloc"]])
+        node_alloc=[_t(a, torch.bool, device) for a in d["node_alloc"]],
+        partitions=partitions, part_counts=_t(counts, i32, device))
 
 
 def state_from_numpy(d, device) -> FrameState:

@@ -1,10 +1,14 @@
 """Sparse voxel map: flat block table + dense block index (counterpart of
-`supereight_tpu/core/octree.py`, single-partition subset).
+`supereight_tpu/core/octree.py`).
 
 Same layout as the JAX map: ``block_index`` int32[B,B,B] maps a block
 coordinate to its slot (or -1); the block table holds Morton ``keys``,
 per-channel voxel bricks ``{name: [capacity, 512]}`` (linear voxel index
 x + 8y + 64z), an ``active`` flag per slot and a bump counter ``n_blocks``.
+With ``partitions`` D > 1 the slot space splits into D equal ranges, one
+per x-slab of the block grid, each with its own bump counter
+(``part_counts``): the owner-partitioned layout of the multi-device map
+(`parallel/`), which also runs on one device.
 The coarse node pyramid (``node_values`` / ``node_alloc``) takes the
 fusion's node update; OFusion's multiscale allocation marks its cells and
 its values show through unallocated space (``node_fill``).  Functions
@@ -25,9 +29,6 @@ from .numerics import trunc_i32
 BLOCK_SIDE = 8
 BLOCK_VOXELS = BLOCK_SIDE ** 3
 BLOCK_BITS = 3
-#: why a map of more than one owner partition is refused
-PARTITIONED = ("partitioned maps (partitions > 1) are not ported yet "
-               "(ROADMAP queue 1, item 6)")
 
 
 def _log2i(v: int) -> int:
@@ -70,6 +71,10 @@ class VoxelMap:
     voxels: Dict[str, torch.Tensor]      # {name: [capacity, 512]}
     node_values: List[Dict[str, torch.Tensor]]   # per level 0..block_level
     node_alloc: List[torch.Tensor]       # per level bool[2^l]^3
+    #: owner partitions: slot range d holds the blocks of x-slab d
+    partitions: int = 1
+    #: int32[partitions] per-partition bump counters (sum == n_blocks)
+    part_counts: Optional[torch.Tensor] = None
 
     def replace(self, **kw) -> "VoxelMap":
         return dataclasses.replace(self, **kw)
@@ -100,11 +105,18 @@ class VoxelMap:
 
 
 def init(size: int, dim: float, channels: Tuple[ChannelSpec, ...],
-         device: torch.device, capacity: Optional[int] = None) -> VoxelMap:
-    """An empty map (`octree.py:init` with one partition)."""
+         device: torch.device, capacity: Optional[int] = None,
+         partitions: int = 1) -> VoxelMap:
+    """An empty map (`octree.py:init`, `supereight_tpu/core/octree.py:
+    130-166`); ``partitions`` > 1 must divide the block grid edge and the
+    capacity."""
     B = size // BLOCK_SIDE
     if capacity is None:
         capacity = min(B * B * B, max(4096, (B * B * B) // 4))
+    if partitions > 1 and (B % partitions or capacity % partitions):
+        raise ValueError(
+            f"partitions={partitions} must divide the block grid edge "
+            f"({B}) and the capacity ({capacity})")
     block_level = _log2i(size) - BLOCK_BITS
     node_values, node_alloc = [], []
     for level in range(block_level + 1):
@@ -126,7 +138,17 @@ def init(size: int, dim: float, channels: Tuple[ChannelSpec, ...],
         voxels={c.name: torch.full((capacity, BLOCK_VOXELS), c.init,
                                    dtype=c.dtype, device=device)
                 for c in channels},
-        node_values=node_values, node_alloc=node_alloc)
+        node_values=node_values, node_alloc=node_alloc,
+        partitions=partitions,
+        part_counts=torch.zeros((partitions,), **i32))
+
+
+def partition_counts(m: VoxelMap) -> torch.Tensor:
+    """int32[partitions]: each partition's live slots (``[n_blocks]`` for
+    one partition)."""
+    if m.partitions == 1 or m.part_counts is None:
+        return m.n_blocks.reshape(1)
+    return m.part_counts
 
 
 def block_coords_table(m: VoxelMap) -> torch.Tensor:
@@ -135,9 +157,20 @@ def block_coords_table(m: VoxelMap) -> torch.Tensor:
 
 
 def slot_mask(m: VoxelMap) -> torch.Tensor:
-    """bool[capacity]: the live slots, a prefix of the table."""
-    return torch.arange(m.capacity, dtype=torch.int32,
-                        device=m.device) < m.n_blocks
+    """bool[capacity]: the live slots, a prefix of each partition's slot
+    range (`octree.py:slot_mask`, `:484-491`)."""
+    idx = torch.arange(m.capacity, dtype=torch.int32, device=m.device)
+    if m.partitions == 1:
+        return idx < m.n_blocks
+    per_cap = m.capacity // m.partitions
+    return (idx % per_cap) < m.part_counts[(idx // per_cap).long()]
+
+
+def live_slots(m: VoxelMap) -> torch.Tensor:
+    """int64[n_blocks]: the live slots in ascending order."""
+    if m.partitions == 1:
+        return torch.arange(int(m.n_blocks), device=m.device)
+    return torch.nonzero(slot_mask(m))[:, 0]
 
 
 def scatter_drop(dst: torch.Tensor, idx: torch.Tensor, src) -> torch.Tensor:
@@ -153,31 +186,41 @@ def scatter_drop(dst: torch.Tensor, idx: torch.Tensor, src) -> torch.Tensor:
 
 def allocate_block_mask(m: VoxelMap, wanted: torch.Tensor) -> VoxelMap:
     """Allocate every block where ``wanted`` bool[B,B,B] is set and mark
-    every touched block active (`octree.py:allocate_block_mask`): a prefix
-    sum over the unallocated wanted cells assigns slots in flat order; cells
-    past the capacity stay unallocated and count into ``overflow``."""
+    every touched block active (`octree.py:allocate_block_mask`,
+    `:283-338`): within each owner partition (x-slab; the whole grid for
+    one partition) a prefix sum over the unallocated wanted cells assigns
+    the partition's next slots in flat order; cells past the partition's
+    slot range stay unallocated and count into ``overflow``."""
     B = m.blocks_per_edge
+    D = m.partitions
     cap = m.capacity
+    per_cap = cap // D
     dev = m.device
-    new = (wanted & (m.block_index < 0)).reshape(-1)
-    order = torch.cumsum(new, 0, dtype=torch.int32) - 1
-    slots = m.n_blocks + order
-    total_new = order[-1] + 1
-    fits = new & (slots < cap)
-    flat_new = torch.where(fits, slots, m.block_index.reshape(-1))
+    i32 = dict(dtype=torch.int32, device=dev)
+    new = (wanted & (m.block_index < 0)).reshape(D, -1)
+    order = torch.cumsum(new, 1, dtype=torch.int32) - 1
+    counts = partition_counts(m)
+    slots = counts[:, None] + order
+    total_new = order[:, -1] + 1
+    fits = new & (slots < per_cap)
+    slots = slots + per_cap * torch.arange(D, **i32)[:, None]
+    flat_new = torch.where(fits, slots, m.block_index.reshape(D, -1))
 
     lin = torch.arange(B * B * B, dtype=torch.int64, device=dev)
     new_keys = morton.block_key(lin // (B * B), (lin // B) % B, lin % B)
-    keys = scatter_drop(m.keys, torch.where(fits, slots, cap), new_keys)
-    touched = wanted.reshape(-1) & (flat_new >= 0)
-    active = scatter_drop(m.active, torch.where(touched, flat_new, cap),
-                          True)
+    keys = scatter_drop(m.keys, torch.where(fits, slots, cap).reshape(-1),
+                        new_keys)
+    touched = wanted.reshape(D, -1) & (flat_new >= 0)
+    active = scatter_drop(m.active, torch.where(touched, flat_new, cap)
+                          .reshape(-1), True)
 
-    n_new = m.n_blocks + total_new
+    n_new = counts + total_new
+    new_counts = torch.clamp(n_new, max=per_cap)
     return m.replace(block_index=flat_new.reshape(B, B, B), keys=keys,
-                     n_blocks=torch.clamp(n_new, max=cap),
-                     active=active,
-                     overflow=m.overflow + torch.clamp(n_new - cap, min=0))
+                     n_blocks=new_counts.sum(dtype=torch.int32),
+                     part_counts=new_counts, active=active,
+                     overflow=m.overflow + torch.clamp(
+                         n_new - per_cap, min=0).sum(dtype=torch.int32))
 
 
 def _mark(mask: torch.Tensor, idx, sel: torch.Tensor) -> torch.Tensor:
@@ -292,10 +335,13 @@ def tile_rows(fill: torch.Tensor, m: VoxelMap,
     """Brick-tiled ``[B^3, 512]``: the live slots' ``rows`` ([capacity,
     512]) at their blocks' rows, every other row its cell's ``fill``
     ([B^3], cast to the rows' dtype).  One write of the view and one row
-    scatter (the live slots are a prefix of the table)."""
-    n = int(m.n_blocks)
+    scatter of the live slots."""
     out = fill.to(rows.dtype)[:, None].expand(-1, BLOCK_VOXELS).contiguous()
-    return out.index_copy_(0, block_rows(m)[:n], rows[:n])
+    if m.partitions == 1:
+        n = int(m.n_blocks)
+        return out.index_copy_(0, block_rows(m)[:n], rows[:n])
+    live = live_slots(m)
+    return out.index_copy_(0, block_rows(m)[live], rows[live])
 
 
 def pack_tiled_multiscale(m: VoxelMap, channel: str) -> torch.Tensor:

@@ -22,8 +22,7 @@ import torch
 
 from supereight_tpu_torch import convert
 from supereight_tpu_torch.core import morton, octree
-from supereight_tpu_torch.core.octree import (BLOCK_VOXELS, PARTITIONED,
-                                              VoxelMap)
+from supereight_tpu_torch.core.octree import BLOCK_VOXELS, VoxelMap
 
 _FORMAT_VERSION = 1
 
@@ -39,14 +38,14 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 def save_map(path: str, m: VoxelMap):
     """The npz checkpoint: the map's arrays under the JAX package's keys
-    (keys as uint32, one partition holding every block) and its meta."""
+    (keys as uint32) and its meta."""
     arrays = {
         "block_index": _np(m.block_index),
         "keys": _np(m.keys).astype(np.uint32),
         "n_blocks": _np(m.n_blocks),
         "active": _np(m.active),
         "overflow": _np(m.overflow),
-        "part_counts": _np(m.n_blocks).reshape(1),
+        "part_counts": _np(octree.partition_counts(m)),
     }
     for name, arr in m.voxels.items():
         arrays[f"voxel:{name}"] = _np(arr)
@@ -55,7 +54,7 @@ def save_map(path: str, m: VoxelMap):
         for name, arr in vals.items():
             arrays[f"nodeval:{level}:{name}"] = _np(arr)
     meta = dict(version=_FORMAT_VERSION, size=m.size, dim=m.dim,
-                capacity=m.capacity, partitions=1,
+                capacity=m.capacity, partitions=m.partitions,
                 channels=[(c.name, _dtype_name(c.dtype), c.init, c.empty)
                           for c in m.channels])
     arrays["meta"] = np.frombuffer(repr(meta).encode(), dtype=np.uint8)
@@ -68,12 +67,11 @@ def load_map(path: str, device="cuda") -> VoxelMap:
     meta = ast.literal_eval(bytes(z["meta"]).decode())
     if meta["version"] != _FORMAT_VERSION:
         raise ValueError(f"unsupported map version {meta['version']}")
-    if meta.get("partitions", 1) != 1:
-        raise NotImplementedError(PARTITIONED)
     names = [c[0] for c in meta["channels"]]
     levels = range(octree._log2i(meta["size"]) - octree.BLOCK_BITS + 1)
     d = dict(size=meta["size"], dim=meta["dim"], capacity=meta["capacity"],
              channels=meta["channels"],
+             partitions=meta.get("partitions", 1),
              **{k: z[k] for k in ("block_index", "keys", "n_blocks", "active",
                                   "overflow")},
              voxels={n: z[f"voxel:{n}"] for n in names},
@@ -199,16 +197,17 @@ def save_se(path: str, m: VoxelMap):
         for r in recs:
             fh.write(r.tobytes())
 
-        n = int(m.n_blocks)
-        bc = _np(octree.block_coords_table(m)[:n]).astype(np.int64) * 8
+        live = octree.live_slots(m)
+        n = live.numel()
+        bc = _np(octree.block_coords_table(m)[live]).astype(np.int64) * 8
         rec = np.zeros(n, dtype=np.dtype([
             ("code", "<u8"), ("coords", "<i4", (3,)),
             ("voxels", layout, (BLOCK_VOXELS,))]))
         rec["code"] = _se_encode_key(bc[:, 0], bc[:, 1], bc[:, 2],
                                      block_level, max_depth)
         rec["coords"] = bc
-        rec["voxels"]["x"] = _np(m.voxels[names[0]][:n])
-        rec["voxels"]["y"] = _np(m.voxels[names[1]][:n])
+        rec["voxels"]["x"] = _np(m.voxels[names[0]][live])
+        rec["voxels"]["y"] = _np(m.voxels[names[1]][live])
         fh.write(np.uint64(n).tobytes())
         fh.write(rec.tobytes())
 

@@ -85,7 +85,7 @@ def save_3d_slice(path: str, m, channel: str, lower, upper):
 def save_block_list(path: str, m):
     """The live blocks' coordinates, one ``x y z`` row each, in slot
     order."""
-    n = int(m.n_blocks)
-    coords = _host(octree.block_coords_table(m)[:n], np.int32)
+    coords = _host(octree.block_coords_table(m)[octree.live_slots(m)],
+                   np.int32)
     with open(path, "w") as f:
         f.write("".join(f"{x} {y} {z}\n" for x, y, z in coords.tolist()))

@@ -181,7 +181,7 @@ def fuse_sdf(m: VoxelMap, depth, T_cw, K, mu: float, max_weight: float,
     branch): the slots to fuse, live or not; at most ``capacity`` of them
     (checked), and on the card a repeated slot races and a slot outside
     the table is skipped.  None (the whole-table branch): every live slot
-    (below ``n_blocks`` and active); the others keep their voxels and
+    (``octree.slot_mask`` and active); the others keep their voxels and
     ``active``.  Each fused slot's ``tsdf``/``weight`` rows take the update
     of :func:`fuse_sdf_reference` and its ``active`` flag becomes its
     visibility (any voxel in frame and in its block's patch).  ``view``: a
@@ -244,6 +244,10 @@ def _launch(fn: str, m: VoxelMap, names: Tuple[str, str],
     dev = a.device
     if dev.type != "cuda":
         raise ValueError(f"{fn}: no kernel for device {dev}")
+    if slots is None and m.partitions > 1:
+        # the whole-table branch takes the live slots as a prefix of the
+        # table: list a partitioned map's live slots instead
+        slots = torch.nonzero(octree.slot_mask(m) & m.active)[:, 0].int()
     cap = m.capacity
     H, W = depth.shape
     specs = [("channel 0", a, torch.float32, (cap, BLOCK_VOXELS), 16),

@@ -52,10 +52,11 @@ def _alloc_decimation(m: VoxelMap, depth_shape) -> int:
     return 2 if foot_far >= 4.0 else 1
 
 
-def _pixel_rays(depth, pose, K, decim: int):
+def _pixel_rays(depth, pose, K, decim: int, row0: int = 0):
     """Per-(decimated-)pixel world vertex at the measured depth + unit
     direction toward the camera.  The strided set always includes the last
-    row and column."""
+    row and column.  ``row0`` offsets the pixel rows when ``depth`` is a
+    row strip of the camera's image."""
     H, W = depth.shape
     dev = depth.device
     extra = 1 if decim > 1 else 0
@@ -66,6 +67,8 @@ def _pixel_rays(depth, pose, K, decim: int):
     d = depth[iy][:, ix]
     x = (ix.to(torch.float32) + 0.5)[None, :]
     y = (iy.to(torch.float32) + 0.5)[:, None]
+    if row0:
+        y = y + float(row0)
     kpose = pose @ inv(K)
     hom = torch.stack([x * d, y * d, d, torch.ones_like(d)], dim=-1)
     vertex = matvec(kpose[:3], hom)
@@ -76,13 +79,29 @@ def _pixel_rays(depth, pose, K, decim: int):
     return d, vertex, direction, dist[..., 0], camera
 
 
+def _share_rows(d, row_share):
+    """``d`` with the ray rows of other ranks zeroed: ``row_share = (rank,
+    D)`` keeps every D-th ray row from row ``rank`` (a zero depth never
+    requests), so the OR of the D shares' masks is the full mask."""
+    if row_share is None:
+        return d
+    rank, n = row_share
+    own = (torch.arange(d.shape[0], device=d.device) % n) == rank
+    return d * own[:, None].to(d.dtype)
+
+
 def sdf_wanted_mask(depth, pose, K, *, size: int, dim: float, band: float,
-                    decim: int = 1, stride: float = 1.0) -> torch.Tensor:
+                    decim: int = 1, stride: float = 1.0, row0: int = 0,
+                    row_share=None) -> torch.Tensor:
     """Dense bool[B,B,B] block-request mask of the band march: every pixel
     with depth > 0 samples a ``band``-long segment centred on its surface
-    point at voxel spacing (times ``stride``)."""
+    point at voxel spacing (times ``stride``).  For the multi-device map
+    (JAX `integration.py:147-170`): ``row0`` is the first image row of a
+    ``depth`` strip, ``row_share = (rank, D)`` marches one rank's
+    round-robin share of the ray rows (:func:`_share_rows`)."""
     inv_vs = size / dim
-    d, vertex, direction, _, _ = _pixel_rays(depth, pose, K, decim)
+    d, vertex, direction, _, _ = _pixel_rays(depth, pose, K, decim, row0)
+    d = _share_rows(d, row_share)
     n_steps = max(int(np.ceil(band * inv_vs / stride)), 1)
     t = -0.5 * band + (band / n_steps) * torch.arange(
         n_steps, dtype=torch.float32, device=depth.device)
@@ -114,7 +133,8 @@ _PHASE_OFFSETS = ((0, 0), (0, 1), (1, 0), (1, 1))
 
 def ofusion_wanted_masks(m: VoxelMap, depth, pose, K, band: float,
                          coarse_stride: bool = True,
-                         phase: Optional[int] = None) -> List[torch.Tensor]:
+                         phase: Optional[int] = None,
+                         row_share=None) -> List[torch.Tensor]:
     """Per-level dense octant-request masks bool[2^l]^3 of the occupancy
     march (`integration.py:ofusion_wanted_masks`).  Each pixel marches from
     half a band behind its surface point toward the camera: voxel steps
@@ -123,9 +143,13 @@ def ofusion_wanted_masks(m: VoxelMap, depth, pose, K, band: float,
     With ``coarse_stride`` the two coarse zones march every second ray row
     and column when their octants' far-plane footprint is >= 4 px and the
     ray grid is not already decimated; ``phase`` (the allocation count)
-    rotates that grid through its 4 offsets, ``None`` pins (0, 0)."""
+    rotates that grid through its 4 offsets, ``None`` pins (0, 0).
+    ``row_share = (rank, D)`` marches one rank's round-robin share of the
+    ray rows, whose masks OR into the full ones (JAX `integration.py:
+    212-235`)."""
     decim = _alloc_decimation(m, depth.shape)
     d, vertex, direction, dist, _ = _pixel_rays(depth, pose, K, decim)
+    d = _share_rows(d, row_share)
     vs = m.voxel_size
     inv_vs = m.inverse_voxel_size
     origin = vertex - (0.5 * band) * direction

@@ -159,10 +159,11 @@ def _max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _splat_bounds(m: VoxelMap, field, view, H: int, W: int, near: float,
-                  far: float, near_rescue: bool = True):
+                  far: float, near_rescue: bool = True, inside_any=None):
     """Phase 1: per-cell start and far depth from splatting the blocks that
-    contain an inside voxel into a coarse grid.  Returns (tmin, tmax, g)
-    with [H/g, W/g] grids."""
+    contain an inside voxel (``inside_any`` bool[capacity], from the brick
+    table when None) into a coarse grid.  Returns (tmin, tmax, g) with
+    [H/g, W/g] grids."""
     for g in (8, 4, 2, 1):
         if H % g == 0 and W % g == 0:
             break
@@ -178,8 +179,9 @@ def _splat_bounds(m: VoxelMap, field, view, H: int, W: int, near: float,
     px = hom[:, 0] / zsafe
     py = hom[:, 1] / zsafe
 
-    raw = m.voxels[field.select_channel].to(torch.float32)
-    inside_any = field.is_inside(raw).any(1)
+    if inside_any is None:
+        raw = m.voxels[field.select_channel].to(torch.float32)
+        inside_any = field.is_inside(raw).any(1)
     diag = 1.7320508 * BLOCK_SIDE * vs
     marg = 2.0 * g
     ok = (octree.slot_mask(m) & inside_any & (z > 1e-3)
@@ -278,7 +280,8 @@ def raycast(m: VoxelMap, field, view, H: int, W: int, near: float,
             w2_budget: int = 8192, scan_stride: float = 0.5,
             near_rescue: bool = True, grad_decim: int = 1,
             refine: str = "secant", full_res_scan: bool = False,
-            midsolve: bool = False, grad_table=None) -> RaycastResult:
+            midsolve: bool = False, grad_table=None, inside_any=None,
+            row_range=None) -> RaycastResult:
     """Vertex + normal maps from ``view`` (= pose @ inv(K)).
 
     The fine scan runs at half ray resolution when H and W are even,
@@ -293,7 +296,16 @@ def raycast(m: VoxelMap, field, view, H: int, W: int, near: float,
     scan it falls back to "volume"), "stored" (the gradient table
     ``grad_table``, built from the map if None, at the hit voxel) or
     "exact" (``octree.grad``, the trilinearly blended gradient of the raw
-    brick table)."""
+    brick table).
+
+    For the multi-device map (`parallel/raycast_dist.py`, JAX
+    `raycast.py:255-295`, `:525-532`): ``inside_any`` (bool[capacity])
+    gives the splat phase each slot's inside-voxel flag, so that with a
+    ``dense`` view the brick table is never read; ``row_range = (r0,
+    nrows)`` runs the per-ray phases (scan, refine, normals) for the image
+    rows ``[r0, r0 + nrows)`` only (both even with the half-res scan,
+    whose rows are ``r0 // 2``) and returns maps of ``nrows`` rows.  The
+    splat grid still covers the whole image."""
     if normals not in ("volume", "hybrid", "exact", "stored"):
         raise ValueError(f"unknown normals mode {normals!r}")
     if refine not in ("secant", "interp", "plane"):
@@ -305,7 +317,8 @@ def raycast(m: VoxelMap, field, view, H: int, W: int, near: float,
     if use_stored and grad_table is None:
         grad_table = gradmap.build_table(m, field)
     tgrid, tmax_grid, g = _splat_bounds(m, field, view, H, W, near, far,
-                                        near_rescue=near_rescue)
+                                        near_rescue=near_rescue,
+                                        inside_any=inside_any)
 
     vs = m.voxel_size
     inv_vs = m.inverse_voxel_size
@@ -330,6 +343,13 @@ def raycast(m: VoxelMap, field, view, H: int, W: int, near: float,
         .repeat_interleave(rep, 1)[:h, :w]
     active = torch.isfinite(t0)
     z_start = torch.clamp(torch.where(active, t0, near), near, far)
+    if row_range is not None:
+        r0, nr = row_range
+        f = 2 if half_res else 1
+        dirs = dirs[r0:r0 + nr]
+        fd, z_start, active, t1 = (a[r0 // f:(r0 + nr) // f]
+                                   for a in (fd, z_start, active, t1))
+        h = fd.shape[0]
 
     f1 = _fine_scan(m, dense, field, origin, fd, z_start, fine_span, n_fine,
                     active)

@@ -63,11 +63,14 @@ class FrameState:
 def init_state(size: int, dim: float, field, H: int, W: int, init_pose,
                device, capacity: Optional[int] = None,
                incremental_view: bool = False,
-               grad_normals: bool = False) -> FrameState:
-    """Empty map at ``init_pose``; every pose field is its own buffer.
-    With ``incremental_view`` the state holds the map's read view, with
-    ``grad_normals`` an empty stored gradient table."""
-    m = octree.init(size, dim, field.channels, device, capacity=capacity)
+               grad_normals: bool = False,
+               partitions: int = 1) -> FrameState:
+    """Empty map of ``partitions`` owner partitions at ``init_pose``; every
+    pose field is its own buffer.  With ``incremental_view`` the state
+    holds the map's read view, with ``grad_normals`` an empty stored
+    gradient table."""
+    m = octree.init(size, dim, field.channels, device, capacity=capacity,
+                    partitions=partitions)
     pose = torch.as_tensor(init_pose, dtype=torch.float32, device=device)
     ref_normal = torch.zeros((H, W, 3), dtype=torch.float32, device=device)
     ref_normal[..., 0] = INVALID
@@ -102,11 +105,12 @@ def preprocessing_stage(state: FrameState, depth_mm,
 
 
 def tracking_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
-                   neg_y: bool, gt_pose=None) -> FrameState:
+                   neg_y: bool, gt_pose=None, shard=None) -> FrameState:
     """Coarse-to-fine ICP against the last raycast's reference maps.  A
     ``gt_pose`` (float32 [4,4] on the state's device) bypasses ICP, as the
     reference's ground-truth mode does: it becomes the pose, the frame
-    counts as tracked and the ICP status image is kept."""
+    counts as tracked and the ICP status image is kept.  ``shard``: as
+    ``tracking.track``'s (the status image is then the rank's strip)."""
     if gt_pose is not None:
         return state.replace(pose=gt_pose.clone(), tracked=True,
                              prev_pose=state.pose.clone())
@@ -122,7 +126,8 @@ def tracking_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
         state.ref_normal, state.raycast_pose, k, cfg.pyramid,
         cfg.icp_threshold, finest_decimate=cfg.icp_finest_decimate,
         symmetric=sym, robust=cfg.icp_robust,
-        robust_delta=cfg.icp_robust_delta, assoc=cfg.icp_assoc)
+        robust_delta=cfg.icp_robust_delta, assoc=cfg.icp_assoc,
+        shard=shard)
     return state.replace(pose=new_pose, tracked=bool(ok),
                          track_result=result, prev_pose=state.pose)
 
@@ -231,14 +236,7 @@ def raycasting_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
     as in tracking) become the reference, so the next frame tracks against
     it; ``model_ref`` then turns False and suppresses fusion until the
     next model raycast."""
-    do_raycast = frame >= cfg.raycast_from_frame
-    if do_raycast and frame > 5:
-        if cfg.raycast_adaptive_deg > 0.0:
-            do_raycast = _moved(state.pose, state.raycast_pose,
-                                cfg.raycast_adaptive_deg,
-                                cfg.raycast_adaptive_dist)
-        elif cfg.raycast_rate > 1:
-            do_raycast = frame % cfg.raycast_rate == 0
+    do_raycast = raycast_fires(state, frame, cfg)
     if do_raycast:
         H, W = state.float_depth.shape
         rc = raycast.raycast(
@@ -257,6 +255,25 @@ def raycasting_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
         state = state.replace(ref_vertex=rc.vertex, ref_normal=rc.normal,
                               raycast_pose=state.pose.clone(),
                               model_ref=True)
+    return f2f_publish(state, k, frame, cfg, do_raycast, neg_y)
+
+
+def raycast_fires(state: FrameState, frame: int, cfg: SlamConfig) -> bool:
+    """The reference maps' refresh gate (see :func:`raycasting_stage`)."""
+    do_raycast = frame >= cfg.raycast_from_frame
+    if do_raycast and frame > 5:
+        if cfg.raycast_adaptive_deg > 0.0:
+            do_raycast = _moved(state.pose, state.raycast_pose,
+                                cfg.raycast_adaptive_deg,
+                                cfg.raycast_adaptive_dist)
+        elif cfg.raycast_rate > 1:
+            do_raycast = frame % cfg.raycast_rate == 0
+    return do_raycast
+
+
+def f2f_publish(state: FrameState, k, frame: int, cfg: SlamConfig,
+                do_raycast: bool, neg_y: bool) -> FrameState:
+    """The frame-to-frame publication of :func:`raycasting_stage`."""
     publish = (cfg.bootstrap_f2f and not do_raycast
                and frame < cfg.raycast_from_frame) or \
         (cfg.f2f_fallback and not state.tracked
@@ -284,6 +301,15 @@ def process_frame(state: FrameState, depth_mm, k, frame: int, *,
     return raycasting_stage(state, k, frame, cfg, field, neg_y)
 
 
+def config_field(cfg: SlamConfig):
+    """The field a configuration's system runs (SDF or OFusion)."""
+    if cfg.field_type == "sdf":
+        return make_field("sdf", mu=cfg.mu)
+    vs = float(cfg.volume_size[0]) / cfg.volume_resolution[0]
+    return make_field(cfg.field_type, mu=cfg.mu, voxel_size=vs,
+                      sigma_floor=cfg.ofusion_sigma_floor)
+
+
 class DenseSLAMSystem:
     """Stateful facade over the functional pipeline (the reference's
     ``DenseSLAMSystem`` API) on ``device``, the card unless the caller asks
@@ -304,12 +330,7 @@ class DenseSLAMSystem:
         self.input_size = input_size                      # (H, W)
         self.H = input_size[0] // ratio
         self.W = input_size[1] // ratio
-        if cfg.field_type == "sdf":
-            self.field = make_field("sdf", mu=cfg.mu)
-        else:
-            vs = float(cfg.volume_size[0]) / cfg.volume_resolution[0]
-            self.field = make_field(cfg.field_type, mu=cfg.mu, voxel_size=vs,
-                                    sigma_floor=cfg.ofusion_sigma_floor)
+        self.field = config_field(cfg)
         self.init_pose = camera.pose_from_translation(
             [f * s for f, s in zip(cfg.initial_pos_factor, cfg.volume_size)],
             self.device)
@@ -318,7 +339,8 @@ class DenseSLAMSystem:
                                 self.H, self.W, self.init_pose, self.device,
                                 capacity=cfg.block_capacity,
                                 incremental_view=cfg.incremental_view,
-                                grad_normals=cfg.raycast_normals == "stored")
+                                grad_normals=cfg.raycast_normals == "stored",
+                                partitions=cfg.map_partitions)
         self._view_pose = None
 
     # ---- the reference's accessors ----

@@ -1,11 +1,13 @@
 """Projective point-to-plane ICP tracking (counterpart of
 `supereight_tpu/pipeline/tracking.py`: nearest or bilinear association,
 plain, symmetric or per-frame gated symmetric residual, optional Huber or
-Tukey IRLS weights, single device).
+Tukey IRLS weights; image-row strips over D ranks with ``track(shard=)``).
 
 The per-level iteration loop is a host loop: each iteration reads the
 convergence test back, as the JAX ``lax.while_loop`` evaluates it in-graph,
-and the status image is the last executed iteration's.
+and the status image is the last executed iteration's.  Sharded, every
+rank reads the same all-reduced sums, so every rank leaves the loop at the
+same iteration.
 """
 
 from __future__ import annotations
@@ -195,19 +197,33 @@ class TrackState(NamedTuple):
     count: torch.Tensor     # last reduction's inlier count
 
 
+def all_reduce_sums(comm, error2, JTe, JTJ, count):
+    """The normal-equation sums of every rank's strip: one all_reduce of
+    the 44 float32 values (the JAX ``psum``, `tracking.py:247-253`)."""
+    flat = torch.cat([error2.reshape(1), JTe, JTJ.reshape(-1),
+                      count.reshape(1)])
+    flat = comm.all_reduce_sum(flat)
+    return flat[0], flat[1:7], flat[7:43].reshape(6, 6), flat[43]
+
+
 def _level_loop(st: TrackState, n_iters: int, in_vertex, in_normal,
                 ref_vertex, ref_normal, view, icp_threshold: float,
                 symmetric=False, robust: str = "none",
-                robust_delta: float = 0.01, assoc: str = "nearest"):
+                robust_delta: float = 0.01, assoc: str = "nearest",
+                comm=None):
     """Iterate track + reduce + update with the early exit on
-    ||twist|| < icp_threshold.  Returns (state, status image of the last
-    executed iteration, zeros if none ran)."""
+    ||twist|| < icp_threshold; with ``comm`` the sums are all-reduced over
+    its ranks.  Returns (state, status image of the last executed
+    iteration, zeros if none ran)."""
     result = torch.zeros(in_vertex.shape[:-1], dtype=torch.int32,
                          device=in_vertex.device)
     for _ in range(n_iters):
         td = track_kernel(in_vertex, in_normal, ref_vertex, ref_normal,
                           st.pose, view, symmetric=symmetric, assoc=assoc)
         error2, JTe, JTJ, count = reduce_kernel(td, robust, robust_delta)
+        if comm is not None:
+            error2, JTe, JTJ, count = all_reduce_sums(comm, error2, JTe,
+                                                      JTJ, count)
         x = solve_normal_equations(JTe, JTJ)
         st = TrackState(pose=camera.se3_exp(x) @ st.pose, error2=error2,
                         count=count)
@@ -221,29 +237,47 @@ def track(pose, depths, vertices, normals, ref_vertex, ref_normal,
           raycast_pose, k, iterations: Sequence[int], icp_threshold: float,
           track_threshold: float = TRACK_THRESHOLD,
           finest_decimate: int = 1, symmetric=False, robust: str = "none",
-          robust_delta: float = 0.01, assoc: str = "nearest"):
+          robust_delta: float = 0.01, assoc: str = "nearest", shard=None):
     """Coarse-to-fine tracking.  Returns (new_pose, tracked: bool tensor,
     full-res status image of the last level-0 iteration).
     ``finest_decimate`` strides the finest level's input maps; ``symmetric``
     (a bool or a bool tensor), ``robust`` / ``robust_delta`` and ``assoc``
     as in :func:`_residuals`, :func:`robust_weights` and
-    :func:`_gather_ref`."""
+    :func:`_gather_ref`.
+
+    ``shard = (comm, rank, D)`` (JAX `tracking.py:274-330`): each level
+    whose rows divide by D computes the residuals of this rank's row strip
+    only and all-reduces the sums over ``comm`` (a
+    ``parallel.sharding.Comm``) once an iteration; the other levels run
+    whole on every rank.  Both give every rank the same sums.  The status
+    image is then this rank's strip of the finest level when its rows
+    divide by D (the caller gathers the strips)."""
     view = camera.camera_matrix(k) @ inv(raycast_pose)
     zero = torch.zeros((), dtype=torch.float32, device=pose.device)
     st = TrackState(pose=pose, error2=zero, count=zero)
     d = finest_decimate
     result = None
+    n_px = None
     for level in range(len(iterations) - 1, -1, -1):
         iv, inm = vertices[level], normals[level]
         if level == 0 and d > 1:
             iv, inm = iv[::d, ::d], inm[::d, ::d]
+        comm = None
+        if shard is not None and iv.shape[0] % shard[2] == 0:
+            comm, rank, n = shard
+            rows = iv.shape[0] // n
+            if level == 0:
+                n_px = iv.shape[0] * iv.shape[1]
+            iv, inm = (a[rank * rows:(rank + 1) * rows] for a in (iv, inm))
         st, result = _level_loop(st, iterations[level], iv, inm, ref_vertex,
                                  ref_normal, view, icp_threshold,
                                  symmetric=symmetric, robust=robust,
-                                 robust_delta=robust_delta, assoc=assoc)
+                                 robust_delta=robust_delta, assoc=assoc,
+                                 comm=comm)
 
     # divergence check over the finest level actually executed
-    n_px = result.shape[0] * result.shape[1]
+    if n_px is None:
+        n_px = result.shape[0] * result.shape[1]
     rmse = torch.sqrt(st.error2 / torch.clamp(st.count, min=1.0))
     ok = (rmse <= 2e-2) & (st.count / n_px >= track_threshold)
     new_pose = torch.where(ok, st.pose, pose)

@@ -1,2 +1,2 @@
 """Host utilities (counterpart of `supereight_tpu/utils`): performance
-samples."""
+samples and power telemetry."""

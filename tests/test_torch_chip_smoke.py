@@ -272,3 +272,30 @@ def test_same_tables():
     vox["tsdf"][1, 7] = 1.0
     vox["tsdf"][5, 7] = 0.5             # past the blocks: not compared
     assert chip_smoke.same_tables(torch, m.replace(voxels=vox), m, 2)
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.G_RUNS))
+def test_phase_g_runs(name):
+    """Phase G's runs are JAX presets at the full size the presets run
+    (``BASE``: 256^3 over 4.8 m, capacity 6144) over the base sequence,
+    partitioned into their 2 ranks, each rank a slot range of 3072; the
+    G1/G2 gate figures are a JAX sharded run's, its part counts summing to
+    its blocks."""
+    from supereight_tpu.config import PRESETS, Configuration, apply_preset
+    from supereight_tpu_torch.config import SlamConfig
+    from supereight_tpu_torch.parallel import multihost
+    preset, ranks, max_visible, frames = chip_smoke.G_RUNS[name]
+    assert preset in PRESETS and ranks == 2
+    assert chip_smoke.BASE["block_capacity"] // ranks == max_visible
+    job = multihost.job_config(dict(preset=preset, config=chip_smoke.BASE),
+                               ranks)
+    want = apply_preset(preset, Configuration(**chip_smoke.BASE,
+                                              map_partitions=ranks))
+    assert job == SlamConfig.of(want)
+    if name == "G3":
+        assert frames == 4
+        return
+    assert frames == 96
+    tracked, ate_cm, blocks, overflow, parts = chip_smoke.JAX_CPU_G[name]
+    assert sum(parts) == blocks and len(parts) == ranks
+    assert tracked >= chip_smoke.MIN_TRACKED

@@ -711,3 +711,45 @@ def test_bilinear_and_robust_on_card_match_cpu(cuda):
             a, b = a.cpu().double(), b.double()
             assert torch.allclose(a, b, rtol=1e-5,
                                   atol=1e-6 * float(b.abs().max()))
+
+
+def _collectives_want(D):
+    rows = (np.arange(4 * 512).reshape(4, 512) % 61).astype(np.float32)
+    return dict(
+        sums=np.full(44, sum(r + 0.5 for r in range(D)), np.float32),
+        mask=sum(np.arange(8) % (r + 2) for r in range(D)),
+        rows=np.concatenate([rows + 64 * r for r in range(D)]),
+        flags=np.concatenate([np.arange(6) % 2 == r % 2 for r in range(D)]),
+        tgt=np.concatenate([np.arange(5) + 10 * r for r in range(D)]),
+        maps=np.concatenate([np.full((3, 4, 6), float(r))
+                             for r in range(D)]))
+
+
+@pytest.mark.gpu
+def test_gloo_cuda_collectives(cuda):
+    """gloo carries every collective of the multi-device map on CUDA
+    tensors (2 ranks sharing the card): the all_reduce of float32 and
+    int32, the list all_gather of bfloat16 rows and bool flags (as bytes),
+    int64 rows and float32 maps."""
+    from supereight_tpu_torch.parallel import multihost
+    res = multihost.launch_jobs(2, [dict(kind="collectives")],
+                                device="cuda", backend="gloo",
+                                timeout=300, group_timeout=120)[0]
+    want = _collectives_want(2)
+    for got in res:
+        for key, w in want.items():
+            np.testing.assert_array_equal(got[key], w, err_msg=key)
+
+
+@pytest.mark.gpu
+def test_two_rank_frame_on_card(cuda):
+    """The sharded frame on 2 ranks on the card (the backend
+    ``multihost.default_backend`` picks) == the one-device partitioned
+    frame on the card (``multihost.compare``: n_blocks and part_counts
+    equal, pose 1e-4, ref_vertex 1e-3, live voxels 1e-4), every rank
+    launching the fusion kernel on every frame."""
+    from supereight_tpu_torch.parallel import multihost
+    multi, single = multihost.launch(2, device="cuda", timeout=300)
+    assert multi["state"]["n_blocks"] == single["state"]["n_blocks"] > 0
+    for counts in multi["launches_per_rank"]:
+        assert counts["fuse_sdf"] == sum(multi["integrated"]) > 0

@@ -215,7 +215,10 @@ for name in names:
 for sub in ("io", "apps", "tools", "utils"):
     assert any(n.startswith(f"supereight_tpu_torch.{sub}.") for n in names)
 for mod in ("core.algorithms", "core.collision", "core.meshing",
-            "core.morton", "io.serialise", "io.vtk"):
+            "core.morton", "io.serialise", "io.vtk", "apps.viewer",
+            "utils.power", "parallel.sharding", "parallel.allocation_dist",
+            "parallel.tracking_dist", "parallel.raycast_dist",
+            "parallel.frame_dist", "parallel.multihost"):
     assert "supereight_tpu_torch." + mod in names, mod
 import chip_smoke
 bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "flax")

@@ -159,11 +159,27 @@ def test_checkpoint_roundtrip_of_any_channels(tmp_path):
 
 
 def test_partitioned_checkpoint_raises(tmp_path):
+    """A partitioned JAX checkpoint used to raise (partitions were not
+    ported); it now loads with its partitioning, and the port's save of
+    it loads back in JAX.  What still raises: part counts that disagree
+    with ``n_blocks``."""
     jm = jo.init(64, 4.8, (JaxSpec("v", jnp.float32, 0.0, 0.0),),
                  capacity=64, partitions=4)
     jm = jo.allocate_block_mask(jm, jnp.zeros((8, 8, 8), bool)
-                                .at[1, 2, 3].set(True))
+                                .at[1, 2, 3].set(True).at[6, 0, 0].set(True))
     path = str(tmp_path / "map.npz")
     jser.save_map(path, jm)
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+    m = serialise.load_map(path, device="cpu")
+    assert m.partitions == 4 and m.part_counts.tolist() == [1, 0, 0, 1]
+    np.testing.assert_array_equal(m.block_index.numpy(),
+                                  np.asarray(jm.block_index))
+    path2 = str(tmp_path / "map2.npz")
+    serialise.save_map(path2, m)
+    j2 = jser.load_map(path2)
+    assert j2.partitions == 4
+    np.testing.assert_array_equal(np.asarray(j2.part_counts), [1, 0, 0, 1])
+    d = dict(np.load(path))
+    d["part_counts"] = np.array([2, 0, 0, 1], np.int32)
+    np.savez(path, **d)
+    with pytest.raises(ValueError, match="part_counts"):
         serialise.load_map(path, device="cpu")

@@ -155,8 +155,18 @@ def test_slam_config_defaults_match_configuration():
 
 @pytest.mark.parametrize("knob", [dict(map_partitions=2)])
 def test_unported_knobs_raise(knob):
-    with pytest.raises(NotImplementedError):
-        DenseSLAMSystem((240, 320), _config(**knob), "cpu")
+    """``map_partitions`` > 1 raised until partitioned maps were ported;
+    now it builds a partitioned map and steps.  What still raises: a
+    partition count that does not divide the block grid edge."""
+    slam = DenseSLAMSystem((240, 320), _config(**knob), "cpu")
+    assert slam.state.map.partitions == 2
+    depths, poses = load_frames()
+    slam.setPose(poses[0])
+    st = slam.step(depths[0], K, 0)
+    assert st.map.part_counts.sum() == st.map.n_blocks > 0
+    assert (st.map.part_counts > 0).all()
+    with pytest.raises(ValueError, match="must divide"):
+        DenseSLAMSystem((240, 320), _config(map_partitions=3), "cpu")
 
 
 @pytest.mark.parametrize("knob", [dict(raycast_normals="stored"),
