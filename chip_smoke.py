@@ -5,20 +5,38 @@ GPU.
 1. Requires a CUDA device and prints its name and power limit, then builds
    every kernel from ``supereight_tpu_torch/csrc`` (one nvcc per source,
    all started together).
-2. Holds the SDF and the OFusion fusion kernel, each updating a map's
+2. Holds the ICP kernels (``csrc/icp.cu``) against their twins on the
+   operands of the headline frame ICP_FRAME (the system warmed on the
+   frames before it): kernel A ``icp_track_reduce`` at the level shapes
+   80x60, 160x120 and the decimated 160x120, and on rank 1's row strip of
+   it of 2 ranks, in each of the 18 knob groups (nearest / bilinear x
+   symmetric off / on / the device gate x no / Huber / Tukey weights), the
+   status image bit for bit and the sums within ICP_SUM_RTOL +
+   ICP_SUM_MAG x their terms' absolute sum; kernel B ``icp_update`` on
+   kernel A's sums, the twist and pose within ICP_UPDATE_ATOL + the
+   float32 solve's error bound (each beside its distance from the float64
+   solve); both timed beside the launch floor and their bounds; a whole
+   ``track`` on the kernels against one on CPU copies of its operands (the
+   twins; ICP_TRACK_ATOL, ICP_TRACK_FLIPS); the level loops' host and
+   device time; and ``track_levels`` under
+   ``torch.cuda.set_sync_debug_mode("error")``: the level loops must not
+   synchronise.
+3. Holds the SDF and the OFusion fusion kernel, each updating a map's
    block table in place, against their plain PyTorch twins on clones of
    the same table at main-path shapes (3072 distinct slots of a real map,
    a 320x240 depth): whole tables and ``active`` compared, with the
    median device time of each and the kernel's bound.
-3. Holds the gather-probe kernels (K2 ``lane_shuffle_sum``, K3
+4. Holds the gather-probe kernels (K2 ``lane_shuffle_sum``, K3
    ``slab_row_sum``) against their twins at the probe's shapes and at a
    second shape each (K2 at 65536 rows, K3 at 8192 slabs), bit for bit,
    timed beside the launch floor (an empty kernel) and their bounds, then
    runs the probe (``probes/gather_probe.py``), the kernels' own path, and
    prints its four measurements.
-4. Runs the slice's entry points as users run them, each with the fusion
-   kernels' counts set to 0 just before and read just after (every
-   integrated frame must launch one):
+5. Runs the slice's entry points as users run them, each with the fusion
+   and ICP kernels' counts set to 0 just before and read just after (every
+   integrated frame must launch a fusion kernel, and every ICP trip of
+   every level of every tracked frame both ICP kernels: B, D, the presets,
+   F and G's ranks):
    A. ``apps.benchmark`` in ground-truth mode (``-g``) at the headline
       preset on the cached base sequence, written as a .raw stream and a
       TUM trajectory with the port's ``io``: 96/96 frames, ATE < 1e-4 m,
@@ -40,7 +58,7 @@ GPU.
       tables bit for bit, and ``save_se`` -> ``load_se`` on the card giving
       back the same blocks, slots and voxel tables; the mesh is timed
       (CUDA events and the host clock) beside the VTK write.
-5. Runs the nine presets of ``supereight_tpu_torch/config.py``
+6. Runs the nine presets of ``supereight_tpu_torch/config.py``
    (``headline``: SDF, 256^3 over 4.8 m, 320x240, capacity 6144, fusion
    budget 3072; ``ofusion``; then the seven others), each at the size of
    its JAX record over the 96 frames of its cached sequence in
@@ -61,7 +79,7 @@ GPU.
    peak device memory.  After ``1024-quality`` its whole map is meshed on
    the card: blocks, triangles, device and host time, peak memory.
 
-6. Phase F: the ``headline`` preset over the base sequence with one knob
+7. Phase F: the ``headline`` preset over the base sequence with one knob
    group over it each run (``F_RUNS``): F1 stored normals, F2 stored
    normals with the plane refine, F3 the midsolve, F4 Huber weights with
    bilinear association and symmetric ICP, F5 the per-frame symmetric gate
@@ -71,7 +89,7 @@ GPU.
    raycast hitting half the pixels); with stored normals the held gradient
    table equals ``gradmap.build_table`` of the final map on the card and
    the CPU's table of the same map, bit for bit.
-7. Phase G: the multi-device map (``supereight_tpu_torch/parallel``)
+8. Phase G: the multi-device map (``supereight_tpu_torch/parallel``)
    through ``multihost.launch_jobs``, 2 ranks (nccl with one card a rank
    where the host has two, else gloo on CUDA tensors with the ranks
    sharing the card; the choice is printed), each rank a process that
@@ -103,7 +121,7 @@ any check fails.  The last line of its output is one JSON object; the line
 before it lists every kernel with its launches summed over the runs that
 took it (the app phases, the presets and phase G's ranks), its largest
 difference from its twin, the median device times of both at the 3072-row shapes (the
-probe's for K2 and K3), the least time the card could take for that work (``bound_ms``: the bytes the call must
+probe's for K2 and K3, the decimated 160x120 level for the ICP kernels), the least time the card could take for that work (``bound_ms``: the bytes the call must
 move at 3.35 TB/s or its float32 operations at 67 TFLOP/s, the larger;
 for a fusion kernel, the bytes of the voxels this data updates) and,
 where one PyTorch call computes the same function, that call's time.
@@ -248,10 +266,12 @@ MESH_HOLD_BLOCKS = 2048
 MESH_AT_SCALE = "1024-quality"
 
 #: the counts the earlier runs of this code gave on the card; the path is
-#: deterministic, so they repeat exactly (taken again when the normal
-#: equations' sums changed: JTJ a reduction, no longer a GEMM)
-REPEAT = {"headline": dict(tracked=92, ate_cm=0.97, blocks=2769, overflow=0),
-          "ofusion": dict(tracked=92, ate_cm=0.91, blocks=3672, overflow=0)}
+#: deterministic, so they repeat exactly (taken again whenever the order of
+#: the normal equations' sums changes: when JTJ became a reduction instead
+#: of a GEMM, and when icp_track_reduce took the sums over, in its fixed
+#: order: two runs in one call gave these counts both times)
+REPEAT = {"headline": dict(tracked=92, ate_cm=0.97, blocks=2770, overflow=0),
+          "ofusion": dict(tracked=92, ate_cm=0.91, blocks=3675, overflow=0)}
 MIN_TRACKED = 88
 #: least share of the last raycast's pixels that hit the map; ``noise``
 #: fills its table (its record overflows by 1891 blocks), so surface past
@@ -268,6 +288,55 @@ FP32_FLOPS_PER_S = 67e12
 #: test, and of a fused voxel's update, counted in csrc/integrate.cu
 PROJECT_FLOPS = 34
 UPDATE_FLOPS = {"fuse_sdf": 19, "fuse_ofusion": 50}
+
+
+#: the kernels of the JSON line, in its order
+KERNEL_ORDER = ("fuse_sdf", "fuse_ofusion", "lane_shuffle_sum",
+                "slab_row_sum", "icp_track_reduce", "icp_update")
+FUSION = ("fuse_sdf", "fuse_ofusion")
+ICP = ("icp_track_reduce", "icp_update")
+#: the ICP holds: the headline frame whose operands they take (after the
+#: frames before it), its level shapes by (level, stride, (rank, ranks)
+#: strip or None): levels 2 and 1, the finest level strided by the
+#: preset's icp_finest_decimate, and rank 1's strip of it of 2 ranks
+ICP_FRAME = 50
+ICP_SHAPES = {"80x60": (2, 1, None), "160x120": (1, 1, None),
+              "160x120 decimated": (0, 2, None),
+              "160x120 decimated, rank 1 of 2": (0, 2, (1, 2))}
+#: the shape the kernels are timed at (the headline's level 0)
+ICP_MAIN = "160x120 decimated"
+#: the knob groups every shape is held in: association x symmetric residual
+#: (off, on, the per-frame gate on the device) x IRLS weights
+ICP_KNOBS = tuple(dict(assoc=a, symmetric=y, robust=r,
+                       robust_delta=0.02 if r == "tukey" else 0.01)
+                  for a in ("nearest", "bilinear")
+                  for y in ("off", "on", "gate")
+                  for r in ("none", "huber", "tukey"))
+#: tolerances: kernel A's sums within ICP_SUM_RTOL of the twin's plus
+#: ICP_SUM_MAG times the sum of their terms' absolute values (another
+#: summation order), its status image bit for bit; kernel B's twist within
+#: ICP_UPDATE_ATOL of the twin's plus the forward-error bound of a float32
+#: Cholesky solve of the same system, 2 eps cond(JTJ) |x| (a float32
+#: Cholesky in another order than torch.linalg's: on the 80x60 level with
+#: Tukey weights, cond 6450, the twin lies 2.2e-6 from the float64 solve
+#: and the kernel 2.3e-7), its pose within ICP_UPDATE_ATOL plus that bound
+#: times the pose's largest column sum; a whole ``track`` on the kernels
+#: within ICP_TRACK_ATOL of one on the twins, ICP_TRACK_FLIPS of its status
+#: pixels flipped: the tolerance the multi-device frame holds for the same
+#: ICP with its sums added in another order (``multihost.compare``, the
+#: JAX package's 1-vs-N pose tolerance), since ICP amplifies the sums' last
+#: bits from trip to trip (1.6e-5 m at headline frame 50 in the first run)
+ICP_SUM_RTOL, ICP_SUM_MAG = 1e-5, 1e-6
+ICP_UPDATE_ATOL = 1e-6
+FP32_EPS = 2.0 ** -23
+ICP_TRACK_ATOL, ICP_TRACK_FLIPS = 1e-4, 1e-3
+#: float operations (an fma counts two) of kernel A a pixel (nearest, no
+#: symmetric residual, no weights: projection 40, rotation 15, residuals
+#: 28, the 29 terms 51 and their sums 29) and of kernel B a trip (the 6x6
+#: Cholesky and its two solves 220, the exponential 100, the 4x4 product
+#: 112), counted in csrc/icp.cu
+ICP_PIXEL_FLOPS = 163
+ICP_UPDATE_FLOPS = 432
 
 
 def fail(msg: str):
@@ -698,17 +767,320 @@ def check_probe_kernels(torch, dev):
     return kernels
 
 
+def icp_operands(torch, depths, poses, dev):
+    """The headline's tracking operands at frame ICP_FRAME on the card, as
+    ``tracking_stage`` takes them: the system after the frames before it,
+    that frame's preprocessing and pyramid, the reference maps, the view
+    and the start pose."""
+    from supereight_tpu_torch.core import numerics
+    from supereight_tpu_torch.pipeline import camera, preprocessing, system
+    cfg = preset_config("headline")
+    slam = warm_map(cfg, depths, poses, dev, ICP_FRAME)
+    kd, neg_y = slam._k(K)
+    st = system.preprocessing_stage(slam.state, slam._depth(
+        depths[ICP_FRAME]), cfg)
+    pyr = preprocessing.build_pyramid(st.scaled_depth, kd, len(cfg.pyramid),
+                                      neg_y=neg_y)
+    return dict(cfg=cfg, depths=pyr[0], vertices=pyr[1], normals=pyr[2],
+                ref_v=st.ref_vertex, ref_n=st.ref_normal,
+                rpose=st.raycast_pose, k=kd, start=st.pose,
+                view=camera.camera_matrix(kd) @ numerics.inv(
+                    st.raycast_pose))
+
+
+def icp_level(ops, shape):
+    """The input maps of ``ICP_SHAPES[shape]`` (views: strided, a strip)."""
+    level, d, strip = ICP_SHAPES[shape]
+    iv, inm = ops["vertices"][level], ops["normals"][level]
+    iv, inm = iv[::d, ::d], inm[::d, ::d]
+    if strip is not None:
+        rank, n = strip
+        rows = iv.shape[0] // n
+        iv, inm = (a[rank * rows:(rank + 1) * rows] for a in (iv, inm))
+    return iv, inm
+
+
+def icp_carry(torch, pose):
+    """A level's carry at its start: ``pose``, no sums, no trip run."""
+    from supereight_tpu_torch.pipeline import tracking
+    dev = pose.device
+    return tracking.TrackState(
+        pose=pose.clone(), error2=torch.zeros((), device=dev),
+        count=torch.zeros((), device=dev),
+        converged=torch.zeros((), dtype=torch.bool, device=dev),
+        iteration=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def icp_knobs(torch, knobs, dev):
+    """A knob group of ICP_KNOBS as the kernels take it (the gate: a bool
+    on the device)."""
+    sym = {"off": False, "on": True,
+           "gate": torch.tensor(True, device=dev)}[knobs["symmetric"]]
+    return dict(knobs, symmetric=sym)
+
+
+def icp_bytes(torch, ops, iv, inm, knobs) -> int:
+    """Bytes kernel A must move at these operands: the level's input maps
+    read once, the reference rows its in-frame pixels with an input normal
+    reach (one a pixel, four with the bilinear association; each distinct
+    row's 24 bytes once), the status image and the sums written, the pose,
+    the view and the carry's flags read."""
+    from supereight_tpu_torch.pipeline import tracking
+    from supereight_tpu_torch.core.numerics import trunc_i32
+    rH, rW = ops["ref_v"].shape[:2]
+    _, px, py, in_frame = tracking._project(ops["start"], ops["view"], iv,
+                                            rH, rW)
+    need = in_frame & (inm[..., 0] != -2.0)
+    if knobs["assoc"] == "nearest":
+        rows = [trunc_i32(py).clamp(0, rH - 1) * rW
+                + trunc_i32(px).clamp(0, rW - 1)]
+    else:
+        x0 = trunc_i32(torch.floor(px - 0.5)).clamp(0, rW - 1)
+        y0 = trunc_i32(torch.floor(py - 0.5)).clamp(0, rH - 1)
+        x1, y1 = (x0 + 1).clamp(max=rW - 1), (y0 + 1).clamp(max=rH - 1)
+        rows = [y * rW + x for y in (y0, y1) for x in (x0, x1)]
+    distinct = int(torch.unique(torch.cat([r[need] for r in rows])).numel())
+    n_px = iv.shape[0] * iv.shape[1]
+    return n_px * 24 + distinct * 24 + n_px * 4 + 29 * 4 + 2 * 64 + 5
+
+
+def hold_icp(torch, ops, shape, knobs):
+    """Kernel A and its twin at one level shape and knob group, from the
+    start carry, then kernel B and its twin on kernel A's sums, each from
+    its own copy of the carry.  Fails unless the status images are equal
+    and the sums, twists and poses agree within the ICP tolerances.
+    Returns (largest sum difference, largest twist or pose difference,
+    ok pixels)."""
+    from supereight_tpu_torch.ops import icp_kernel as icp
+    from supereight_tpu_torch.pipeline import tracking
+    dev = ops["start"].device
+    iv, inm = icp_level(ops, shape)
+    kn = icp_knobs(torch, knobs, dev)
+    args = (iv, inm, ops["ref_v"], ops["ref_n"], ops["view"])
+    st = icp_carry(torch, ops["start"])
+    res = torch.zeros(iv.shape[:2], dtype=torch.int32, device=dev)
+    sums = torch.zeros(icp.N_SUMS, device=dev)
+    got = icp.icp_track_reduce(*args, st, 4, res.clone(), sums.clone(), **kn)
+    want = icp.icp_track_reduce_twin(*args, st, 4, res, sums, **kn)
+    td = tracking.track_kernel(*args[:4], st.pose, args[4],
+                               symmetric=kn["symmetric"], assoc=kn["assoc"])
+    mag = icp.term_magnitudes(td, tracking.robust_weights(
+        td, kn["robust"], kn["robust_delta"]))
+    g, w = got[1].double(), want[1].double()
+    beyond = int((torch.abs(g - w) > ICP_SUM_RTOL * w.abs()
+                  + ICP_SUM_MAG * mag).sum())
+    flips = int((got[0] != want[0]).sum())
+    x_k, x_t = (torch.zeros(6, device=dev) for _ in range(2))
+    k_st = icp.icp_update(got[1], icp_carry(torch, ops["start"]), 4, 1e-5,
+                          twist=x_k)
+    t_st = icp.icp_update_twin(got[1], icp_carry(torch, ops["start"]), 4,
+                               1e-5, twist=x_t)
+    d_x = float((x_k - x_t).abs().max())
+    d_pose = float((k_st.pose - t_st.pose).abs().max())
+    tol_x, exact = solve_tolerance(torch, got[1])
+    tol_pose = ICP_UPDATE_ATOL + (tol_x - ICP_UPDATE_ATOL) * float(
+        ops["start"].abs().sum(0).max())
+    same = all(torch.equal(getattr(k_st, f), getattr(t_st, f))
+               for f in ("error2", "count", "converged", "iteration"))
+    if flips or beyond or d_x > tol_x or d_pose > tol_pose or not same:
+        fail(f"ICP kernels vs twins at {shape} {knobs}: {flips} statuses "
+             f"differ, {beyond} sums beyond the tolerance, twist {d_x:.3g} "
+             f"(tolerance {tol_x:.3g}), pose {d_pose:.3g} (tolerance "
+             f"{tol_pose:.3g}), carry fields equal {same}")
+    to_exact = [float((x.double().cpu() - exact).abs().max())
+                for x in (x_k, x_t)]
+    return (float((g - w).abs().max()), max(d_x, d_pose),
+            int((got[0] == 1).sum()), to_exact)
+
+
+def solve_tolerance(torch, sums):
+    """(ICP_UPDATE_ATOL + 2 eps cond(JTJ) |x|_inf, the float64 solve x) of
+    the system of the sums (float64 on the host)."""
+    from supereight_tpu_torch.ops import icp_kernel as icp
+    _, JTe, JTJ, _ = icp.unpack_sums(sums)
+    A, b = JTJ.double().cpu(), JTe.double().cpu()
+    x = torch.linalg.solve(A, b)
+    return (ICP_UPDATE_ATOL + 2 * FP32_EPS * float(torch.linalg.cond(A))
+            * float(x.abs().max())), x
+
+
+def check_icp_kernels(torch, depths, poses, dev):
+    """The ICP kernels against their twins on the operands of the headline
+    frame ICP_FRAME: every shape of ICP_SHAPES in every knob group of
+    ICP_KNOBS (kernel A, then kernel B on its sums); both timed at ICP_MAIN
+    with the headline's knobs beside their twins, the launch floor and
+    their bounds; a whole ``track`` on the kernels against one on the
+    twins (CPU copies of the operands); and the level loops of ``track``
+    under
+    ``torch.cuda.set_sync_debug_mode("error")`` in each symmetric mode.
+    Returns the two kernels' JSON entries (launches 0)."""
+    from supereight_tpu_torch.ops import gather_probe as gp
+    from supereight_tpu_torch.ops import icp_kernel as icp
+    from supereight_tpu_torch.pipeline import tracking
+    ops = icp_operands(torch, depths, poses, dev)
+    cfg = ops["cfg"]
+    sum_err = upd_err = 0.0
+    for shape in ICP_SHAPES:
+        oks, k_exact, t_exact = [], 0.0, 0.0
+        for knobs in ICP_KNOBS:
+            e_sum, e_upd, n_ok, (k_x, t_x) = hold_icp(torch, ops, shape,
+                                                       knobs)
+            sum_err, upd_err = max(sum_err, e_sum), max(upd_err, e_upd)
+            k_exact, t_exact = max(k_exact, k_x), max(t_exact, t_x)
+            oks.append(n_ok)
+        iv, _ = icp_level(ops, shape)
+        print(f"# ICP kernels vs twins at {shape} ({iv.shape[0]}x"
+              f"{iv.shape[1]} pixels, headline frame {ICP_FRAME}), "
+              f"{len(ICP_KNOBS)} knob groups: status images equal, ok pixels "
+              f"{min(oks)}-{max(oks)}; largest sum difference so far "
+              f"{sum_err:.3g} (tolerance rtol {ICP_SUM_RTOL} + {ICP_SUM_MAG}"
+              f" x the terms' absolute sum), twist/pose {upd_err:.3g} "
+              f"(tolerance {ICP_UPDATE_ATOL} + 2 eps cond(JTJ) |x|); twist "
+              f"from the float64 solve: kernel {k_exact:.3g}, twin "
+              f"{t_exact:.3g}")
+
+    # times at the headline's level 0 with its knobs
+    main = dict(ICP_KNOBS[0])
+    iv, inm = icp_level(ops, ICP_MAIN)
+    args = (iv, inm, ops["ref_v"], ops["ref_n"], ops["view"])
+    st = icp_carry(torch, ops["start"])
+    res = torch.zeros(iv.shape[:2], dtype=torch.int32, device=dev)
+    sums = torch.zeros(icp.N_SUMS, device=dev)
+    scratch = icp.make_scratch(res.numel(), dev)
+    kn = icp_knobs(torch, main, dev)
+    run_a = lambda: icp.icp_track_reduce(*args, st, 4, res, sums,
+                                         scratch=scratch, **kn)
+    plain_a = lambda: icp.icp_track_reduce_twin(*args, st, 4, res, sums,
+                                                **kn)
+    run_a()
+    carry = icp_carry(torch, ops["start"])
+    reset = lambda: [a.copy_(b) for a, b in zip(
+        carry, icp_carry(torch, ops["start"]))]
+    run_b = lambda: icp.icp_update(sums, carry, 4, 1e-5)
+    plain_b = lambda: icp.icp_update_twin(sums, carry, 4, 1e-5)
+    floor = median_ms(lambda: gp.empty_launch(dev))
+    a_ms, a_plain = median_ms(run_a), median_ms(plain_a)
+    b_ms, b_plain = median_ms(run_b, reset), median_ms(plain_b, reset)
+    a_bytes = icp_bytes(torch, ops, iv, inm, main)
+    a_bound = bound(a_bytes, iv.shape[0] * iv.shape[1] * ICP_PIXEL_FLOPS)
+    b_bound = bound(icp.N_SUMS * 4 + 2 * 64 + 4 * 4, ICP_UPDATE_FLOPS)
+    print(f"# icp_track_reduce at {ICP_MAIN} (nearest, plain residual, no "
+          f"weights): median device time over {TIMED_RUNS} runs "
+          f"{a_ms:.4f} ms, plain twin {a_plain:.4f} ms, launch floor "
+          f"{floor:.4f} ms; bound {a_bound[0]:.6f} ms ({a_bound[1]}: "
+          f"{a_bytes / 1e6:.3f} MB)")
+    print(f"# icp_update: {b_ms:.4f} ms, plain twin {b_plain:.4f} ms; bound "
+          f"{b_bound[0]:.2e} ms ({b_bound[1]})")
+    for shape in ICP_SHAPES:
+        if shape == ICP_MAIN:
+            continue
+        lv = icp_level(ops, shape)
+        r2 = torch.zeros(lv[0].shape[:2], dtype=torch.int32, device=dev)
+        ms = median_ms(lambda: icp.icp_track_reduce(
+            *lv, ops["ref_v"], ops["ref_n"], ops["view"], st, 4, r2, sums,
+            **kn))
+        print(f"# icp_track_reduce at {shape}: {ms:.4f} ms")
+
+    # a whole track on the kernels against one on the twins (the CPU path)
+    targs = (ops["depths"], ops["vertices"], ops["normals"], ops["ref_v"],
+             ops["ref_n"], ops["rpose"], ops["k"])
+    kw = dict(finest_decimate=cfg.icp_finest_decimate)
+    got = tracking.track(ops["start"], *targs, cfg.pyramid,
+                         cfg.icp_threshold, **kw)
+    want = tracking.track(*to_device(
+        [ops["start"], *targs], "cpu"), cfg.pyramid, cfg.icp_threshold, **kw)
+    d_pose = float((got[0].cpu() - want[0]).abs().max())
+    flips = float((got[2].cpu() != want[2]).float().mean())
+    print(f"# track at headline frame {ICP_FRAME}, kernels vs twins on the "
+          f"CPU: pose "
+          f"{d_pose:.3g} (tolerance {ICP_TRACK_ATOL}), tracked "
+          f"{bool(got[1])} / {bool(want[1])}, status flips {flips:.5f} "
+          f"(tolerance {ICP_TRACK_FLIPS})")
+    if d_pose > ICP_TRACK_ATOL or bool(got[1]) != bool(want[1]) or \
+            flips > ICP_TRACK_FLIPS:
+        fail("track on the ICP kernels parts from track on the twins")
+
+    # the level loops: host and device time, then no host read
+    lv = (ops["vertices"], ops["normals"], ops["ref_v"], ops["ref_n"],
+          ops["view"])
+    levels = lambda: tracking.track_levels(ops["start"], *lv, cfg.pyramid,
+                                           cfg.icp_threshold, **kw)
+    levels_dev = median_ms(levels)
+    host = []
+    for _ in range(TIMED_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        levels()
+        torch.cuda.synchronize()
+        host.append(1e3 * (time.perf_counter() - t0))
+    levels_host = statistics.median(host)
+    print(f"# track_levels at headline frame {ICP_FRAME} ({sum(cfg.pyramid)}"
+          f" trips, {2 * sum(cfg.pyramid)} kernel launches): "
+          f"{levels_host:.3f} ms on the host clock (synchronised), "
+          f"{levels_dev:.3f} ms of device time (CUDA events, the launches "
+          f"queued behind a sleep), medians of {TIMED_RUNS}")
+    for sym in ("off", "on", "gate"):
+        kn = icp_knobs(torch, dict(ICP_KNOBS[0], symmetric=sym), dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            tracking.track_levels(ops["start"], *lv, cfg.pyramid,
+                                  cfg.icp_threshold, **kw, **kn)
+        except RuntimeError as e:
+            fail(f"the level loops synchronised (symmetric {sym}): {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    print("# track_levels under set_sync_debug_mode('error') (symmetric off,"
+          " on, the gate): no synchronising call")
+
+    src = "supereight_tpu_torch/csrc/icp.cu"
+    return {
+        "icp_track_reduce": dict(
+            name="icp_track_reduce", route="cuda", source=src,
+            replaces="supereight_tpu/pipeline/tracking.py:235", launches=0,
+            max_abs_err=sum_err, ms=a_ms, plain_ms=a_plain,
+            bound_ms=a_bound[0], bound_by=a_bound[1], library_ms=None,
+            launch_floor_ms=floor, levels_host_ms=levels_host,
+            levels_device_ms=levels_dev),
+        "icp_update": dict(
+            name="icp_update", route="cuda", source=src,
+            replaces="supereight_tpu/pipeline/tracking.py:254", launches=0,
+            max_abs_err=upd_err, ms=b_ms, plain_ms=b_plain,
+            bound_ms=b_bound[0], bound_by=b_bound[1], library_ms=None,
+            launch_floor_ms=floor)}
+
+
+def icp_expected(cfg, n_frames: int) -> int:
+    """Launches of each ICP kernel over ``n_frames`` frames run with ICP:
+    every trip of every level of each frame that tracks."""
+    return sum(cfg.pyramid) * sum(1 for f in range(n_frames)
+                                  if f % cfg.tracking_rate == 0)
+
+
+def check_icp_launched(label, counts, expected=None):
+    """Every ICP trip of the path went through both kernels: their counts
+    equal and above 0, and ``expected`` (every trip of every level of
+    every tracked frame) where it is known."""
+    a, b = counts["icp_track_reduce"], counts["icp_update"]
+    print(f"# {label}: ICP LAUNCHES icp_track_reduce {a}, icp_update {b}"
+          + ("" if expected is None else f" (every trip: {expected})"))
+    if a == 0 or a != b or (expected is not None and a != expected):
+        fail(f"{label}: ICP launches {a} / {b}, expected "
+             f"{expected or 'equal and above 0'}: the path did not go "
+             "through the ICP kernels")
+
+
 def run_slam(torch, cfg, depths, poses, dev):
     """A main path: every cached frame through DenseSLAMSystem.step, with
-    the fusion kernels' counts set to 0 just before and read just after."""
-    from supereight_tpu_torch.ops import integrate_kernel as ik
+    the fusion and ICP kernels' counts set to 0 just before and read just
+    after."""
     from supereight_tpu_torch.pipeline import DenseSLAMSystem
 
     slam = DenseSLAMSystem((240, 320), cfg, dev)
     slam.setPose(poses[0])
     est, tracked, integrated, ms = [], [], [], []
-    for k in ik.LAUNCHES:
-        ik.LAUNCHES[k] = 0
+    reset_launches()
     t0 = time.perf_counter()
     for f in range(len(depths)):
         t1 = time.perf_counter()
@@ -718,10 +1090,11 @@ def run_slam(torch, cfg, depths, poses, dev):
         est.append(st.pose.cpu().numpy())
         tracked.append(st.tracked)
         integrated.append(st.integrated)
-    launches = dict(ik.LAUNCHES)
+    counts = launches()
     st = slam.state
     return dict(slam=slam, est=np.stack(est), tracked=sum(tracked),
-                integrated=sum(integrated), ms=ms, launches=launches,
+                integrated=sum(integrated), ms=ms, launches=counts,
+                icp_expected=icp_expected(cfg, len(depths)),
                 wall=time.perf_counter() - t0,
                 blocks=int(st.map.n_blocks), overflow=int(st.map.overflow),
                 ref_vertex=st.ref_vertex, ref_normal=st.ref_normal)
@@ -742,6 +1115,7 @@ def check_run(torch, name, r, poses, record, max_ate, counter):
           f"{record['overflow']})")
     print(f"# {name}: {counter} LAUNCHES {launches} over "
           f"{r['integrated']} integrated frames")
+    check_icp_launched(name, r["launches"], r["icp_expected"])
     print(f"# {name}: median ms/frame after the first 16 frames: "
           f"{statistics.median(r['ms'][16:]):.2f} (first frame "
           f"{r['ms'][0]:.1f} ms)")
@@ -1026,6 +1400,11 @@ def run_phase_g(torch, dev, kernels):
         if integrated == 0 or min(per_rank) < integrated:
             fail(f"{name}: a rank launched {counter} fewer times than the "
                  f"{integrated} integrated frames")
+        want_icp = icp_expected(preset_config(preset), n_frames)
+        for rank, counts in enumerate(multi["icp_launches_per_rank"]):
+            check_icp_launched(f"{name} rank {rank}", counts, want_icp)
+        for k, n in multi["icp_launches"].items():
+            kernels[k]["launches"] += n
         if int(st["part_counts"].sum()) != st["n_blocks"]:
             fail(f"{name}: part_counts {st['part_counts']} do not sum to "
                  f"{st['n_blocks']} blocks")
@@ -1093,14 +1472,17 @@ def run_phase_g(torch, dev, kernels):
 
 
 def reset_launches():
-    from supereight_tpu_torch.ops import integrate_kernel as ik
-    for k in ik.LAUNCHES:
-        ik.LAUNCHES[k] = 0
+    """Every kernel count of the SLAM paths (fusion and ICP) set to 0."""
+    from supereight_tpu_torch.ops import icp_kernel, integrate_kernel as ik
+    for counts in (ik.LAUNCHES, icp_kernel.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def launches():
-    from supereight_tpu_torch.ops import integrate_kernel as ik
-    return dict(ik.LAUNCHES)
+    """The fusion and ICP kernels' counts."""
+    from supereight_tpu_torch.ops import icp_kernel, integrate_kernel as ik
+    return {**ik.LAUNCHES, **icp_kernel.LAUNCHES}
 
 
 def check_blocks(label, blocks, want):
@@ -1112,6 +1494,7 @@ def check_blocks(label, blocks, want):
 
 def check_launched(label, counts, integrated):
     """The fusion kernels launched at least once per integrated frame."""
+    counts = {k: n for k, n in counts.items() if k in FUSION}
     n = sum(counts.values())
     print(f"# {label}: fusion LAUNCHES {counts} over {integrated} "
           "integrated frames")
@@ -1133,10 +1516,11 @@ def write_sequence(tmp, depths, poses):
     return os.path.join(tmp, "seq.raw"), os.path.join(tmp, "seq.gt")
 
 
-def app_phase(torch, label, argv, poses, tmp):
-    """``apps.benchmark`` over the sequence with ``argv``, its fusion
+def app_phase(torch, label, argv, poses, tmp, icp=False):
+    """``apps.benchmark`` over the sequence with ``argv``, its kernel
     counts set to 0 just before: returns the run's figures from its TSV
-    log, its state and its last images."""
+    log, its state and its last images, and its counts.  With ``icp`` the
+    run tracks every frame with ICP, every trip through the kernels."""
     from supereight_tpu_torch.apps import benchmark
     log = os.path.join(tmp, label + ".tsv")
     reset_launches()
@@ -1163,6 +1547,10 @@ def app_phase(torch, label, argv, poses, tmp):
           f"{out['overflow']}; median computation {out['ms']:.2f} ms/frame "
           "after the first 16 frames")
     check_launched(label, counts, out["integrated"])
+    if icp:
+        check_icp_launched(label, counts, icp_expected(
+            r.system.config, len(poses)))
+    out["launches"] = counts
     if out["rows"] != len(poses):
         fail(f"{label}: {out['rows']} TSV rows for {len(poses)} frames")
     if out["overflow"]:
@@ -1181,14 +1569,14 @@ def check_apps(torch, depths, poses, dev):
     from supereight_tpu_torch.config import SlamConfig
     from supereight_tpu_torch.pipeline import DenseSLAMSystem
 
-    total = {"fuse_sdf": 0, "fuse_ofusion": 0}
+    total = dict.fromkeys(KERNEL_ORDER, 0)
     figures = {}
     with tempfile.TemporaryDirectory() as tmp:
         rawp, gtp = write_sequence(tmp, depths, poses)
         a = app_phase(torch, "A app ground truth",
                       ["-i", rawp] + APP_ARGS + ["-c", "0", "-g", gtp],
                       poses, tmp)
-        total = {k: total[k] + n for k, n in launches().items()}
+        total = {k: total[k] + n for k, n in a["launches"].items()}
         print(f"# A: blocks {a['blocks']} (JAX on the CPU "
               f"{JAX_CPU_APP['gt_blocks']})")
         if a["tracked"] != len(poses):
@@ -1198,8 +1586,9 @@ def check_apps(torch, depths, poses, dev):
         check_blocks("A", a["blocks"], JAX_CPU_APP["gt_blocks"])
 
         b = app_phase(torch, "B app ICP",
-                      ["-i", rawp] + APP_ARGS + APP_ICP_START, poses, tmp)
-        total = {k: total[k] + n for k, n in launches().items()}
+                      ["-i", rawp] + APP_ARGS + APP_ICP_START, poses, tmp,
+                      icp=True)
+        total = {k: total[k] + n for k, n in b["launches"].items()}
         gate = JAX_CPU_APP["icp_ate_cm"] + APP_ICP_ATE_MARGIN_CM
         print(f"# B: ATE {100 * b['ate']:.2f} cm (JAX on the CPU "
               f"{JAX_CPU_APP['icp_ate_cm']}, gate {gate:.2f}), blocks "
@@ -1248,7 +1637,7 @@ def check_apps(torch, depths, poses, dev):
         fail(f"C: overflow {c['overflow']}, ATE {c['ate']:.3g} m")
     for name, r in (("A", a), ("B", b), ("C", c)):
         figures[name] = {k: v for k, v in r.items()
-                         if k not in ("images", "system")}
+                         if k not in ("images", "system", "launches")}
     return total, figures
 
 
@@ -1298,6 +1687,7 @@ def check_runner(torch, dev):
           f"{res['rpe_rot_rmse_deg']:.3f} deg, rerun "
           f"{res.get('auto_regime', 'none')}")
     check_launched("D", launches(), integrated)
+    check_icp_launched("D", launches())
     if res["tracked_ratio"] < RUNNER_MIN_TRACKED:
         fail(f"D: tracked ratio {res['tracked_ratio']} < "
              f"{RUNNER_MIN_TRACKED}")
@@ -1361,7 +1751,7 @@ def check_map_outputs(torch, depths, poses, dev):
                                                  "-d", npz,
                                                  "--dump-mesh", vtk_path],
                       poses, tmp)
-        counts = launches()
+        counts = e.pop("launches")
         slam = e.pop("system")
         m = slam.state.map
         with open(vtk_path) as f:
@@ -1466,11 +1856,12 @@ def main():
     depths, poses = load_sequence("synthetic_256_frames")
 
     build_kernels()
-    kernels = {
+    kernels = check_icp_kernels(torch, depths, poses, dev)
+    kernels.update({
         "fuse_sdf": check_fusion_kernel(torch, "fuse_sdf", "headline", 6,
                                         depths, poses, dev),
         "fuse_ofusion": check_fusion_kernel(torch, "fuse_ofusion", "ofusion",
-                                            8, depths, poses, dev)}
+                                            8, depths, poses, dev)})
     kernels.update(check_probe_kernels(torch, dev))
     app_launches, _ = check_apps(torch, depths, poses, dev)
     runner_launches, _ = check_runner(torch, dev)
@@ -1484,8 +1875,7 @@ def main():
     run_phase_g(torch, dev, kernels)
     print(f"# all runs done in {time.perf_counter() - t_start:.1f} s")
 
-    order = ("fuse_sdf", "fuse_ofusion", "lane_shuffle_sum", "slab_row_sum")
-    print(json.dumps({"kernels": [kernels[k] for k in order]}))
+    print(json.dumps({"kernels": [kernels[k] for k in KERNEL_ORDER]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

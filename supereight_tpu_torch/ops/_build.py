@@ -82,7 +82,7 @@ def library_path(name: str) -> Path:
 
 
 #: every kernel source of the package
-SOURCES = ("integrate", "gather_probe")
+SOURCES = ("integrate", "gather_probe", "icp")
 #: host sources, built with the C++ compiler
 HOST_SOURCES = ("io_native",)
 

@@ -10,8 +10,12 @@ knobs, except ``integrate_budget`` (each rank streams its own
   partition r (x-slab r of the block grid), so every per-slot update lands
   on its owner.  Metadata and image-space state are replicated.
 * **tracking**: per-level image-row strips and one ``all_reduce`` of the
-  normal equations an iteration (``tracking.track(shard=)``); the finest
-  level's status strips ``all_gather`` back.
+  normal equations' sums every trip (``tracking.track(shard=)``), between
+  the two ICP kernels, with no host read: every rank runs all ``n_iters``
+  trips of every level (those after the exit change nothing) and takes
+  the exit from its carry, which the identical all-reduced sums keep
+  identical on every rank; the finest level's status strips
+  ``all_gather`` back.
 * **allocation**: each rank marches a round-robin share of the ray rows;
   the request masks merge with one ``all_reduce`` (bit for bit the
   whole-frame mask) and every rank runs the same allocator on the

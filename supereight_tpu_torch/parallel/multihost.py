@@ -17,12 +17,14 @@ Jobs (dicts; see :func:`run_job`):
   cached ``.npz`` (``depths`` uint16, ``poses``, ``k``) or the small
   synthetic orbit of the JAX launcher (48x64 at 64^3, rendered by each
   rank); each rank's final state, per-frame poses and times, and the
-  fusion kernels' launches;
+  fusion and ICP kernels' launches;
 * ``split``: the sharded frame from given states, its two halves held
   apart (the tracking half from the state before a frame, the mapping
   half from the pose after it), as ``tests/torch_port_util.step_split``
   does on one device;
-* ``mask`` / ``reduce`` / ``raycast``: one sharded stage on given inputs;
+* ``mask`` / ``reduce`` / ``raycast`` / ``track``: one sharded stage on
+  given inputs (``track``: the strip-sharded coarse-to-fine ICP of
+  ``tracking.track(shard=)``, with its final carry);
 * ``collectives``: each collective the map issues, on each dtype it
   sends, with rank-dependent values (a check of the backend).
 
@@ -204,7 +206,7 @@ def run_job(comm, job: dict, dev) -> dict:
         return _split_job(comm, job, dev)
     if kind == "collectives":
         return _collectives_job(comm, dev)
-    if kind in ("mask", "reduce", "raycast"):
+    if kind in _PROBES:
         with open(job["inputs"], "rb") as f:
             inputs = pickle.load(f)
         return _PROBES[kind](comm, inputs, dev)
@@ -222,7 +224,7 @@ def _frames_job(comm, job: dict, dev) -> dict:
     """The sharded frame over the job's frames; the fusion kernels' counts
     are set to 0 just before the frames and read just after."""
     import torch
-    from supereight_tpu_torch.ops import integrate_kernel as ik
+    from supereight_tpu_torch.ops import icp_kernel, integrate_kernel as ik
     from supereight_tpu_torch.pipeline import DenseSLAMSystem
     from .frame_dist import frame_sharding
 
@@ -237,8 +239,9 @@ def _frames_job(comm, job: dict, dev) -> dict:
     kd, neg_y = slam._k(k)
     stats = {} if job.get("timed") else None
     est, tracked, integrated, ms, stages = [], [], [], [], []
-    for name in ik.LAUNCHES:
-        ik.LAUNCHES[name] = 0
+    for counts in (ik.LAUNCHES, icp_kernel.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
     for f in range(len(depths)):
         depth = slam._depth(depths[f])
         timed = stats is not None and f >= TIME_AFTER and rank == 0
@@ -257,10 +260,11 @@ def _frames_job(comm, job: dict, dev) -> dict:
         est.append(_np(st.pose))
         tracked.append(bool(st.tracked))
         integrated.append(bool(st.integrated))
-    launches = dict(ik.LAUNCHES)
     out = dict(rank=rank, est=np.stack(est), tracked=tracked,
                integrated=integrated, ms=ms, stages=stages,
-               launches=launches, state=state_record(st),
+               launches=dict(ik.LAUNCHES),
+               icp_launches=dict(icp_kernel.LAUNCHES),
+               state=state_record(st),
                collectives=dict(seconds=dict(comm.seconds),
                                 calls=dict(comm.calls),
                                 bytes=dict(comm.bytes)),
@@ -384,6 +388,32 @@ def _reduce_probe(comm, inp: dict, dev) -> dict:
     return dict(pose=_np(pose), error2=float(e2), count=float(count))
 
 
+def _track_probe(comm, inp: dict, dev) -> dict:
+    """``tracking.track`` with this rank's strips (``inp``: the pyramid's
+    ``depths`` / ``vertices`` / ``normals`` lists, the reference maps, the
+    raycast pose, ``k``, ``iterations``, ``icp_threshold``,
+    ``finest_decimate`` and the ICP knobs ``kw``)."""
+    import torch
+    from supereight_tpu_torch.core.numerics import inv
+    from supereight_tpu_torch.pipeline import camera, tracking
+    t = lambda a: torch.as_tensor(np.asarray(a), device=dev)
+    lists = {k: [t(a) for a in inp[k]]
+             for k in ("depths", "vertices", "normals")}
+    args = (t(inp["pose"]), lists["depths"], lists["vertices"],
+            lists["normals"], t(inp["ref_vertex"]), t(inp["ref_normal"]))
+    kw = dict(inp["kw"], finest_decimate=inp["finest_decimate"],
+              shard=(comm, comm.rank, comm.size))
+    pose, ok, result = tracking.track(*args, t(inp["raycast_pose"]),
+                                      t(inp["k"]), inp["iterations"],
+                                      inp["icp_threshold"], **kw)
+    view = camera.camera_matrix(t(inp["k"])) @ inv(t(inp["raycast_pose"]))
+    st, _, _ = tracking.track_levels(
+        args[0], lists["vertices"], lists["normals"], *args[4:], view,
+        inp["iterations"], inp["icp_threshold"], **kw)
+    return dict(pose=_np(pose), ok=bool(ok), result=_np(result),
+                iteration=int(st.iteration), converged=bool(st.converged))
+
+
 def _raycast_probe(comm, inp: dict, dev) -> dict:
     import torch
     from supereight_tpu_torch import convert
@@ -403,7 +433,7 @@ def _raycast_probe(comm, inp: dict, dev) -> dict:
 
 
 _PROBES = {"mask": _mask_probe, "reduce": _reduce_probe,
-           "raycast": _raycast_probe}
+           "raycast": _raycast_probe, "track": _track_probe}
 
 
 # ----------------------------------------------------------------------
@@ -479,7 +509,9 @@ def launch_jobs(ranks: int, jobs: list, *, device: str = "cuda",
 
 def gather_ranks(results: list) -> dict:
     """The ``frames`` job's result of rank 0 with the whole brick table
-    (every rank's rows in rank order) and every rank's launches."""
+    (every rank's rows in rank order) and every rank's launches (the
+    fusion kernels' in ``launches``, the ICP kernels' in
+    ``icp_launches``)."""
     out = dict(results[0])
     st = dict(out["state"])
     st["voxels"] = {k: np.concatenate([r["state"]["voxels"][k]
@@ -489,6 +521,9 @@ def gather_ranks(results: list) -> dict:
     out["launches_per_rank"] = [r["launches"] for r in results]
     out["launches"] = {k: sum(r["launches"][k] for r in results)
                        for k in results[0]["launches"]}
+    out["icp_launches_per_rank"] = [r["icp_launches"] for r in results]
+    out["icp_launches"] = {k: sum(r["icp_launches"][k] for r in results)
+                           for k in results[0]["icp_launches"]}
     return out
 
 

@@ -5,7 +5,9 @@ The reference reduces per-pixel ICP residuals through an 8-stripe OpenMP
 buffer (`tracking.cpp:66-224`); across ranks each computes the sums of its
 row strip and one all_reduce gives every rank the global 6x6 system, so
 the pose update is the same on every rank.  The whole-frame tracker does
-this level by level (``tracking.track(shard=)``).
+this level by level (``tracking.track(shard=)``), every trip of its device
+loop between the two ICP kernels; the helpers here are one plain
+iteration of it (the JAX module's API).
 """
 
 from __future__ import annotations

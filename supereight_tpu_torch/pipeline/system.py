@@ -110,7 +110,10 @@ def tracking_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
     ``gt_pose`` (float32 [4,4] on the state's device) bypasses ICP, as the
     reference's ground-truth mode does: it becomes the pose, the frame
     counts as tracked and the ICP status image is kept.  ``shard``: as
-    ``tracking.track``'s (the status image is then the rank's strip)."""
+    ``tracking.track``'s (the status image is then the rank's strip).
+    The level loops read nothing back (the ICP kernels' carry); the stage's
+    host reads are the raycast pose's inverse (``numerics.inv``) and the
+    ``tracked`` flag the integration gate takes."""
     if gt_pose is not None:
         return state.replace(pose=gt_pose.clone(), tracked=True,
                              prev_pose=state.pose.clone())

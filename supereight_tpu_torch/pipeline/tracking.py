@@ -3,11 +3,17 @@
 plain, symmetric or per-frame gated symmetric residual, optional Huber or
 Tukey IRLS weights; image-row strips over D ranks with ``track(shard=)``).
 
-The per-level iteration loop is a host loop: each iteration reads the
-convergence test back, as the JAX ``lax.while_loop`` evaluates it in-graph,
-and the status image is the last executed iteration's.  Sharded, every
-rank reads the same all-reduced sums, so every rank leaves the loop at the
-same iteration.
+Each pyramid level runs as the JAX ``lax.while_loop`` does, with its carry
+on the device (:class:`TrackState`: pose, error2, count, converged,
+iteration) and nothing read back inside a level: the host queues all
+``n_iters`` trips, and a trip after ``converged`` is set changes nothing.
+A trip is two calls of `ops/icp_kernel.py`: association, residuals and
+the normal equations' sums (:func:`~supereight_tpu_torch.ops.icp_kernel.\
+icp_track_reduce`), then the solve and the pose update
+(:func:`~supereight_tpu_torch.ops.icp_kernel.icp_update`); on the card two
+CUDA kernels, on the CPU their twins, which run this module's functions.
+Sharded, the sums are all-reduced between the two, so every rank issues
+the same collectives and takes the same decisions.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import numpy as np
 import torch
 
 from supereight_tpu_torch.core.numerics import fma, inv, trunc_i32
+from supereight_tpu_torch.ops import icp_kernel
 from . import camera
 from .constants import (DIST_THRESHOLD, INVALID, NORMAL_THRESHOLD,
                         TRACK_THRESHOLD)
@@ -192,9 +199,13 @@ def solve_normal_equations(JTe, JTJ):
 
 
 class TrackState(NamedTuple):
-    pose: torch.Tensor      # [4,4]
-    error2: torch.Tensor    # last reduction's error^2 sum
-    count: torch.Tensor     # last reduction's inlier count
+    """The level loop's carry (JAX `tracking.py:203-208`)."""
+    pose: torch.Tensor       # [4,4]
+    error2: torch.Tensor     # last reduction's error^2 sum
+    count: torch.Tensor      # last reduction's inlier count
+    converged: torch.Tensor  # bool: the last trip's twist was below the
+    #                          threshold
+    iteration: torch.Tensor  # int32: trips run at this level
 
 
 def all_reduce_sums(comm, error2, JTe, JTJ, count):
@@ -211,26 +222,65 @@ def _level_loop(st: TrackState, n_iters: int, in_vertex, in_normal,
                 symmetric=False, robust: str = "none",
                 robust_delta: float = 0.01, assoc: str = "nearest",
                 comm=None):
-    """Iterate track + reduce + update with the early exit on
-    ||twist|| < icp_threshold; with ``comm`` the sums are all-reduced over
-    its ranks.  Returns (state, status image of the last executed
-    iteration, zeros if none ran)."""
-    result = torch.zeros(in_vertex.shape[:-1], dtype=torch.int32,
-                         device=in_vertex.device)
+    """Track + reduce + update with the early exit on ||twist|| <
+    icp_threshold, as JAX's ``lax.while_loop``: ``converged`` and
+    ``iteration`` restart at 0, then all ``n_iters`` trips are queued and
+    those after the exit change nothing.  With ``comm`` the sums are
+    all-reduced over its ranks every trip.  Returns (state, status image of
+    the last trip that ran, zeros if none ran)."""
+    dev = in_vertex.device
+    st = st._replace(converged=torch.zeros((), dtype=torch.bool, device=dev),
+                     iteration=torch.zeros((), dtype=torch.int32,
+                                           device=dev))
+    result = torch.zeros(in_vertex.shape[:-1], dtype=torch.int32, device=dev)
+    sums = torch.zeros(icp_kernel.N_SUMS, dtype=torch.float32, device=dev)
+    scratch = icp_kernel.make_scratch(result.numel(), dev)
     for _ in range(n_iters):
-        td = track_kernel(in_vertex, in_normal, ref_vertex, ref_normal,
-                          st.pose, view, symmetric=symmetric, assoc=assoc)
-        error2, JTe, JTJ, count = reduce_kernel(td, robust, robust_delta)
+        result, sums = icp_kernel.icp_track_reduce(
+            in_vertex, in_normal, ref_vertex, ref_normal, view, st, n_iters,
+            result, sums, symmetric=symmetric, robust=robust,
+            robust_delta=robust_delta, assoc=assoc, scratch=scratch)
         if comm is not None:
-            error2, JTe, JTJ, count = all_reduce_sums(comm, error2, JTe,
-                                                      JTJ, count)
-        x = solve_normal_equations(JTe, JTJ)
-        st = TrackState(pose=camera.se3_exp(x) @ st.pose, error2=error2,
-                        count=count)
-        result = td.result
-        if bool(norm(x) < icp_threshold):
-            break
+            sums = comm.all_reduce_sum(sums)
+        st = icp_kernel.icp_update(sums, st, n_iters, icp_threshold)
     return st, result
+
+
+def track_levels(pose, vertices, normals, ref_vertex, ref_normal, view,
+                 iterations: Sequence[int], icp_threshold: float,
+                 finest_decimate: int = 1, symmetric=False,
+                 robust: str = "none", robust_delta: float = 0.01,
+                 assoc: str = "nearest", shard=None):
+    """The coarse-to-fine level loops of :func:`track` from ``pose``, with
+    ``view`` = K @ inv(raycast_pose): no host read.  Returns (final
+    :class:`TrackState`, status image of the last level's last trip,
+    pixels of the finest level actually run, or None when they are the
+    status image's)."""
+    dev = pose.device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    st = TrackState(pose=pose.clone(), error2=zero, count=zero.clone(),
+                    converged=torch.zeros((), dtype=torch.bool, device=dev),
+                    iteration=torch.zeros((), dtype=torch.int32, device=dev))
+    d = finest_decimate
+    result = None
+    n_px = None
+    for level in range(len(iterations) - 1, -1, -1):
+        iv, inm = vertices[level], normals[level]
+        if level == 0 and d > 1:
+            iv, inm = iv[::d, ::d], inm[::d, ::d]
+        comm = None
+        if shard is not None and iv.shape[0] % shard[2] == 0:
+            comm, rank, n = shard
+            rows = iv.shape[0] // n
+            if level == 0:
+                n_px = iv.shape[0] * iv.shape[1]
+            iv, inm = (a[rank * rows:(rank + 1) * rows] for a in (iv, inm))
+        st, result = _level_loop(st, iterations[level], iv, inm, ref_vertex,
+                                 ref_normal, view, icp_threshold,
+                                 symmetric=symmetric, robust=robust,
+                                 robust_delta=robust_delta, assoc=assoc,
+                                 comm=comm)
+    return st, result, n_px
 
 
 def track(pose, depths, vertices, normals, ref_vertex, ref_normal,
@@ -253,27 +303,11 @@ def track(pose, depths, vertices, normals, ref_vertex, ref_normal,
     image is then this rank's strip of the finest level when its rows
     divide by D (the caller gathers the strips)."""
     view = camera.camera_matrix(k) @ inv(raycast_pose)
-    zero = torch.zeros((), dtype=torch.float32, device=pose.device)
-    st = TrackState(pose=pose, error2=zero, count=zero)
+    st, result, n_px = track_levels(
+        pose, vertices, normals, ref_vertex, ref_normal, view, iterations,
+        icp_threshold, finest_decimate=finest_decimate, symmetric=symmetric,
+        robust=robust, robust_delta=robust_delta, assoc=assoc, shard=shard)
     d = finest_decimate
-    result = None
-    n_px = None
-    for level in range(len(iterations) - 1, -1, -1):
-        iv, inm = vertices[level], normals[level]
-        if level == 0 and d > 1:
-            iv, inm = iv[::d, ::d], inm[::d, ::d]
-        comm = None
-        if shard is not None and iv.shape[0] % shard[2] == 0:
-            comm, rank, n = shard
-            rows = iv.shape[0] // n
-            if level == 0:
-                n_px = iv.shape[0] * iv.shape[1]
-            iv, inm = (a[rank * rows:(rank + 1) * rows] for a in (iv, inm))
-        st, result = _level_loop(st, iterations[level], iv, inm, ref_vertex,
-                                 ref_normal, view, icp_threshold,
-                                 symmetric=symmetric, robust=robust,
-                                 robust_delta=robust_delta, assoc=assoc,
-                                 comm=comm)
 
     # divergence check over the finest level actually executed
     if n_px is None:

@@ -2,7 +2,9 @@
 with ``supereight_tpu.apps.evaluate.ate`` (to 1e-9 m), its runs (the
 presets and phase F) are the configurations of the JAX records they are
 held against, its gates are the JAX package's CPU figures plus the stated
-margins, and without CUDA it exits non-zero and prints no result."""
+margins, its ICP hold covers the headline's level shapes and every knob
+group (its CPU half run here on the twins), its JSON line lists the six
+kernels, and without CUDA it exits non-zero and prints no result."""
 
 import json
 import os
@@ -216,7 +218,9 @@ def test_check_blocks():
 
 def test_check_launched():
     chip_smoke.check_launched("x", {"fuse_sdf": 96, "fuse_ofusion": 0}, 96)
-    for counts, integrated in (({"fuse_sdf": 95}, 96), ({"fuse_sdf": 0}, 0)):
+    for counts, integrated in (({"fuse_sdf": 95}, 96), ({"fuse_sdf": 0}, 0),
+                               ({"fuse_sdf": 95, "icp_track_reduce": 1824,
+                                 "icp_update": 1824}, 96)):
         with pytest.raises(SystemExit, match="kernel"):
             chip_smoke.check_launched("x", counts, integrated)
 
@@ -299,3 +303,88 @@ def test_phase_g_runs(name):
     tracked, ate_cm, blocks, overflow, parts = chip_smoke.JAX_CPU_G[name]
     assert sum(parts) == blocks and len(parts) == ranks
     assert tracked >= chip_smoke.MIN_TRACKED
+
+
+def test_kernel_line_order():
+    """The JSON line lists the six kernels in a fixed order: the fusion
+    kernels, the gather-probe kernels, the ICP kernels."""
+    assert chip_smoke.KERNEL_ORDER == (
+        "fuse_sdf", "fuse_ofusion", "lane_shuffle_sum", "slab_row_sum",
+        "icp_track_reduce", "icp_update")
+    from supereight_tpu_torch.ops import icp_kernel, integrate_kernel
+    assert set(chip_smoke.FUSION) == set(integrate_kernel.LAUNCHES)
+    assert set(chip_smoke.ICP) == set(icp_kernel.LAUNCHES)
+
+
+def test_icp_hold_covers_the_headline():
+    """The ICP hold: the headline's three level shapes (its finest level
+    strided by its icp_finest_decimate) and a rank's strip of 2, every knob
+    group once, the stated tolerances, and the launches a run must show
+    (every trip of every level of every tracked frame)."""
+    import dataclasses
+    cfg = chip_smoke.preset_config("headline")
+    assert cfg.pyramid == (10, 5, 4) and cfg.icp_finest_decimate == 2
+    levels = {(lv, d) for lv, d, _ in chip_smoke.ICP_SHAPES.values()}
+    assert levels == {(2, 1), (1, 1), (0, cfg.icp_finest_decimate)}
+    assert [s for _, _, s in chip_smoke.ICP_SHAPES.values()].count(
+        (1, 2)) == 1
+    assert chip_smoke.ICP_MAIN in chip_smoke.ICP_SHAPES
+    groups = {(k["assoc"], k["symmetric"], k["robust"])
+              for k in chip_smoke.ICP_KNOBS}
+    assert len(groups) == len(chip_smoke.ICP_KNOBS) == 18
+    assert chip_smoke.ICP_KNOBS[0] == dict(assoc="nearest", symmetric="off",
+                                           robust="none", robust_delta=0.01)
+    assert (chip_smoke.ICP_SUM_RTOL, chip_smoke.ICP_SUM_MAG,
+            chip_smoke.ICP_UPDATE_ATOL, chip_smoke.ICP_TRACK_ATOL,
+            chip_smoke.ICP_TRACK_FLIPS) == (1e-5, 1e-6, 1e-6, 1e-4, 1e-3)
+    assert chip_smoke.FP32_EPS == np.finfo(np.float32).eps
+    assert chip_smoke.icp_expected(cfg, 96) == 96 * 19
+    assert chip_smoke.icp_expected(
+        dataclasses.replace(cfg, tracking_rate=2), 96) == 48 * 19
+    chip_smoke.check_icp_launched("x", {"icp_track_reduce": 1824,
+                                        "icp_update": 1824}, 1824)
+    chip_smoke.check_icp_launched("x", {"icp_track_reduce": 5,
+                                        "icp_update": 5})
+    for a, b, want in ((1824, 1823, 1824), (1805, 1805, 1824), (0, 0, None)):
+        with pytest.raises(SystemExit, match="ICP kernels"):
+            chip_smoke.check_icp_launched(
+                "x", {"icp_track_reduce": a, "icp_update": b}, want)
+
+
+def test_icp_hold_on_the_cpu(monkeypatch):
+    """The hold's CPU half on the twins (the kernels run only on the card):
+    the operands of a warmed headline frame, every shape held in two knob
+    groups, and the byte count of kernel A's bound: the level's maps, the
+    status image and the sums, plus the distinct reference rows reached (at
+    most one a pixel nearest, four bilinear)."""
+    import torch
+    torch.set_num_threads(1)
+    monkeypatch.setattr(chip_smoke, "ICP_FRAME", 6)
+    depths, poses = chip_smoke.load_sequence("synthetic_256_frames")
+    ops = chip_smoke.icp_operands(torch, depths, poses, "cpu")
+    for shape in chip_smoke.ICP_SHAPES:
+        iv, inm = chip_smoke.icp_level(ops, shape)
+        n = iv.shape[0] * iv.shape[1]
+        fixed = n * 28 + 29 * 4 + 2 * 64 + 5
+        for knobs, most in ((chip_smoke.ICP_KNOBS[0], 1),
+                            (chip_smoke.ICP_KNOBS[-1], 4)):
+            sum_err, upd_err, n_ok, to_exact = chip_smoke.hold_icp(
+                torch, ops, shape, knobs)
+            assert (sum_err, upd_err) == (0.0, 0.0) and n_ok > 0.1 * n
+            assert to_exact[0] == to_exact[1] < 1e-4
+            extra = chip_smoke.icp_bytes(torch, ops, iv, inm, knobs) - fixed
+            assert 24 * n_ok // 4 <= extra <= 24 * most * n
+
+
+def test_solve_tolerance():
+    """Kernel B's twist tolerance: ICP_UPDATE_ATOL plus 2 eps cond(JTJ)
+    |x| of the sums' system, with its float64 solve."""
+    import torch
+    from supereight_tpu_torch.ops import icp_kernel
+    A = np.diag([1.0, 2.0, 4.0, 8.0, 16.0, 100.0]).astype(np.float32)
+    b = np.array([1, 2, 4, 8, 16, 50], np.float32)
+    sums = icp_kernel.pack_sums(torch.tensor(3.0), torch.from_numpy(b),
+                                torch.from_numpy(A), torch.tensor(9.0))
+    tol, x = chip_smoke.solve_tolerance(torch, sums)
+    np.testing.assert_allclose(x.numpy(), [1, 1, 1, 1, 1, 0.5])
+    assert tol == pytest.approx(1e-6 + 2 * 2.0 ** -23 * 100.0 * 1.0)

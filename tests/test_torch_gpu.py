@@ -1,5 +1,7 @@
 """Tests of the port on the card (marker ``gpu``): each CUDA kernel against
-its plain twin, and the slice's entry points (the benchmark app with its
+its plain twin (the ICP kernels at the headline's level shapes and on a
+rank's strip, every knob group; the level loops with no host read), and
+the slice's entry points (the benchmark app with its
 map outputs, the renderers, the sphere trace, the multiply-add, meshing,
 collision queries and the checkpoints) against their CPU results.
 They skip without a CUDA device.  This file imports neither JAX nor the
@@ -753,3 +755,225 @@ def test_two_rank_frame_on_card(cuda):
     assert multi["state"]["n_blocks"] == single["state"]["n_blocks"] > 0
     for counts in multi["launches_per_rank"]:
         assert counts["fuse_sdf"] == sum(multi["integrated"]) > 0
+
+
+# ----------------------------------------------------------------------
+# The ICP kernels (csrc/icp.cu)
+# ----------------------------------------------------------------------
+
+def _icp_inputs(dev):
+    """The headline's tracking operands from the cached frames: frame 50's
+    pyramid (320x240, three levels), frame 48's level-0 vertices and
+    normals in world space as the reference maps, the start pose at frame
+    49; all on ``dev``."""
+    from supereight_tpu_torch.core import numerics
+    from supereight_tpu_torch.pipeline import camera, preprocessing
+    z = np.load(BENCH)
+    k = torch.tensor([240.6, 240.0, 160.0, 120.0])
+    pyr = {}
+    for f in (48, 50):
+        d = preprocessing.mm_to_meters(
+            torch.from_numpy(z["depths"][f].astype(np.int32)), (240, 320))
+        pyr[f] = preprocessing.build_pyramid(d, k, 3, neg_y=False)
+    rp = torch.from_numpy(z["poses"][48].astype(np.float32))
+    n0 = pyr[48][2][0]
+    invalid = n0[..., :1] == -2.0
+    ref_v = torch.where(invalid, 0.0,
+                        camera.transform_points(rp, pyr[48][1][0]))
+    ref_n = torch.where(invalid, n0, camera.rotate_vectors(rp, n0))
+    to = lambda t: t.to(dev)
+    return dict(depths=[to(t) for t in pyr[50][0]],
+                vertices=[to(t) for t in pyr[50][1]],
+                normals=[to(t) for t in pyr[50][2]],
+                ref_v=to(ref_v), ref_n=to(ref_n), rpose=to(rp), k=to(k),
+                view=to(camera.camera_matrix(k) @ numerics.inv(rp)),
+                start=to(torch.from_numpy(z["poses"][49].astype(
+                    np.float32))))
+
+
+#: the level shapes of the headline (levels 2 and 1, level 0 strided by
+#: 2) and rank 1's row strip of the strided level 0 of 2 ranks
+ICP_SHAPES = {"80x60": (2, 1, None), "160x120": (1, 1, None),
+              "160x120-decimated": (0, 2, None), "strip": (0, 2, (1, 2))}
+
+
+def _icp_level(inp, shape):
+    level, d, strip = ICP_SHAPES[shape]
+    iv, inm = inp["vertices"][level][::d, ::d], inp["normals"][level][::d, ::d]
+    if strip is not None:
+        rank, n = strip
+        rows = iv.shape[0] // n
+        iv, inm = (a[rank * rows:(rank + 1) * rows] for a in (iv, inm))
+    return iv, inm
+
+
+def _icp_carry(pose):
+    from supereight_tpu_torch.pipeline import tracking
+    dev = pose.device
+    return tracking.TrackState(
+        pose=pose.clone(), error2=torch.zeros((), device=dev),
+        count=torch.zeros((), device=dev),
+        converged=torch.zeros((), dtype=torch.bool, device=dev),
+        iteration=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def _icp_knobs():
+    for assoc in ("nearest", "bilinear"):
+        for sym in ("off", "on", "gate"):
+            for robust in ("none", "huber", "tukey"):
+                yield dict(assoc=assoc, robust=robust,
+                           robust_delta=0.02 if robust == "tukey" else 0.01,
+                           symmetric=sym)
+
+
+def _sym(name, dev):
+    return {"off": False, "on": True,
+            "gate": torch.tensor(True, device=dev)}[name]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(ICP_SHAPES))
+def test_icp_kernels_match_twins(cuda, shape):
+    """Kernel A against its twin in every knob group: the status image bit
+    for bit, the sums within rtol 1e-5 + 1e-6 times their terms' absolute
+    sum (another summation order); kernel B on those sums against its
+    twin: twist and pose within 1e-6, error2, count and the trip count
+    equal."""
+    from supereight_tpu_torch.ops import icp_kernel as icp
+    from supereight_tpu_torch.pipeline import tracking
+    inp = _icp_inputs(cuda)
+    iv, inm = _icp_level(inp, shape)
+    args = (iv, inm, inp["ref_v"], inp["ref_n"], inp["view"])
+    for kn in _icp_knobs():
+        kn = dict(kn, symmetric=_sym(kn["symmetric"], cuda))
+        st = _icp_carry(inp["start"])
+        res = torch.zeros(iv.shape[:2], dtype=torch.int32, device=cuda)
+        sums = torch.zeros(icp.N_SUMS, device=cuda)
+        before = dict(icp.LAUNCHES)
+        got = icp.icp_track_reduce(*args, st, 4, res.clone(), sums.clone(),
+                                   **kn)
+        want = icp.icp_track_reduce_twin(*args, st, 4, res, sums, **kn)
+        assert icp.LAUNCHES["icp_track_reduce"] == \
+            before["icp_track_reduce"] + 1
+        assert torch.equal(got[0], want[0]), kn
+        assert int((got[0] == 1).sum()) > 500
+        td = tracking.track_kernel(*args[:4], st.pose, args[4],
+                                   symmetric=kn["symmetric"],
+                                   assoc=kn["assoc"])
+        mag = icp.term_magnitudes(td, tracking.robust_weights(
+            td, kn["robust"], kn["robust_delta"])).cpu()
+        g, w = got[1].cpu().double(), want[1].cpu().double()
+        assert not (torch.abs(g - w) > 1e-5 * w.abs() + 1e-6 * mag).any(), \
+            (kn, g, w)
+
+        x_k = torch.zeros(6, device=cuda)
+        x_t = torch.zeros(6, device=cuda)
+        k_st = icp.icp_update(got[1], _icp_carry(inp["start"]), 4, 1e-5,
+                              twist=x_k)
+        t_st = icp.icp_update_twin(got[1], _icp_carry(inp["start"]), 4,
+                                   1e-5, twist=x_t)
+        assert icp.LAUNCHES["icp_update"] == before["icp_update"] + 1
+        assert float(x_k.abs().max()) > 1e-5
+        torch.testing.assert_close(x_k, x_t, rtol=0, atol=1e-6)
+        torch.testing.assert_close(k_st.pose, t_st.pose, rtol=0, atol=1e-6)
+        for name in ("error2", "count", "converged", "iteration"):
+            assert torch.equal(getattr(k_st, name), getattr(t_st, name))
+
+
+@pytest.mark.gpu
+def test_icp_kernels_stop_after_the_level(cuda):
+    """Once the carry says the level has ended (converged, or iteration at
+    n_iters), both kernels launch and change nothing."""
+    from supereight_tpu_torch.ops import icp_kernel as icp
+    inp = _icp_inputs(cuda)
+    iv, inm = _icp_level(inp, "80x60")
+    for done in ("converged", "iteration"):
+        st = _icp_carry(inp["start"])
+        if done == "converged":
+            st.converged.fill_(True)
+        else:
+            st.iteration.fill_(3)
+        res = torch.full(iv.shape[:2], 7, dtype=torch.int32, device=cuda)
+        sums = torch.arange(icp.N_SUMS, dtype=torch.float32, device=cuda)
+        carry = [t.clone() for t in st]
+        icp.icp_track_reduce(iv, inm, inp["ref_v"], inp["ref_n"],
+                             inp["view"], st, 3, res, sums)
+        icp.icp_update(sums, st, 3, 1e-5)
+        torch.cuda.synchronize()
+        assert bool((res == 7).all())
+        assert torch.equal(sums, torch.arange(icp.N_SUMS,
+                                              dtype=torch.float32,
+                                              device=cuda))
+        for a, b in zip(st, carry):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_icp_kernels_reject_what_they_do_not_take(cuda):
+    from supereight_tpu_torch.ops import icp_kernel as icp
+    inp = _icp_inputs(cuda)
+    iv, inm = _icp_level(inp, "80x60")
+    st = _icp_carry(inp["start"])
+    res = torch.zeros(iv.shape[:2], dtype=torch.int32, device=cuda)
+    sums = torch.zeros(icp.N_SUMS, device=cuda)
+    run = lambda *a, **kw: icp.icp_track_reduce(*a, st, 3, res, sums, **kw)
+    refs = (inp["ref_v"], inp["ref_n"], inp["view"])
+    with pytest.raises(ValueError):                # a CPU tensor
+        run(iv, inm, inp["ref_v"].cpu(), *refs[1:])
+    with pytest.raises(ValueError):                # not float32
+        run(iv.double(), inm, *refs)
+    wide = torch.zeros(iv.shape[0], iv.shape[1], 6, device=cuda)
+    with pytest.raises(ValueError):                # last dim not contiguous
+        run(wide[..., ::2], inm, *refs)
+    with pytest.raises(ValueError):                # normals' strides differ
+        run(iv, wide[..., :3], *refs)
+    with pytest.raises(ValueError):                # reference not contiguous
+        run(iv, inm, torch.zeros(240, 320, 6, device=cuda)[..., :3],
+            *refs[1:])
+    with pytest.raises(ValueError):                # gate not a bool
+        run(iv, inm, *refs, symmetric=torch.tensor(1.0, device=cuda))
+    with pytest.raises(ValueError):                # a CPU carry
+        icp.icp_update(sums, st._replace(pose=st.pose.cpu()), 3, 1e-5)
+    with pytest.raises(ValueError):                # sums not float32
+        icp.icp_update(sums.double(), st, 3, 1e-5)
+    with pytest.raises(ValueError):                # iteration not int32
+        icp.icp_update(sums, st._replace(iteration=st.iteration.long()), 3,
+                       1e-5)
+
+
+@pytest.mark.gpu
+def test_icp_level_loops_read_nothing_back(cuda):
+    """``track_levels`` at the headline's pyramid (10, 5, 4) on the
+    kernels under ``torch.cuda.set_sync_debug_mode("error")``: no host
+    read, two launches a trip; ``track`` with the kernels against ``track``
+    with the twins (on the CPU): pose within 1e-4 (the multi-device frame's
+    tolerance for the same ICP summed in another order), the same
+    decision, status flips within 0.1 %."""
+    from supereight_tpu_torch.ops import icp_kernel as icp
+    from supereight_tpu_torch.pipeline import tracking
+    inp = _icp_inputs(cuda)
+    levels = (inp["vertices"], inp["normals"], inp["ref_v"], inp["ref_n"],
+              inp["view"])
+    gate = torch.tensor(True, device=cuda)
+    torch.cuda.synchronize()
+    before = dict(icp.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, res, _ = tracking.track_levels(inp["start"], *levels, (10, 5, 4),
+                                           1e-5, finest_decimate=2,
+                                           symmetric=gate, robust="huber",
+                                           assoc="bilinear")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for name in before:
+        assert icp.LAUNCHES[name] - before[name] == 19
+    assert 0 < int(st.iteration) <= 4 and bool(torch.isfinite(st.pose).all())
+    args = (inp["start"], inp["depths"], inp["vertices"], inp["normals"],
+            inp["ref_v"], inp["ref_n"], inp["rpose"], inp["k"])
+    got = tracking.track(*args, (10, 5, 4), 1e-5, finest_decimate=2)
+    want = tracking.track(*_to(list(args), "cpu"), (10, 5, 4), 1e-5,
+                          finest_decimate=2)
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=1e-4)
+    assert bool(got[1]) == bool(want[1]) is True
+    assert float((got[2].cpu() != want[2]).float().mean()) <= 1e-3

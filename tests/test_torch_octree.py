@@ -218,7 +218,8 @@ for mod in ("core.algorithms", "core.collision", "core.meshing",
             "core.morton", "io.serialise", "io.vtk", "apps.viewer",
             "utils.power", "parallel.sharding", "parallel.allocation_dist",
             "parallel.tracking_dist", "parallel.raycast_dist",
-            "parallel.frame_dist", "parallel.multihost"):
+            "parallel.frame_dist", "parallel.multihost", "ops.icp_kernel",
+            "probes.stage_times"):
     assert "supereight_tpu_torch." + mod in names, mod
 import chip_smoke
 bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "flax")

@@ -12,7 +12,21 @@ within rtol 1e-5, plus 1e-6 times the sum of the terms' absolute values
 (float32 sums in another order, for entries near zero).  The per-frame
 gated symmetric residual equals JAX's status codes bit for bit, errors
 within 1e-6 m.
+
+The level loop runs as JAX's ``lax.while_loop`` does, its carry on the
+device: every trip queued, those after the exit frozen.  On the CPU it
+equals the host loop it replaced (reading the convergence test back every
+trip, kept here as ``_host_level_loop``) bit for bit, trips included, in
+every knob group; against JAX's jitted ``_level_loop`` it runs the same
+trips and ends with the same ``converged``, poses within 1e-5, status flips
+within 0.1 %.  The ICP kernels' twins (`ops/icp_kernel.py`) hold against
+JAX's ``track_kernel`` and ``reduce_kernel`` (statuses bit for bit, sums
+within rtol 1e-5 + 1e-6 times the sum of the terms' absolute values), and
+the strip-sharded loop over 2 gloo ranks against the one-device loop
+(poses within 1e-4, the multi-device tests' tolerance, the same trips).
 """
+
+import pickle
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +38,10 @@ import jax
 from supereight_tpu.pipeline import camera as jcam
 from supereight_tpu.pipeline import preprocessing as jpre
 from supereight_tpu.pipeline import tracking as jtr
-from supereight_tpu_torch.pipeline import tracking
+from supereight_tpu_torch.ops import icp_kernel
+from supereight_tpu_torch.parallel import multihost
+from supereight_tpu_torch.pipeline import camera, tracking
+from supereight_tpu_torch.pipeline.preprocessing import norm
 
 from torch_port_util import K_FULL, load_frames
 
@@ -298,3 +315,270 @@ def test_track_knobs_match_jax(maps, knobs):
     np.testing.assert_allclose(tpose.numpy(), np.asarray(jpose), rtol=0,
                                atol=1e-5)
     assert _flips(tres.numpy(), np.asarray(jres)) <= 1e-3
+
+
+# ----------------------------------------------------------------------
+# The level loop on the device (the JAX carry) and the ICP kernels' twins
+# ----------------------------------------------------------------------
+
+#: iterations by level (coarsest last) and the exit threshold of the loop
+#: tests: level 2 exits early, level 1's one trip runs out
+LOOP_ITERS = (16, 1, 16)
+LOOP_THRESHOLD = 1e-4
+
+
+def _carry(pose):
+    zero = torch.zeros(())
+    return tracking.TrackState(
+        pose=pose, error2=zero, count=zero.clone(),
+        converged=torch.zeros((), dtype=torch.bool),
+        iteration=torch.zeros((), dtype=torch.int32))
+
+
+def _host_level_loop(pose, error2, count, n_iters, iv, inm, rv, rn, view,
+                     threshold, symmetric=False, robust="none",
+                     robust_delta=0.01, assoc="nearest"):
+    """The host loop the level loop replaced: the convergence test read
+    back every trip.  Returns (pose, error2, count, status image, trips,
+    converged)."""
+    result = torch.zeros(iv.shape[:-1], dtype=torch.int32)
+    trips, converged = 0, False
+    for _ in range(n_iters):
+        td = tracking.track_kernel(iv, inm, rv, rn, pose, view,
+                                   symmetric=symmetric, assoc=assoc)
+        error2, JTe, JTJ, count = tracking.reduce_kernel(td, robust,
+                                                         robust_delta)
+        x = tracking.solve_normal_equations(JTe, JTJ)
+        pose = camera.se3_exp(x) @ pose
+        result = td.result
+        trips += 1
+        converged = bool(norm(x) < threshold)
+        if converged:
+            break
+    return pose, error2, count, result, trips, converged
+
+
+def _levels(maps):
+    """(level, input vertices, input normals) coarsest first, the finest
+    strided by 2 as the system's ``icp_finest_decimate`` does."""
+    out = []
+    for level in (2, 1, 0):
+        iv, inm = _t(maps["vertices"][level]), _t(maps["normals"][level])
+        if level == 0:
+            iv, inm = iv[::2, ::2], inm[::2, ::2]
+        out.append((level, iv, inm))
+    return out
+
+
+def _knobs(symmetric, robust, assoc):
+    return dict(symmetric={"off": False, "on": True,
+                           "gate": torch.tensor(True)}[symmetric],
+                robust=robust, assoc=assoc,
+                robust_delta=0.02 if robust == "tukey" else 0.01)
+
+
+@pytest.mark.parametrize("robust", ["none", "huber", "tukey"])
+@pytest.mark.parametrize("symmetric", ["off", "on", "gate"])
+@pytest.mark.parametrize("assoc", ["nearest", "bilinear"])
+def test_device_loop_equals_host_loop(maps, assoc, symmetric, robust):
+    """Level by level, the device form's pose, error2, count and status
+    image equal the host loop's bit for bit, with as many trips and the
+    same exit; one level exits early and one runs out of trips; and
+    ``track_levels`` over the same levels ends in the same carry."""
+    kn = _knobs(symmetric, robust, assoc)
+    rv, rn, view = _t(maps["ref_v"]), _t(maps["ref_n"]), _t(_view(maps))
+    start = _t(maps["start"])
+    st = _carry(start)
+    host = (start, torch.zeros(()), torch.zeros(()))
+    ran = []
+    for level, iv, inm in _levels(maps):
+        n = LOOP_ITERS[level]
+        st, res = tracking._level_loop(st, n, iv, inm, rv, rn, view,
+                                       LOOP_THRESHOLD, **kn)
+        *host, hres, trips, conv = _host_level_loop(
+            *host, n, iv, inm, rv, rn, view, LOOP_THRESHOLD, **kn)
+        for got, want in zip((st.pose, st.error2, st.count, res),
+                             (*host, hres)):
+            assert torch.equal(got, want), level
+        assert (int(st.iteration), bool(st.converged)) == (trips, conv)
+        ran.append((trips, conv, n))
+    assert any(conv and trips < n for trips, conv, n in ran), ran
+    assert any(trips == n and not conv for trips, conv, n in ran), ran
+    whole, res, _ = tracking.track_levels(
+        start, [_t(v) for v in maps["vertices"]],
+        [_t(v) for v in maps["normals"]], rv, rn, view, LOOP_ITERS,
+        LOOP_THRESHOLD, finest_decimate=2, **kn)
+    for got, want in zip(whole, st):
+        assert torch.equal(got, want)
+    assert torch.equal(res, hres)
+
+
+def _jax_carry(pose):
+    return jtr.TrackState(pose=jnp.asarray(pose), error2=jnp.zeros(()),
+                          count=jnp.zeros(()),
+                          converged=jnp.zeros((), bool),
+                          iteration=jnp.zeros((), jnp.int32))
+
+
+@pytest.mark.parametrize("knobs", [dict(), dict(symmetric=True),
+                                   dict(assoc="bilinear", robust="huber",
+                                        robust_delta=0.01)],
+                         ids=["plain", "symmetric", "bilinear-huber"])
+def test_level_loop_matches_jax(maps, knobs):
+    """Each level's loop against the jitted JAX ``_level_loop``, each
+    package carrying its own state: the same trips and exit, poses within
+    1e-5, status flips within 0.1 %; then ``track`` against JAX's."""
+    rv, rn, view = (maps["ref_v"], maps["ref_n"], _view(maps))
+    st, jst = _carry(_t(maps["start"])), _jax_carry(maps["start"])
+    exits = []
+    for level, iv, inm in _levels(maps):
+        n = LOOP_ITERS[level]
+        jloop = jax.jit(lambda s, a, b, c, d, e, n=n: jtr._level_loop(
+            s, n, a, b, c, d, e, LOOP_THRESHOLD, **knobs))
+        jst, jres = jloop(jst, *(jnp.asarray(x.numpy()) for x in (iv, inm)),
+                          jnp.asarray(rv), jnp.asarray(rn),
+                          jnp.asarray(view))
+        st, res = tracking._level_loop(st, n, iv, inm, _t(rv), _t(rn),
+                                       _t(view), LOOP_THRESHOLD, **knobs)
+        assert (int(st.iteration), bool(st.converged)) == \
+            (int(jst.iteration), bool(jst.converged)), level
+        np.testing.assert_allclose(st.pose.numpy(), np.asarray(jst.pose),
+                                   rtol=0, atol=1e-5)
+        assert _flips(res.numpy(), np.asarray(jres)) <= 1e-3
+        exits.append(bool(st.converged) and int(st.iteration) < n)
+    assert any(exits)
+    args = ([maps[k] for k in ("depths", "vertices", "normals")]
+            + [maps["ref_v"], maps["ref_n"], maps["rpose"]])
+    jpose, jok, jres = jtr.track(
+        jnp.asarray(maps["start"]),
+        *[[jnp.asarray(x) for x in a] if isinstance(a, list)
+          else jnp.asarray(a) for a in args],
+        jnp.asarray(K), LOOP_ITERS, LOOP_THRESHOLD, finest_decimate=2,
+        **knobs)
+    tpose, tok, tres = tracking.track(
+        _t(maps["start"]),
+        *[[_t(x) for x in a] if isinstance(a, list) else _t(a)
+          for a in args],
+        _t(K), LOOP_ITERS, LOOP_THRESHOLD, finest_decimate=2, **knobs)
+    assert bool(jok) and bool(tok)
+    np.testing.assert_allclose(tpose.numpy(), np.asarray(jpose), rtol=0,
+                               atol=1e-5)
+    assert _flips(tres.numpy(), np.asarray(jres)) <= 1e-3
+
+
+def _abs_sums(result, error, J, w):
+    """Per sum of the N_SUMS, the sum of its terms' absolute values."""
+    ok = (result == 1).reshape(-1).astype(np.float64)
+    e = error.astype(np.float64).reshape(-1)
+    J = J.astype(np.float64).reshape(-1, 6)
+    w = w.astype(np.float64).reshape(-1)
+    jtj = np.abs(w[:, None, None] * J[:, :, None] * J[:, None, :]).sum(0)
+    return np.concatenate([[np.sum(ok * e * e)],
+                           np.abs(w[:, None] * e[:, None] * J).sum(0),
+                           [jtj[b, a] for a, b in icp_kernel.TRIU],
+                           [ok.sum()]])
+
+
+@pytest.mark.parametrize("robust", ["none", "huber", "tukey"])
+@pytest.mark.parametrize("assoc", ["nearest", "bilinear"])
+def test_icp_twins_match_jax(level0, assoc, robust):
+    """Kernel A's twin at the start pose against the jitted JAX
+    association and ``reduce_kernel``: the status image bit for bit, the
+    sums within rtol 1e-5 + 1e-6 times their terms' absolute sum; kernel
+    B's twin against JAX's solve and ``se3_exp``: pose within 1e-5."""
+    delta = 0.02 if robust == "tukey" else 0.01
+    _, _, td = _jax_association(level0, assoc)
+    want = jtr.reduce_kernel(td, robust=robust, robust_delta=delta)
+    st = _carry(_t(level0["start"]))
+    iv = _t(level0["in_v"])
+    res, sums = icp_kernel.icp_track_reduce(
+        iv, _t(level0["in_n"]), _t(level0["ref_v"]), _t(level0["ref_n"]),
+        _t(_view(level0)), st, 1, torch.zeros(iv.shape[:2],
+                                              dtype=torch.int32),
+        torch.zeros(icp_kernel.N_SUMS), robust=robust, robust_delta=delta,
+        assoc=assoc)
+    np.testing.assert_array_equal(res.numpy(), np.asarray(td.result))
+    w = tracking.robust_weights(
+        tracking.TrackData(_t(td.result), _t(td.error), _t(td.J)), robust,
+        delta).numpy()
+    a = _abs_sums(np.asarray(td.result), np.asarray(td.error),
+                  np.asarray(td.J), w)
+    wv = icp_kernel.pack_sums(*(torch.from_numpy(np.array(x))
+                                for x in want)).numpy().astype(np.float64)
+    got = sums.numpy().astype(np.float64)
+    bad = np.abs(got - wv) > 1e-5 * np.abs(wv) + 1e-6 * a
+    assert not bad.any(), (got[bad], wv[bad])
+    assert float(sums[-1]) == float(want[3]) > 1000
+
+    nxt = icp_kernel.icp_update(sums, st, 1, 1e-5)
+    x = jtr.solve_normal_equations(want[1], want[2])
+    jpose = np.asarray(jcam.se3_exp(x) @ jnp.asarray(level0["start"]))
+    np.testing.assert_allclose(nxt.pose.numpy(), jpose, rtol=0, atol=1e-5)
+    assert int(nxt.iteration) == 1 and not bool(nxt.converged)
+    assert float(nxt.error2) == float(sums[0])
+    # the level has ended: both twins leave everything as it was
+    assert icp_kernel.icp_update(sums, nxt, 1, 1e-5) is nxt
+    again = icp_kernel.icp_track_reduce(
+        iv, _t(level0["in_n"]), _t(level0["ref_v"]), _t(level0["ref_n"]),
+        _t(_view(level0)), nxt, 1, res, sums, robust=robust,
+        robust_delta=delta, assoc=assoc)
+    assert again[0] is res and again[1] is sums
+
+
+#: the sharded loop's cases: ICP knobs over the level tests' inputs
+SHARD_KNOBS = {"plain": dict(),
+               "bilinear-tukey-symmetric": dict(
+                   assoc="bilinear", robust="tukey", robust_delta=0.02,
+                   symmetric=True)}
+
+
+@pytest.fixture(scope="module")
+def sharded(maps, tmp_path_factory):
+    """``tracking.track`` on 2 gloo ranks on the CPU (``multihost``'s
+    ``track`` job), every case in one spawn."""
+    tmp = tmp_path_factory.mktemp("track_ranks")
+    jobs = []
+    for name, kw in SHARD_KNOBS.items():
+        inp = dict(pose=maps["start"], depths=maps["depths"],
+                   vertices=maps["vertices"], normals=maps["normals"],
+                   ref_vertex=maps["ref_v"], ref_normal=maps["ref_n"],
+                   raycast_pose=maps["rpose"].astype(np.float32),
+                   k=np.asarray(K, np.float32), iterations=LOOP_ITERS,
+                   icp_threshold=LOOP_THRESHOLD, finest_decimate=2, kw=kw)
+        path = str(tmp / f"{name}.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(inp, f)
+        jobs.append(dict(kind="track", inputs=path))
+    res = multihost.launch_jobs(2, jobs, device="cpu", backend="gloo",
+                                timeout=200, group_timeout=60)
+    return dict(zip(SHARD_KNOBS, res))
+
+
+@pytest.mark.parametrize("name", sorted(SHARD_KNOBS))
+def test_sharded_device_loop_matches_one_device(maps, sharded, name):
+    """Every level's rows split into 2 strips, the sums all-reduced every
+    trip: both ranks end with the same pose, bit for bit, within 1e-4 of
+    the one-device loop's, with the same trips and exit at the finest
+    level and the same divergence decision; the gathered status strips
+    flip within 0.1 % of the one-device image."""
+    kw = SHARD_KNOBS[name]
+    args = ([[_t(x) for x in maps[k]] for k in ("depths", "vertices",
+                                                "normals")]
+            + [_t(maps["ref_v"]), _t(maps["ref_n"])])
+    pose, ok, res = tracking.track(
+        _t(maps["start"]), *args, _t(maps["rpose"].astype(np.float32)),
+        _t(K), LOOP_ITERS, LOOP_THRESHOLD, finest_decimate=2, **kw)
+    st, _, _ = tracking.track_levels(
+        _t(maps["start"]), *args[1:], _t(_view(maps)), LOOP_ITERS,
+        LOOP_THRESHOLD, finest_decimate=2, **kw)
+    ranks = sharded[name]
+    np.testing.assert_array_equal(ranks[0]["pose"], ranks[1]["pose"])
+    for r in ranks:
+        np.testing.assert_allclose(r["pose"], pose.numpy(), rtol=0,
+                                   atol=1e-4)
+        assert r["ok"] == bool(ok)
+        assert (r["iteration"], r["converged"]) == \
+            (int(st.iteration), bool(st.converged))
+    strips = np.concatenate([r["result"] for r in ranks])
+    assert strips.shape == tuple(res.shape)
+    assert _flips(strips, res.numpy()) <= 1e-3
