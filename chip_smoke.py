@@ -17,10 +17,17 @@ GPU.
    float32 solve's error bound (each beside its distance from the float64
    solve); both timed beside the launch floor and their bounds; a whole
    ``track`` on the kernels against one on CPU copies of its operands (the
-   twins; ICP_TRACK_ATOL, ICP_TRACK_FLIPS); the level loops' host and
-   device time; and ``track_levels`` under
+   twins; ICP_TRACK_ATOL, ICP_TRACK_FLIPS); and ``track_levels`` under
    ``torch.cuda.set_sync_debug_mode("error")``: the level loops must not
-   synchronise.
+   synchronise, and on one device launch ``icp_track_levels`` once and the
+   pair never.  ``icp_track_levels`` (every trip of every level in one
+   cooperative launch) is held against its twin at the headline's level
+   set and with the whole 320x240 finest level (ICP_LEVEL_SETS) in every
+   knob group: one trip at the finest level (status image bit for bit,
+   sums within the tolerances above), the headline's pyramid (pose within
+   ICP_TRACK_ATOL, flipped statuses counted); two launches give the same
+   bits; its device time a headline frame is printed beside its bound, its
+   twin's, the pair's for the same trips, the launch floor and the card.
 3. Holds the SDF and the OFusion fusion kernel, each updating a map's
    block table in place, against their plain PyTorch twins on clones of
    the same table at main-path shapes (3072 distinct slots of a real map,
@@ -34,9 +41,11 @@ GPU.
    prints its four measurements.
 5. Runs the slice's entry points as users run them, each with the fusion
    and ICP kernels' counts set to 0 just before and read just after (every
-   integrated frame must launch a fusion kernel, and every ICP trip of
-   every level of every tracked frame both ICP kernels: B, D, the presets,
-   F and G's ranks):
+   integrated frame must launch a fusion kernel; every frame on which ICP
+   runs must launch ``icp_track_levels`` exactly once and the pair never
+   on the one-device paths, B, D, the presets, F and G3's one-device
+   frame; on G's ranks both kernels of the pair run once a trip of every
+   level and ``icp_track_levels`` never):
    A. ``apps.benchmark`` in ground-truth mode (``-g``) at the headline
       preset on the cached base sequence, written as a .raw stream and a
       TUM trajectory with the port's ``io``: 96/96 frames, ATE < 1e-4 m,
@@ -120,8 +129,10 @@ It exits non-zero, printing no result line, if there is no CUDA device or
 any check fails.  The last line of its output is one JSON object; the line
 before it lists every kernel with its launches summed over the runs that
 took it (the app phases, the presets and phase G's ranks), its largest
-difference from its twin, the median device times of both at the 3072-row shapes (the
-probe's for K2 and K3, the decimated 160x120 level for the ICP kernels), the least time the card could take for that work (``bound_ms``: the bytes the call must
+difference from its twin, the median device times of both at the 3072-row
+shapes (the probe's for K2 and K3, the decimated 160x120 level for the
+pair, a headline frame's pyramid for ``icp_track_levels``), the least time
+the card could take for that work (``bound_ms``: the bytes the call must
 move at 3.35 TB/s or its float32 operations at 67 TFLOP/s, the larger;
 for a fusion kernel, the bytes of the voxels this data updates) and,
 where one PyTorch call computes the same function, that call's time.
@@ -292,9 +303,17 @@ UPDATE_FLOPS = {"fuse_sdf": 19, "fuse_ofusion": 50}
 
 #: the kernels of the JSON line, in its order
 KERNEL_ORDER = ("fuse_sdf", "fuse_ofusion", "lane_shuffle_sum",
-                "slab_row_sum", "icp_track_reduce", "icp_update")
+                "slab_row_sum", "icp_track_reduce", "icp_update",
+                "icp_track_levels")
 FUSION = ("fuse_sdf", "fuse_ofusion")
-ICP = ("icp_track_reduce", "icp_update")
+#: the sharded frame's ICP kernels (a trip: kernel A, the all_reduce,
+#: kernel B), and the one-device frame's (every trip in one launch)
+ICP_PAIR = ("icp_track_reduce", "icp_update")
+ICP = ICP_PAIR + ("icp_track_levels",)
+#: icp_track_levels is held at the headline's level set (its finest level
+#: strided by its icp_finest_decimate, 2) and with the whole 320x240
+#: finest level, by the finest level's stride
+ICP_LEVEL_SETS = {"headline": 2, "320x240": 1}
 #: the ICP holds: the headline frame whose operands they take (after the
 #: frames before it), its level shapes by (level, stride, (rank, ranks)
 #: strip or None): levels 2 and 1, the finest level strided by the
@@ -819,12 +838,10 @@ def icp_knobs(torch, knobs, dev):
     return dict(knobs, symmetric=sym)
 
 
-def icp_bytes(torch, ops, iv, inm, knobs) -> int:
-    """Bytes kernel A must move at these operands: the level's input maps
-    read once, the reference rows its in-frame pixels with an input normal
-    reach (one a pixel, four with the bilinear association; each distinct
-    row's 24 bytes once), the status image and the sums written, the pose,
-    the view and the carry's flags read."""
+def reached_rows(torch, ops, iv, inm, knobs):
+    """The reference rows the level's in-frame pixels with an input normal
+    reach from the start pose (one a pixel, four with the bilinear
+    association), with repeats."""
     from supereight_tpu_torch.pipeline import tracking
     from supereight_tpu_torch.core.numerics import trunc_i32
     rH, rW = ops["ref_v"].shape[:2]
@@ -839,9 +856,54 @@ def icp_bytes(torch, ops, iv, inm, knobs) -> int:
         y0 = trunc_i32(torch.floor(py - 0.5)).clamp(0, rH - 1)
         x1, y1 = (x0 + 1).clamp(max=rW - 1), (y0 + 1).clamp(max=rH - 1)
         rows = [y * rW + x for y in (y0, y1) for x in (x0, x1)]
-    distinct = int(torch.unique(torch.cat([r[need] for r in rows])).numel())
+    return torch.cat([r[need] for r in rows])
+
+
+def icp_bytes(torch, ops, iv, inm, knobs) -> int:
+    """Bytes kernel A must move at these operands: the level's input maps
+    read once, the reference rows its in-frame pixels with an input normal
+    reach (each distinct row's 24 bytes once), the status image and the
+    sums written, the pose, the view and the carry's flags read."""
+    distinct = int(torch.unique(reached_rows(torch, ops, iv, inm,
+                                             knobs)).numel())
     n_px = iv.shape[0] * iv.shape[1]
     return n_px * 24 + distinct * 24 + n_px * 4 + 29 * 4 + 2 * 64 + 5
+
+
+def icp_level_set(ops, d):
+    """The pyramid's levels by index as ``icp_track_levels`` takes them,
+    the finest strided by ``d``."""
+    levels = list(zip(ops["vertices"], ops["normals"]))
+    levels[0] = tuple(a[::d, ::d] for a in levels[0])
+    return levels
+
+
+def icp_levels_bytes(torch, ops, levels, knobs) -> int:
+    """Bytes ``icp_track_levels`` must move at these operands: every
+    level's input maps read once, the distinct reference rows all its
+    levels' pixels reach, the finest level's status image and the carry
+    written, the start pose and the view read."""
+    distinct = int(torch.unique(torch.cat([
+        reached_rows(torch, ops, iv, inm, knobs) for iv, inm in levels
+    ])).numel())
+    n_px = [iv.shape[0] * iv.shape[1] for iv, _ in levels]
+    return 24 * sum(n_px) + 24 * distinct + 4 * n_px[0] + 4 * 20 + 2 * 64
+
+
+def level_trips(torch, ops, levels, iterations, threshold) -> list:
+    """The trips each level runs from the start pose (``_level_loop`` on
+    CPU copies, the twins, level by level), by level index."""
+    from supereight_tpu_torch.pipeline import tracking
+    cpu = lambda t: t.cpu()
+    st = icp_carry(torch, cpu(ops["start"]))
+    trips = [0] * len(levels)
+    for level in range(len(levels) - 1, -1, -1):
+        st, _ = tracking._level_loop(
+            st, iterations[level], *map(cpu, levels[level]),
+            cpu(ops["ref_v"]), cpu(ops["ref_n"]), cpu(ops["view"]),
+            threshold)
+        trips[level] = int(st.iteration)
+    return trips
 
 
 def hold_icp(torch, ops, shape, knobs):
@@ -902,6 +964,172 @@ def solve_tolerance(torch, sums):
     x = torch.linalg.solve(A, b)
     return (ICP_UPDATE_ATOL + 2 * FP32_EPS * float(torch.linalg.cond(A))
             * float(x.abs().max())), x
+
+
+def hold_icp_levels(torch, ops, level_set, knobs):
+    """``icp_track_levels`` against its twin (plain PyTorch on the card) at
+    one level set of ICP_LEVEL_SETS and knob group: one trip at the finest
+    level from the start pose, the status image bit for bit and the sums
+    within the ICP tolerances; then the headline's pyramid, the pose within
+    ICP_TRACK_ATOL, a whole ``track``'s tolerance (the sums add in another
+    order, which ICP amplifies from trip to trip).  The pyramid's status
+    image is the last trip's at a pose that parts from the twin's by that
+    much, so its flipped pixels are counted, not held (on an H100 the
+    bilinear association's gates flipped 0.15 % of the headline's pixels
+    at 3.6e-5 m).  Returns (largest sum difference, pose difference, status pixels
+    flipped, ok pixels, the finest level's trips: kernel, twin)."""
+    from supereight_tpu_torch.ops import icp_kernel as icp
+    from supereight_tpu_torch.pipeline import tracking
+    dev = ops["start"].device
+    cfg = ops["cfg"]
+    levels = icp_level_set(ops, ICP_LEVEL_SETS[level_set])
+    kn = icp_knobs(torch, knobs, dev)
+    args = (levels, ops["ref_v"], ops["ref_n"], ops["view"])
+    one = (1,) + (0,) * (len(cfg.pyramid) - 1)
+    sums = [torch.zeros(icp.N_SUMS, device=dev) for _ in range(2)]
+    got = icp.icp_track_levels(ops["start"], *args, one, cfg.icp_threshold,
+                               sums=sums[0], **kn)
+    want = icp.icp_track_levels_twin(ops["start"], *args, one,
+                                     cfg.icp_threshold, sums=sums[1], **kn)
+    td = tracking.track_kernel(*levels[0], *args[1:3], ops["start"],
+                               args[3], symmetric=kn["symmetric"],
+                               assoc=kn["assoc"])
+    mag = icp.term_magnitudes(td, tracking.robust_weights(
+        td, kn["robust"], kn["robust_delta"]))
+    g, w = sums[0].double(), sums[1].double()
+    beyond = int((torch.abs(g - w) > ICP_SUM_RTOL * w.abs()
+                  + ICP_SUM_MAG * mag).sum())
+    flips_one = int((got[1] != want[1]).sum())
+    n_ok = int((got[1] == 1).sum())
+    got = icp.icp_track_levels(ops["start"], *args, cfg.pyramid,
+                               cfg.icp_threshold, **kn)
+    want = icp.icp_track_levels_twin(ops["start"], *args, cfg.pyramid,
+                                     cfg.icp_threshold, **kn)
+    d_pose = float((got[0].pose - want[0].pose).abs().max())
+    flips = int((got[1] != want[1]).sum())
+    if flips_one or beyond or d_pose > ICP_TRACK_ATOL:
+        fail(f"icp_track_levels vs its twin at {level_set} {knobs}: one "
+             f"trip: {flips_one} statuses differ, {beyond} sums beyond the "
+             f"tolerance; the pyramid: pose {d_pose:.3g} (tolerance "
+             f"{ICP_TRACK_ATOL}), {flips} statuses flipped")
+    return (float((g - w).abs().max()), d_pose, flips, n_ok,
+            (int(got[0].iteration), int(want[0].iteration)))
+
+
+def check_icp_levels(torch, ops, dev, a_ms, b_ms, floor):
+    """``icp_track_levels`` at every level set of ICP_LEVEL_SETS in every
+    knob group of ICP_KNOBS against its twin; two launches bit for bit; at
+    the headline's level set and knobs, its device time a frame (CUDA
+    events, median of TIMED_RUNS) and host time beside its bound, its
+    twin's, the pair's for the same trips (the trips each level runs times
+    kernel A's time at that level, ``a_ms``, plus kernel B's, ``b_ms``,
+    and the pair's level loops timed as ``_level_loop`` runs them) and the
+    launch floor.  Returns its JSON entry (launches 0)."""
+    from supereight_tpu_torch.ops import icp_kernel as icp
+    from supereight_tpu_torch.pipeline import tracking
+    cfg = ops["cfg"]
+    print(f"# icp_track_levels: a fixed grid of {icp.levels_grid(dev)} CTAs "
+          f"of {icp.THREADS} threads (the CTAs an SM holds at once x "
+          f"{torch.cuda.get_device_properties(dev).multi_processor_count} "
+          "SMs), launched cooperatively")
+    sum_err = pose_err = 0.0
+    for level_set, d in ICP_LEVEL_SETS.items():
+        oks, flipped, trips = [], 0, set()
+        for knobs in ICP_KNOBS:
+            e_sum, e_pose, flips, n_ok, its = hold_icp_levels(
+                torch, ops, level_set, knobs)
+            sum_err, pose_err = max(sum_err, e_sum), max(pose_err, e_pose)
+            flipped = max(flipped, flips)
+            oks.append(n_ok)
+            trips.add(its)
+        iv = icp_level_set(ops, d)[0][0]
+        print(f"# icp_track_levels vs its twin at {level_set} (finest level "
+              f"{iv.shape[0]}x{iv.shape[1]}, headline frame {ICP_FRAME}), "
+              f"{len(ICP_KNOBS)} knob groups: one trip: status images equal, "
+              f"ok pixels {min(oks)}-{max(oks)}, largest sum difference so "
+              f"far {sum_err:.3g}; pyramid {cfg.pyramid}: pose {pose_err:.3g}"
+              f" so far (tolerance {ICP_TRACK_ATOL}), at most {flipped} of "
+              f"{iv.numel() // 3} statuses flipped, finest level trips "
+              f"(kernel, twin) {sorted(trips)}")
+
+    # two launches, the same bits
+    levels = icp_level_set(ops, cfg.icp_finest_decimate)
+    args = (ops["start"], levels, ops["ref_v"], ops["ref_n"], ops["view"],
+            cfg.pyramid, cfg.icp_threshold)
+    runs = []
+    for _ in range(2):
+        sums = torch.zeros(icp.N_SUMS, device=dev)
+        st, res = icp.icp_track_levels(*args, sums=sums)
+        runs.append((*st, res, sums))
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        fail("icp_track_levels: two launches on the same operands differ")
+    print("# icp_track_levels: two launches on the same operands give the "
+          "same bits (carry, status image, sums)")
+
+    # times a headline frame
+    run = lambda: icp.icp_track_levels(*args)
+    plain = lambda: icp.icp_track_levels_twin(*args)
+
+    def pair():
+        st = icp_carry(torch, ops["start"])
+        for level in range(len(levels) - 1, -1, -1):
+            st, _ = tracking._level_loop(st, cfg.pyramid[level],
+                                         *levels[level], *args[2:5],
+                                         cfg.icp_threshold)
+
+    k_ms, t_ms, pair_dev = median_ms(run), median_ms(plain), median_ms(pair)
+    k_host, pair_host = host_ms(torch, run), host_ms(torch, pair)
+    trips = level_trips(torch, ops, levels, cfg.pyramid, cfg.icp_threshold)
+    shapes = ("160x120 decimated", "160x120", "80x60")
+    pair_sum = sum(n * (a_ms[shapes[l]] + b_ms)
+                   for l, n in enumerate(cfg.pyramid))
+    main = dict(ICP_KNOBS[0])
+    n_px = [iv.shape[0] * iv.shape[1] for iv, _ in levels]
+    nbytes = icp_levels_bytes(torch, ops, levels, main)
+    flops = (sum(t * n for t, n in zip(trips, n_px)) * ICP_PIXEL_FLOPS
+             + sum(trips) * ICP_UPDATE_FLOPS)
+    b = bound(nbytes, flops)
+    print(f"# icp_track_levels a headline frame (frame {ICP_FRAME}, pyramid "
+          f"{cfg.pyramid}, trips run by level {trips}): median device time "
+          f"over {TIMED_RUNS} runs {k_ms:.4f} ms (host clock, synchronised, "
+          f"{k_host:.4f} ms), plain twin {t_ms:.4f} ms; bound "
+          f"{b[0]:.6f} ms ({b[1]}: {nbytes / 1e6:.3f} MB, "
+          f"{flops / 1e6:.1f} MFLOP); the pair for the same "
+          f"{sum(cfg.pyramid)} trips: {pair_sum:.4f} ms (each trip's "
+          f"kernel A at its level + kernel B), its level loops "
+          f"{pair_dev:.4f} ms of device time and {pair_host:.4f} ms on the "
+          f"host clock ({2 * sum(cfg.pyramid)} launches); launch floor "
+          f"{floor:.4f} ms; {card()}")
+    return dict(
+        name="icp_track_levels", route="cuda",
+        source="supereight_tpu_torch/csrc/icp.cu",
+        replaces="supereight_tpu/pipeline/tracking.py:309", launches=0,
+        max_abs_err=sum_err, ms=k_ms, plain_ms=t_ms, bound_ms=b[0],
+        bound_by=b[1], library_ms=None, launch_floor_ms=floor,
+        host_ms=k_host, pose_err=pose_err, pair_ms=pair_sum,
+        pair_levels_ms=pair_dev, pair_levels_host_ms=pair_host,
+        grid=icp.levels_grid(dev))
+
+
+def host_ms(torch, fn) -> float:
+    """Median host time (ms) of ``fn`` over TIMED_RUNS runs, the device
+    synchronised before and after each."""
+    out = []
+    for _ in range(TIMED_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(out)
+
+
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip(
+                          ).splitlines()[0]
 
 
 def check_icp_kernels(torch, depths, poses, dev):
@@ -971,17 +1199,19 @@ def check_icp_kernels(torch, depths, poses, dev):
           f"{a_bytes / 1e6:.3f} MB)")
     print(f"# icp_update: {b_ms:.4f} ms, plain twin {b_plain:.4f} ms; bound "
           f"{b_bound[0]:.2e} ms ({b_bound[1]})")
+    a_times = {ICP_MAIN: a_ms}
     for shape in ICP_SHAPES:
         if shape == ICP_MAIN:
             continue
         lv = icp_level(ops, shape)
         r2 = torch.zeros(lv[0].shape[:2], dtype=torch.int32, device=dev)
-        ms = median_ms(lambda: icp.icp_track_reduce(
+        a_times[shape] = median_ms(lambda: icp.icp_track_reduce(
             *lv, ops["ref_v"], ops["ref_n"], ops["view"], st, 4, r2, sums,
             **kn))
-        print(f"# icp_track_reduce at {shape}: {ms:.4f} ms")
+        print(f"# icp_track_reduce at {shape}: {a_times[shape]:.4f} ms")
+    levels_entry = check_icp_levels(torch, ops, dev, a_times, b_ms, floor)
 
-    # a whole track on the kernels against one on the twins (the CPU path)
+    # a whole track on the card against one on the twins (the CPU path)
     targs = (ops["depths"], ops["vertices"], ops["normals"], ops["ref_v"],
              ops["ref_n"], ops["rpose"], ops["k"])
     kw = dict(finest_decimate=cfg.icp_finest_decimate)
@@ -991,37 +1221,22 @@ def check_icp_kernels(torch, depths, poses, dev):
         [ops["start"], *targs], "cpu"), cfg.pyramid, cfg.icp_threshold, **kw)
     d_pose = float((got[0].cpu() - want[0]).abs().max())
     flips = float((got[2].cpu() != want[2]).float().mean())
-    print(f"# track at headline frame {ICP_FRAME}, kernels vs twins on the "
-          f"CPU: pose "
+    print(f"# track at headline frame {ICP_FRAME}, icp_track_levels vs the "
+          f"twins on the CPU: pose "
           f"{d_pose:.3g} (tolerance {ICP_TRACK_ATOL}), tracked "
           f"{bool(got[1])} / {bool(want[1])}, status flips {flips:.5f} "
           f"(tolerance {ICP_TRACK_FLIPS})")
     if d_pose > ICP_TRACK_ATOL or bool(got[1]) != bool(want[1]) or \
             flips > ICP_TRACK_FLIPS:
-        fail("track on the ICP kernels parts from track on the twins")
+        fail("track on the card parts from track on the twins")
 
-    # the level loops: host and device time, then no host read
+    # the level loops read nothing back: one launch a frame
     lv = (ops["vertices"], ops["normals"], ops["ref_v"], ops["ref_n"],
           ops["view"])
-    levels = lambda: tracking.track_levels(ops["start"], *lv, cfg.pyramid,
-                                           cfg.icp_threshold, **kw)
-    levels_dev = median_ms(levels)
-    host = []
-    for _ in range(TIMED_RUNS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        levels()
-        torch.cuda.synchronize()
-        host.append(1e3 * (time.perf_counter() - t0))
-    levels_host = statistics.median(host)
-    print(f"# track_levels at headline frame {ICP_FRAME} ({sum(cfg.pyramid)}"
-          f" trips, {2 * sum(cfg.pyramid)} kernel launches): "
-          f"{levels_host:.3f} ms on the host clock (synchronised), "
-          f"{levels_dev:.3f} ms of device time (CUDA events, the launches "
-          f"queued behind a sleep), medians of {TIMED_RUNS}")
     for sym in ("off", "on", "gate"):
         kn = icp_knobs(torch, dict(ICP_KNOBS[0], symmetric=sym), dev)
         torch.cuda.synchronize()
+        before = dict(icp.LAUNCHES)
         torch.cuda.set_sync_debug_mode("error")
         try:
             tracking.track_levels(ops["start"], *lv, cfg.pyramid,
@@ -1031,8 +1246,13 @@ def check_icp_kernels(torch, depths, poses, dev):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
+        ran = {k: icp.LAUNCHES[k] - n for k, n in before.items()}
+        if ran != dict(icp_track_levels=1, icp_track_reduce=0,
+                       icp_update=0):
+            fail(f"track_levels on one device launched {ran}")
     print("# track_levels under set_sync_debug_mode('error') (symmetric off,"
-          " on, the gate): no synchronising call")
+          " on, the gate): no synchronising call, one icp_track_levels "
+          "launch and none of the pair each")
 
     src = "supereight_tpu_torch/csrc/icp.cu"
     return {
@@ -1041,34 +1261,59 @@ def check_icp_kernels(torch, depths, poses, dev):
             replaces="supereight_tpu/pipeline/tracking.py:235", launches=0,
             max_abs_err=sum_err, ms=a_ms, plain_ms=a_plain,
             bound_ms=a_bound[0], bound_by=a_bound[1], library_ms=None,
-            launch_floor_ms=floor, levels_host_ms=levels_host,
-            levels_device_ms=levels_dev),
+            launch_floor_ms=floor,
+            levels_host_ms=levels_entry["pair_levels_host_ms"],
+            levels_device_ms=levels_entry["pair_levels_ms"]),
         "icp_update": dict(
             name="icp_update", route="cuda", source=src,
             replaces="supereight_tpu/pipeline/tracking.py:254", launches=0,
             max_abs_err=upd_err, ms=b_ms, plain_ms=b_plain,
             bound_ms=b_bound[0], bound_by=b_bound[1], library_ms=None,
-            launch_floor_ms=floor)}
+            launch_floor_ms=floor),
+        "icp_track_levels": levels_entry}
+
+
+def icp_frames(cfg, n_frames: int) -> int:
+    """The frames of ``n_frames`` on which ICP runs outside ground-truth
+    mode: every frame with ``frame % tracking_rate == 0``, whether or not
+    it ends tracked."""
+    return sum(1 for f in range(n_frames) if f % cfg.tracking_rate == 0)
 
 
 def icp_expected(cfg, n_frames: int) -> int:
-    """Launches of each ICP kernel over ``n_frames`` frames run with ICP:
-    every trip of every level of each frame that tracks."""
-    return sum(cfg.pyramid) * sum(1 for f in range(n_frames)
-                                  if f % cfg.tracking_rate == 0)
+    """Launches of each kernel of the pair on a rank of the sharded frame
+    over ``n_frames`` frames: every trip of every level of each frame on
+    which ICP runs."""
+    return sum(cfg.pyramid) * icp_frames(cfg, n_frames)
 
 
-def check_icp_launched(label, counts, expected=None):
-    """Every ICP trip of the path went through both kernels: their counts
-    equal and above 0, and ``expected`` (every trip of every level of
-    every tracked frame) where it is known."""
-    a, b = counts["icp_track_reduce"], counts["icp_update"]
-    print(f"# {label}: ICP LAUNCHES icp_track_reduce {a}, icp_update {b}"
-          + ("" if expected is None else f" (every trip: {expected})"))
-    if a == 0 or a != b or (expected is not None and a != expected):
-        fail(f"{label}: ICP launches {a} / {b}, expected "
-             f"{expected or 'equal and above 0'}: the path did not go "
-             "through the ICP kernels")
+def check_icp_launched(label, counts, frames=None):
+    """A one-device path's ICP went through ``icp_track_levels``: one launch
+    a frame on which ICP runs (``frames``, where it is known; else above
+    0), and none of the pair."""
+    n = counts["icp_track_levels"]
+    a, b = (counts[k] for k in ICP_PAIR)
+    print(f"# {label}: ICP LAUNCHES icp_track_levels {n}"
+          + ("" if frames is None else f" (one a frame with ICP: {frames})")
+          + f", icp_track_reduce {a}, icp_update {b}")
+    if n == 0 or (frames is not None and n != frames) or a or b:
+        fail(f"{label}: ICP launches icp_track_levels {n}, the pair {a} / "
+             f"{b}, expected {frames or 'above 0'} and 0: the path did not "
+             "go through icp_track_levels once a frame")
+
+
+def check_icp_pair_launched(label, counts, expected):
+    """A rank of the sharded frame ran every trip through the pair: both
+    kernels ``expected`` times (every trip of every level of every frame
+    with ICP), and ``icp_track_levels`` never."""
+    a, b = (counts[k] for k in ICP_PAIR)
+    n = counts["icp_track_levels"]
+    print(f"# {label}: ICP LAUNCHES icp_track_reduce {a}, icp_update {b} "
+          f"(every trip: {expected}), icp_track_levels {n}")
+    if a != expected or b != expected or n:
+        fail(f"{label}: ICP launches {a} / {b}, icp_track_levels {n}, "
+             f"expected {expected} / {expected} and 0: the rank did not go "
+             "through the ICP kernels every trip")
 
 
 def run_slam(torch, cfg, depths, poses, dev):
@@ -1094,7 +1339,7 @@ def run_slam(torch, cfg, depths, poses, dev):
     st = slam.state
     return dict(slam=slam, est=np.stack(est), tracked=sum(tracked),
                 integrated=sum(integrated), ms=ms, launches=counts,
-                icp_expected=icp_expected(cfg, len(depths)),
+                icp_frames=icp_frames(cfg, len(depths)),
                 wall=time.perf_counter() - t0,
                 blocks=int(st.map.n_blocks), overflow=int(st.map.overflow),
                 ref_vertex=st.ref_vertex, ref_normal=st.ref_normal)
@@ -1115,7 +1360,7 @@ def check_run(torch, name, r, poses, record, max_ate, counter):
           f"{record['overflow']})")
     print(f"# {name}: {counter} LAUNCHES {launches} over "
           f"{r['integrated']} integrated frames")
-    check_icp_launched(name, r["launches"], r["icp_expected"])
+    check_icp_launched(name, r["launches"], r["icp_frames"])
     print(f"# {name}: median ms/frame after the first 16 frames: "
           f"{statistics.median(r['ms'][16:]):.2f} (first frame "
           f"{r['ms'][0]:.1f} ms)")
@@ -1209,21 +1454,23 @@ def check_held_view(torch, name, slam):
 
 def print_stage_times(name, cfg, depths, poses, dev):
     """Median host time per stage (device synchronised after each) over
-    the frames after the first 16, from a second run with step_staged."""
+    the frames after the first 16, from a second run with step_staged, and
+    the tracking stage's four parts (``probes/stage_times.track_parts``:
+    the pyramid, the view's host LU, the level loops, the ``bool(ok)``
+    read, each timed alone on the host clock and by CUDA events)."""
     from supereight_tpu_torch.pipeline import DenseSLAMSystem
+    from supereight_tpu_torch.probes import stage_times
     slam = DenseSLAMSystem((240, 320), cfg, dev)
     slam.setPose(poses[0])
-    rows = []
     t0 = time.perf_counter()
-    for f in range(len(depths)):
-        _, stage_s = slam.step_staged(depths[f], K, f)
-        if f >= 16:
-            rows.append(stage_s)
+    stages, parts = stage_times.staged_run(slam, depths, K)
     print(f"# {name}: median ms per stage after the first 16 frames "
           f"(step_staged, {time.perf_counter() - t0:.1f} s): " + ", ".join(
-              f"{k} {1e3 * statistics.median(r[k] for r in rows):.2f}"
-              for k in rows[0]) + ", total " +
-          f"{1e3 * statistics.median(sum(r.values()) for r in rows):.2f}")
+              f"{k} {v:.2f}" for k, v in stages.items()))
+    if parts:
+        print(f"# {name}: tracking stage parts, median host / device ms "
+              "(each alone, synchronised): "
+              + stage_times.format_parts(parts))
 
 
 def run_preset(torch, name, dev, kernels):
@@ -1402,7 +1649,7 @@ def run_phase_g(torch, dev, kernels):
                  f"{integrated} integrated frames")
         want_icp = icp_expected(preset_config(preset), n_frames)
         for rank, counts in enumerate(multi["icp_launches_per_rank"]):
-            check_icp_launched(f"{name} rank {rank}", counts, want_icp)
+            check_icp_pair_launched(f"{name} rank {rank}", counts, want_icp)
         for k, n in multi["icp_launches"].items():
             kernels[k]["launches"] += n
         if int(st["part_counts"].sum()) != st["n_blocks"]:
@@ -1412,7 +1659,13 @@ def run_phase_g(torch, dev, kernels):
                 not np.isfinite(st["ref_vertex"]).all():
             fail(f"{name}: non-finite pose or reference map")
         if name == "G3":
+            reset_launches()
             single = multihost.run_single(job, ranks, "cuda")
+            counts = launches()
+            check_icp_launched("G3 one-device frame", counts,
+                               icp_frames(preset_config(preset), n_frames))
+            for k, n in counts.items():
+                kernels[k]["launches"] += n
             try:
                 diffs = multihost.compare(multi, single)
             except AssertionError as e:
@@ -1548,8 +1801,8 @@ def app_phase(torch, label, argv, poses, tmp, icp=False):
           "after the first 16 frames")
     check_launched(label, counts, out["integrated"])
     if icp:
-        check_icp_launched(label, counts, icp_expected(
-            r.system.config, len(poses)))
+        check_icp_launched(label, counts, icp_frames(r.system.config,
+                                                     len(poses)))
     out["launches"] = counts
     if out["rows"] != len(poses):
         fail(f"{label}: {out['rows']} TSV rows for {len(poses)} frames")
@@ -1673,10 +1926,13 @@ def check_runner(torch, dev):
         res = runner.run("synthetic-room", resolution=256, out=tmp,
                          device=dev)
         wall = time.perf_counter() - t0
-        log = os.path.join(tmp, "regime_rerun" if "auto_regime" in res
-                           else "", "benchmark.log")
-        integrated = int(np.loadtxt(log, delimiter="\t", skiprows=1,
-                                    ndmin=2)[:, 13].sum())
+        passes = [""] + (["regime_rerun"] if "auto_regime" in res else [])
+        logs = [np.loadtxt(os.path.join(tmp, p, "benchmark.log"),
+                           delimiter="\t", skiprows=1, ndmin=2)
+                for p in passes]
+        integrated = int(logs[-1][:, 13].sum())
+        # the runner tracks every frame of each pass with ICP
+        icp_runs = sum(len(rows) for rows in logs)
     gate = JAX_CPU_APP["runner_ate_cm"] + RUNNER_ATE_MARGIN_CM
     print(f"# D runner synthetic-room 256^3, {res['frames']} frames in "
           f"{wall:.1f} s: tracked {res['tracked_ratio']} (JAX on the CPU "
@@ -1687,7 +1943,7 @@ def check_runner(torch, dev):
           f"{res['rpe_rot_rmse_deg']:.3f} deg, rerun "
           f"{res.get('auto_regime', 'none')}")
     check_launched("D", launches(), integrated)
-    check_icp_launched("D", launches())
+    check_icp_launched("D", launches(), icp_runs)
     if res["tracked_ratio"] < RUNNER_MIN_TRACKED:
         fail(f"D: tracked ratio {res['tracked_ratio']} < "
              f"{RUNNER_MIN_TRACKED}")
@@ -1843,10 +2099,7 @@ def main():
     sys.path.insert(0, HERE)
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
-    print(smi)
+    print(card())
     print(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 

@@ -1,13 +1,17 @@
-"""One ICP trip of a pyramid level: the hand-written CUDA kernels
-(`csrc/icp.cu`) and their plain PyTorch twins.
+"""ICP on the card: the hand-written CUDA kernels (`csrc/icp.cu`) and their
+plain PyTorch twins.
 
-:func:`icp_track_reduce` associates every pixel of a level with the
-reference maps, writes the status image and sums the normal equations
-(kernel A); :func:`icp_update` solves them and updates the loop's carry
-(kernel B).  Together they are the body of the JAX package's per-level
-``lax.while_loop`` (`supereight_tpu/pipeline/tracking.py:_level_loop`), with
-the carry (``tracking.TrackState``: pose, error2, count, converged,
-iteration) on the device: once ``converged`` is set or ``iteration`` has
+:func:`icp_track_levels` runs every trip of every pyramid level of a
+tracked frame in one launch: the JAX package's per-level ``lax.while_loop``
+(`supereight_tpu/pipeline/tracking.py:_level_loop`) over the levels, coarsest
+first, with the carry (``tracking.TrackState``: pose, error2, count,
+converged, iteration) on the device.  The one-device frame takes it.
+
+The sharded frame all-reduces the sums between a trip's two halves, so it
+runs one trip as two launches: :func:`icp_track_reduce` associates every
+pixel of a level with the reference maps, writes the status image and sums
+the normal equations (kernel A); :func:`icp_update` solves them and updates
+the carry (kernel B).  Once ``converged`` is set or ``iteration`` has
 reached ``n_iters`` both return at once and change nothing, so the host can
 queue every trip of a level without reading anything back.
 
@@ -24,7 +28,7 @@ reading the carry (a CPU tensor: no device sync).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +38,8 @@ from . import _build
 _K = _build.constants("icp")
 #: pixels a CTA of kernel A
 THREADS = _K["kThreads"]
+#: the most pyramid levels icp_track_levels takes
+MAX_LEVELS = _K["kMaxLevels"]
 #: error2, JTe[6], JTJ's 21 distinct entries, count
 N_SUMS = _K["kSums"]
 #: JTJ's distinct entries (a, b), a <= b, in the sums' order
@@ -49,7 +55,9 @@ ROBUST = {"none": 0, "huber": 1, "tukey": 2}
 ASSOC = {"nearest": 0, "bilinear": 1}
 
 #: kernel launches so far, one counter per kernel
-LAUNCHES = {"icp_track_reduce": 0, "icp_update": 0}
+LAUNCHES = {"icp_track_reduce": 0, "icp_update": 0, "icp_track_levels": 0}
+#: icp_track_levels' grid by device index (see :func:`levels_grid`)
+_GRID = {}
 
 
 def _tracking():
@@ -172,6 +180,13 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _array(ctype, values):
+    """A C array of ``values`` as a (ctypes type, value) pair of
+    :func:`_call`."""
+    a = (ctype * len(values))(*values)
+    return type(a), a
+
+
 def _call(fn: str, args, stream) -> None:
     """Call ``fn`` of the built `csrc/icp.cu` with ``args`` ((ctypes type,
     value) pairs, a tensor's value its data pointer or None), raise on its
@@ -292,3 +307,154 @@ def icp_update(sums, st, n_iters: int, icp_threshold: float,
             (P, st.converged), (P, st.iteration), (ctypes.c_int, n_iters),
             (ctypes.c_float, icp_threshold), (P, twist)], _stream(dev))
     return st
+
+
+def levels_grid(dev) -> int:
+    """The fixed grid of :func:`icp_track_levels` on the CUDA device
+    ``dev``: the CTAs an SM holds at once times the SMs, every CTA resident
+    as a cooperative launch needs.  Asked of the card once a device."""
+    dev = torch.device(dev)
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    if idx not in _GRID:
+        fn = _build.load("icp").icp_track_levels_grid
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        n = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            err = fn(ctypes.byref(n))
+        if err != 0 or n.value < 1:
+            raise RuntimeError(f"icp_track_levels_grid: CUDA error {err}, "
+                               f"{n.value} CTAs")
+        _GRID[idx] = n.value
+    return _GRID[idx]
+
+
+def icp_track_levels_twin(pose, levels, ref_vertex, ref_normal, view,
+                          iterations: Sequence[int], icp_threshold: float,
+                          symmetric=False, robust: str = "none",
+                          robust_delta: float = 0.01,
+                          assoc: str = "nearest", sums=None):
+    """Plain PyTorch version of :func:`icp_track_levels`: each level's loop
+    as ``tracking._level_loop`` runs it on the CPU (all ``n_iters`` trips
+    of :func:`icp_track_reduce_twin` then :func:`icp_update_twin`, the
+    carry's ``converged`` and ``iteration`` restarting at 0), coarsest
+    first.  ``sums``, if given, takes the last trip's sums."""
+    tr = _tracking()
+    dev = pose.device
+    zero = lambda dt: torch.zeros((), dtype=dt, device=dev)
+    st = tr.TrackState(pose=pose.clone(), error2=zero(torch.float32),
+                       count=zero(torch.float32), converged=zero(torch.bool),
+                       iteration=zero(torch.int32))
+    last = torch.zeros(N_SUMS, dtype=torch.float32, device=dev)
+    knobs = dict(symmetric=symmetric, robust=robust,
+                 robust_delta=robust_delta, assoc=assoc)
+    for level in range(len(levels) - 1, -1, -1):
+        iv, inm = levels[level]
+        n_iters = iterations[level]
+        st = st._replace(converged=zero(torch.bool),
+                         iteration=zero(torch.int32))
+        result = torch.zeros(iv.shape[:-1], dtype=torch.int32, device=dev)
+        for _ in range(n_iters):
+            result, last = icp_track_reduce_twin(
+                iv, inm, ref_vertex, ref_normal, view, st, n_iters, result,
+                last, **knobs)
+            st = icp_update_twin(last, st, n_iters, icp_threshold)
+    if sums is not None:
+        sums.copy_(last)
+    return st, result
+
+
+def icp_track_levels(pose, levels, ref_vertex, ref_normal, view,
+                     iterations: Sequence[int], icp_threshold: float,
+                     symmetric=False, robust: str = "none",
+                     robust_delta: float = 0.01, assoc: str = "nearest",
+                     sums=None):
+    """Every level's ICP loop of a tracked frame from ``pose`` (float32
+    [4, 4]), coarsest first: ``levels[l]`` = (input vertices, input normals)
+    of level l (float32 [rows, cols, 3], any row and column strides, the
+    last dimension contiguous: the finest level strided by
+    ``finest_decimate`` is read in place), at most ``iterations[l]`` trips
+    with the exit on ``|twist| < icp_threshold``, against ``ref_vertex`` /
+    ``ref_normal`` (contiguous float32 [rH, rW, 3]) with ``view`` = K @
+    inv(raycast_pose); the knobs as :func:`icp_track_reduce`'s.  Returns
+    (final ``tracking.TrackState``, level 0's status image of its last trip,
+    zeros where it ran none); ``sums`` (float32 [N_SUMS]), if given, takes
+    the last trip's sums.  CPU tensors take the twin; CUDA tensors launch
+    the kernel once (cooperatively, on the grid of :func:`levels_grid`), or
+    raise where it cannot launch."""
+    knobs = dict(symmetric=symmetric, robust=robust,
+                 robust_delta=robust_delta, assoc=assoc)
+    if pose.device.type == "cpu":
+        return icp_track_levels_twin(pose, levels, ref_vertex, ref_normal,
+                                     view, iterations, icp_threshold,
+                                     sums=sums, **knobs)
+    dev = pose.device
+    fn = "icp_track_levels"
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: no kernel for device {dev}")
+    if robust not in ROBUST or assoc not in ASSOC:
+        raise ValueError(f"{fn}: robust {robust!r}, assoc {assoc!r}")
+    n = len(levels)
+    if not 1 <= n <= MAX_LEVELS or len(iterations) != n:
+        raise ValueError(f"{fn}: {n} levels and {len(iterations)} "
+                         f"iteration counts (1 to {MAX_LEVELS} levels)")
+    for l, (iv, inm) in enumerate(levels):
+        rows, cols = iv.shape[:2]
+        for name, t in (("vertices", iv), ("normals", inm)):
+            if (t.device != dev or t.dtype != torch.float32
+                    or tuple(t.shape) != (rows, cols, 3) or t.stride(2) != 1
+                    or t.stride()[:2] != iv.stride()[:2]):
+                raise ValueError(
+                    f"{fn}: level {l}'s {name} must be a float32 ({rows}, "
+                    f"{cols}, 3) tensor on {dev} with a contiguous last "
+                    f"dimension and the vertices' strides, got {t.dtype} "
+                    f"{tuple(t.shape)} strides {t.stride()} on {t.device}")
+    rH, rW = ref_vertex.shape[:2]
+    specs = [("pose", pose, torch.float32, (4, 4)),
+             ("ref_vertex", ref_vertex, torch.float32, (rH, rW, 3)),
+             ("ref_normal", ref_normal, torch.float32, (rH, rW, 3)),
+             ("view", view, torch.float32, (4, 4))]
+    if sums is not None:
+        specs.append(("sums", sums, torch.float32, (N_SUMS,)))
+    gate = None
+    if isinstance(symmetric, torch.Tensor):
+        gate = symmetric
+        specs.append(("symmetric", gate, torch.bool, ()))
+        mode = 2
+    else:
+        mode = int(bool(symmetric))
+    _check(fn, dev, specs)
+
+    n_cta = levels_grid(dev)
+    partials = torch.empty((2, n_cta, N_SUMS), dtype=torch.float32,
+                           device=dev)
+    f32 = lambda shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    st = _tracking().TrackState(
+        pose=f32((4, 4)), error2=f32(()), count=f32(()),
+        converged=torch.empty((), dtype=torch.bool, device=dev),
+        iteration=torch.empty((), dtype=torch.int32, device=dev))
+    result = torch.empty(levels[0][0].shape[:2], dtype=torch.int32,
+                         device=dev)
+
+    from supereight_tpu_torch.pipeline.constants import (DIST_THRESHOLD,
+                                                         NORMAL_THRESHOLD)
+    delta = np.float32(robust_delta)
+    P, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+    with torch.cuda.device(dev):
+        _call(fn, [
+            (i, n), _array(P, [iv.data_ptr() for iv, _ in levels]),
+            _array(P, [inm.data_ptr() for _, inm in levels]),
+            _array(ctypes.c_longlong, [iv.stride(0) for iv, _ in levels]),
+            _array(ctypes.c_longlong, [iv.stride(1) for iv, _ in levels]),
+            _array(i, [iv.shape[0] for iv, _ in levels]),
+            _array(i, [iv.shape[1] for iv, _ in levels]),
+            _array(i, [int(k) for k in iterations]),
+            (P, ref_vertex), (P, ref_normal), (i, rH), (i, rW), (P, view),
+            (P, pose), (f, icp_threshold), (i, mode), (P, gate),
+            (i, ROBUST[robust]), (f, float(delta)),
+            (f, float(np.float32(1.0) / delta)), (i, ASSOC[assoc]),
+            (f, DIST_THRESHOLD), (f, NORMAL_THRESHOLD), (P, partials),
+            (i, n_cta), (P, st.pose), (P, st.error2), (P, st.count),
+            (P, st.converged), (P, st.iteration), (P, result), (P, sums)],
+            _stream(dev))
+    return st, result

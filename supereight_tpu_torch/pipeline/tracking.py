@@ -5,15 +5,21 @@ Tukey IRLS weights; image-row strips over D ranks with ``track(shard=)``).
 
 Each pyramid level runs as the JAX ``lax.while_loop`` does, with its carry
 on the device (:class:`TrackState`: pose, error2, count, converged,
-iteration) and nothing read back inside a level: the host queues all
-``n_iters`` trips, and a trip after ``converged`` is set changes nothing.
-A trip is two calls of `ops/icp_kernel.py`: association, residuals and
+iteration) and nothing read back inside the level loops.  On one device
+:func:`track_levels` is one call of
+:func:`~supereight_tpu_torch.ops.icp_kernel.icp_track_levels`: on the card
+one launch of a persistent CUDA kernel that runs every trip of every level,
+on the CPU its twin (each level's loop as :func:`_level_loop` runs it).
+Sharded (``track(shard=)``), each level runs :func:`_level_loop`: the host
+queues all ``n_iters`` trips, a trip after ``converged`` is set changes
+nothing, and a trip is two calls of `ops/icp_kernel.py`, association,
+residuals and
 the normal equations' sums (:func:`~supereight_tpu_torch.ops.icp_kernel.\
 icp_track_reduce`), then the solve and the pose update
-(:func:`~supereight_tpu_torch.ops.icp_kernel.icp_update`); on the card two
-CUDA kernels, on the CPU their twins, which run this module's functions.
-Sharded, the sums are all-reduced between the two, so every rank issues
-the same collectives and takes the same decisions.
+(:func:`~supereight_tpu_torch.ops.icp_kernel.icp_update`), with the sums
+all-reduced between the two, so every rank issues the same collectives and
+takes the same decisions.  On the card these are two CUDA kernels, on the
+CPU their twins, which run this module's functions.
 """
 
 from __future__ import annotations
@@ -255,31 +261,41 @@ def track_levels(pose, vertices, normals, ref_vertex, ref_normal, view,
     ``view`` = K @ inv(raycast_pose): no host read.  Returns (final
     :class:`TrackState`, status image of the last level's last trip,
     pixels of the finest level actually run, or None when they are the
-    status image's)."""
+    status image's).  On one device (``shard`` None) one call of
+    ``icp_kernel.icp_track_levels``; sharded, :func:`_level_loop` a level
+    with the sums all-reduced every trip."""
+    d = finest_decimate
+    knobs = dict(symmetric=symmetric, robust=robust,
+                 robust_delta=robust_delta, assoc=assoc)
+    levels = [(vertices[level], normals[level])
+              for level in range(len(iterations))]
+    if d > 1:
+        levels[0] = tuple(a[::d, ::d] for a in levels[0])
+    if shard is None:
+        st, result = icp_kernel.icp_track_levels(
+            pose, levels, ref_vertex, ref_normal, view, iterations,
+            icp_threshold, **knobs)
+        return st, result, None
     dev = pose.device
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     st = TrackState(pose=pose.clone(), error2=zero, count=zero.clone(),
                     converged=torch.zeros((), dtype=torch.bool, device=dev),
                     iteration=torch.zeros((), dtype=torch.int32, device=dev))
-    d = finest_decimate
+    comm, rank, n = shard
     result = None
     n_px = None
     for level in range(len(iterations) - 1, -1, -1):
-        iv, inm = vertices[level], normals[level]
-        if level == 0 and d > 1:
-            iv, inm = iv[::d, ::d], inm[::d, ::d]
-        comm = None
-        if shard is not None and iv.shape[0] % shard[2] == 0:
-            comm, rank, n = shard
+        iv, inm = levels[level]
+        level_comm = None
+        if iv.shape[0] % n == 0:
+            level_comm = comm
             rows = iv.shape[0] // n
             if level == 0:
                 n_px = iv.shape[0] * iv.shape[1]
             iv, inm = (a[rank * rows:(rank + 1) * rows] for a in (iv, inm))
         st, result = _level_loop(st, iterations[level], iv, inm, ref_vertex,
                                  ref_normal, view, icp_threshold,
-                                 symmetric=symmetric, robust=robust,
-                                 robust_delta=robust_delta, assoc=assoc,
-                                 comm=comm)
+                                 comm=level_comm, **knobs)
     return st, result, n_px
 
 

@@ -3,7 +3,7 @@ with ``supereight_tpu.apps.evaluate.ate`` (to 1e-9 m), its runs (the
 presets and phase F) are the configurations of the JAX records they are
 held against, its gates are the JAX package's CPU figures plus the stated
 margins, its ICP hold covers the headline's level shapes and every knob
-group (its CPU half run here on the twins), its JSON line lists the six
+group (its CPU half run here on the twins), its JSON line lists the seven
 kernels, and without CUDA it exits non-zero and prints no result."""
 
 import json
@@ -306,11 +306,11 @@ def test_phase_g_runs(name):
 
 
 def test_kernel_line_order():
-    """The JSON line lists the six kernels in a fixed order: the fusion
-    kernels, the gather-probe kernels, the ICP kernels."""
+    """The JSON line lists the seven kernels in a fixed order: the fusion
+    kernels, the gather-probe kernels, the ICP pair, the one-launch ICP."""
     assert chip_smoke.KERNEL_ORDER == (
         "fuse_sdf", "fuse_ofusion", "lane_shuffle_sum", "slab_row_sum",
-        "icp_track_reduce", "icp_update")
+        "icp_track_reduce", "icp_update", "icp_track_levels")
     from supereight_tpu_torch.ops import icp_kernel, integrate_kernel
     assert set(chip_smoke.FUSION) == set(integrate_kernel.LAUNCHES)
     assert set(chip_smoke.ICP) == set(icp_kernel.LAUNCHES)
@@ -319,8 +319,11 @@ def test_kernel_line_order():
 def test_icp_hold_covers_the_headline():
     """The ICP hold: the headline's three level shapes (its finest level
     strided by its icp_finest_decimate) and a rank's strip of 2, every knob
-    group once, the stated tolerances, and the launches a run must show
-    (every trip of every level of every tracked frame)."""
+    group once, ``icp_track_levels``' two level sets (the headline's and
+    the whole 320x240 finest level), the stated tolerances, and the
+    launches a run must show: one ``icp_track_levels`` launch a frame with
+    ICP and no pair on one device; the pair every trip of every level and
+    no ``icp_track_levels`` on a rank."""
     import dataclasses
     cfg = chip_smoke.preset_config("headline")
     assert cfg.pyramid == (10, 5, 4) and cfg.icp_finest_decimate == 2
@@ -338,17 +341,26 @@ def test_icp_hold_covers_the_headline():
             chip_smoke.ICP_UPDATE_ATOL, chip_smoke.ICP_TRACK_ATOL,
             chip_smoke.ICP_TRACK_FLIPS) == (1e-5, 1e-6, 1e-6, 1e-4, 1e-3)
     assert chip_smoke.FP32_EPS == np.finfo(np.float32).eps
+    assert chip_smoke.ICP_LEVEL_SETS == {
+        "headline": cfg.icp_finest_decimate, "320x240": 1}
     assert chip_smoke.icp_expected(cfg, 96) == 96 * 19
     assert chip_smoke.icp_expected(
         dataclasses.replace(cfg, tracking_rate=2), 96) == 48 * 19
-    chip_smoke.check_icp_launched("x", {"icp_track_reduce": 1824,
-                                        "icp_update": 1824}, 1824)
-    chip_smoke.check_icp_launched("x", {"icp_track_reduce": 5,
-                                        "icp_update": 5})
-    for a, b, want in ((1824, 1823, 1824), (1805, 1805, 1824), (0, 0, None)):
-        with pytest.raises(SystemExit, match="ICP kernels"):
-            chip_smoke.check_icp_launched(
-                "x", {"icp_track_reduce": a, "icp_update": b}, want)
+    assert chip_smoke.icp_frames(cfg, 96) == 96
+    assert chip_smoke.icp_frames(
+        dataclasses.replace(cfg, tracking_rate=3), 96) == 32
+    counts = lambda a, b, n: {"icp_track_reduce": a, "icp_update": b,
+                              "icp_track_levels": n}
+    chip_smoke.check_icp_launched("x", counts(0, 0, 96), 96)
+    chip_smoke.check_icp_launched("x", counts(0, 0, 5))
+    for a, b, n, want in ((0, 0, 95, 96), (1, 1, 96, 96), (0, 0, 0, None),
+                          (1824, 1824, 0, 96)):
+        with pytest.raises(SystemExit, match="icp_track_levels once"):
+            chip_smoke.check_icp_launched("x", counts(a, b, n), want)
+    chip_smoke.check_icp_pair_launched("x", counts(1824, 1824, 0), 1824)
+    for a, b, n in ((1824, 1823, 0), (1805, 1805, 0), (1824, 1824, 1)):
+        with pytest.raises(SystemExit, match="ICP kernels every trip"):
+            chip_smoke.check_icp_pair_launched("x", counts(a, b, n), 1824)
 
 
 def test_icp_hold_on_the_cpu(monkeypatch):
@@ -376,6 +388,40 @@ def test_icp_hold_on_the_cpu(monkeypatch):
             assert 24 * n_ok // 4 <= extra <= 24 * most * n
 
 
+def test_icp_levels_hold_on_the_cpu(monkeypatch):
+    """``icp_track_levels``' hold, its CPU half on the twin (the kernel runs
+    only on the card): both level sets in two knob groups, the trips each
+    level runs, and its bound's byte count: every level's maps, the
+    finest status image and the carry, plus the distinct reference rows
+    reached (at least those of the finest level)."""
+    import torch
+    torch.set_num_threads(1)
+    monkeypatch.setattr(chip_smoke, "ICP_FRAME", 6)
+    depths, poses = chip_smoke.load_sequence("synthetic_256_frames")
+    ops = chip_smoke.icp_operands(torch, depths, poses, "cpu")
+    cfg = ops["cfg"]
+    for level_set, d in chip_smoke.ICP_LEVEL_SETS.items():
+        levels = chip_smoke.icp_level_set(ops, d)
+        assert levels[0][0].shape[:2] == (240 // d, 320 // d)
+        for knobs in (chip_smoke.ICP_KNOBS[0], chip_smoke.ICP_KNOBS[-1]):
+            sum_err, pose_err, flips, n_ok, (k_it, t_it) = \
+                chip_smoke.hold_icp_levels(torch, ops, level_set, knobs)
+            assert (sum_err, pose_err, flips) == (0.0, 0.0, 0)
+            assert n_ok > 0.1 * levels[0][0].numel() // 3
+            assert k_it == t_it and 1 <= k_it <= cfg.pyramid[0]
+        trips = chip_smoke.level_trips(torch, ops, levels, cfg.pyramid,
+                                       cfg.icp_threshold)
+        assert all(1 <= t <= n for t, n in zip(trips, cfg.pyramid))
+        n_px = [iv.shape[0] * iv.shape[1] for iv, _ in levels]
+        fixed = 24 * sum(n_px) + 4 * n_px[0] + 80 + 128
+        extra = chip_smoke.icp_levels_bytes(
+            torch, ops, levels, chip_smoke.ICP_KNOBS[0]) - fixed
+        finest = chip_smoke.icp_bytes(torch, ops, *levels[0],
+                                      chip_smoke.ICP_KNOBS[0]) \
+            - 28 * n_px[0] - 29 * 4 - 2 * 64 - 5
+        assert finest <= extra <= 24 * sum(n_px)
+
+
 def test_solve_tolerance():
     """Kernel B's twist tolerance: ICP_UPDATE_ATOL plus 2 eps cond(JTJ)
     |x| of the sums' system, with its float64 solve."""
@@ -388,3 +434,36 @@ def test_solve_tolerance():
     tol, x = chip_smoke.solve_tolerance(torch, sums)
     np.testing.assert_allclose(x.numpy(), [1, 1, 1, 1, 1, 0.5])
     assert tol == pytest.approx(1e-6 + 2 * 2.0 ** -23 * 100.0 * 1.0)
+
+
+def test_tracking_parts_on_the_cpu(monkeypatch):
+    """``probes/stage_times``' cut of the tracking stage, run on the CPU at
+    a small size: every part timed on every frame that tracks (no device
+    time without a card), and the run's poses and maps those of the same
+    run without the cut, bit for bit."""
+    import torch
+    from supereight_tpu_torch.config import SlamConfig
+    from supereight_tpu_torch.pipeline import DenseSLAMSystem
+    from supereight_tpu_torch.probes import stage_times
+    torch.set_num_threads(1)
+    monkeypatch.setattr(stage_times, "SKIP", 2)
+    depths, poses = chip_smoke.load_sequence("synthetic_256_frames")
+    cfg = SlamConfig(volume_size=(4.8,) * 3, volume_resolution=(64,) * 3,
+                     compute_size_ratio=2, block_capacity=1024)
+    runs = [DenseSLAMSystem((240, 320), cfg, "cpu") for _ in range(2)]
+    for s in runs:
+        s.setPose(poses[0])
+    k = chip_smoke.K / 2
+    stages, parts = stage_times.staged_run(runs[0], depths[:5], k)
+    for f in range(5):
+        runs[1].step_staged(depths[f], k, f)
+    assert set(stages) == {"preprocessing", "tracking", "integration",
+                           "raycasting", "total"}
+    assert tuple(parts) == stage_times.PARTS
+    for t in parts.values():
+        assert t["host"] > 0 and t["device"] is None
+    assert "not measured" in stage_times.format_parts(parts)
+    a, b = (s.state for s in runs)
+    assert torch.equal(a.pose, b.pose) and a.tracked == b.tracked
+    for name in a.map.voxels:
+        assert torch.equal(a.map.voxels[name], b.map.voxels[name])

@@ -944,8 +944,9 @@ def test_icp_kernels_reject_what_they_do_not_take(cuda):
 @pytest.mark.gpu
 def test_icp_level_loops_read_nothing_back(cuda):
     """``track_levels`` at the headline's pyramid (10, 5, 4) on the
-    kernels under ``torch.cuda.set_sync_debug_mode("error")``: no host
-    read, two launches a trip; ``track`` with the kernels against ``track``
+    card under ``torch.cuda.set_sync_debug_mode("error")``: no host read,
+    one launch of ``icp_track_levels`` and none of the pair; ``track`` on
+    the card against ``track``
     with the twins (on the CPU): pose within 1e-4 (the multi-device frame's
     tolerance for the same ICP summed in another order), the same
     decision, status flips within 0.1 %."""
@@ -966,8 +967,8 @@ def test_icp_level_loops_read_nothing_back(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    for name in before:
-        assert icp.LAUNCHES[name] - before[name] == 19
+    assert {k: icp.LAUNCHES[k] - n for k, n in before.items()} == dict(
+        icp_track_levels=1, icp_track_reduce=0, icp_update=0)
     assert 0 < int(st.iteration) <= 4 and bool(torch.isfinite(st.pose).all())
     args = (inp["start"], inp["depths"], inp["vertices"], inp["normals"],
             inp["ref_v"], inp["ref_n"], inp["rpose"], inp["k"])
@@ -977,3 +978,161 @@ def test_icp_level_loops_read_nothing_back(cuda):
     torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=1e-4)
     assert bool(got[1]) == bool(want[1]) is True
     assert float((got[2].cpu() != want[2]).float().mean()) <= 1e-3
+
+
+# ----------------------------------------------------------------------
+# icp_track_levels: every trip of every level in one launch
+# ----------------------------------------------------------------------
+
+#: the level sets icp_track_levels is held at: the headline's (the finest
+#: level strided by 2) and the whole 320x240 finest level
+LEVEL_SETS = {"headline": 2, "320x240": 1}
+
+
+def _levels(inp, d):
+    levels = list(zip(inp["vertices"], inp["normals"]))
+    levels[0] = tuple(a[::d, ::d] for a in levels[0])
+    return levels
+
+
+def _levels_args(inp, d):
+    return (_levels(inp, d), inp["ref_v"], inp["ref_n"], inp["view"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("level_set", sorted(LEVEL_SETS))
+def test_icp_track_levels_matches_twin(cuda, level_set):
+    """In every knob group: one trip at the finest level from the start
+    pose, the status image bit for bit and the sums within rtol 1e-5 +
+    1e-6 times their terms' absolute sum; the headline's pyramid (10, 5,
+    4), the pose within 1e-4 (a whole ``track``'s tolerance: the sums add
+    in another order, which ICP amplifies from trip to trip) and status
+    flips within 0.1 %."""
+    from supereight_tpu_torch.ops import icp_kernel as icp
+    from supereight_tpu_torch.pipeline import tracking
+    inp = _icp_inputs(cuda)
+    d = LEVEL_SETS[level_set]
+    levels, rv, rn, view = _levels_args(inp, d)
+    for kn in _icp_knobs():
+        kn = dict(kn, symmetric=_sym(kn["symmetric"], cuda))
+        sums = [torch.zeros(icp.N_SUMS, device=cuda) for _ in range(2)]
+        got = icp.icp_track_levels(inp["start"], levels, rv, rn, view,
+                                   (1, 0, 0), 1e-5, sums=sums[0], **kn)
+        want = icp.icp_track_levels_twin(inp["start"], levels, rv, rn, view,
+                                         (1, 0, 0), 1e-5, sums=sums[1], **kn)
+        assert torch.equal(got[1], want[1]), kn
+        assert int((got[1] == 1).sum()) > 500
+        td = tracking.track_kernel(*levels[0], rv, rn, inp["start"], view,
+                                   symmetric=kn["symmetric"],
+                                   assoc=kn["assoc"])
+        mag = icp.term_magnitudes(td, tracking.robust_weights(
+            td, kn["robust"], kn["robust_delta"])).cpu()
+        g, w = sums[0].cpu().double(), sums[1].cpu().double()
+        assert not (torch.abs(g - w) > 1e-5 * w.abs() + 1e-6 * mag).any(), \
+            (kn, g, w)
+        assert float(got[0].count) == float(want[0].count)
+        got = icp.icp_track_levels(inp["start"], levels, rv, rn, view,
+                                   (10, 5, 4), 1e-5, **kn)
+        want = icp.icp_track_levels_twin(inp["start"], levels, rv, rn, view,
+                                         (10, 5, 4), 1e-5, **kn)
+        torch.testing.assert_close(got[0].pose, want[0].pose, rtol=0,
+                                   atol=1e-4)
+        assert float((got[1] != want[1]).float().mean()) <= 1e-3, kn
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("level_set", sorted(LEVEL_SETS))
+def test_icp_track_levels_exits_at_every_level(cuda, level_set):
+    """Every level exits at its first trip where the threshold is met at
+    once: the same pose, bit for bit, as one trip a level that never
+    converges, ``converged`` set and ``iteration`` 1; a level configured
+    with 0 trips runs none (the finest: a zero status image)."""
+    from supereight_tpu_torch.ops import icp_kernel as icp
+    inp = _icp_inputs(cuda)
+    args = _levels_args(inp, LEVEL_SETS[level_set])
+    run = lambda iters, thr: icp.icp_track_levels(inp["start"], *args,
+                                                  iters, thr)
+    exit_at_once, res = run((10, 5, 4), 1e3)
+    one_each, res1 = run((1, 1, 1), 0.0)
+    assert torch.equal(exit_at_once.pose, one_each.pose)
+    assert torch.equal(res, res1)
+    assert bool(exit_at_once.converged) and not bool(one_each.converged)
+    assert int(exit_at_once.iteration) == int(one_each.iteration) == 1
+    for iters in ((0, 5, 4), (4, 0, 10), (4, 5, 0)):
+        got, r = run(iters, 1e-5)
+        want, wr = icp.icp_track_levels_twin(inp["start"], *args, iters,
+                                             1e-5)
+        torch.testing.assert_close(got.pose, want.pose, rtol=0, atol=1e-4)
+        assert int(got.iteration) == int(want.iteration)
+        if iters[0] == 0:
+            assert not bool(r.any()) and int(got.iteration) == 0
+        else:
+            assert float((r != wr).float().mean()) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_icp_track_levels_is_deterministic(cuda):
+    """Two launches on the same operands give the same bits: the carry, the
+    status image and the sums (a fixed grid, fixed pixels a CTA, the
+    partials summed in a fixed order)."""
+    from supereight_tpu_torch.ops import icp_kernel as icp
+    inp = _icp_inputs(cuda)
+    args = _levels_args(inp, 2)
+    runs = []
+    for _ in range(2):
+        sums = torch.zeros(icp.N_SUMS, device=cuda)
+        st, res = icp.icp_track_levels(inp["start"], *args, (10, 5, 4), 1e-5,
+                                       sums=sums, robust="tukey",
+                                       robust_delta=0.02)
+        runs.append((*st, res, sums))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert icp.levels_grid(cuda) >= torch.cuda.get_device_properties(
+        cuda).multi_processor_count
+
+
+@pytest.mark.gpu
+def test_icp_track_levels_rejects_what_it_does_not_take(cuda):
+    from supereight_tpu_torch.ops import icp_kernel as icp
+    inp = _icp_inputs(cuda)
+    levels, rv, rn, view = _levels_args(inp, 2)
+    run = lambda lv=levels, r=rv, it=(10, 5, 4), **kw: icp.icp_track_levels(
+        inp["start"], lv, r, rn, view, it, 1e-5, **kw)
+    swap = lambda l, pair: [pair if i == l else p
+                            for i, p in enumerate(levels)]
+    with pytest.raises(ValueError):                # a CPU reference map
+        run(r=rv.cpu())
+    with pytest.raises(ValueError):                # not float32
+        run(lv=swap(1, (levels[1][0].double(), levels[1][1].double())))
+    with pytest.raises(ValueError):                # normals' shape differs
+        run(lv=swap(2, (levels[2][0], levels[2][1][:, :-1])))
+    wide = torch.zeros(60, 80, 6, device=cuda)
+    with pytest.raises(ValueError):                # last dim not contiguous
+        run(lv=swap(2, (wide[..., ::2], wide[..., ::2])))
+    with pytest.raises(ValueError):                # gate not a bool
+        run(symmetric=torch.tensor(1.0, device=cuda))
+    with pytest.raises(ValueError):                # an iteration missing
+        run(it=(10, 5))
+    with pytest.raises(ValueError):                # more levels than it takes
+        run(lv=levels * 3, it=(1,) * 9)
+    with pytest.raises(ValueError):                # sums not float32
+        run(sums=torch.zeros(icp.N_SUMS, dtype=torch.float64, device=cuda))
+
+
+@pytest.mark.gpu
+def test_one_device_track_launches_levels_once(cuda):
+    """``track`` on one device: one launch of ``icp_track_levels``, none of
+    the pair, whatever the knobs."""
+    from supereight_tpu_torch.ops import icp_kernel as icp
+    from supereight_tpu_torch.pipeline import tracking
+    inp = _icp_inputs(cuda)
+    args = (inp["start"], inp["depths"], inp["vertices"], inp["normals"],
+            inp["ref_v"], inp["ref_n"], inp["rpose"], inp["k"])
+    for kn in (dict(), dict(symmetric=torch.tensor(True, device=cuda),
+                            robust="huber", assoc="bilinear")):
+        before = dict(icp.LAUNCHES)
+        _, ok, res = tracking.track(*args, (10, 5, 4), 1e-5,
+                                    finest_decimate=2, **kn)
+        assert {k: icp.LAUNCHES[k] - n for k, n in before.items()} == dict(
+            icp_track_levels=1, icp_track_reduce=0, icp_update=0)
+        assert bool(ok) and tuple(res.shape) == (240, 320)

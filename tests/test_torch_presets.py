@@ -17,7 +17,8 @@ capacity 4096:
 As in `tests/test_torch_system.py`, each port frame starts from the JAX
 state of the frame before, because ICP amplifies rounding
 (``torch_port_util.step_split``).  Per frame, tracked is equal and the ICP
-translations agree within 1e-3 m; then, from the JAX frame's pose (a pose
+translations agree within 1e-3 m (``noise``: within JAX's own sensitivity
+at that frame, below); then, from the JAX frame's pose (a pose
 that parts by a fraction of a millimetre can allocate a block on its edge,
 and XLA's own ICP sums change with the CPU's vector width), integrated, the
 allocation-fired pattern (``alloc_count``), the raycast-fired pattern,
@@ -25,16 +26,27 @@ allocation-fired pattern (``alloc_count``), the raycast-fired pattern,
 tables are equal bit for bit.  The held SDF view equals ``pack_view`` of
 its map bit for bit after every frame, and ``step_staged`` equals ``step``
 bit for bit.
+
+``noise`` is chaotic in the JAX package itself: stepped from the same
+state with every valid depth moved up by one float32 ulp, JAX's own pose
+moves by up to 1.4e-3 m in these 8 frames (an AVX-512 CPU), and which
+side of 1e-3 m the port lands on then follows the host's vector ISA
+(XLA's CPU sums change with it).  Its tracking half is held at each frame to
+``max(1e-3, 2 x |pose_JAX(depth) - pose_JAX(depth + ulp)|)``, measured in
+the same run (:func:`_jax_sensitivity`).
 """
 
 import dataclasses
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from supereight_tpu.config import Configuration, apply_preset
 from supereight_tpu.pipeline import DenseSLAMSystem as JaxSLAM
+from supereight_tpu.pipeline import preprocessing as jpre
 from supereight_tpu_torch.pipeline import DenseSLAMSystem, raycast
 
 from torch_port_util import (K_FULL, assert_split, load_frames, split_want,
@@ -44,6 +56,9 @@ torch.set_num_threads(1)
 
 N_FRAMES = 8
 K = K_FULL / 2
+#: the groups whose tracking half is held to JAX's own one-ulp sensitivity
+CHAOTIC = ("noise",)
+POSE_ATOL = 1e-3
 SMALL = dict(volume_resolution=(128,) * 3, block_capacity=4096)
 
 #: {group: (preset, cached sequence, frame stride, knobs over the preset)}
@@ -84,6 +99,25 @@ def _assert_view_is_pack_view(st, field, msg):
                        torch.nan_to_num(rebuilt)), msg
 
 
+def _jax_sensitivity(jax_slam, before, depth_mm, frame: int) -> float:
+    """How far JAX's own tracked translation moves when the frame is
+    stepped from the state ``before`` with every valid depth one float32
+    ulp deeper (JAX's jitted ``mm_to_meters``, then ``nextafter``; the
+    float depth is taken as metres); leaves ``jax_slam.state`` as it
+    found it."""
+    after = jax_slam.state
+    meters = np.asarray(jax.jit(jpre.mm_to_meters, static_argnums=1)(
+        jnp.asarray(depth_mm), depth_mm.shape))
+    poses = []
+    for d in (meters, np.where(meters > 0, np.nextafter(
+            meters, np.float32(np.inf)), meters).astype(np.float32)):
+        jax_slam.state = before
+        poses.append(np.asarray(jax_slam.step(d, K, frame).pose))
+    jax_slam.state = after
+    assert np.array_equal(poses[0], np.asarray(after.pose)), frame
+    return float(np.abs(poses[1][:3, 3] - poses[0][:3, 3]).max())
+
+
 @pytest.fixture(scope="module", params=sorted(GROUPS))
 def run(request):
     """The JAX system over N_FRAMES and the port stepped from each of its
@@ -98,11 +132,18 @@ def run(request):
     port = DenseSLAMSystem((240, 320), cfg, "cpu")
     for s in (jax_slam, port):
         s.setPose(poses[0])
-    out = dict(group=group, jax=[], port=[], field=port.field)
+    out = dict(group=group, jax=[], port=[], field=port.field,
+               pose_atol=[])
     before = state_to_numpy(jax_slam.state)
     for f in range(N_FRAMES):
+        jax_before = jax_slam.state
         jst = jax_slam.step(depths[f], K, f)
         out["jax"].append(_record(jst))
+        atol = POSE_ATOL
+        if group in CHAOTIC:
+            atol = max(POSE_ATOL, 2 * _jax_sensitivity(
+                jax_slam, jax_before, depths[f], f))
+        out["pose_atol"].append(atol)
         after = state_to_numpy(jst)
         out["port"].append((split_want(after), step_split(
             port, before, after, depths[f], K, f)))
@@ -114,7 +155,7 @@ def run(request):
 
 def test_frames_match_jax(run):
     for f, (want, got) in enumerate(run["port"]):
-        assert_split(got, want, f)
+        assert_split(got, want, f, run["pose_atol"][f])
     # the run tracks past the bootstrap
     assert all(j["tracked"] for j in run["jax"][5:])
 

@@ -413,6 +413,119 @@ def test_device_loop_equals_host_loop(maps, assoc, symmetric, robust):
     assert torch.equal(res, hres)
 
 
+def _composed_levels(start, levels, iters, rv, rn, view, threshold, **kn):
+    """The one-device level loops as ``track_levels`` composed them before
+    ``icp_track_levels``: ``_level_loop`` a level, coarsest first."""
+    st = _carry(start.clone())
+    res = None
+    for level in range(len(levels) - 1, -1, -1):
+        iv, inm = levels[level]
+        st, res = tracking._level_loop(st, iters[level], iv, inm, rv, rn,
+                                       view, threshold, **kn)
+    return st, res
+
+
+def _pyramid(maps, d):
+    """The levels by index, the finest strided by ``d``."""
+    levels = [(_t(v), _t(n)) for v, n in zip(maps["vertices"],
+                                              maps["normals"])]
+    levels[0] = tuple(a[::d, ::d] for a in levels[0])
+    return levels
+
+
+@pytest.mark.parametrize("decimate", [1, 2])
+@pytest.mark.parametrize("robust", ["none", "huber", "tukey"])
+@pytest.mark.parametrize("symmetric", ["off", "on", "gate"])
+@pytest.mark.parametrize("assoc", ["nearest", "bilinear"])
+def test_levels_twin_equals_level_loops(maps, assoc, symmetric, robust,
+                                        decimate):
+    """``icp_track_levels``' twin (the CPU path of ``track_levels``) equals
+    the ``_level_loop`` composition it replaced bit for bit: the carry
+    (pose, error2, count, converged, iteration) and the finest level's
+    status image, with the finest level whole or strided by 2."""
+    kn = _knobs(symmetric, robust, assoc)
+    rv, rn, view = _t(maps["ref_v"]), _t(maps["ref_n"]), _t(_view(maps))
+    start = _t(maps["start"])
+    levels = _pyramid(maps, decimate)
+    want, wres = _composed_levels(start, levels, LOOP_ITERS, rv, rn, view,
+                                  LOOP_THRESHOLD, **kn)
+    got, res = icp_kernel.icp_track_levels_twin(
+        start, levels, rv, rn, view, LOOP_ITERS, LOOP_THRESHOLD, **kn)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(res, wres) and res.shape == levels[0][0].shape[:2]
+    # the wrapper takes the twin for CPU tensors; track_levels takes it
+    again, ares = icp_kernel.icp_track_levels(
+        start, levels, rv, rn, view, LOOP_ITERS, LOOP_THRESHOLD, **kn)
+    whole, tres, n_px = tracking.track_levels(
+        start, [_t(v) for v in maps["vertices"]],
+        [_t(v) for v in maps["normals"]], rv, rn, view, LOOP_ITERS,
+        LOOP_THRESHOLD, finest_decimate=decimate, **kn)
+    assert n_px is None
+    for st, r in ((again, ares), (whole, tres)):
+        for a, b in zip(st, want):
+            assert torch.equal(a, b)
+        assert torch.equal(r, wres)
+
+
+@pytest.mark.parametrize("iters", [(0, 5, 4), (4, 0, 10), (0, 0, 0)])
+def test_levels_without_trips(maps, iters):
+    """A level configured with 0 iterations runs no trip: the carry passes
+    through it (its ``converged`` and ``iteration`` restart at 0), and where
+    it is the finest level the status image is zeros, as JAX's
+    ``_level_loop`` leaves it."""
+    rv, rn, view = _t(maps["ref_v"]), _t(maps["ref_n"]), _t(_view(maps))
+    start = _t(maps["start"])
+    levels = _pyramid(maps, 2)
+    want, wres = _composed_levels(start, levels, iters, rv, rn, view,
+                                  LOOP_THRESHOLD)
+    got, res = icp_kernel.icp_track_levels(start, levels, rv, rn, view,
+                                           iters, LOOP_THRESHOLD)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(res, wres)
+    if iters[0] == 0:
+        assert not res.any() and int(got.iteration) == 0
+        assert not bool(got.converged)
+    if not any(iters):
+        assert torch.equal(got.pose, start)
+        assert float(got.error2) == float(got.count) == 0.0
+    else:
+        assert not torch.equal(got.pose, start)
+
+
+def test_levels_twin_sums_are_the_last_trips(maps):
+    """``sums`` takes the last trip's sums: one trip at the finest level
+    from the start pose gives ``reduce_kernel``'s sums of that pose, and the
+    carry's error2 and count are two of them."""
+    rv, rn, view = _t(maps["ref_v"]), _t(maps["ref_n"]), _t(_view(maps))
+    start = _t(maps["start"])
+    levels = _pyramid(maps, 1)
+    sums = torch.full((icp_kernel.N_SUMS,), float("nan"))
+    st, res = icp_kernel.icp_track_levels(start, levels, rv, rn, view,
+                                          (1, 0, 0), LOOP_THRESHOLD,
+                                          sums=sums)
+    td = tracking.track_kernel(*levels[0], rv, rn, start, view)
+    want = icp_kernel.pack_sums(*tracking.reduce_kernel(td))
+    assert torch.equal(sums, want) and torch.equal(res, td.result)
+    assert float(st.error2) == float(sums[0])
+    assert float(st.count) == float(sums[-1]) > 1000
+    assert int(st.iteration) == 1
+
+
+def test_levels_wrapper_rejects_a_device_without_kernel(maps):
+    """Tensors on neither the CPU nor a CUDA device: ``icp_track_levels``
+    raises rather than falling back to the twin."""
+    rv, rn, view = _t(maps["ref_v"]), _t(maps["ref_n"]), _t(_view(maps))
+    start = _t(maps["start"])
+    levels = _pyramid(maps, 2)
+    meta = lambda t: t.to("meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        icp_kernel.icp_track_levels(
+            meta(start), [tuple(map(meta, lv)) for lv in levels], meta(rv),
+            meta(rn), meta(view), LOOP_ITERS, LOOP_THRESHOLD)
+
+
 def _jax_carry(pose):
     return jtr.TrackState(pose=jnp.asarray(pose), error2=jnp.zeros(()),
                           count=jnp.zeros(()),
