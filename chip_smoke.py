@@ -28,6 +28,19 @@ GPU.
    ICP_TRACK_ATOL, flipped statuses counted); two launches give the same
    bits; its device time a headline frame is printed beside its bound, its
    twin's, the pair's for the same trips, the launch floor and the card.
+   Then the frame's glue, each kernel against its twin bit for bit and
+   timed beside the launch floor and its bound: ``build_pyramid``
+   (``csrc/pyramid.cu``, a launch a level) on headline frames
+   PYRAMID_FRAMES at both ``neg_y``, against the twin on the card and on
+   the CPU; ``pose_inv`` (``csrc/numerics.cu``, one thread) on every pose
+   of the three cached sequences and on K, against the host twin and
+   timed beside ``torch.linalg.inv``; ``frustum_select``
+   (``csrc/integrate.cu``, two launches) on the headline map after 12
+   frames at its budget, 3072, and at one its candidates overflow (each
+   preset's run holds it again on its own map: 6144, 24576 and 196608
+   slots); ``update_nodes`` (``csrc/integrate.cu``, one launch for every
+   node level) on random node tables at 256^3 and 1024^3 for both fields
+   (each preset's run holds it again on its own map).
 3. Holds the SDF and the OFusion fusion kernel, each updating a map's
    block table in place, against their plain PyTorch twins on clones of
    the same table at main-path shapes (3072 distinct slots of a real map,
@@ -45,7 +58,11 @@ GPU.
    runs must launch ``icp_track_levels`` exactly once and the pair never
    on the one-device paths, B, D, the presets, F and G3's one-device
    frame; on G's ranks both kernels of the pair run once a trip of every
-   level and ``icp_track_levels`` never):
+   level and ``icp_track_levels`` never; on the presets and F,
+   ``build_pyramid`` at least once a level of every frame with ICP,
+   ``pose_inv`` at least once a frame with ICP and once an integrated
+   frame, ``update_nodes`` once an integrated frame and ``frustum_select``
+   once an integrated frame on the budget branch):
    A. ``apps.benchmark`` in ground-truth mode (``-g``) at the headline
       preset on the cached base sequence, written as a .raw stream and a
       TUM trajectory with the port's ``io``: 96/96 frames, ATE < 1e-4 m,
@@ -304,7 +321,27 @@ UPDATE_FLOPS = {"fuse_sdf": 19, "fuse_ofusion": 50}
 #: the kernels of the JSON line, in its order
 KERNEL_ORDER = ("fuse_sdf", "fuse_ofusion", "lane_shuffle_sum",
                 "slab_row_sum", "icp_track_reduce", "icp_update",
-                "icp_track_levels")
+                "icp_track_levels", "build_pyramid", "pose_inv",
+                "frustum_select", "update_nodes")
+#: the frame's glue on the card: the tracking pyramid (a launch a level),
+#: the 4x4 inverse, the fusion's frustum selection and the node pyramid's
+#: update, each held bit for bit to its twin
+GLUE = ("build_pyramid", "pose_inv", "frustum_select", "update_nodes")
+#: the cached sequences whose every pose pose_inv is held on
+SEQUENCES = ("synthetic_256_frames", "synthetic_256_frames_trans",
+             "synthetic_256_frames_noisy")
+#: the headline frames the pyramid is held on
+PYRAMID_FRAMES = (0, 30, 60, 95)
+#: float operations (an fma counts two) the glue needs: a pyramid pixel
+#: (its half sample 13, its vertex 6, its normal 24), an inverse (the 4x4
+#: LU and the four solves), a frustum test of a live slot (centre 3, the
+#: projection 22, the footprint and bounds 10) and a node cell (its
+#: corner and projection 25, the test 5, the field's update: SDF 19,
+#: OFusion 50), counted in csrc/pyramid.cu, numerics.cu and integrate.cu
+PYRAMID_FLOPS = 43
+INV_FLOPS = 200
+SELECT_FLOPS = 35
+NODE_FLOPS = {"sdf": 49, "ofusion": 80}
 FUSION = ("fuse_sdf", "fuse_ofusion")
 #: the sharded frame's ICP kernels (a trip: kernel A, the all_reduce,
 #: kernel B), and the one-device frame's (every trip in one launch)
@@ -472,7 +509,7 @@ def hold_kernel(torch, label, kernel, m, field, frame, now, slots=None,
     torch.cuda.synchronize()
 
     rows = (torch.nonzero(octree.slot_mask(m) & m.active)[:, 0]
-            if slots is None else slots.long())
+            if slots is None else slots[slots >= 0].long())
     kept = torch.ones(m.capacity, dtype=torch.bool, device=m.device)
     kept[rows] = False
     err = [(km.voxels[k] - tm.voxels[k]).abs() for k in names]
@@ -526,7 +563,8 @@ def hold_kernel(torch, label, kernel, m, field, frame, now, slots=None,
     sectors = lambda x: int(x.view(-1, 8).any(-1).sum())
     nbytes = 32 * (2 * sectors(updated) + sum(sectors(c) for c in changed)
                    + view_sectors) \
-        + n * (8 + 1) + (m.capacity + 4 if slots is None else 4 * n) \
+        + n * (8 + 1) + (m.capacity + 4 if slots is None
+                         else 4 * slots.numel()) \
         + depth.numel() * 4 + 2 * 64
     b_ms, b_by = bound(nbytes, n * 512 * PROJECT_FLOPS
                        + fused * UPDATE_FLOPS[kernel])
@@ -601,6 +639,281 @@ def check_fusion_kernel(torch, kernel, preset, frames, depths, poses, dev):
                 replaces=replaces, launches=0, max_abs_err=r["max_abs_err"],
                 ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                 bound_by=r["bound_by"], library_ms=None)
+
+
+def bits_err(torch, got, want) -> float:
+    """The largest |got - want| of two float32 tensors (NaN where NaN
+    counts 0), and whether they are equal bit for bit: (err, same)."""
+    got, want = got.contiguous(), want.to(got.device).contiguous()
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    same = bool(((got.view(torch.int32) == want.view(torch.int32))
+                 | both_nan).all())
+    diff = torch.where(both_nan, 0.0, (got - want).abs())
+    err = float(torch.nan_to_num(diff, nan=float("inf")).max()) \
+        if diff.numel() else 0.0
+    return err, same
+
+
+def glue_entry(name, source, replaces, err, ms, plain_ms, b, library_ms,
+               floor, **extra):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b[0], bound_by=b[1], library_ms=library_ms,
+                launch_floor_ms=floor, **extra)
+
+
+def hold_pyramid(torch, depths, dev, floor):
+    """``build_pyramid`` (csrc/pyramid.cu, a launch a level) against its
+    twin on the card and on the CPU at the headline's three levels, on
+    PYRAMID_FRAMES of the headline sequence at both ``neg_y``: every
+    level's depth, vertices and normals bit for bit.  Timed on the last."""
+    from supereight_tpu_torch.ops import pyramid_kernel
+    from supereight_tpu_torch.pipeline import preprocessing
+    k = torch.from_numpy(K).to(dev)
+    err, n_held = 0.0, 0
+    for f in PYRAMID_FRAMES:
+        d = preprocessing.mm_to_meters(
+            torch.from_numpy(depths[f].astype(np.int32)).to(dev), (240, 320))
+        for neg_y in (False, True):
+            before = pyramid_kernel.LAUNCHES["build_pyramid"]
+            got = preprocessing.build_pyramid(d, k, 3, neg_y)
+            if pyramid_kernel.LAUNCHES["build_pyramid"] != before + 3:
+                fail("build_pyramid: not one launch a level")
+            card = preprocessing.build_pyramid_twin(d, k, 3, neg_y)
+            cpu = preprocessing.build_pyramid(d.cpu(), k.cpu(), 3, neg_y)
+            for g, a, b in zip(got, card, cpu):
+                for x, y, z in zip(g, a, b):
+                    e1, s1 = bits_err(torch, x, y)
+                    e2, s2 = bits_err(torch, x, z)
+                    err = max(err, e1, e2)
+                    n_held += 1
+                    if not (s1 and s2):
+                        fail(f"build_pyramid frame {f} neg_y {neg_y}: the "
+                             f"kernel differs from its twin ({e1:.3g} on "
+                             f"the card, {e2:.3g} on the CPU)")
+    run = lambda: preprocessing.build_pyramid(d, k, 3, False)
+    ms = median_ms(run)
+    plain_ms = median_ms(lambda: preprocessing.build_pyramid_twin(
+        d, k, 3, False))
+    host = host_ms(torch, run)
+    px = [(240 >> l) * (320 >> l) for l in range(3)]
+    nbytes = 4 * (px[0] + 6 * px[0] + 7 * (px[1] + px[2]) + 4)
+    b = bound(nbytes, PYRAMID_FLOPS * sum(px))
+    print(f"# build_pyramid: {n_held} level images of {len(PYRAMID_FRAMES)} "
+          f"headline frames x both neg_y equal the twin's on the card and on "
+          f"the CPU bit for bit; median device time of a 3-level call over "
+          f"{TIMED_RUNS} runs {ms:.4f} ms (host clock, synchronised, "
+          f"{host:.4f} ms), plain twin {plain_ms:.4f} ms; bound {b[0]:.6f} ms "
+          f"({b[1]}: {nbytes / 1e6:.2f} MB); launch floor {floor:.4f} ms "
+          f"(3 launches)")
+    return glue_entry("build_pyramid", "supereight_tpu_torch/csrc/pyramid.cu",
+                      "supereight_tpu/pipeline/preprocessing.py:136", err,
+                      ms, plain_ms, b, None, floor, host_ms=host)
+
+
+def hold_inverse(torch, dev, floor):
+    """``numerics.inv`` on the card (``pose_inv``, csrc/numerics.cu) on
+    every pose of SEQUENCES and on K against its host twin, bit for bit;
+    timed beside ``torch.linalg.inv``."""
+    from supereight_tpu_torch.core import numerics
+    from supereight_tpu_torch.pipeline import camera
+    mats = [camera.camera_matrix(torch.from_numpy(K))]
+    for seq in SEQUENCES:
+        mats += list(torch.from_numpy(load_sequence(seq)[1]))
+    got = [numerics.inv(m.to(dev)) for m in mats]
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, m in zip(got, mats):
+        e, same = bits_err(torch, g, numerics.inv_twin(m))
+        err = max(err, e)
+        if not same:
+            fail(f"pose_inv: differs from the host twin by {e:.3g}")
+    M = mats[1].to(dev)
+    ms = median_ms(lambda: numerics.inv(M))
+    plain_ms = median_ms(lambda: numerics.inv_twin(M))
+    lib_ms = median_ms(lambda: torch.linalg.inv(M))
+    host = host_ms(torch, lambda: numerics.inv(M))
+    b = bound(2 * 64, INV_FLOPS)
+    print(f"# pose_inv: {len(mats)} matrices (every pose of "
+          f"{', '.join(SEQUENCES)} and K) equal the host twin bit for bit; "
+          f"median device time {ms:.4f} ms (host clock, synchronised, "
+          f"{host:.4f} ms), the host twin {plain_ms:.4f} ms, "
+          f"torch.linalg.inv {lib_ms:.4f} ms; bound {b[0]:.8f} ms ({b[1]}); "
+          f"launch floor {floor:.4f} ms")
+    return glue_entry("pose_inv", "supereight_tpu_torch/csrc/numerics.cu",
+                      "supereight_tpu/pipeline/integration.py:503", err, ms,
+                      plain_ms, b, lib_ms, floor, host_ms=host)
+
+
+def hold_select(torch, label, m, T_cw, Km, hw, budget, timed=False):
+    """``frustum_select`` (two launches) against its twin on the card and
+    on the CPU at ``budget``: slots and overflow equal.  Returns (the
+    candidates' count, (ms, plain ms, bound) when ``timed``)."""
+    from supereight_tpu_torch.core import octree
+    from supereight_tpu_torch.ops import integrate_kernel as ik
+    slots, ovf = ik.frustum_select(m, T_cw, Km, hw, budget)
+    cand = int(ik.frustum_candidates(m, T_cw, Km, hw).sum())
+    cpu = m.replace(voxels={}, node_values=[], node_alloc=[], **{
+        f: getattr(m, f).cpu() for f in ("block_index", "keys", "active",
+                                         "n_blocks", "overflow",
+                                         "part_counts")})
+    for where, (w_slots, w_ovf) in (
+            ("the card", ik.frustum_select_twin(m, T_cw, Km, hw, budget)),
+            ("the CPU", ik.frustum_select_twin(cpu, T_cw.cpu(), Km.cpu(),
+                                               hw, budget))):
+        if not torch.equal(slots.cpu(), w_slots.cpu()) or \
+                int(ovf) != int(w_ovf):
+            fail(f"{label}: frustum_select at budget {budget} differs from "
+                 f"its twin on {where}")
+    dropped = int(ovf) - int(m.overflow)
+    print(f"# {label}: frustum_select at budget {budget} of {m.capacity} "
+          f"slots ({cand} candidates, {dropped} dropped) equals its twin on "
+          f"the card and on the CPU")
+    if dropped != max(cand - budget, 0):
+        fail(f"{label}: frustum_select dropped {dropped}, not "
+             f"{max(cand - budget, 0)}")
+    if not timed:
+        return cand, None
+    live = int((octree.slot_mask(m) & m.active).sum())
+    nbytes = m.capacity * 1 + live * 8 + 4 * budget + 2 * 64 + 8
+    b = bound(nbytes, SELECT_FLOPS * live)
+    return cand, (median_ms(lambda: ik.frustum_select(m, T_cw, Km, hw,
+                                                      budget)),
+                  median_ms(lambda: ik.frustum_select_twin(m, T_cw, Km, hw,
+                                                           budget)), b)
+
+
+def node_map(torch, size, field, dev, seed):
+    """A ``size``^3 map whose node levels hold random values of the
+    field's range, half of their cells allocated."""
+    from supereight_tpu_torch.core import octree
+    rng = np.random.default_rng(seed)
+    m = octree.init(size, 4.8, field.channels, dev, capacity=64)
+    values, alloc = list(m.node_values), list(m.node_alloc)
+    for level in range(1, m.block_level + 1):
+        s = (1 << level,) * 3
+        if field.name == "sdf":
+            vals = (rng.uniform(-1, 1, s), rng.integers(0, 12, s))
+        else:
+            vals = (rng.uniform(-20, 20, s), rng.uniform(0, 3.2, s))
+        values[level] = {c.name: torch.from_numpy(v.astype(np.float32))
+                         .to(dev) for c, v in zip(field.channels, vals)}
+        alloc[level] = torch.from_numpy(rng.random(s) < 0.5).to(dev)
+    return m.replace(node_values=values, node_alloc=alloc)
+
+
+def hold_nodes(torch, label, m, field, frame, now, timed=False):
+    """``update_nodes`` (one launch) against its twin on the card: every
+    node level's tables bit for bit.  Returns (max abs err, (ms, plain
+    ms, bound) when ``timed``)."""
+    from supereight_tpu_torch.ops import integrate_kernel as ik
+    got = ik.update_nodes(m, field, *frame, now)
+    want = ik.update_nodes_twin(m, field, *frame, now)
+    err, changed, cells = 0.0, 0, 0
+    for level in range(1, m.block_level + 1):
+        for name in want[level]:
+            e, same = bits_err(torch, got[level][name], want[level][name])
+            err = max(err, e)
+            if not same:
+                fail(f"{label}: update_nodes level {level} {name} differs "
+                     f"from its twin by {e:.3g}")
+            changed += int((want[level][name]
+                            != m.node_values[level][name]).sum())
+        cells += m.node_alloc[level].numel()
+    print(f"# {label}: update_nodes on {cells} node cells ({m.size}^3, "
+          f"{field.name}) equals its twin bit for bit; {changed} values "
+          f"changed")
+    if not timed:
+        return err, None
+    nbytes = cells * (4 + 4 + 1 + 4 + 4) + 2 * 64
+    b = bound(nbytes, cells * NODE_FLOPS[field.name])
+    return err, (median_ms(lambda: ik.update_nodes(m, field, *frame, now)),
+                 median_ms(lambda: ik.update_nodes_twin(m, field, *frame,
+                                                        now)), b)
+
+
+def check_glue_kernels(torch, depths, poses, dev):
+    """The frame's glue kernels against their twins, each timed (median
+    of TIMED_RUNS launches, CUDA events) beside the launch floor and its
+    bound: the pyramid and the inverse (above), ``frustum_select`` on the
+    headline map after 12 frames at its budget and at one its candidates
+    overflow (the presets' runs hold it again on their own maps),
+    ``update_nodes`` on random node tables at 256^3 and 1024^3 for both
+    fields with the headline's frame 30.  Returns their JSON entries."""
+    from supereight_tpu_torch.core import numerics
+    from supereight_tpu_torch.fields import OFusionField, SDFField
+    from supereight_tpu_torch.ops import gather_probe as gp
+    from supereight_tpu_torch.pipeline import camera, preprocessing
+    floor = median_ms(lambda: gp.empty_launch(dev))
+    out = {"build_pyramid": hold_pyramid(torch, depths, dev, floor),
+           "pose_inv": hold_inverse(torch, dev, floor)}
+
+    Km = camera.camera_matrix(torch.from_numpy(K).to(dev)).contiguous()
+    slam = warm_map(preset_config("headline"), depths, poses, dev, 12)
+    m = slam.state.map
+    T_cw = numerics.inv(slam.state.pose)
+    cand, timed = hold_select(torch, "headline map after 12 frames", m, T_cw,
+                              Km, (240, 320), 3072, timed=True)
+    hold_select(torch, "headline map after 12 frames", m, T_cw, Km,
+                (240, 320), max(cand // 2, 1))
+    ms, plain_ms, b = timed
+    print(f"# frustum_select at 3072 of 6144 slots: median device time "
+          f"{ms:.4f} ms, plain twin {plain_ms:.4f} ms; bound {b[0]:.6f} ms "
+          f"({b[1]}); launch floor {floor:.4f} ms (2 launches)")
+    out["frustum_select"] = glue_entry(
+        "frustum_select", "supereight_tpu_torch/csrc/integrate.cu",
+        "supereight_tpu/pipeline/integration.py:512", 0.0, ms, plain_ms, b,
+        None, floor)
+    del slam, m
+
+    depth = preprocessing.mm_to_meters(
+        torch.from_numpy(depths[30].astype(np.int32)).to(dev), (240, 320))
+    frame = (depth, numerics.inv(torch.from_numpy(poses[30]).to(dev)), Km)
+    now = float(np.float32(1.0 / 30.0) * np.float32(30))
+    err, entry = 0.0, None
+    for size in (256, 1024):
+        for fname in ("sdf", "ofusion"):
+            field = SDFField(mu=0.1) if fname == "sdf" else \
+                OFusionField(mu=0.008, voxel_size=4.8 / size)
+            nm = node_map(torch, size, field, dev, size)
+            e, t = hold_nodes(torch, f"random node tables {size}^3", nm,
+                              field, frame, now, timed=True)
+            err = max(err, e)
+            print(f"# update_nodes {size}^3 {fname}: median device time "
+                  f"{t[0]:.4f} ms, plain twin {t[1]:.4f} ms; bound "
+                  f"{t[2][0]:.6f} ms ({t[2][1]}); launch floor {floor:.4f} "
+                  "ms")
+            if size == 256 and fname == "sdf":
+                entry = t
+            del nm
+    out["update_nodes"] = glue_entry(
+        "update_nodes", "supereight_tpu_torch/csrc/integrate.cu",
+        "supereight_tpu/pipeline/integration.py:581", err, entry[0],
+        entry[1], entry[2], None, floor)
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_glue_launched(label, counts, cfg, icp_frames, integrated):
+    """The glue kernels on a one-device path: the pyramid once a level of
+    every frame on which ICP runs, the inverse on each such frame and each
+    integrated frame, the node update once an integrated frame, the
+    frustum selection once an integrated frame on the budget branch."""
+    levels = len(cfg.pyramid)
+    budget = 0 < cfg.integrate_budget < cfg.block_capacity
+    want = dict(build_pyramid=levels * icp_frames,
+                pose_inv=icp_frames + integrated,
+                update_nodes=integrated,
+                frustum_select=integrated if budget else 0)
+    got = {k: counts.get(k, 0) for k in GLUE}
+    print(f"# {label}: glue LAUNCHES {got} ({icp_frames} ICP frames, "
+          f"{integrated} integrated)")
+    for k, n in want.items():
+        if got[k] < n or (k in ("update_nodes", "frustum_select")
+                          and got[k] != n):
+            fail(f"{label}: {k} launched {got[k]} times, not "
+                 f"{'at least ' if k in ('build_pyramid', 'pose_inv') else ''}"
+                 f"{n}")
 
 
 def smem_bound_ms(gathers: int, sms: int, mhz: float) -> float:
@@ -1337,7 +1650,7 @@ def run_slam(torch, cfg, depths, poses, dev):
         integrated.append(st.integrated)
     counts = launches()
     st = slam.state
-    return dict(slam=slam, est=np.stack(est), tracked=sum(tracked),
+    return dict(slam=slam, cfg=cfg, est=np.stack(est), tracked=sum(tracked),
                 integrated=sum(integrated), ms=ms, launches=counts,
                 icp_frames=icp_frames(cfg, len(depths)),
                 wall=time.perf_counter() - t0,
@@ -1361,6 +1674,8 @@ def check_run(torch, name, r, poses, record, max_ate, counter):
     print(f"# {name}: {counter} LAUNCHES {launches} over "
           f"{r['integrated']} integrated frames")
     check_icp_launched(name, r["launches"], r["icp_frames"])
+    check_glue_launched(name, r["launches"], r["cfg"], r["icp_frames"],
+                        r["integrated"])
     print(f"# {name}: median ms/frame after the first 16 frames: "
           f"{statistics.median(r['ms'][16:]):.2f} (first frame "
           f"{r['ms'][0]:.1f} ms)")
@@ -1427,14 +1742,22 @@ def check_path_kernel(torch, name, slam, cfg):
           f"{', held view' if view is not None else ''}) device time "
           f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
     max_err = r["max_abs_err"]
-    if slots is not None and slots.numel() < cfg.integrate_budget:
+    listed = None if slots is None else slots[slots >= 0]
+    if listed is not None and listed.numel() < cfg.integrate_budget:
         table, budget_slots = synthetic_table(torch, m, cfg.integrate_budget,
-                                              slots)
+                                              listed)
         r = hold_kernel(torch, f"{name} (budget shape: {cfg.integrate_budget}"
-                        f" slots repeating the {slots.numel()} candidates)",
+                        f" slots repeating the {listed.numel()} candidates)",
                         kernel, table, field, frame, now, budget_slots, view)
         max_err = max(max_err, r["max_abs_err"])
         del table
+    # the glue on the run's own map: the frustum selection at the
+    # preset's budget and at one its candidates overflow, the node update
+    if cfg.integrate_budget > 0:
+        cand, _ = hold_select(torch, name, m, T_cw, Km, depth.shape,
+                              cfg.integrate_budget)
+        hold_select(torch, name, m, T_cw, Km, depth.shape, max(cand // 2, 1))
+    hold_nodes(torch, name, m, field, frame, now)
     return kernel, max_err
 
 
@@ -1463,14 +1786,15 @@ def print_stage_times(name, cfg, depths, poses, dev):
     slam = DenseSLAMSystem((240, 320), cfg, dev)
     slam.setPose(poses[0])
     t0 = time.perf_counter()
-    stages, parts = stage_times.staged_run(slam, depths, K)
+    stages, parts, int_parts = stage_times.staged_run(slam, depths, K)
     print(f"# {name}: median ms per stage after the first 16 frames "
           f"(step_staged, {time.perf_counter() - t0:.1f} s): " + ", ".join(
               f"{k} {v:.2f}" for k, v in stages.items()))
-    if parts:
-        print(f"# {name}: tracking stage parts, median host / device ms "
-              "(each alone, synchronised): "
-              + stage_times.format_parts(parts))
+    for what, cut in (("tracking", parts), ("integration", int_parts)):
+        if cut:
+            print(f"# {name}: {what} stage parts, median host / device ms "
+                  "(each alone, synchronised): "
+                  + stage_times.format_parts(cut))
 
 
 def run_preset(torch, name, dev, kernels):
@@ -1724,18 +2048,28 @@ def run_phase_g(torch, dev, kernels):
                                              err)
 
 
+def _counters():
+    from supereight_tpu_torch.ops import (icp_kernel, numerics_kernel,
+                                          pyramid_kernel)
+    from supereight_tpu_torch.ops import integrate_kernel as ik
+    return (ik.LAUNCHES, icp_kernel.LAUNCHES, pyramid_kernel.LAUNCHES,
+            numerics_kernel.LAUNCHES)
+
+
 def reset_launches():
-    """Every kernel count of the SLAM paths (fusion and ICP) set to 0."""
-    from supereight_tpu_torch.ops import icp_kernel, integrate_kernel as ik
-    for counts in (ik.LAUNCHES, icp_kernel.LAUNCHES):
+    """Every kernel count of the SLAM paths (fusion, ICP and the glue) set
+    to 0."""
+    for counts in _counters():
         for k in counts:
             counts[k] = 0
 
 
 def launches():
-    """The fusion and ICP kernels' counts."""
-    from supereight_tpu_torch.ops import icp_kernel, integrate_kernel as ik
-    return {**ik.LAUNCHES, **icp_kernel.LAUNCHES}
+    """The fusion, ICP and glue kernels' counts."""
+    out = {}
+    for counts in _counters():
+        out.update(counts)
+    return out
 
 
 def check_blocks(label, blocks, want):
@@ -2110,6 +2444,7 @@ def main():
 
     build_kernels()
     kernels = check_icp_kernels(torch, depths, poses, dev)
+    kernels.update(check_glue_kernels(torch, depths, poses, dev))
     kernels.update({
         "fuse_sdf": check_fusion_kernel(torch, "fuse_sdf", "headline", 6,
                                         depths, poses, dev),

@@ -121,16 +121,27 @@ def _fma_host(a, b, c) -> np.float32:
 
 def inv(M: torch.Tensor) -> torch.Tensor:
     """Inverse of a small square float32 matrix, rounded as XLA's CPU
-    ``jnp.linalg.inv`` rounds it: LAPACK's ``getrf`` and ``getrs`` (an
-    identity right-hand side) as the OpenBLAS that the JAX package calls
-    computes them.  The LU is left-looking with partial pivoting (the
-    first largest pivot), the dot products of its triangular solve taken
-    from the last term to the first, those of its column update from the
-    first, each a multiply-add chain from 0, and the column scaled by the
-    pivot's reciprocal; the solves run column-wise axpys of multiply-adds,
-    the upper one multiplying by the diagonal's reciprocals.  Computed on
-    the host (the same bits for a matrix on any device) and returned on
-    ``M``'s device."""
+    ``jnp.linalg.inv`` rounds it (see :func:`inv_twin`).  A CPU matrix
+    takes the twin; a CUDA matrix the kernel ``pose_inv``
+    (`ops/numerics_kernel.py`), which takes the same steps on the card,
+    so the inverse needs no host read; it raises if it cannot launch."""
+    if M.device.type == "cpu":
+        return inv_twin(M)
+    from supereight_tpu_torch.ops import numerics_kernel
+    return numerics_kernel.pose_inv(M)
+
+
+def inv_twin(M: torch.Tensor) -> torch.Tensor:
+    """:func:`inv` in plain Python on the host: LAPACK's ``getrf`` and
+    ``getrs`` (an identity right-hand side) as the OpenBLAS that the JAX
+    package calls computes them.  The LU is left-looking with partial
+    pivoting (the first largest pivot), the dot products of its triangular
+    solve taken from the last term to the first, those of its column
+    update from the first, each a multiply-add chain from 0, and the
+    column scaled by the pivot's reciprocal; the solves run column-wise
+    axpys of multiply-adds, the upper one multiplying by the diagonal's
+    reciprocals.  The same bits for a matrix on any device (read back to
+    the host), returned on ``M``'s device."""
     A = M.detach().to("cpu", torch.float32).numpy()
     n = A.shape[0]
     A = [[np.float32(A[i, j]) for j in range(n)] for i in range(n)]

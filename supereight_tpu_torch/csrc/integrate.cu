@@ -1,5 +1,7 @@
 // Projective map updates in place on the block table, for Hopper (sm_90a):
-// SDF (fuse_sdf) and OFusion (fuse_ofusion).
+// SDF (fuse_sdf) and OFusion (fuse_ofusion); the fusion's frustum selection
+// (frustum_select) and the coarse node pyramid's update (update_nodes_sdf,
+// update_nodes_ofusion), which share their projection and field updates.
 //
 // What they replace.  fuse_sdf replaces supereight_tpu/ops/integrate_kernel.py:
 // _kernel / fused_integrate (the Pallas TPU kernel K1) and, like fuse_ofusion,
@@ -365,6 +367,258 @@ Table make_table(const void* slots, const void* keys, const void* n_blocks,
                n_rows, capacity, H, W, B, voxel_size, diag, patch};
 }
 
+// ---------------------------------------------------------------------
+// frustum_select: the budget branch's slots, on the card
+// ---------------------------------------------------------------------
+//
+// What it replaces.  pipeline/integration.py:frustum_candidates and the
+// compaction of fusion_operands (about twenty launches over the whole slot
+// table, then torch.nonzero and a host read of the count), the counterpart
+// of supereight_tpu/pipeline/integration.py:515-536: a live active slot is
+// a candidate when its block's centre projects into the frame dilated by
+// the block's footprint and the block is not wholly behind the camera; the
+// first `budget` candidates in ascending slot order are the slots (-1 past
+// the count, jnp.nonzero's fill), and max(count - budget, 0) adds to the
+// map's overflow.  Two launches, a deterministic scan: select_count writes
+// each tile's candidate count; select_write recomputes each slot's test
+// (about fifty operations, cheaper than storing it), adds the counts of the
+// tiles before its own and its rank inside the tile (warp ballots), and
+// writes the slot, the fill and the overflow.  Every number is an integer
+// sum, so the result does not depend on the order.  The projection is the
+// twin's: fmaf chains as numerics.matvec, the full K rows.  What bounds
+// it: the two launches (the bytes, `active` and the live slots' keys, are
+// 70 KB at 6144 slots).
+
+constexpr int kSelectThreads = 1024;      // slots a tile (a CTA)
+constexpr int kWarps = kSelectThreads / 32;
+
+struct Select {
+  const int64_t* keys;          // [capacity]
+  const uint8_t* active;        // [capacity]
+  const int32_t* counts;        // [partitions] live slots of each range
+  const float* t_cw;            // [4, 4]
+  const float* k;               // [4, 4]
+  int32_t* slots;               // [budget] out
+  int32_t* tile_counts;         // [tiles] scratch
+  const int32_t* overflow_in;   // []
+  int32_t* overflow_out;        // [] out: overflow_in + dropped
+  int capacity, per_cap, H, W, budget, tiles;
+  float voxel_size, diag;
+};
+
+struct Projected {
+  float cx, cy, cz, zs, px, py;
+};
+
+// integrate_kernel.project: T_cw then K's first two rows, multiply-add
+// chains as numerics.matvec, the pixel +0.5.
+__device__ __forceinline__ Projected project_point(const float* T,
+                                                   const float* K, float wx,
+                                                   float wy, float wz) {
+  Projected q;
+  q.cx = fmaf(T[2], wz, fmaf(T[1], wy, T[0] * wx)) + T[3];
+  q.cy = fmaf(T[6], wz, fmaf(T[5], wy, T[4] * wx)) + T[7];
+  q.cz = fmaf(T[10], wz, fmaf(T[9], wy, T[8] * wx)) + T[11];
+  q.zs = q.cz == 0.0f ? 1.0f : q.cz;
+  const float h0 = fmaf(K[2], q.cz, fmaf(K[1], q.cy, K[0] * q.cx));
+  const float h1 = fmaf(K[6], q.cz, fmaf(K[5], q.cy, K[4] * q.cx));
+  q.px = h0 / q.zs + 0.5f;
+  q.py = h1 / q.zs + 0.5f;
+  return q;
+}
+
+// frustum_candidates' test of one slot.
+__device__ __forceinline__ bool candidate(const Select& S, int slot) {
+  if (slot >= S.capacity || S.active[slot] == 0 ||
+      slot % S.per_cap >= S.counts[slot / S.per_cap])
+    return false;
+  const uint32_t kk = static_cast<uint32_t>(S.keys[slot]);
+  const float vs = S.voxel_size;
+  const float wx = (static_cast<float>(compact_bits(kk) * 8) + 4.0f) * vs;
+  const float wy = (static_cast<float>(compact_bits(kk >> 1) * 8) + 4.0f) * vs;
+  const float wz = (static_cast<float>(compact_bits(kk >> 2) * 8) + 4.0f) * vs;
+  const Projected q = project_point(S.t_cw, S.k, wx, wy, wz);
+  // torch.clamp(z, min=1e-3) keeps a NaN
+  const float zc = q.cz < 1e-3f ? 1e-3f : q.cz;
+  const float foot = fabsf(S.k[0]) * S.diag / zc;
+  return q.cz > -0.5f * S.diag && q.px >= -foot &&
+         q.px <= static_cast<float>(S.W - 1) + foot && q.py >= -foot &&
+         q.py <= static_cast<float>(S.H - 1) + foot;
+}
+
+__global__ void __launch_bounds__(kSelectThreads)
+select_count(const Select S) {
+  const int slot = blockIdx.x * kSelectThreads + threadIdx.x;
+  const int n = __syncthreads_count(candidate(S, slot));
+  if (threadIdx.x == 0) S.tile_counts[blockIdx.x] = n;
+}
+
+__global__ void __launch_bounds__(kSelectThreads)
+select_write(const Select S) {
+  __shared__ int warp_base[kWarps];
+  __shared__ int red_before[kWarps], red_total[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slot = blockIdx.x * kSelectThreads + threadIdx.x;
+  const bool flag = candidate(S, slot);
+
+  // the candidates of the tiles before this one, and of all tiles
+  int before = 0, total = 0;
+  for (int t = threadIdx.x; t < S.tiles; t += kSelectThreads) {
+    const int c = S.tile_counts[t];
+    total += c;
+    if (t < static_cast<int>(blockIdx.x)) before += c;
+  }
+  before = __reduce_add_sync(0xffffffffu, before);
+  total = __reduce_add_sync(0xffffffffu, total);
+  // this slot's rank among the tile's candidates
+  const unsigned ballot = __ballot_sync(0xffffffffu, flag);
+  if (lane == 0) {
+    red_before[warp] = before;
+    red_total[warp] = total;
+    warp_base[warp] = __popc(ballot);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int c = warp_base[lane];
+    int incl = c;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int o = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += o;
+    }
+    const int b = __reduce_add_sync(0xffffffffu, red_before[lane]);
+    const int t = __reduce_add_sync(0xffffffffu, red_total[lane]);
+    __syncwarp();
+    warp_base[lane] = incl - c;
+    if (lane == 0) {
+      red_before[0] = b;
+      red_total[0] = t;
+    }
+  }
+  __syncthreads();
+  const int offset = red_before[0];
+  total = red_total[0];
+  const int pos = offset + warp_base[warp] +
+                  __popc(ballot & ((1u << lane) - 1u));
+  if (flag && pos < S.budget) S.slots[pos] = slot;
+  // jnp.nonzero's fill past the count
+  for (int q = min(total, S.budget) + blockIdx.x * kSelectThreads +
+               threadIdx.x;
+       q < S.budget; q += gridDim.x * kSelectThreads)
+    S.slots[q] = -1;
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    S.overflow_out[0] = S.overflow_in[0] + max(total - S.budget, 0);
+}
+
+// ---------------------------------------------------------------------
+// update_nodes: the coarse node pyramid's update, on the card
+// ---------------------------------------------------------------------
+//
+// What it replaces.  pipeline/integration.py:_update_nodes (about 25
+// launches a level, 5 levels at 256^3 and 7 at 1024^3), the counterpart of
+// supereight_tpu/pipeline/integration.py:581-600: every cell of node
+// levels 1..block_level projects its corner (the cell's index times its
+// edge), and an allocated cell whose corner lands in the frame takes its
+// depth sample (the nearest pixel, int-truncated and clamped) through the
+// field's update, the same device code as the fusion kernels'.  One thread
+// a cell, every level in one launch; the values go to new tables (the
+// map's node tables are not written in place).  What bounds it: the launch
+// at 256^3 (37448 cells, 0.6 MB), the bytes at 1024^3 (2.4 M cells, 41 MB
+// read and written once).
+
+constexpr int kMaxNodeLevels = 12;
+constexpr int kNodeThreads = 256;
+
+struct Nodes {
+  const float* a[kMaxNodeLevels];       // channel 0 of each level [s^3]
+  const float* b[kMaxNodeLevels];       // channel 1
+  const uint8_t* alloc[kMaxNodeLevels];
+  float* out_a[kMaxNodeLevels];
+  float* out_b[kMaxNodeLevels];
+  float cell[kMaxNodeLevels];           // the level's cell edge in m
+  int side[kMaxNodeLevels];             // s, cells along an edge
+  int first[kMaxNodeLevels + 1];        // the level's first thread
+  int n_levels;
+  const float* depth;                   // [H, W]
+  const float* t_cw;                    // [4, 4]
+  const float* k;                       // [4, 4]
+  int H, W;
+};
+
+template <class Update>
+__global__ void __launch_bounds__(kNodeThreads)
+nodes_kernel(const Nodes N, const Update up) {
+  const int g = blockIdx.x * kNodeThreads + threadIdx.x;
+  if (g >= N.first[N.n_levels]) return;
+  int l = 0;
+  while (g >= N.first[l + 1]) ++l;
+  const int idx = g - N.first[l];
+  const int s = N.side[l];
+  const float c = N.cell[l];
+  const Projected q = project_point(
+      N.t_cw, N.k, static_cast<float>(idx / (s * s)) * c,
+      static_cast<float>((idx / s) % s) * c, static_cast<float>(idx % s) * c);
+  // integration._pixel_valid, with the cell's allocation
+  const bool ok = N.alloc[l][idx] != 0 && q.cz >= 1e-4f && q.px >= 0.5f &&
+                  q.px <= static_cast<float>(N.W) - 1.5f && q.py >= 0.5f &&
+                  q.py <= static_cast<float>(N.H) - 1.5f;
+  VoxelSample v;
+  v.cx = q.cx;
+  v.cy = q.cy;
+  v.cz = q.cz;
+  v.zs = q.zs;
+  v.valid = ok;
+  v.pixel = 0;
+  v.ds = 0.0f;
+  if (ok) {
+    // integration._sample_depth: int-truncated, clamped
+    const int ix = min(max(__float2int_rz(q.px), 0), N.W - 1);
+    const int iy = min(max(__float2int_rz(q.py), 0), N.H - 1);
+    v.ds = N.depth[iy * N.W + ix];
+  }
+  float a = N.a[l][idx], b = N.b[l][idx];
+  if (ok && v.ds > 0.0f) up(v, a, b);
+  N.out_a[l][idx] = a;
+  N.out_b[l][idx] = b;
+}
+
+template <class Update>
+int launch_nodes(const Nodes& N, const Update& up, void* stream) {
+  const int n = N.first[N.n_levels];
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  nodes_kernel<Update><<<(n + kNodeThreads - 1) / kNodeThreads,
+                         kNodeThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(N, up);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Nodes from the host's pointer arrays (n_levels entries each).
+int make_nodes(Nodes& N, void* const* a, void* const* b, void* const* alloc,
+               void* const* out_a, void* const* out_b, const float* cell,
+               const int* side, int n_levels, const void* depth,
+               const void* t_cw, const void* k, int H, int W) {
+  if (n_levels < 1 || n_levels > kMaxNodeLevels) return 1;
+  N.n_levels = n_levels;
+  N.first[0] = 0;
+  for (int l = 0; l < n_levels; ++l) {
+    N.a[l] = static_cast<const float*>(a[l]);
+    N.b[l] = static_cast<const float*>(b[l]);
+    N.alloc[l] = static_cast<const uint8_t*>(alloc[l]);
+    N.out_a[l] = static_cast<float*>(out_a[l]);
+    N.out_b[l] = static_cast<float*>(out_b[l]);
+    N.cell[l] = cell[l];
+    N.side[l] = side[l];
+    const long long n = static_cast<long long>(side[l]) * side[l] * side[l];
+    if (side[l] < 1 || N.first[l] + n > 0x7fffffffLL) return 1;
+    N.first[l + 1] = N.first[l] + static_cast<int>(n);
+  }
+  N.depth = static_cast<const float*>(depth);
+  N.t_cw = static_cast<const float*>(t_cw);
+  N.k = static_cast<const float*>(k);
+  N.H = H;
+  N.W = W;
+  return 0;
+}
+
 }  // namespace
 
 // n_rows: the length of `slots`, or the capacity when slots is null (the
@@ -396,4 +650,65 @@ extern "C" int fuse_ofusion(const void* slots, const void* keys,
                            timestamp, nullptr, depth, t_cw, k, n_rows,
                            capacity, H, W, 0, voxel_size, diag, patch),
                 OFusionUpdate{mu, sigma_lo, now}, stream);
+}
+
+// keys, active: the map's [capacity]; counts: [capacity / per_cap] live
+// slots of each partition's range (n_blocks for one); t_cw, k: [4, 4];
+// slots: [budget] out; tile_counts: [ceil(capacity / 1024)] scratch;
+// overflow_in, overflow_out: int32[] (may not alias).  0 < budget.
+extern "C" int frustum_select(const void* keys, const void* active,
+                              const void* counts, const void* t_cw,
+                              const void* k, void* slots, void* tile_counts,
+                              const void* overflow_in, void* overflow_out,
+                              int capacity, int per_cap, int H, int W,
+                              int budget, float voxel_size, float diag,
+                              void* stream) {
+  if (capacity <= 0 || per_cap <= 0 || budget <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (capacity + kSelectThreads - 1) / kSelectThreads;
+  const Select S{static_cast<const int64_t*>(keys),
+                 static_cast<const uint8_t*>(active),
+                 static_cast<const int32_t*>(counts),
+                 static_cast<const float*>(t_cw),
+                 static_cast<const float*>(k),
+                 static_cast<int32_t*>(slots),
+                 static_cast<int32_t*>(tile_counts),
+                 static_cast<const int32_t*>(overflow_in),
+                 static_cast<int32_t*>(overflow_out),
+                 capacity, per_cap, H, W, budget, tiles, voxel_size, diag};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  select_count<<<tiles, kSelectThreads, 0, st>>>(S);
+  select_write<<<tiles, kSelectThreads, 0, st>>>(S);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The node levels 1..block_level, n_levels of them: a, b, alloc the map's
+// node tables of each level ([s^3] float32, float32, bool), out_a, out_b
+// new [s^3] tables, cell the level's cell edge (m), side its s.
+extern "C" int update_nodes_sdf(void* const* a, void* const* b,
+                                void* const* alloc, void* const* out_a,
+                                void* const* out_b, const float* cell,
+                                const int* side, int n_levels,
+                                const void* depth, const void* t_cw,
+                                const void* k, int H, int W, float mu,
+                                float max_weight, void* stream) {
+  Nodes N;
+  if (make_nodes(N, a, b, alloc, out_a, out_b, cell, side, n_levels, depth,
+                 t_cw, k, H, W))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_nodes(N, SdfUpdate{mu, max_weight}, stream);
+}
+
+extern "C" int update_nodes_ofusion(void* const* a, void* const* b,
+                                    void* const* alloc, void* const* out_a,
+                                    void* const* out_b, const float* cell,
+                                    const int* side, int n_levels,
+                                    const void* depth, const void* t_cw,
+                                    const void* k, int H, int W, float mu,
+                                    float sigma_lo, float now, void* stream) {
+  Nodes N;
+  if (make_nodes(N, a, b, alloc, out_a, out_b, cell, side, n_levels, depth,
+                 t_cw, k, H, W))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_nodes(N, OFusionUpdate{mu, sigma_lo, now}, stream);
 }

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch twin
-(`integrate_kernel`: SDF and OFusion fusion; `icp_kernel`: one ICP trip,
-association and sums, then the solve and the pose update; `gather_probe`:
-the gather-rate probe).  Sources live in ``csrc/`` and build at first
-launch (`_build`)."""
+(`integrate_kernel`: SDF and OFusion fusion, the frustum selection before
+it and the node-pyramid update after it; `icp_kernel`: ICP's trips;
+`pyramid_kernel`: the tracking pyramid, a launch a level;
+`numerics_kernel`: the 4x4 inverse; `gather_probe`: the gather-rate
+probe).  Sources live in ``csrc/`` and build at first launch (`_build`)."""
 
-from . import gather_probe, icp_kernel, integrate_kernel  # noqa: F401
+from . import (gather_probe, icp_kernel, integrate_kernel,  # noqa: F401
+               numerics_kernel, pyramid_kernel)

@@ -1,6 +1,8 @@
 """Projective fusion in place on the block table: the hand-written CUDA
 kernels (`csrc/integrate.cu`) and their plain PyTorch twins, for the SDF
-(:func:`fuse_sdf`) and the OFusion field (:func:`fuse_ofusion`).
+(:func:`fuse_sdf`) and the OFusion field (:func:`fuse_ofusion`), with the
+budget branch's frustum selection (:func:`frustum_select`) before them
+and the coarse node pyramid's update (:func:`update_nodes`) after them.
 
 Counterparts of `supereight_tpu/ops/integrate_kernel.py` (the Pallas TPU
 kernel K1, SDF only) and of the body of `supereight_tpu/pipeline/
@@ -14,7 +16,11 @@ only for CPU tensors; there is no fallback between the two.
 
 ``fuse_sdf_reference`` and ``fuse_ofusion_reference`` are the row function
 the twins apply to the gathered rows (``fuse_rows``' function, held against
-the JAX package by the CPU tests).
+the JAX package by the CPU tests).  :func:`frustum_select` and
+:func:`update_nodes` are the rest of JAX's ``integrate``
+(`supereight_tpu/pipeline/integration.py:515-536` and ``_update_nodes``,
+`:581-600`), which the port ran as chains of small launches with a host
+read; on the card each is one call of its kernel and reads nothing back.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from __future__ import annotations
 import ctypes
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from supereight_tpu_torch.core import morton, octree
@@ -30,13 +37,18 @@ from supereight_tpu_torch.core.octree import (BLOCK_SIDE, BLOCK_VOXELS,
                                               VoxelMap)
 from supereight_tpu_torch.fields.ofusion import OFusionField
 from supereight_tpu_torch.fields.sdf import SDFField
+from . import _build
 
 PATCH = 16          # depth patch side per block, in strided pixels
 N_STRIDES = 4       # patch strides 1, 2, 4, 8
+#: slots a CTA of frustum_select's scan takes
+_SELECT_TILE = _build.constants("integrate")["kSelectThreads"]
 
 #: kernel launches so far, one counter per kernel (the chip smoke test reads
-#: them to show that the main path went through the kernels)
-LAUNCHES = {"fuse_sdf": 0, "fuse_ofusion": 0}
+#: them to show that the main path went through the kernels; a call of
+#: frustum_select launches its two kernels and counts once)
+LAUNCHES = {"fuse_sdf": 0, "fuse_ofusion": 0, "frustum_select": 0,
+            "update_nodes": 0}
 
 
 def _local_offsets(device) -> torch.Tensor:
@@ -145,6 +157,7 @@ def _twin(row_fn, names, m: VoxelMap, depth, T_cw, K, params,
     if slots is None:
         slots = torch.nonzero(octree.slot_mask(m) & m.active)[:, 0]
     slots = slots.long()
+    slots = slots[slots >= 0]           # frustum_select's -1 padding
     bc = torch.stack(morton.block_key_decode(m.keys[slots]), dim=-1)
     a, b = (m.voxels[name] for name in names)
     ones = torch.ones(slots.shape, dtype=torch.bool, device=slots.device)
@@ -178,11 +191,12 @@ def fuse_sdf(m: VoxelMap, depth, T_cw, K, mu: float, max_weight: float,
     """SDF fusion of one depth frame into the map ``m``, in place.
 
     ``slots`` int32[n], ascending and unique, inside the table (the budget
-    branch): the slots to fuse, live or not; at most ``capacity`` of them
-    (checked), and on the card a repeated slot races and a slot outside
-    the table is skipped.  None (the whole-table branch): every live slot
-    (``octree.slot_mask`` and active); the others keep their voxels and
-    ``active``.  Each fused slot's ``tsdf``/``weight`` rows take the update
+    branch): the slots to fuse, live or not, then any -1 entries
+    (:func:`frustum_select`'s padding), which are skipped; at most
+    ``capacity`` of them (checked), and on the card a repeated slot races
+    and a slot outside the table is skipped.  None (the whole-table
+    branch): every live slot (``octree.slot_mask`` and active); the others
+    keep their voxels and ``active``.  Each fused slot's ``tsdf``/``weight`` rows take the update
     of :func:`fuse_sdf_reference` and its ``active`` flag becomes its
     visibility (any voxel in frame and in its block's patch).  ``view``: a
     held bf16 read view ``[B^3, 512]`` holding the encoding (``weight != 0
@@ -223,6 +237,173 @@ def fuse_ofusion(m: VoxelMap, depth, T_cw, K, mu: float, sigma_lo: float,
                                  patch)
     _launch("fuse_ofusion", m, OFUSION_CHANNELS, slots, None, depth, T_cw, K,
             (mu, sigma_lo, now), patch)
+
+
+def frustum_candidates(m: VoxelMap, T_cw, K, frame_hw) -> torch.Tensor:
+    """bool[capacity]: live active blocks whose centre projects into the
+    frame dilated by the block's footprint and that are not fully behind
+    the camera (a superset of the blocks with a voxel in frame)."""
+    H, W = frame_hw
+    vs = m.voxel_size
+    bc = octree.block_coords_table(m)
+    centers = ((bc * BLOCK_SIDE).to(torch.float32) + 0.5 * BLOCK_SIDE) * vs
+    ccam, cpx, cpy = project(T_cw, K, centers)
+    diag = 1.7320508 * BLOCK_SIDE * vs
+    foot = torch.abs(K[0, 0]) * diag / torch.clamp(ccam[..., 2], min=1e-3)
+    return (octree.slot_mask(m) & m.active & (ccam[..., 2] > -0.5 * diag)
+            & (cpx >= -foot) & (cpx <= W - 1 + foot)
+            & (cpy >= -foot) & (cpy <= H - 1 + foot))
+
+
+def frustum_select_twin(m: VoxelMap, T_cw, K, frame_hw, budget: int):
+    """Plain PyTorch version of :func:`frustum_select`."""
+    cand = frustum_candidates(m, T_cw, K, frame_hw)
+    idx = torch.nonzero(cand)[:budget, 0].to(torch.int32)
+    slots = torch.full((budget,), -1, dtype=torch.int32, device=cand.device)
+    slots[:idx.numel()] = idx
+    dropped = torch.clamp(cand.sum(dtype=torch.int32) - budget, min=0)
+    return slots, m.overflow + dropped
+
+
+def frustum_select(m: VoxelMap, T_cw, K, frame_hw, budget: int):
+    """The budget branch's slots: ``(slots, overflow)``, ``slots`` int32
+    [budget] the first ``budget`` :func:`frustum_candidates` in ascending
+    slot order, -1 past their count (``jnp.nonzero``'s fill), and
+    ``overflow`` int32[] the map's overflow plus the candidates past the
+    budget, both on the map's device.  ``T_cw`` / ``K`` float32 [4, 4],
+    ``0 < budget``.  CPU tensors take the plain twin; CUDA tensors launch
+    the two kernels of a deterministic scan and read nothing back (a new
+    ``slots`` and ``overflow`` each call), raising if they cannot."""
+    if m.device.type == "cpu":
+        return frustum_select_twin(m, T_cw, K, frame_hw, budget)
+    dev = m.device
+    cap = m.capacity
+    counts = octree.partition_counts(m)
+    _check("frustum_select", dev,
+           [("keys", m.keys, torch.int64, (cap,), 8),
+            ("active", m.active, torch.bool, (cap,), 1),
+            ("partition counts", counts, torch.int32, (m.partitions,), 4),
+            ("overflow", m.overflow, torch.int32, (), 4),
+            ("T_cw", T_cw, torch.float32, (4, 4), 4),
+            ("K", K, torch.float32, (4, 4), 4)])
+    if not 0 < budget:
+        raise ValueError(f"frustum_select: budget must be > 0, got {budget}")
+    H, W = frame_hw
+    i32 = dict(dtype=torch.int32, device=dev)
+    slots = torch.empty((budget,), **i32)
+    tiles = torch.empty((-(-cap // _SELECT_TILE),), **i32)
+    overflow = torch.empty((), **i32)
+    fn = _build.load("integrate").frustum_select
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [P] * 9 + [I] * 5 + [F, F, P]
+    fn.restype = I
+    with torch.cuda.device(dev):
+        err = fn(m.keys.data_ptr(), m.active.data_ptr(), counts.data_ptr(),
+                 T_cw.data_ptr(), K.data_ptr(), slots.data_ptr(),
+                 tiles.data_ptr(), m.overflow.data_ptr(), overflow.data_ptr(),
+                 cap, cap // m.partitions, H, W, budget, m.voxel_size,
+                 1.7320508 * BLOCK_SIDE * m.voxel_size,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"frustum_select kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["frustum_select"] += 1
+    return slots, overflow
+
+
+def _pixel_valid(px, py, pos_cam, frame_hw):
+    H, W = frame_hw
+    return ((pos_cam[..., 2] >= 1e-4) & (px >= 0.5) & (px <= W - 1.5)
+            & (py >= 0.5) & (py <= H - 1.5))
+
+
+def _sample_depth(depth, px, py, valid):
+    """Nearest depth sample at int(pixel), 0 where not ``valid``."""
+    H, W = depth.shape
+    ix = trunc_i32(px).clamp(0, W - 1).long()
+    iy = trunc_i32(py).clamp(0, H - 1).long()
+    return torch.where(valid, depth[iy, ix], 0.0)
+
+
+def update_nodes_twin(m: VoxelMap, field, depth, T_cw, K, timestamp: float):
+    """Plain PyTorch version of :func:`update_nodes`."""
+    node_values = list(m.node_values)
+    for level in range(1, m.block_level + 1):
+        s = 1 << level
+        g = torch.arange(s, dtype=torch.float32, device=m.device)
+        grid = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), dim=-1)
+        corners = grid * ((m.size // s) * m.voxel_size)
+        pos_cam, px, py = project(T_cw, K, corners)
+        alloc = m.node_alloc[level]
+        ok = _pixel_valid(px, py, pos_cam, depth.shape) & alloc
+        vals = m.node_values[level]
+        new = field.update(vals, pos_cam, _sample_depth(depth, px, py, ok),
+                           ok, timestamp)
+        node_values[level] = {name: torch.where(alloc, new[name], vals[name])
+                              for name in vals}
+    return node_values
+
+
+def update_nodes(m: VoxelMap, field, depth, T_cw, K, timestamp: float):
+    """The coarse node pyramid after one depth frame taken at
+    ``timestamp``: the map's ``node_values`` list with levels
+    1..block_level replaced by new tables, where every allocated cell whose
+    corner projects into the frame took its depth sample through the
+    field's update (SDF or OFusion).  CPU tensors take the plain twin;
+    CUDA tensors launch one kernel for every level, which raises if it
+    cannot."""
+    if m.device.type == "cpu":
+        return update_nodes_twin(m, field, depth, T_cw, K, timestamp)
+    dev = m.device
+    ofusion = field.name == "ofusion"
+    names = OFUSION_CHANNELS if ofusion else SDF_CHANNELS
+    levels = range(1, m.block_level + 1)
+    node_values = list(m.node_values)
+    if not levels:
+        return node_values
+    H, W = depth.shape
+    specs = [("depth", depth, torch.float32, (H, W), 4),
+             ("T_cw", T_cw, torch.float32, (4, 4), 4),
+             ("K", K, torch.float32, (4, 4), 4)]
+    ins, outs = [], []
+    for level in levels:
+        s = 1 << level
+        vals = m.node_values[level]
+        specs += [(f"level {level} {n}", vals[n], torch.float32, (s, s, s), 4)
+                  for n in names]
+        specs.append((f"level {level} alloc", m.node_alloc[level],
+                      torch.bool, (s, s, s), 1))
+        ins.append((vals[names[0]], vals[names[1]], m.node_alloc[level]))
+        outs.append(tuple(torch.empty_like(vals[n]) for n in names))
+    _check("update_nodes", dev, specs)
+    n = len(ins)
+    ptrs = lambda ts: (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
+    cell = (ctypes.c_float * n)(*(float(np.float32(
+        (m.size // (1 << level)) * m.voxel_size)) for level in levels))
+    side = (ctypes.c_int * n)(*(1 << level for level in levels))
+    if ofusion:
+        fn = _build.load("integrate").update_nodes_ofusion
+        params = (field.mu, field.sigma_lo, timestamp)
+    else:
+        fn = _build.load("integrate").update_nodes_sdf
+        params = (field.mu, field.max_weight)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P] * 7 + [I] + [P] * 3 + [I, I] \
+        + [ctypes.c_float] * len(params) + [P]
+    fn.restype = I
+    with torch.cuda.device(dev):
+        err = fn(ptrs(i[0] for i in ins), ptrs(i[1] for i in ins),
+                 ptrs(i[2] for i in ins), ptrs(o[0] for o in outs),
+                 ptrs(o[1] for o in outs), cell, side, n, depth.data_ptr(),
+                 T_cw.data_ptr(), K.data_ptr(), H, W, *params,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"update_nodes kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["update_nodes"] += 1
+    for level, out in zip(levels, outs):
+        node_values[level] = dict(zip(names, out))
+    return node_values
 
 
 def _check(fn: str, dev, specs) -> None:
@@ -272,7 +453,6 @@ def _launch(fn: str, m: VoxelMap, names: Tuple[str, str],
     if n_rows == 0:
         return
 
-    from . import _build
     c_fn = getattr(_build.load("integrate"), fn)
     P = ctypes.c_void_p
     ptrs = [slots, m.keys, m.n_blocks, m.active, a, b] \

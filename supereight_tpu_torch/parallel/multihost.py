@@ -225,6 +225,7 @@ def _frames_job(comm, job: dict, dev) -> dict:
     are set to 0 just before the frames and read just after."""
     import torch
     from supereight_tpu_torch.ops import icp_kernel, integrate_kernel as ik
+    from supereight_tpu_torch.ops import numerics_kernel, pyramid_kernel
     from supereight_tpu_torch.pipeline import DenseSLAMSystem
     from .frame_dist import frame_sharding
 
@@ -239,7 +240,8 @@ def _frames_job(comm, job: dict, dev) -> dict:
     kd, neg_y = slam._k(k)
     stats = {} if job.get("timed") else None
     est, tracked, integrated, ms, stages = [], [], [], [], []
-    for counts in (ik.LAUNCHES, icp_kernel.LAUNCHES):
+    for counts in (ik.LAUNCHES, icp_kernel.LAUNCHES, pyramid_kernel.LAUNCHES,
+                   numerics_kernel.LAUNCHES):
         for name in counts:
             counts[name] = 0
     for f in range(len(depths)):
@@ -262,7 +264,8 @@ def _frames_job(comm, job: dict, dev) -> dict:
         integrated.append(bool(st.integrated))
     out = dict(rank=rank, est=np.stack(est), tracked=tracked,
                integrated=integrated, ms=ms, stages=stages,
-               launches=dict(ik.LAUNCHES),
+               launches={**ik.LAUNCHES, **pyramid_kernel.LAUNCHES,
+                         **numerics_kernel.LAUNCHES},
                icp_launches=dict(icp_kernel.LAUNCHES),
                state=state_record(st),
                collectives=dict(seconds=dict(comm.seconds),
@@ -510,7 +513,7 @@ def launch_jobs(ranks: int, jobs: list, *, device: str = "cuda",
 def gather_ranks(results: list) -> dict:
     """The ``frames`` job's result of rank 0 with the whole brick table
     (every rank's rows in rank order) and every rank's launches (the
-    fusion kernels' in ``launches``, the ICP kernels' in
+    fusion and glue kernels' in ``launches``, the ICP kernels' in
     ``icp_launches``)."""
     out = dict(results[0])
     st = dict(out["state"])

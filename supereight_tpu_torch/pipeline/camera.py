@@ -10,19 +10,19 @@ from supereight_tpu_torch.core.numerics import matvec
 
 
 def camera_matrix(k: torch.Tensor) -> torch.Tensor:
-    """4x4 intrinsics from (fx, fy, cx, cy)."""
-    K = torch.zeros((4, 4), dtype=torch.float32, device=k.device)
+    """4x4 intrinsics from (fx, fy, cx, cy).  Built from the identity and
+    device copies of ``k``: no host value is written into a card's
+    tensor, so the host never waits on the card."""
+    K = torch.eye(4, dtype=torch.float32, device=k.device)
     K[0, 0], K[0, 2] = k[0], k[2]
     K[1, 1], K[1, 2] = k[1], k[3]
-    K[2, 2] = K[3, 3] = 1.0
     return K
 
 
 def inverse_camera_matrix(k: torch.Tensor) -> torch.Tensor:
-    iK = torch.zeros((4, 4), dtype=torch.float32, device=k.device)
+    iK = torch.eye(4, dtype=torch.float32, device=k.device)
     iK[0, 0], iK[0, 2] = 1.0 / k[0], -k[2] / k[0]
     iK[1, 1], iK[1, 2] = 1.0 / k[1], -k[3] / k[1]
-    iK[2, 2] = iK[3, 3] = 1.0
     return iK
 
 

@@ -5,11 +5,12 @@ SDF allocation is the per-pixel band march of ``buildAllocationList`` over a
 (decimated) pixel grid, deduplicated by one dense block mask; OFusion's is
 the distance-adaptive octant march of ``buildOctantList``, one dense request
 mask per octree level.  Fusion picks at most ``budget`` frustum candidates
-(or every live slot) and fuses them in place on the map's block table
-through the field's kernel (`ops/integrate_kernel.py`: ``fuse_sdf`` or
-``fuse_ofusion``, which also writes a held SDF read view's fused rows),
-then updates the coarse node pyramid.  ``unallocated_fraction`` is the
-on-demand allocation gate's signal.
+(``frustum_select``) or every live slot and fuses them in place on the
+map's block table through the field's kernel (`ops/integrate_kernel.py`:
+``fuse_sdf`` or ``fuse_ofusion``, which also writes a held SDF read view's
+fused rows), then updates the coarse node pyramid (``update_nodes``); on
+the card a frame without allocation reads nothing back.
+``unallocated_fraction`` is the on-demand allocation gate's signal.
 """
 
 from __future__ import annotations
@@ -29,20 +30,6 @@ from .constants import FAR_PLANE
 from .preprocessing import norm
 
 PATCH = integrate_kernel.PATCH
-
-
-def _pixel_valid(px, py, pos_cam, frame_hw):
-    H, W = frame_hw
-    return ((pos_cam[..., 2] >= 1e-4) & (px >= 0.5) & (px <= W - 1.5)
-            & (py >= 0.5) & (py <= H - 1.5))
-
-
-def _sample_depth(depth, px, py, valid):
-    """Nearest depth sample at int(pixel), 0 where not ``valid``."""
-    H, W = depth.shape
-    ix = trunc_i32(px).clamp(0, W - 1).long()
-    iy = trunc_i32(py).clamp(0, H - 1).long()
-    return torch.where(valid, depth[iy, ix], 0.0)
 
 
 def _alloc_decimation(m: VoxelMap, depth_shape) -> int:
@@ -243,32 +230,17 @@ def unallocated_fraction(m: VoxelMap, depth, pose, K, decim: int = 4,
         / inside.sum().clamp(min=1).to(torch.float32)
 
 
-def frustum_candidates(m: VoxelMap, T_cw, K, frame_hw):
-    """bool[capacity]: live active blocks whose centre projects into the
-    frame dilated by the block's footprint and that are not fully behind
-    the camera (a superset of the blocks with a voxel in frame)."""
-    H, W = frame_hw
-    vs = m.voxel_size
-    bc = octree.block_coords_table(m)
-    centers = ((bc * BLOCK_SIDE).to(torch.float32) + 0.5 * BLOCK_SIDE) * vs
-    ccam, cpx, cpy = integrate_kernel.project(T_cw, K, centers)
-    diag = 1.7320508 * BLOCK_SIDE * vs
-    foot = torch.abs(K[0, 0]) * diag / torch.clamp(ccam[..., 2], min=1e-3)
-    return (octree.slot_mask(m) & m.active & (ccam[..., 2] > -0.5 * diag)
-            & (cpx >= -foot) & (cpx <= W - 1 + foot)
-            & (cpy >= -foot) & (cpy <= H - 1 + foot))
-
-
 def fusion_operands(m: VoxelMap, T_cw, K, frame_hw, budget: int = 0):
-    """The slots a fusion takes for this map: ``(slots, dropped)``.  With
-    ``0 < budget < capacity``: ``slots`` int32, the first ``budget``
-    frustum candidates in ascending slot order, and the count of candidates
-    past the budget.  Otherwise ``(None, 0)``: every live slot fuses."""
+    """The slots a fusion takes for this map, and the map's overflow after
+    it: ``(slots, overflow)``.  With ``0 < budget < capacity``:
+    ``integrate_kernel.frustum_select``'s int32 [budget] slots (the first
+    ``budget`` frustum candidates in ascending slot order, -1 past their
+    count) and the overflow plus the candidates past the budget, both on
+    the device.  Otherwise ``(None, m.overflow)``: every live slot
+    fuses."""
     if budget and budget < m.capacity:
-        idx = torch.nonzero(frustum_candidates(m, T_cw, K, frame_hw))[:, 0]
-        return (idx[:budget].to(torch.int32).contiguous(),
-                max(idx.numel() - budget, 0))
-    return None, 0
+        return integrate_kernel.frustum_select(m, T_cw, K, frame_hw, budget)
+    return None, m.overflow
 
 
 def fuse(field, m: VoxelMap, slots, depth, T_cw, K, timestamp: float,
@@ -309,29 +281,17 @@ def integrate(m: VoxelMap, field, depth, pose, K, timestamp: float = 0.0,
     T_cw = inv(pose)
     K = K.contiguous()
     depth = depth.contiguous()
-    slots, dropped = fusion_operands(m, T_cw, K, depth.shape, budget)
+    slots, overflow = fusion_operands(m, T_cw, K, depth.shape, budget)
     fuse(field, m, slots, depth, T_cw, K, timestamp, patch, view)
-    m = _update_nodes(m.replace(overflow=m.overflow + dropped), field, depth,
-                      T_cw, K, timestamp)
+    m = _update_nodes(m.replace(overflow=overflow), field, depth, T_cw, K,
+                      timestamp)
     return m if view is None else (m, view)
 
 
 def _update_nodes(m: VoxelMap, field, depth, T_cw, K,
                   timestamp: float) -> VoxelMap:
     """Coarse node-pyramid updates: project every allocated pyramid cell's
-    corner and fuse its depth sample."""
-    node_values = list(m.node_values)
-    for level in range(1, m.block_level + 1):
-        s = 1 << level
-        g = torch.arange(s, dtype=torch.float32, device=m.device)
-        grid = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), dim=-1)
-        corners = grid * ((m.size // s) * m.voxel_size)
-        pos_cam, px, py = integrate_kernel.project(T_cw, K, corners)
-        alloc = m.node_alloc[level]
-        ok = _pixel_valid(px, py, pos_cam, depth.shape) & alloc
-        vals = m.node_values[level]
-        new = field.update(vals, pos_cam, _sample_depth(depth, px, py, ok),
-                           ok, timestamp)
-        node_values[level] = {name: torch.where(alloc, new[name], vals[name])
-                              for name in vals}
-    return m.replace(node_values=node_values)
+    corner and fuse its depth sample (``integrate_kernel.update_nodes``:
+    one launch on the card)."""
+    return m.replace(node_values=integrate_kernel.update_nodes(
+        m, field, depth, T_cw, K, timestamp))

@@ -134,9 +134,21 @@ def vertex_to_normal(vertex: torch.Tensor, neg_y: bool) -> torch.Tensor:
 
 def build_pyramid(depth: torch.Tensor, k: torch.Tensor, levels: int,
                   neg_y: bool):
-    """Depth pyramid + per-level vertex/normal maps for coarse-to-fine ICP:
-    a half-sample chain, then per level back-projection with the
-    intrinsics scaled by 2^-level."""
+    """Depth pyramid + per-level vertex/normal maps for coarse-to-fine ICP
+    (see :func:`build_pyramid_twin`): CPU tensors take the twin, CUDA
+    tensors the kernel of `ops/pyramid_kernel.py`, one launch a level,
+    which raises if it cannot launch."""
+    if depth.device.type == "cpu":
+        return build_pyramid_twin(depth, k, levels, neg_y)
+    from supereight_tpu_torch.ops import pyramid_kernel
+    return pyramid_kernel.build_pyramid(depth, k, levels, neg_y)
+
+
+def build_pyramid_twin(depth: torch.Tensor, k: torch.Tensor, levels: int,
+                       neg_y: bool):
+    """:func:`build_pyramid` in plain PyTorch on any device: a half-sample
+    chain, then per level back-projection with the intrinsics scaled by
+    2^-level."""
     depths: List[torch.Tensor] = [depth]
     for _ in range(1, levels):
         depths.append(half_sample_robust(depths[-1]))

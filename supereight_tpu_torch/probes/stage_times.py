@@ -19,7 +19,10 @@ stages).  Of the other checkout's package only ``DenseSLAMSystem``,
 ``frames`` job are assumed (any checkout with the multi-device map has
 them).  Prints one
 JSON object: the card's name and power limit, and per run the median ms
-of each stage and of their total over the frames after the first 16.
+of each stage and of their total over the frames after the first 16;
+for a preset also ``run``: a second run's ``step`` median (the device
+synchronised after each frame) and its tracked frames, ATE, blocks and
+overflow.
 
 A preset's run also cuts the tracking stage of each of those frames in
 the four parts of :data:`PARTS` (:func:`track_parts`), each timed alone
@@ -27,6 +30,15 @@ from the state the stage starts from, on the host clock and by CUDA
 events; their medians are the run's ``parts``.  Of the other checkout
 these also take ``preprocessing.build_pyramid``, ``camera.camera_matrix``,
 ``core.numerics.inv`` and ``tracking.track_levels``.
+
+It also cuts the integration stage of each of those frames in the parts
+of :data:`INT_PARTS` (:func:`integration_parts`), each timed alone the
+same way on clones of the map's tables; a run's ``int_parts`` are their
+medians over the frames that run each part.  Of the other checkout these
+take ``system.tracking_stage``, ``system._alloc_fires``, ``integration``'s
+``allocate_sdf`` / ``allocate_ofusion``, ``fusion_operands``, ``fuse`` and
+``_update_nodes``, ``raycast.view_alloc_fill`` / ``pack_view`` and
+``gradmap.build_table``.
 """
 
 from __future__ import annotations
@@ -57,7 +69,6 @@ def track_parts(slam, depth_mm, k, frame: int):
     after it: {part: (host ms, device ms by CUDA events)}; on the CPU the
     device ms are None.  The state is left as it was.  None where the
     frame runs no ICP."""
-    import time
     import torch
     from supereight_tpu_torch.core.numerics import inv
     from supereight_tpu_torch.pipeline import (camera, preprocessing, system,
@@ -73,23 +84,7 @@ def track_parts(slam, depth_mm, k, frame: int):
         sym = system._sym_auto_gate(st, cfg.icp_sym_min_deg,
                                     cfg.icp_sym_max_deg)
     out = {}
-    cuda = slam.device.type == "cuda"
-
-    def part(name, fn):
-        if cuda:
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-        slam.synchronize()
-        t0 = time.perf_counter()
-        if cuda:
-            start.record()
-        r = fn()
-        if cuda:
-            end.record()
-        slam.synchronize()
-        out[name] = (1e3 * (time.perf_counter() - t0),
-                     start.elapsed_time(end) if cuda else None)
-        return r
+    part = _timer(slam, out)
 
     _, vertices, normals = part("pyramid", lambda: preprocessing.build_pyramid(
         st.scaled_depth, kd, len(cfg.pyramid), neg_y=neg_y))
@@ -111,35 +106,140 @@ def track_parts(slam, depth_mm, k, frame: int):
     return out
 
 
-def part_medians(rows):
-    """{part: {"host": ms, "device": ms}}: the medians of
-    :func:`track_parts`' rows."""
-    return {p: {clock: None if rows[0][p][i] is None else
-                statistics.median(r[p][i] for r in rows)
-                for i, clock in enumerate(("host", "device"))}
-            for p in PARTS}
+#: the integration stage's parts: the allocation march with its slot
+#: assignment (allocating frames), the held view's fill (an SDF view's
+#: ``view_alloc_fill``, a multiscale view's rebuild), ``inv(pose)``, the
+#: frustum candidates and their selection (``fusion_operands``), the
+#: fusion launch, the node-pyramid update and the stored gradient table's
+#: rebuild (``raycast_normals="stored"``)
+INT_PARTS = ("alloc", "fill", "inv", "select", "fuse", "nodes", "grad")
+
+
+def _timer(slam, out):
+    """``part(name, fn)``: ``fn()`` with the device synchronised before
+    and after it, its (host ms, device ms by CUDA events or None on the
+    CPU) stored in ``out[name]``."""
+    import time
+    import torch
+    cuda = slam.device.type == "cuda"
+
+    def part(name, fn):
+        if cuda:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+        slam.synchronize()
+        t0 = time.perf_counter()
+        if cuda:
+            start.record()
+        r = fn()
+        if cuda:
+            end.record()
+        slam.synchronize()
+        out[name] = (1e3 * (time.perf_counter() - t0),
+                     start.elapsed_time(end) if cuda else None)
+        return r
+    return part
+
+
+def integration_parts(slam, depth_mm, k, frame: int):
+    """The integration stage of ``frame`` in the parts of
+    :data:`INT_PARTS` that it runs, from the state the stage would start
+    from (this frame's preprocessing and tracking on ``slam.state``), each
+    part with the device synchronised before and after it, on clones of
+    the map's tables and of a held view: {part: (host ms, device ms)}.
+    The state is left as it was.  None where the frame does not fuse."""
+    import numpy as np
+    from supereight_tpu_torch.core import octree
+    from supereight_tpu_torch.core.numerics import inv
+    from supereight_tpu_torch.pipeline import (camera, gradmap, integration,
+                                               raycast, system)
+    cfg, field = slam.config, slam.field
+    kd, neg_y = slam._k(k)
+    st = system.preprocessing_stage(slam.state, slam._depth(depth_mm), cfg)
+    st = system.tracking_stage(st, kd, frame, cfg, neg_y)
+    boot = frame <= cfg.bootstrap_frames
+    if not (((st.tracked and st.model_ref) or boot)
+            and (frame % cfg.integration_rate == 0 or boot)):
+        return None
+    out = {}
+    part = _timer(slam, out)
+    K = camera.camera_matrix(kd)
+    depth = st.scaled_depth if cfg.fuse_filtered else st.float_depth
+    pose = st.pose
+    timestamp = float(np.float32(1.0 / 30.0) * np.float32(frame))
+    m = st.map.replace(voxels={n: v.clone() for n, v in st.map.voxels.items()},
+                       active=st.map.active.clone())
+    view = None if st.view is None else st.view.clone()
+    live_before = octree.slot_mask(m)
+    if system._alloc_fires(st, depth, K, frame, cfg):
+        if field.multiscale_alloc:
+            m = part("alloc", lambda: integration.allocate_ofusion(
+                m, depth, pose, K, field.alloc_band(), phase=st.alloc_count))
+        else:
+            m = part("alloc", lambda: integration.allocate_sdf(
+                m, depth, pose, K, field.alloc_band(),
+                stride=cfg.alloc_stride))
+    sdf_view = view is not None and not field.multiscale_alloc
+    if sdf_view:
+        part("fill", lambda: raycast.view_alloc_fill(view, m, live_before,
+                                                     field))
+    T_cw = part("inv", lambda: inv(pose))
+    K, depth = K.contiguous(), depth.contiguous()
+    slots, _ = part("select", lambda: integration.fusion_operands(
+        m, T_cw, K, depth.shape, cfg.integrate_budget))
+    part("fuse", lambda: integration.fuse(
+        field, m, slots, depth, T_cw, K, timestamp, cfg.integrate_patch,
+        view if sdf_view else None))
+    m = part("nodes", lambda: integration._update_nodes(
+        m, field, depth, T_cw, K, timestamp))
+    if view is not None and not sdf_view:
+        part("fill", lambda: raycast.pack_view(m, field)["F"])
+    if st.grad is not None:
+        part("grad", lambda: gradmap.build_table(m, field))
+    return out
+
+
+def part_medians(rows, names=PARTS):
+    """{part: {"host": ms, "device": ms, "frames": n}}: the medians of
+    :func:`track_parts`' (or :func:`integration_parts`') rows over the
+    frames that ran each part."""
+    out = {}
+    for p in names:
+        have = [r[p] for r in rows if p in r]
+        if have:
+            out[p] = {clock: None if have[0][i] is None else
+                      statistics.median(h[i] for h in have)
+                      for i, clock in enumerate(("host", "device"))}
+            out[p]["frames"] = len(have)
+    return out
 
 
 def staged_run(slam, depths, k):
     """Every frame through ``step_staged``, each frame after the first
-    SKIP first cut in its tracking parts: (the stages' medians, the parts'
-    medians or None)."""
-    rows, parts = [], []
+    SKIP first cut in its tracking and its integration parts: (the
+    stages' medians, the tracking parts' medians or None, the integration
+    parts' medians or None)."""
+    rows, parts, int_parts = [], [], []
     for f in range(len(depths)):
         if f >= SKIP:
             cut = track_parts(slam, depths[f], k, f)
             if cut is not None:
                 parts.append(cut)
+            cut = integration_parts(slam, depths[f], k, f)
+            if cut is not None:
+                int_parts.append(cut)
         _, stage_s = slam.step_staged(depths[f], k, f)
         if f >= SKIP:
             rows.append(stage_s)
-    return _medians(rows), part_medians(parts) if parts else None
+    return (_medians(rows), part_medians(parts) if parts else None,
+            part_medians(int_parts, INT_PARTS) if int_parts else None)
 
 
 def format_parts(parts) -> str:
     """The parts' medians as ``part host / device`` ms."""
     ms = lambda v: "not measured" if v is None else f"{v:.3f}"
     return ", ".join(f"{p} {ms(t['host'])} / {ms(t['device'])}"
+                     + (f" ({t['frames']} frames)" if "frames" in t else "")
                      for p, t in parts.items())
 
 
@@ -149,15 +249,41 @@ def _medians(rows):
     return out
 
 
+def step_run(slam, depths, poses, k, ate) -> dict:
+    """Every frame through ``step``, the device synchronised after each:
+    the median ms after the first SKIP frames, and the run's outcome
+    (tracked frames, ATE in cm by ``ate(estimates, poses)``, blocks,
+    overflow)."""
+    import time
+    import numpy as np
+    ms, est, tracked = [], [], 0
+    for f in range(len(depths)):
+        t0 = time.perf_counter()
+        st = slam.step(depths[f], k, f)
+        slam.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        est.append(st.pose.cpu().numpy())
+        tracked += bool(st.tracked)
+    return dict(step=statistics.median(ms[SKIP:]), tracked=tracked,
+                ate_cm=100 * ate(np.stack(est), poses[:len(depths)]),
+                blocks=int(st.map.n_blocks), overflow=int(st.map.overflow))
+
+
 def preset_stages(smoke, name: str, dev) -> dict:
-    """A preset's stage medians (ms) over its sequence."""
+    """A preset's stage medians (ms) over its sequence, and its ``step``
+    median and outcome from a second run."""
     from supereight_tpu_torch.pipeline import DenseSLAMSystem
     sequence = smoke.RUNS[name][0]
     depths, poses = smoke.load_sequence(sequence)
-    slam = DenseSLAMSystem((240, 320), smoke.preset_config(name), dev)
-    slam.setPose(poses[0])
-    stages, parts = staged_run(slam, depths, smoke.K)
-    return dict(stages, parts=parts)
+    runs = [DenseSLAMSystem((240, 320), smoke.preset_config(name), dev)
+            for _ in range(2)]
+    for slam in runs:
+        slam.setPose(poses[0])
+    stages, parts, int_parts = staged_run(runs[0], depths, smoke.K)
+    del runs[0]
+    return dict(stages, parts=parts, int_parts=int_parts,
+                run=step_run(runs[0], depths, poses, smoke.K,
+                             smoke.ate_rmse))
 
 
 def sharded_stages(smoke, name: str, device: str = "cuda") -> dict:
@@ -205,10 +331,16 @@ def main(argv=None):
         torch.cuda.empty_cache()
         print(f"# {args.root} {name}: " + ", ".join(
             f"{k} {v:.2f}" for k, v in res["ms"][name].items()
-            if k != "parts"), flush=True)
-        if res["ms"][name].get("parts"):
-            print(f"# {args.root} {name} tracking parts (host / device ms): "
-                  + format_parts(res["ms"][name]["parts"]), flush=True)
+            if k not in ("parts", "int_parts", "run")), flush=True)
+        if "run" in res["ms"][name]:
+            print(f"# {args.root} {name} step run: " + ", ".join(
+                f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in res["ms"][name]["run"].items()), flush=True)
+        for key, what in (("parts", "tracking"), ("int_parts", "integration")):
+            if res["ms"][name].get(key):
+                print(f"# {args.root} {name} {what} parts (host / device "
+                      "ms): " + format_parts(res["ms"][name][key]),
+                      flush=True)
     print(json.dumps(res))
     if args.out:
         with open(args.out, "w") as f:

@@ -306,14 +306,71 @@ def test_phase_g_runs(name):
 
 
 def test_kernel_line_order():
-    """The JSON line lists the seven kernels in a fixed order: the fusion
-    kernels, the gather-probe kernels, the ICP pair, the one-launch ICP."""
+    """The JSON line lists the eleven kernels in a fixed order: the fusion
+    kernels, the gather-probe kernels, the ICP pair, the one-launch ICP,
+    then the frame's glue (the pyramid, the inverse, the frustum
+    selection, the node update); every counter of the SLAM paths is one of
+    them."""
     assert chip_smoke.KERNEL_ORDER == (
         "fuse_sdf", "fuse_ofusion", "lane_shuffle_sum", "slab_row_sum",
-        "icp_track_reduce", "icp_update", "icp_track_levels")
-    from supereight_tpu_torch.ops import icp_kernel, integrate_kernel
-    assert set(chip_smoke.FUSION) == set(integrate_kernel.LAUNCHES)
+        "icp_track_reduce", "icp_update", "icp_track_levels",
+        "build_pyramid", "pose_inv", "frustum_select", "update_nodes")
+    from supereight_tpu_torch.ops import (icp_kernel, integrate_kernel,
+                                          numerics_kernel, pyramid_kernel)
+    assert set(chip_smoke.FUSION) | {"frustum_select", "update_nodes"} == \
+        set(integrate_kernel.LAUNCHES)
     assert set(chip_smoke.ICP) == set(icp_kernel.LAUNCHES)
+    assert set(chip_smoke.GLUE) == {"frustum_select", "update_nodes"} | \
+        set(pyramid_kernel.LAUNCHES) | set(numerics_kernel.LAUNCHES)
+    assert set(chip_smoke.launches()) == set(chip_smoke.FUSION) | \
+        set(chip_smoke.ICP) | set(chip_smoke.GLUE)
+
+
+def test_glue_holds_on_the_cpu():
+    """The glue holds' CPU half (the kernels run only on the card): the
+    frustum selection of a warmed 64^3 map at a budget its candidates
+    overflow and at one they do not, the node update on random node tables
+    of both fields, the helpers' bit comparison, and the launch gates."""
+    import torch
+    from supereight_tpu_torch.config import SlamConfig
+    from supereight_tpu_torch.core import numerics
+    from supereight_tpu_torch.fields import OFusionField, SDFField
+    from supereight_tpu_torch.pipeline import DenseSLAMSystem, camera
+    torch.set_num_threads(1)
+    depths, poses = chip_smoke.load_sequence("synthetic_256_frames")
+    cfg = SlamConfig(volume_size=(4.8,) * 3, volume_resolution=(64,) * 3,
+                     compute_size_ratio=2, block_capacity=1024)
+    slam = DenseSLAMSystem((240, 320), cfg, "cpu")
+    slam.setPose(poses[0])
+    k = chip_smoke.K / 2
+    for f in range(4):
+        slam.step(depths[f], k, f)
+    m = slam.state.map
+    T_cw = numerics.inv(slam.state.pose)
+    Km = camera.camera_matrix(torch.from_numpy(k)).contiguous()
+    cand, timed = chip_smoke.hold_select(torch, "x", m, T_cw, Km, (120, 160),
+                                         1000)
+    assert cand > 10 and timed is None
+    assert chip_smoke.hold_select(torch, "x", m, T_cw, Km, (120, 160),
+                                  cand // 2)[0] == cand
+    depth = slam.state.float_depth
+    for field in (SDFField(mu=0.1), OFusionField(mu=0.008, voxel_size=0.075)):
+        nm = chip_smoke.node_map(torch, 64, field, "cpu", 1)
+        err, timed = chip_smoke.hold_nodes(torch, "x", nm, field,
+                                           (depth, T_cw, Km), 0.1)
+        assert err == 0.0 and timed is None
+    a = torch.tensor([1.0, float("nan"), -0.0])
+    assert chip_smoke.bits_err(torch, a, a.clone()) == (0.0, True)
+    assert chip_smoke.bits_err(torch, a, torch.tensor(
+        [1.5, float("nan"), 0.0])) == (0.5, False)
+    counts = dict(build_pyramid=30, pose_inv=19, update_nodes=9,
+                  frustum_select=9)
+    hcfg = chip_smoke.preset_config("headline")
+    chip_smoke.check_glue_launched("x", counts, hcfg, 10, 9)
+    for bad in (dict(build_pyramid=29), dict(update_nodes=10),
+                dict(frustum_select=8), dict(pose_inv=18)):
+        with pytest.raises(SystemExit, match="launched"):
+            chip_smoke.check_glue_launched("x", {**counts, **bad}, hcfg, 10, 9)
 
 
 def test_icp_hold_covers_the_headline():
@@ -454,16 +511,40 @@ def test_tracking_parts_on_the_cpu(monkeypatch):
     for s in runs:
         s.setPose(poses[0])
     k = chip_smoke.K / 2
-    stages, parts = stage_times.staged_run(runs[0], depths[:5], k)
+    stages, parts, int_parts = stage_times.staged_run(runs[0], depths[:5], k)
     for f in range(5):
         runs[1].step_staged(depths[f], k, f)
     assert set(stages) == {"preprocessing", "tracking", "integration",
                            "raycasting", "total"}
     assert tuple(parts) == stage_times.PARTS
-    for t in parts.values():
-        assert t["host"] > 0 and t["device"] is None
+    # frames 2-4 fuse; the default config allocates on each of them
+    assert tuple(int_parts) == ("alloc", "inv", "select", "fuse", "nodes")
+    for t in (*parts.values(), *int_parts.values()):
+        assert t["host"] > 0 and t["device"] is None and t["frames"] == 3
     assert "not measured" in stage_times.format_parts(parts)
     a, b = (s.state for s in runs)
     assert torch.equal(a.pose, b.pose) and a.tracked == b.tracked
     for name in a.map.voxels:
         assert torch.equal(a.map.voxels[name], b.map.voxels[name])
+
+
+def test_step_run_on_the_cpu(monkeypatch):
+    """``probes/stage_times.step_run`` on the CPU at a small size: the
+    ``step`` median after SKIP frames and the run's outcome, the counts
+    those of the system's own state."""
+    import torch
+    from supereight_tpu_torch.config import SlamConfig
+    from supereight_tpu_torch.pipeline import DenseSLAMSystem
+    from supereight_tpu_torch.probes import stage_times
+    torch.set_num_threads(1)
+    monkeypatch.setattr(stage_times, "SKIP", 2)
+    depths, poses = chip_smoke.load_sequence("synthetic_256_frames")
+    cfg = SlamConfig(volume_size=(4.8,) * 3, volume_resolution=(64,) * 3,
+                     compute_size_ratio=2, block_capacity=1024)
+    slam = DenseSLAMSystem((240, 320), cfg, "cpu")
+    slam.setPose(poses[0])
+    r = stage_times.step_run(slam, depths[:5], poses, chip_smoke.K / 2,
+                             chip_smoke.ate_rmse)
+    assert r["step"] > 0 and 1 <= r["tracked"] <= 5
+    assert r["blocks"] == int(slam.state.map.n_blocks) > 0
+    assert r["overflow"] == 0 and 0 <= r["ate_cm"] < 5

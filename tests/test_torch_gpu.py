@@ -1136,3 +1136,250 @@ def test_one_device_track_launches_levels_once(cuda):
         assert {k: icp.LAUNCHES[k] - n for k, n in before.items()} == dict(
             icp_track_levels=1, icp_track_reduce=0, icp_update=0)
         assert bool(ok) and tuple(res.shape) == (240, 320)
+
+
+# ----------------------------------------------------------------------
+# the frame's glue on the card: the pyramid (build_pyramid), the 4x4
+# inverse (pose_inv), the frustum selection (frustum_select) and the node
+# pyramid's update (update_nodes), each bit for bit with its twin
+# ----------------------------------------------------------------------
+
+SEQUENCES = ("synthetic_256_frames", "synthetic_256_frames_trans",
+             "synthetic_256_frames_noisy")
+
+
+def _same_bits(a, b):
+    """float32 tensors equal bit for bit (NaN where NaN)."""
+    a, b = a.contiguous(), b.contiguous()
+    assert a.shape == b.shape and a.dtype == b.dtype == torch.float32
+    bad = a.view(torch.int32) != b.to(a.device).view(torch.int32)
+    bad &= ~(torch.isnan(a) & torch.isnan(b.to(a.device)))
+    assert not bool(bad.any()), f"{int(bad.sum())} of {a.numel()} differ"
+
+
+def _pyramid_case(ratio, odd=False):
+    """A cached frame's depth at 320x240 / ratio and its intrinsics, or a
+    61x83 random depth with holes."""
+    if odd:
+        rng = np.random.default_rng(7)
+        d = rng.uniform(0.3, 4.0, (61, 83)).astype(np.float32)
+        d[rng.random(d.shape) < 0.15] = 0.0
+        return torch.from_numpy(d), torch.tensor([70.1, -68.0, 41.5, 30.2])
+    from supereight_tpu_torch.pipeline import preprocessing
+    z = np.load(BENCH)
+    d = preprocessing.mm_to_meters(
+        torch.from_numpy(z["depths"][40].astype(np.int32)),
+        (240 // ratio, 320 // ratio))
+    return d, torch.tensor([240.6, 240.0, 160.0, 120.0]) / ratio
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("neg_y", [False, True])
+@pytest.mark.parametrize("case", ["320x240", "160x120", "61x83"])
+def test_pyramid_kernel_matches_twin(cuda, neg_y, case):
+    """``build_pyramid`` on the card: one launch a level, every level's
+    depth, vertices and normals bit for bit with the twin on the card and
+    on the CPU."""
+    from supereight_tpu_torch.ops import pyramid_kernel
+    from supereight_tpu_torch.pipeline import preprocessing
+    d, k = _pyramid_case({"320x240": 1, "160x120": 2}.get(case, 1),
+                         odd=case == "61x83")
+    before = pyramid_kernel.LAUNCHES["build_pyramid"]
+    got = preprocessing.build_pyramid(d.to(cuda), k.to(cuda), 3, neg_y)
+    torch.cuda.synchronize()
+    assert pyramid_kernel.LAUNCHES["build_pyramid"] == before + 3
+    on_card = preprocessing.build_pyramid_twin(d.to(cuda), k.to(cuda), 3,
+                                               neg_y)
+    on_cpu = preprocessing.build_pyramid(d, k, 3, neg_y)
+    for g, w, c in zip(got, on_card, on_cpu):
+        assert len(g) == 3
+        for a, b, h in zip(g, w, c):
+            _same_bits(a, b)
+            _same_bits(a, h)
+    assert bool((got[2][0][..., 0] != -2.0).any())
+
+
+@pytest.mark.gpu
+def test_pose_inv_matches_twin(cuda):
+    """``numerics.inv`` on the card (``pose_inv``) on every pose of the
+    three cached sequences, on K and on random matrices (3x3 to 8x8): the
+    host twin's bits, one launch a call."""
+    from supereight_tpu_torch.core import numerics
+    from supereight_tpu_torch.ops import numerics_kernel
+    from supereight_tpu_torch.pipeline import camera
+    mats = [camera.camera_matrix(torch.tensor([240.6, 240.0, 160.0, 120.0]))]
+    for seq in SEQUENCES:
+        mats += list(torch.from_numpy(np.load(os.path.join(
+            os.path.dirname(BENCH), seq + ".npz"))["poses"]))
+    rng = np.random.default_rng(3)
+    mats += [torch.from_numpy(rng.normal(size=(n, n)).astype(np.float32))
+             for n in (3, 4, 4, 5, 8)]
+    before = numerics_kernel.LAUNCHES["pose_inv"]
+    got = [numerics.inv(m.to(cuda)) for m in mats]
+    torch.cuda.synchronize()
+    assert numerics_kernel.LAUNCHES["pose_inv"] == before + len(mats)
+    for g, m in zip(got, mats):
+        assert g.device.type == "cuda"
+        _same_bits(g.cpu(), numerics.inv_twin(m))
+
+
+def _select_map(cuda, partitions=1):
+    c = _case(240, 320, 11)
+    m = _map(c, "fuse_sdf", cuda)
+    if partitions > 1:
+        m = m.replace(partitions=2, part_counts=torch.tensor(
+            [200, 150], dtype=torch.int32, device=cuda))
+    m = m.replace(overflow=torch.tensor(5, dtype=torch.int32, device=cuda))
+    return c, m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("partitions", [1, 2])
+def test_frustum_select_matches_twin(cuda, partitions):
+    """``frustum_select`` on the card at budgets below, near and above the
+    candidates' count: slots (-1 past the count) and overflow equal to the
+    twin's on the card and on the CPU; one count a call."""
+    c, m = _select_map(cuda, partitions)
+    _, T_cw, K = _frame(c, cuda)
+    cand = int(ik.frustum_candidates(m, T_cw, K, (240, 320)).sum())
+    assert cand > 10
+    mc = _to(m, "cpu")
+    for budget in (cand // 3, cand, cand + 7, m.capacity - 1):
+        before = ik.LAUNCHES["frustum_select"]
+        slots, ovf = ik.frustum_select(m, T_cw, K, (240, 320), budget)
+        torch.cuda.synchronize()
+        assert ik.LAUNCHES["frustum_select"] == before + 1
+        for w_slots, w_ovf in (
+                ik.frustum_select_twin(m, T_cw, K, (240, 320), budget),
+                ik.frustum_select(mc, T_cw.cpu(), K.cpu(), (240, 320),
+                                  budget)):
+            assert torch.equal(slots.cpu(), w_slots.cpu())
+            assert int(ovf) == int(w_ovf) == 5 + max(cand - budget, 0)
+        assert int((slots >= 0).sum()) == min(cand, budget)
+
+
+def _node_map(cuda, size, field, seed):
+    """A ``size``^3 map whose node levels hold random values, half of
+    their cells allocated."""
+    rng = np.random.default_rng(seed)
+    m = octree.init(size, 4.8, field.channels, cuda, capacity=64)
+    lo, hi = (-1.0, 1.0) if field.name == "sdf" else (-20.0, 20.0)
+    values, alloc = list(m.node_values), list(m.node_alloc)
+    for level in range(1, m.block_level + 1):
+        s = (1 << level,) * 3
+        a = rng.uniform(lo, hi, s).astype(np.float32)
+        b = (rng.integers(0, 12, s) if field.name == "sdf"
+             else rng.uniform(0, 2.5, s)).astype(np.float32)
+        values[level] = {n: torch.from_numpy(v).to(cuda) for n, v in
+                         zip((ch.name for ch in field.channels), (a, b))}
+        alloc[level] = torch.from_numpy(rng.random(s) < 0.5).to(cuda)
+    return m.replace(node_values=values, node_alloc=alloc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [256, 1024])
+@pytest.mark.parametrize("field_name", ["sdf", "ofusion"])
+def test_update_nodes_matches_twin(cuda, size, field_name):
+    """``update_nodes`` on the card (one launch for every level) on random
+    node tables and a cached frame: every level's new tables bit for bit
+    with the twin's on the card; the map's own tables untouched."""
+    from supereight_tpu_torch.core import numerics
+    from supereight_tpu_torch.pipeline import camera, preprocessing
+    field = SDFField(mu=0.1) if field_name == "sdf" else \
+        OFusionField(mu=0.008, voxel_size=4.8 / size)
+    m = _node_map(cuda, size, field, size)
+    z = np.load(BENCH)
+    depth = preprocessing.mm_to_meters(torch.from_numpy(
+        z["depths"][30].astype(np.int32)), (240, 320)).to(cuda)
+    T_cw = numerics.inv(torch.from_numpy(z["poses"][30]).to(cuda))
+    K = camera.camera_matrix(torch.tensor(
+        [240.6, 240.0, 160.0, 120.0], device=cuda)).contiguous()
+    kept = [{n: v.clone() for n, v in d.items()} for d in m.node_values]
+    before = ik.LAUNCHES["update_nodes"]
+    got = ik.update_nodes(m, field, depth, T_cw, K, NOW)
+    torch.cuda.synchronize()
+    assert ik.LAUNCHES["update_nodes"] == before + 1
+    want = ik.update_nodes_twin(m, field, depth, T_cw, K, NOW)
+    changed = 0
+    for level in range(m.block_level + 1):
+        for n in want[level]:
+            _same_bits(got[level][n], want[level][n])
+            assert torch.equal(m.node_values[level][n], kept[level][n])
+            changed += int((want[level][n] != kept[level][n]).sum())
+    assert changed > 100
+
+
+def _warm_headline(cuda, frames):
+    from supereight_tpu_torch.config import SlamConfig, apply_preset
+    from supereight_tpu_torch.pipeline import DenseSLAMSystem
+    cfg = apply_preset("headline", SlamConfig(
+        volume_resolution=(256,) * 3, volume_size=(4.8,) * 3,
+        block_capacity=6144))
+    z = np.load(BENCH)
+    slam = DenseSLAMSystem((240, 320), cfg, cuda)
+    slam.setPose(z["poses"][0])
+    k = (240.6, 240.0, 160.0, 120.0)
+    for f in range(frames):
+        slam.step(z["depths"][f], k, f)
+    return slam, z["depths"][frames], k
+
+
+@pytest.mark.gpu
+def test_glue_reads_nothing_back(cuda):
+    """At ``headline`` frame 7 (no allocation): the tracking stage up to
+    the ``tracked`` read (the pyramid, the view, ICP and the divergence
+    test) and ``integration.integrate`` run under
+    ``torch.cuda.set_sync_debug_mode("error")``, each kernel launched once;
+    the fused map equals the same ``integrate`` on CPU copies (the twins)
+    bit for bit."""
+    from supereight_tpu_torch.ops import icp_kernel, numerics_kernel
+    from supereight_tpu_torch.ops import pyramid_kernel
+    from supereight_tpu_torch.pipeline import (camera, integration,
+                                               preprocessing, system,
+                                               tracking)
+    slam, depth_mm, k = _warm_headline(cuda, 7)
+    cfg, field = slam.config, slam.field
+    kd, neg_y = slam._k(k)
+    st = system.preprocessing_stage(slam.state, slam._depth(depth_mm), cfg)
+    counts = (ik.LAUNCHES, icp_kernel.LAUNCHES, pyramid_kernel.LAUNCHES,
+              numerics_kernel.LAUNCHES)
+    before = [dict(c) for c in counts]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        depths, vertices, normals = preprocessing.build_pyramid(
+            st.scaled_depth, kd, len(cfg.pyramid), neg_y)
+        pose, ok, _ = tracking.track(
+            st.pose, depths, vertices, normals, st.ref_vertex, st.ref_normal,
+            st.raycast_pose, kd, cfg.pyramid, cfg.icp_threshold,
+            finest_decimate=cfg.icp_finest_decimate)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(ok)
+    K = camera.camera_matrix(kd)
+    depth = st.float_depth
+    kept = _to(st.map, "cpu")
+    timestamp = float(np.float32(1.0 / 30.0) * np.float32(7))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m = integration.integrate(st.map, field, depth, pose, K, timestamp,
+                                  budget=cfg.integrate_budget)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    delta = {k: n - b.get(k, 0) for c, b in zip(counts, before)
+             for k, n in c.items()}
+    assert delta == dict(fuse_sdf=1, fuse_ofusion=0, frustum_select=1,
+                         update_nodes=1, icp_track_reduce=0, icp_update=0,
+                         icp_track_levels=1, build_pyramid=3, pose_inv=2)
+    want = integration.integrate(kept, field, depth.cpu(), pose.cpu(),
+                                 K.cpu(), timestamp,
+                                 budget=cfg.integrate_budget)
+    assert int(m.overflow) == int(want.overflow)
+    for n in m.voxels:
+        _same_bits(m.voxels[n], want.voxels[n])
+    assert torch.equal(m.active.cpu(), want.active)
+    for a, b in zip(m.node_values, want.node_values):
+        for n in a:
+            _same_bits(a[n], b[n])

@@ -563,8 +563,9 @@ def test_launch_two_ranks_matches_single():
                                      timeout=SPAWN_TIMEOUT)
     assert multi["state"]["n_blocks"] == single["state"]["n_blocks"] > 0
     assert multi["diffs"]["pose"] <= 1e-4
-    assert multi["launches_per_rank"] == [{"fuse_sdf": 0,
-                                           "fuse_ofusion": 0}] * 2
+    assert multi["launches_per_rank"] == [dict.fromkeys(
+        ("fuse_sdf", "fuse_ofusion", "frustum_select", "update_nodes",
+         "build_pyramid", "pose_inv"), 0)] * 2
 
 
 def test_knob_surface_parity_is_pinned():
