@@ -41,6 +41,18 @@ GPU.
    slots); ``update_nodes`` (``csrc/integrate.cu``, one launch for every
    node level) on random node tables at 256^3 and 1024^3 for both fields
    (each preset's run holds it again on its own map).
+   Then the raycast (``csrc/raycast.cu``), each kernel against its twin
+   bit for bit on the same operands and the whole ``raycast`` against
+   ``raycast_twin`` on the card and against ``raycast`` on CPU copies:
+   R1 ``splat_bounds`` (two launches), R2 ``ray_scan``, R3
+   ``ray_scan_second`` and R4 ``ray_refine_normals`` on the headline map
+   after RAYCAST_FRAMES frames in every knob group of RAYCAST_MODES (every
+   normals and refine mode of the presets and of phase F, the second
+   window cut by a budget of RAYCAST_BUDGET, rank 1's row strip of 2) and
+   on the ofusion map in those of RAYCAST_OF_MODES, timed at the
+   headline's knobs beside the launch floor and their bounds; each
+   preset's and phase-F run holds them again on its final map from its
+   last pose.
 3. Holds the SDF and the OFusion fusion kernel, each updating a map's
    block table in place, against their plain PyTorch twins on clones of
    the same table at main-path shapes (3072 distinct slots of a real map,
@@ -62,7 +74,9 @@ GPU.
    ``build_pyramid`` at least once a level of every frame with ICP,
    ``pose_inv`` at least once a frame with ICP and once an integrated
    frame, ``update_nodes`` once an integrated frame and ``frustum_select``
-   once an integrated frame on the budget branch):
+   once an integrated frame on the budget branch; on every path R1, R2
+   and R4 once a raycast that fires, R3 too where the second window or
+   the midsolve is on; on G's ranks the four as often as each other):
    A. ``apps.benchmark`` in ground-truth mode (``-g``) at the headline
       preset on the cached base sequence, written as a .raw stream and a
       TUM trajectory with the port's ``io``: 96/96 frames, ATE < 1e-4 m,
@@ -148,7 +162,8 @@ before it lists every kernel with its launches summed over the runs that
 took it (the app phases, the presets and phase G's ranks), its largest
 difference from its twin, the median device times of both at the 3072-row
 shapes (the probe's for K2 and K3, the decimated 160x120 level for the
-pair, a headline frame's pyramid for ``icp_track_levels``), the least time
+pair, a headline frame's pyramid for ``icp_track_levels``, the headline
+map's raycast at 12 frames for R1-R4), the least time
 the card could take for that work (``bound_ms``: the bytes the call must
 move at 3.35 TB/s or its float32 operations at 67 TFLOP/s, the larger;
 for a fusion kernel, the bytes of the voxels this data updates) and,
@@ -165,6 +180,7 @@ PyTorch call's).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -295,11 +311,12 @@ MESH_AT_SCALE = "1024-quality"
 
 #: the counts the earlier runs of this code gave on the card; the path is
 #: deterministic, so they repeat exactly (taken again whenever the order of
-#: the normal equations' sums changes: when JTJ became a reduction instead
-#: of a GEMM, and when icp_track_reduce took the sums over, in its fixed
-#: order: two runs in one call gave these counts both times)
-REPEAT = {"headline": dict(tracked=92, ate_cm=0.97, blocks=2770, overflow=0),
-          "ofusion": dict(tracked=92, ate_cm=0.91, blocks=3675, overflow=0)}
+#: a sum changes: when JTJ became a reduction instead of a GEMM, when
+#: icp_track_reduce took the sums over, in its fixed order, and when the
+#: hybrid normal's dot product became numerics.dot3's (x + y) + z, as on
+#: the CPU: runs in two calls gave these counts)
+REPEAT = {"headline": dict(tracked=92, ate_cm=0.96, blocks=2767, overflow=0),
+          "ofusion": dict(tracked=92, ate_cm=0.96, blocks=3675, overflow=0)}
 MIN_TRACKED = 88
 #: least share of the last raycast's pixels that hit the map; ``noise``
 #: fills its table (its record overflows by 1891 blocks), so surface past
@@ -322,7 +339,8 @@ UPDATE_FLOPS = {"fuse_sdf": 19, "fuse_ofusion": 50}
 KERNEL_ORDER = ("fuse_sdf", "fuse_ofusion", "lane_shuffle_sum",
                 "slab_row_sum", "icp_track_reduce", "icp_update",
                 "icp_track_levels", "build_pyramid", "pose_inv",
-                "frustum_select", "update_nodes")
+                "frustum_select", "update_nodes", "splat_bounds",
+                "ray_scan", "ray_scan_second", "ray_refine_normals")
 #: the frame's glue on the card: the tracking pyramid (a launch a level),
 #: the 4x4 inverse, the fusion's frustum selection and the node pyramid's
 #: update, each held bit for bit to its twin
@@ -914,6 +932,480 @@ def check_glue_launched(label, counts, cfg, icp_frames, integrated):
             fail(f"{label}: {k} launched {got[k]} times, not "
                  f"{'at least ' if k in ('build_pyramid', 'pose_inv') else ''}"
                  f"{n}")
+
+
+#: the raycast on the card (csrc/raycast.cu), each held bit for bit to its
+#: twin: R1 the splat bounds (two launches, counted once), R2 the first
+#: window's scan, R3 the second window with the midsolve, R4 the
+#: full-resolution re-solve with its vertices and normals
+RAYCAST = ("splat_bounds", "ray_scan", "ray_scan_second",
+           "ray_refine_normals")
+#: the TPU-side code each replaces (XLA fused it; not a Pallas kernel)
+RAYCAST_REPLACES = {
+    "splat_bounds": "supereight_tpu/pipeline/raycast.py:254",
+    "ray_scan": "supereight_tpu/pipeline/raycast.py:358",
+    "ray_scan_second": "supereight_tpu/pipeline/raycast.py:545",
+    "ray_refine_normals": "supereight_tpu/pipeline/raycast.py:376"}
+#: float operations (an fma counts two), counted in csrc/raycast.cu: a
+#: live slot's centre, projection and tests; a footprint cell's radius,
+#: cell and two atomics; a pooled cell (the 3x3 pools; with near_rescue
+#: the 25x25 pool and the fallback); a scan ray's direction and bounds
+#: (half resolution: four directions and their mean); a sample (its point,
+#: voxel, bounds, index and test); a pixel's direction, vertex, ray norm
+#: and normal; a view tap of the re-solve or the gradient
+SPLAT_SLOT_FLOPS = 34
+SPLAT_CELL_FLOPS = 12
+POOL_FLOPS = {False: 12, True: 64}
+RAY_FLOPS = {False: 14, True: 50}
+SAMPLE_FLOPS = 30
+PIXEL_FLOPS = 45
+TAP_FLOPS = 22
+#: the raycast phase's knob groups on the headline map after
+#: RAYCAST_FRAMES frames: every normals and refine mode of the presets
+#: and of phase F, the second window cut by a budget of RAYCAST_BUDGET,
+#: and rank 1's row strip of 2 ranks (with the slots' inside flags given,
+#: as the sharded frame gives them)
+RAYCAST_FRAMES = 12
+RAYCAST_BUDGET = 64
+RAYCAST_MODES = {
+    "hybrid gd2 near_rescue (headline)": dict(
+        normals="hybrid", grad_decim=2, scan_stride=1.0),
+    "volume (quality)": dict(normals="volume", near_rescue=False),
+    "stored (F1)": dict(normals="stored", grad_decim=2, scan_stride=1.0),
+    "stored plane (F2)": dict(normals="stored", refine="plane",
+                              grad_decim=2, scan_stride=1.0),
+    "hybrid midsolve (F3)": dict(normals="hybrid", grad_decim=2,
+                                 scan_stride=1.0, midsolve=True),
+    "exact interp": dict(normals="exact", refine="interp",
+                         near_rescue=False),
+    "volume interp": dict(normals="volume", refine="interp"),
+    "full-res scan hybrid (demo512-sdf)": dict(
+        normals="hybrid", grad_decim=2, scan_stride=1.0, full_res_scan=True),
+    "midsolve without the second window": dict(
+        normals="hybrid", second_window=False, midsolve=True),
+    "no second window": dict(normals="volume", second_window=False),
+    f"w2_budget {RAYCAST_BUDGET}": dict(
+        normals="hybrid", grad_decim=2, scan_stride=1.0,
+        w2_budget=RAYCAST_BUDGET),
+    "rank 1's strip of 2, hybrid gd2": dict(
+        normals="hybrid", grad_decim=2, scan_stride=1.0,
+        row_range=(120, 120), inside=True),
+}
+#: the OFusion map's knob groups (the ofusion preset's map after
+#: RAYCAST_FRAMES frames and its held bf16 view)
+RAYCAST_OF_MODES = {
+    "hybrid (ofusion)": dict(normals="hybrid", scan_stride=1.0,
+                             near_rescue=False),
+    "volume (trans, noise, 1024-quality)": dict(normals="volume",
+                                                near_rescue=False),
+    "exact interp (ofusion-fidelity)": dict(normals="exact",
+                                            refine="interp",
+                                            near_rescue=False),
+    "rank 1's strip of 2, hybrid": dict(
+        normals="hybrid", scan_stride=1.0, near_rescue=False,
+        row_range=(120, 120), inside=True),
+}
+
+
+def raycast_knobs(cfg) -> dict:
+    """The raycast keywords ``system.raycasting_stage`` passes for
+    ``cfg``."""
+    return dict(normals=cfg.raycast_normals,
+                second_window=cfg.raycast_second_window,
+                span_factor=cfg.raycast_span_factor,
+                w2_budget=cfg.raycast_w2_budget,
+                scan_stride=cfg.raycast_scan_stride,
+                near_rescue=cfg.raycast_near_rescue,
+                grad_decim=cfg.raycast_grad_decim, refine=cfg.raycast_refine,
+                full_res_scan=cfg.raycast_full_res_scan,
+                midsolve=cfg.raycast_midsolve)
+
+
+def _full_knobs(knobs) -> dict:
+    """``raycast.raycast``'s keywords: its defaults under ``knobs``."""
+    import inspect
+    from supereight_tpu_torch.pipeline import raycast
+    out = {n: p.default for n, p in
+           inspect.signature(raycast.raycast).parameters.items()
+           if p.kind == p.KEYWORD_ONLY}
+    out.update(knobs)
+    return out
+
+
+def same_bits(torch, label, got, want) -> float:
+    """``got`` and ``want`` (tensors or None) equal bit for bit (floats
+    by their bits, NaN where both are NaN); fails otherwise.  Returns the
+    largest |got - want|."""
+    if got is None and want is None:
+        return 0.0
+    same = got.shape == want.shape and got.dtype == want.dtype
+    err = 0.0
+    if same and got.dtype.is_floating_point:
+        g, w = got.contiguous(), want.to(got.device).contiguous()
+        equal = (g.view(torch.int32) == w.view(torch.int32)) \
+            | (torch.isnan(g) & torch.isnan(w))
+        same = bool(equal.all())
+        if not same:
+            err = float(torch.nan_to_num((g - w).abs()[~equal],
+                                         nan=float("inf")).max())
+    elif same:
+        same = torch.equal(got, want.to(got.device))
+    if not same:
+        fail(f"{label}: the kernel differs from its twin ({err:.3g})")
+    return err
+
+
+def window_samples(torch, m, dense, field, origin, dirs, z0, plan, active):
+    """The view samples a window's scan reads on each ray (``dirs``
+    [..., 3], start depths ``z0``): up to its first valid outside ->
+    inside crossing, the whole window on a miss, none where not
+    ``active``."""
+    from supereight_tpu_torch.pipeline import raycast as rc
+    nF = plan.n_fine + 1
+    steps = torch.arange(nF, device=z0.device).reshape(
+        (nF,) + (1,) * z0.ndim)
+    z = z0[None] + (plan.fine_span / plan.n_fine) * steps.float()
+    f, _ = rc._sample_volume(dense["F"], (origin + dirs[None] * z[..., None])
+                             * m.inverse_voxel_size, m.size, float("nan"))
+    ok = ~torch.isnan(f)
+    inside = field.is_inside(f)
+    # the last valid sample's outside bit before each sample (-1: none)
+    enc = torch.where(ok, steps * 2 + (~inside).long(), -1)
+    prev = torch.cat([torch.full_like(enc[:1], -1),
+                      torch.cummax(enc, 0).values[:-1]])
+    crossing = ok & inside & (prev >= 0) & ((prev & 1) == 1)
+    first = torch.where(crossing.any(0),
+                        crossing.to(torch.uint8).argmax(0) + 1, nF)
+    return int((first * active).sum())
+
+
+def raycast_work(torch, m, dense, field, view, plan, k, scan1, scan, tmin,
+                 g, fin, on_view):
+    """The bytes and float operations each raycast kernel's function needs
+    on this data (what its bound counts): R1 the live slots' keys, the
+    in-view slots' voxels (or inside flags), the grids; R2 the samples its
+    rays read (window_samples), the grids and its rays' outputs; R3 the
+    ranked rays' start depths and samples, the midsolve's two taps a hit
+    and every ray's flags, depths and outputs; R4 the parents' hits and
+    depths, the re-solve's taps of each pixel whose parent hit, the
+    gradient's 6 taps at each vertex (volume) or at each decimated parent
+    that hit (hybrid), and its outputs.  {kernel: (bytes, flops)}."""
+    from supereight_tpu_torch.core import octree
+    from supereight_tpu_torch.pipeline import raycast as rc
+    esize = dense["F"].element_size()
+    live = int(octree.slot_mask(m).sum())
+    cells = tmin.numel()
+    voxel_bytes = 1 if k["inside_any"] is not None else 4 * 512
+    r1 = (8 * live + on_view * voxel_bytes + 2 * 4 * 16 + 8 * cells,
+          SPLAT_SLOT_FLOPS * live + 512 * on_view
+          + 9 * SPLAT_CELL_FLOPS * on_view
+          + POOL_FLOPS[bool(k["near_rescue"])] * cells)
+    origin, _, fd = rc._scan_dirs(view, plan)
+    rep = g // 2 if plan.half_res else g
+    f = 2 if plan.half_res else 1
+    t0 = tmin.repeat_interleave(rep, 0).repeat_interleave(rep, 1)[
+        plan.r0 // f:(plan.r0 + plan.rows) // f, :fd.shape[1]]
+    active = torch.isfinite(t0)
+    rays = active.numel()
+    tiles = -(-rays // 256)
+    n1 = window_samples(torch, m, dense, field, origin, fd, scan1.z_start,
+                        plan, active)
+    r2 = (esize * n1 + 4 * 2 * cells + rays * (1 + 4 + 1 + 4) + 4 * tiles,
+          RAY_FLOPS[plan.half_res] * rays + SAMPLE_FLOPS * n1)
+    n2 = ranked = 0
+    if k["second_window"]:
+        idx = torch.nonzero(scan1.need2.reshape(-1))[:, 0][
+            :min(k["w2_budget"], rays)]
+        ranked = idx.numel()
+        n2 = window_samples(
+            torch, m, dense, field, origin, fd.reshape(-1, 3)[idx],
+            (scan1.z_start + plan.fine_span).reshape(-1)[idx], plan,
+            torch.ones_like(idx, dtype=torch.bool))
+    mid = 2 * int(scan.hit.sum()) if k["midsolve"] else 0
+    r3 = (esize * (n2 + mid) + 4 * ranked + 4 * tiles
+          + rays * (1 + 1 + 4 + 1 + 4),
+          RAY_FLOPS[plan.half_res] * rays + SAMPLE_FLOPS * (n2 + mid))
+    pixels = fin.hit.numel()
+    resolve = plan.half_res and not (k["normals"] == "stored"
+                                     and k["refine"] == "plane")
+    taps = 0
+    if resolve:
+        parent_hits = int(scan.hit.repeat_interleave(2, 0)
+                          .repeat_interleave(2, 1).sum())
+        taps = 2 * (8 if k["refine"] == "interp" else 1) * parent_hits
+    hybrid = k["normals"] == "hybrid" and resolve
+    if hybrid:
+        gd = int(k["grad_decim"])
+        h, w = scan.hit.shape
+        points = scan.hit[::gd, ::gd] if gd > 1 and h % gd == 0 and \
+            w % gd == 0 else scan.hit
+        taps += 6 * int(points.sum())
+    elif fin.normal is not None:
+        taps += 6 * int(fin.hit.sum())
+    out_bytes = 12 + 4 + 1 + (12 if fin.normal is not None else 0)
+    r4 = (esize * taps + pixels * out_bytes + scan.hit.numel() * 5,
+          PIXEL_FLOPS * pixels + TAP_FLOPS * taps)
+    return dict(splat_bounds=r1, ray_scan=r2, ray_scan_second=r3,
+                ray_refine_normals=r4)
+
+
+def hold_raycast(torch, label, m, field, view, dense, knobs,
+                 grad_table=None, cpu=False, timed=False, floor=None):
+    """The raycast kernels R1-R4 (csrc/raycast.cu) against their twins on
+    the card, each on the same operands (the kernels' own outputs before
+    it), bit for bit: R1 the grids, R2 every scan output, R3 the merged
+    hit and depth, R4 the vertex, normal, ray distance and hit maps; then
+    the whole ``raycast`` (the kernels, each launched once, R3 where the
+    second window or the midsolve is on) against ``raycast_twin`` on the
+    card, and with ``cpu`` R1 and the whole ``raycast`` against the CPU's
+    on copies of its operands, bit for bit.  ``knobs`` are ``raycast``'s;
+    ``inside=True`` gives R1 the slots' inside flags (as the sharded frame
+    does).  Returns {kernel:
+    entry fields} (max_abs_err; with ``timed`` the median device times of
+    the kernel and its twin over TIMED_RUNS, the host time, bound and
+    launch floor)."""
+    from supereight_tpu_torch.ops import raycast_kernel as rk
+    from supereight_tpu_torch.pipeline import raycast as rc
+    from supereight_tpu_torch.pipeline.constants import FAR_PLANE, NEAR_PLANE
+    knobs = dict(knobs)
+    if knobs.pop("inside", False):
+        knobs["inside_any"] = field.is_inside(
+            m.voxels[field.select_channel].to(torch.float32)).any(1)
+    k = _full_knobs(knobs)
+    if k["normals"] == "stored" and grad_table is None:
+        from supereight_tpu_torch.pipeline import gradmap
+        grad_table = gradmap.build_table(m, field)
+    H, W = 240, 320
+    near, far = NEAR_PLANE, FAR_PLANE
+    plan = rc.scan_plan(m, field, H, W, near, far, k["span_factor"],
+                        k["scan_stride"], k["full_res_scan"], k["row_range"])
+    second = k["second_window"] or k["midsolve"]
+    err = dict.fromkeys(RAYCAST, 0.0)
+
+    sb = dict(near_rescue=k["near_rescue"], inside_any=k["inside_any"])
+    run1 = lambda: rk.splat_bounds(m, field, view, H, W, near, far, **sb)
+    twin1 = lambda: rc._splat_bounds_twin(m, field, view, H, W, near, far,
+                                          **sb)
+    tmin, tmax, g = run1()
+    want = twin1()
+    for a, b in zip((tmin, tmax), want[:2]):
+        err["splat_bounds"] = max(err["splat_bounds"], same_bits(
+            torch, f"{label}: splat_bounds", a, b))
+    if cpu:
+        mc = to_device(m, "cpu")
+        want = rc._splat_bounds_twin(
+            mc, field, view.cpu(), H, W, near, far, near_rescue=k[
+                "near_rescue"], inside_any=None if k["inside_any"] is None
+            else k["inside_any"].cpu())
+        for a, b in zip((tmin, tmax), want[:2]):
+            same_bits(torch, f"{label}: splat_bounds on the CPU", a, b)
+
+    run2 = lambda: rk.ray_scan(m, dense, field, view, plan, tmin, tmax, g)
+    twin2 = lambda: rc.ray_scan_twin(m, dense, field, view, plan, tmin,
+                                     tmax, g)
+    s1, w1 = run2(), twin2()
+    for a, b in zip(s1[:4], w1[:4]):
+        err["ray_scan"] = max(err["ray_scan"], same_bits(
+            torch, f"{label}: ray_scan", a, b))
+    tiles = s1.need2.reshape(-1)
+    tiles = torch.nn.functional.pad(tiles, (0, -tiles.numel() % rk.SCAN_TILE))
+    same_bits(torch, f"{label}: ray_scan's tile counts", s1.tiles,
+              tiles.reshape(-1, rk.SCAN_TILE).sum(1).int())
+    need2 = int(s1.need2.sum())
+
+    scan = s1
+    run3 = twin3 = None
+    if second:
+        args3 = (m, dense, field, view, plan, s1, k["second_window"],
+                 k["w2_budget"], k["midsolve"])
+        run3 = lambda: rk.ray_scan_second(*args3)
+        twin3 = lambda: rc.ray_scan_second_twin(*args3)
+        s2, w2 = run3(), twin3()
+        for a, b in zip(s2[:2], w2[:2]):
+            err["ray_scan_second"] = max(err["ray_scan_second"], same_bits(
+                torch, f"{label}: ray_scan_second", a, b))
+        scan = s2
+
+    fk = dict(normals=k["normals"], refine=k["refine"],
+              grad_decim=k["grad_decim"], grad_table=grad_table)
+    run4 = lambda: rc.ray_finish(m, dense, field, view, plan, scan, **fk,
+                                 refine_normals=rk.ray_refine_normals)
+    twin4 = lambda: rc.ray_finish(m, dense, field, view, plan, scan, **fk,
+                                  refine_normals=rc.ray_refine_normals_twin)
+    fin, wfin = run4(), twin4()
+    for a, b in zip(fin, wfin):
+        err["ray_refine_normals"] = max(err["ray_refine_normals"], same_bits(
+            torch, f"{label}: ray_refine_normals", a, b))
+
+    before = dict(rk.LAUNCHES)
+    whole = rc.raycast(m, field, view, H, W, near, far, dense, **knobs,
+                       grad_table=grad_table)
+    ran = {n: rk.LAUNCHES[n] - before[n] for n in RAYCAST}
+    want_ran = dict(splat_bounds=1, ray_scan=1,
+                    ray_scan_second=int(second), ray_refine_normals=1)
+    if ran != want_ran:
+        fail(f"{label}: the raycast launched {ran}, not {want_ran}")
+    twin_whole = rc.raycast_twin(m, field, view, H, W, near, far, dense,
+                                 **knobs, grad_table=grad_table)
+    for a, b in zip(whole, twin_whole):
+        same_bits(torch, f"{label}: the whole raycast", a, b)
+    note = ""
+    if cpu:
+        cpu_whole = rc.raycast(
+            to_device(m, "cpu"), field, view.cpu(), H, W, near, far,
+            {"F": dense["F"].cpu()}, **to_device(knobs, "cpu"),
+            grad_table=None if grad_table is None else grad_table.cpu())
+        for a, b in zip(whole, cpu_whole):
+            same_bits(torch, f"{label}: the whole raycast vs the CPU", a, b)
+        note = " and on the CPU"
+    hit = float(fin.hit.float().mean())
+    budget = min(k["w2_budget"], s1.hit.numel())
+    print(f"# {label}: R1-R4 equal their twins bit for bit, each on the "
+          f"same operands, and the whole raycast raycast_twin's on the card"
+          f"{note}; launches {ran}; {need2} rays flagged for the second "
+          f"window (budget {budget}{', cut' if need2 > budget else ''}), "
+          f"{hit:.3f} of {tuple(fin.hit.shape)} pixels hit")
+    if hit < 0.3:
+        fail(f"{label}: the raycast hit only {hit:.3f} of the pixels")
+    out = {n: dict(max_abs_err=e) for n, e in err.items()}
+    if not timed:
+        return out, need2
+    work = raycast_work(torch, m, dense, field, view, plan, k, s1, scan,
+                        tmin, g, fin,
+                        _on_view(torch, m, field, view, H, W, k))
+    for name, run, twin in (("splat_bounds", run1, twin1),
+                            ("ray_scan", run2, twin2),
+                            ("ray_scan_second", run3, twin3),
+                            ("ray_refine_normals", run4, twin4)):
+        if run is None:
+            continue
+        b = bound(*work[name])
+        out[name].update(ms=median_ms(run), plain_ms=median_ms(twin),
+                         host_ms=host_ms(torch, run), bound_ms=b[0],
+                         bound_by=b[1], nbytes=work[name][0])
+        t = out[name]
+        print(f"# {label}: {name} median device time over {TIMED_RUNS} "
+              f"runs {t['ms']:.4f} ms (host clock, synchronised, "
+              f"{t['host_ms']:.4f} ms), plain twin {t['plain_ms']:.4f} ms; "
+              f"bound {b[0]:.6f} ms ({b[1]}: {work[name][0] / 1e6:.3f} MB, "
+              f"{work[name][1] / 1e6:.2f} MFLOP); launch floor "
+              f"{floor:.4f} ms")
+    return out, need2
+
+
+def _on_view(torch, m, field, view, H, W, k) -> int:
+    """R1's slots that read their inside flags: live, in front of the
+    camera and projecting into the frame's margin."""
+    from supereight_tpu_torch.core import numerics, octree
+    from supereight_tpu_torch.pipeline import camera
+    from supereight_tpu_torch.pipeline.raycast import splat_cell
+    g = splat_cell(H, W)
+    bc = octree.block_coords_table(m).to(torch.float32)
+    hom = camera.transform_points(numerics.inv(view),
+                                  (bc + 0.5) * (8 * m.voxel_size))
+    z = hom[:, 2]
+    zs = torch.where(z == 0, 1.0, z)
+    px, py = hom[:, 0] / zs, hom[:, 1] / zs
+    marg = 2.0 * g
+    ok = (octree.slot_mask(m) & (z > 1e-3) & (px >= -marg)
+          & (px <= W - 1 + marg) & (py >= -marg) & (py <= H - 1 + marg))
+    return int(ok.sum())
+
+
+def check_raycast_kernels(torch, depths, poses, dev):
+    """The raycast phase: R1-R4 held against their twins (hold_raycast) on
+    the headline map after RAYCAST_FRAMES frames in every knob group of
+    RAYCAST_MODES and on the ofusion map (its held view) in those of
+    RAYCAST_OF_MODES, each also against the raycast on CPU copies; the
+    budget group must cut the second window.  Timed at the headline's own
+    knobs.  Returns their JSON entries."""
+    from supereight_tpu_torch.ops import gather_probe as gp
+    from supereight_tpu_torch.pipeline import camera, raycast
+    floor = median_ms(lambda: gp.empty_launch(dev))
+    out = {}
+    for preset, modes in (("headline", RAYCAST_MODES),
+                          ("ofusion", RAYCAST_OF_MODES)):
+        slam = warm_map(preset_config(preset), depths, poses, dev,
+                        RAYCAST_FRAMES)
+        st = slam.state
+        view = st.pose @ camera.inverse_camera_matrix(
+            torch.from_numpy(K).to(dev))
+        dense = {"F": st.view} if st.view is not None else \
+            raycast.pack_view(st.map, slam.field)
+        for i, (mode, knobs) in enumerate(modes.items()):
+            timed = not out
+            r, need2 = hold_raycast(
+                torch, f"{preset} map after {RAYCAST_FRAMES} frames, {mode}",
+                st.map, slam.field, view, dense, knobs, cpu=True,
+                timed=timed, floor=floor)
+            if knobs.get("w2_budget") == RAYCAST_BUDGET and \
+                    need2 <= RAYCAST_BUDGET:
+                fail(f"{mode}: {need2} flagged rays do not exceed the "
+                     "budget")
+            if timed:
+                out = {n: glue_entry(
+                    n, "supereight_tpu_torch/csrc/raycast.cu",
+                    RAYCAST_REPLACES[n], 0.0, t["ms"], t["plain_ms"],
+                    (t["bound_ms"], t["bound_by"]), None, floor,
+                    host_ms=t["host_ms"]) for n, t in r.items()}
+            for n, t in r.items():
+                out[n]["max_abs_err"] = max(out[n]["max_abs_err"],
+                                            t["max_abs_err"])
+        del slam, st, dense
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_path_raycast(torch, name, slam, cfg, kernels):
+    """The run's reference raycast from its last pose on its final map
+    (its held view and gradient table): R1-R4 against their twins
+    (hold_raycast; on the CPU too at 256^3)."""
+    from supereight_tpu_torch.pipeline import camera, raycast
+    st = slam.state
+    view = st.pose @ camera.inverse_camera_matrix(
+        torch.from_numpy(K).to(st.pose.device))
+    dense = {"F": st.view} if st.view is not None else \
+        raycast.pack_view(st.map, slam.field)
+    r, _ = hold_raycast(torch, f"{name}: its last pose's raycast", st.map,
+                        slam.field, view, dense, raycast_knobs(cfg),
+                        grad_table=st.grad, cpu=st.map.size <= 256)
+    for n, t in r.items():
+        kernels[n]["max_abs_err"] = max(kernels[n]["max_abs_err"],
+                                        t["max_abs_err"])
+
+
+@contextlib.contextmanager
+def counting_raycasts():
+    """Counts the calls of ``raycast.raycast`` (the stage's and the
+    renderers') while the block runs: yields a list whose one entry is
+    the count."""
+    from supereight_tpu_torch.pipeline import raycast
+    calls = [0]
+    inner = raycast.raycast
+
+    @functools.wraps(inner)
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return inner(*args, **kwargs)
+
+    raycast.raycast = counted
+    try:
+        yield calls
+    finally:
+        raycast.raycast = inner
+
+
+def check_raycast_launched(label, counts, raycasts, second=True):
+    """Every raycast went through the kernels: R1, R2 and R4 once each,
+    R3 once where the second window or the midsolve is on."""
+    got = {k: counts.get(k, 0) for k in RAYCAST}
+    want = dict(splat_bounds=raycasts, ray_scan=raycasts,
+                ray_scan_second=raycasts if second else 0,
+                ray_refine_normals=raycasts)
+    print(f"# {label}: raycast LAUNCHES {got} ({raycasts} raycasts)")
+    if raycasts == 0 or got != want:
+        fail(f"{label}: raycast kernels launched {got} for {raycasts} "
+             f"raycasts, not {want}")
 
 
 def smem_bound_ms(gathers: int, sms: int, mhz: float) -> float:
@@ -1640,18 +2132,20 @@ def run_slam(torch, cfg, depths, poses, dev):
     est, tracked, integrated, ms = [], [], [], []
     reset_launches()
     t0 = time.perf_counter()
-    for f in range(len(depths)):
-        t1 = time.perf_counter()
-        st = slam.step(depths[f], K, f)
-        torch.cuda.synchronize()
-        ms.append(1e3 * (time.perf_counter() - t1))
-        est.append(st.pose.cpu().numpy())
-        tracked.append(st.tracked)
-        integrated.append(st.integrated)
+    with counting_raycasts() as raycasts:
+        for f in range(len(depths)):
+            t1 = time.perf_counter()
+            st = slam.step(depths[f], K, f)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t1))
+            est.append(st.pose.cpu().numpy())
+            tracked.append(st.tracked)
+            integrated.append(st.integrated)
     counts = launches()
     st = slam.state
     return dict(slam=slam, cfg=cfg, est=np.stack(est), tracked=sum(tracked),
                 integrated=sum(integrated), ms=ms, launches=counts,
+                raycasts=raycasts[0],
                 icp_frames=icp_frames(cfg, len(depths)),
                 wall=time.perf_counter() - t0,
                 blocks=int(st.map.n_blocks), overflow=int(st.map.overflow),
@@ -1676,6 +2170,9 @@ def check_run(torch, name, r, poses, record, max_ate, counter):
     check_icp_launched(name, r["launches"], r["icp_frames"])
     check_glue_launched(name, r["launches"], r["cfg"], r["icp_frames"],
                         r["integrated"])
+    check_raycast_launched(name, r["launches"], r["raycasts"],
+                           r["cfg"].raycast_second_window
+                           or r["cfg"].raycast_midsolve)
     print(f"# {name}: median ms/frame after the first 16 frames: "
           f"{statistics.median(r['ms'][16:]):.2f} (first frame "
           f"{r['ms'][0]:.1f} ms)")
@@ -1786,11 +2283,13 @@ def print_stage_times(name, cfg, depths, poses, dev):
     slam = DenseSLAMSystem((240, 320), cfg, dev)
     slam.setPose(poses[0])
     t0 = time.perf_counter()
-    stages, parts, int_parts = stage_times.staged_run(slam, depths, K)
+    stages, parts, int_parts, ray_parts = stage_times.staged_run(
+        slam, depths, K)
     print(f"# {name}: median ms per stage after the first 16 frames "
           f"(step_staged, {time.perf_counter() - t0:.1f} s): " + ", ".join(
               f"{k} {v:.2f}" for k, v in stages.items()))
-    for what, cut in (("tracking", parts), ("integration", int_parts)):
+    for what, cut in (("tracking", parts), ("integration", int_parts),
+                      ("raycast", ray_parts)):
         if cut:
             print(f"# {name}: {what} stage parts, median host / device ms "
                   "(each alone, synchronised): "
@@ -1819,6 +2318,7 @@ def run_preset(torch, name, dev, kernels):
         check_held_view(torch, name, r["slam"])
     kernel, err = check_path_kernel(torch, name, r["slam"], cfg)
     kernels[kernel]["max_abs_err"] = max(kernels[kernel]["max_abs_err"], err)
+    check_path_raycast(torch, name, r["slam"], cfg, kernels)
     if name == MESH_AT_SCALE:
         mesh_whole_map(torch, name, r["slam"], dev)
     del r
@@ -1889,6 +2389,7 @@ def run_phase_f(torch, dev, kernels):
                   ate_gate(name), "fuse_sdf")
         if cfg.raycast_normals == "stored":
             check_held_grad(torch, name, r["slam"])
+        check_path_raycast(torch, name, r["slam"], cfg, kernels)
         del r
         print_stage_times(name, cfg, depths, poses, dev)
 
@@ -1974,6 +2475,9 @@ def run_phase_g(torch, dev, kernels):
         want_icp = icp_expected(preset_config(preset), n_frames)
         for rank, counts in enumerate(multi["icp_launches_per_rank"]):
             check_icp_pair_launched(f"{name} rank {rank}", counts, want_icp)
+        for rank, counts in enumerate(multi["launches_per_rank"]):
+            check_raycast_launched(f"{name} rank {rank}", counts,
+                                   counts.get("splat_bounds", 0))
         for k, n in multi["icp_launches"].items():
             kernels[k]["launches"] += n
         if int(st["part_counts"].sum()) != st["n_blocks"]:
@@ -1984,8 +2488,11 @@ def run_phase_g(torch, dev, kernels):
             fail(f"{name}: non-finite pose or reference map")
         if name == "G3":
             reset_launches()
-            single = multihost.run_single(job, ranks, "cuda")
+            with counting_raycasts() as raycasts:
+                single = multihost.run_single(job, ranks, "cuda")
             counts = launches()
+            check_raycast_launched("G3 one-device frame", counts,
+                                   raycasts[0])
             check_icp_launched("G3 one-device frame", counts,
                                icp_frames(preset_config(preset), n_frames))
             for k, n in counts.items():
@@ -2050,22 +2557,22 @@ def run_phase_g(torch, dev, kernels):
 
 def _counters():
     from supereight_tpu_torch.ops import (icp_kernel, numerics_kernel,
-                                          pyramid_kernel)
+                                          pyramid_kernel, raycast_kernel)
     from supereight_tpu_torch.ops import integrate_kernel as ik
     return (ik.LAUNCHES, icp_kernel.LAUNCHES, pyramid_kernel.LAUNCHES,
-            numerics_kernel.LAUNCHES)
+            numerics_kernel.LAUNCHES, raycast_kernel.LAUNCHES)
 
 
 def reset_launches():
-    """Every kernel count of the SLAM paths (fusion, ICP and the glue) set
-    to 0."""
+    """Every kernel count of the SLAM paths (fusion, ICP, the glue and the
+    raycast) set to 0."""
     for counts in _counters():
         for k in counts:
             counts[k] = 0
 
 
 def launches():
-    """The fusion, ICP and glue kernels' counts."""
+    """The fusion, ICP, glue and raycast kernels' counts."""
     out = {}
     for counts in _counters():
         out.update(counts)
@@ -2112,7 +2619,8 @@ def app_phase(torch, label, argv, poses, tmp, icp=False):
     log = os.path.join(tmp, label + ".tsv")
     reset_launches()
     t0 = time.perf_counter()
-    r = benchmark.run(argv + ["-q", "-o", log, "--device", "cuda"])
+    with counting_raycasts() as raycasts:
+        r = benchmark.run(argv + ["-q", "-o", log, "--device", "cuda"])
     wall = time.perf_counter() - t0
     counts = launches()
     from supereight_tpu_torch.io import native
@@ -2134,6 +2642,7 @@ def app_phase(torch, label, argv, poses, tmp, icp=False):
           f"{out['overflow']}; median computation {out['ms']:.2f} ms/frame "
           "after the first 16 frames")
     check_launched(label, counts, out["integrated"])
+    check_raycast_launched(label, counts, raycasts[0])
     if icp:
         check_icp_launched(label, counts, icp_frames(r.system.config,
                                                      len(poses)))
@@ -2203,12 +2712,14 @@ def check_apps(torch, depths, poses, dev):
     reset_launches()
     t0 = time.perf_counter()
     est, integrated = [], 0
-    for f in range(len(depths)):
-        st = slam.step(depths[f], K, f, gt_pose=poses[f])
-        integrated += st.integrated
-        est.append(st.pose.cpu().numpy())
+    with counting_raycasts() as raycasts:
+        for f in range(len(depths)):
+            st = slam.step(depths[f], K, f, gt_pose=poses[f])
+            integrated += st.integrated
+            est.append(st.pose.cpu().numpy())
     wall = time.perf_counter() - t0
     counts = launches()
+    check_raycast_launched("C", counts, raycasts[0])
     total = {k: total[k] + n for k, n in counts.items()}
     c = dict(blocks=int(st.map.n_blocks), overflow=int(st.map.overflow),
              ate=ate_rmse(np.stack(est), poses))
@@ -2255,7 +2766,7 @@ def check_runner(torch, dev):
           f"of device time (CUDA events, median of {TRACE_RUNS}), "
           f"{host_ms:.2f} ms a frame on the host clock")
     reset_launches()
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, counting_raycasts() as calls:
         t0 = time.perf_counter()
         res = runner.run("synthetic-room", resolution=256, out=tmp,
                          device=dev)
@@ -2278,6 +2789,7 @@ def check_runner(torch, dev):
           f"{res.get('auto_regime', 'none')}")
     check_launched("D", launches(), integrated)
     check_icp_launched("D", launches(), icp_runs)
+    check_raycast_launched("D", launches(), calls[0])
     if res["tracked_ratio"] < RUNNER_MIN_TRACKED:
         fail(f"D: tracked ratio {res['tracked_ratio']} < "
              f"{RUNNER_MIN_TRACKED}")
@@ -2445,6 +2957,7 @@ def main():
     build_kernels()
     kernels = check_icp_kernels(torch, depths, poses, dev)
     kernels.update(check_glue_kernels(torch, depths, poses, dev))
+    kernels.update(check_raycast_kernels(torch, depths, poses, dev))
     kernels.update({
         "fuse_sdf": check_fusion_kernel(torch, "fuse_sdf", "headline", 6,
                                         depths, poses, dev),

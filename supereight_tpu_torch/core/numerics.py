@@ -30,6 +30,14 @@ def div(a: torch.Tensor, b: float) -> torch.Tensor:
     return a / torch.full((), b, dtype=a.dtype, device=a.device)
 
 
+def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The dot product over a last axis of 3, its rounded products added
+    as ``(x + y) + z`` on every device (``(a * b).sum(-1)`` adds in the
+    order the device's reduction chooses, which differs on CUDA)."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) \
+        + a[..., 2] * b[..., 2]
+
+
 @functools.lru_cache(maxsize=None)
 def _addcmul_fuses(device_type: str) -> bool:
     """Whether ``addcmul`` computes a fused multiply-add on devices of this

@@ -335,13 +335,13 @@ def tile_rows(fill: torch.Tensor, m: VoxelMap,
     """Brick-tiled ``[B^3, 512]``: the live slots' ``rows`` ([capacity,
     512]) at their blocks' rows, every other row its cell's ``fill``
     ([B^3], cast to the rows' dtype).  One write of the view and one row
-    scatter of the live slots."""
-    out = fill.to(rows.dtype)[:, None].expand(-1, BLOCK_VOXELS).contiguous()
-    if m.partitions == 1:
-        n = int(m.n_blocks)
-        return out.index_copy_(0, block_rows(m)[:n], rows[:n])
-    live = live_slots(m)
-    return out.index_copy_(0, block_rows(m)[live], rows[live])
+    scatter of every slot, the dead ones into a scratch row ``B^3`` that is
+    cut off (JAX's ``mode="drop"``), so the host reads nothing."""
+    n = fill.shape[0]
+    out = torch.cat([fill, fill[:1]]).to(rows.dtype)[:, None] \
+        .expand(-1, BLOCK_VOXELS).contiguous()
+    tgt = torch.where(slot_mask(m), block_rows(m), n)
+    return out.index_copy_(0, tgt, rows)[:n]
 
 
 def pack_tiled_multiscale(m: VoxelMap, channel: str) -> torch.Tensor:

@@ -82,7 +82,8 @@ def library_path(name: str) -> Path:
 
 
 #: every kernel source of the package
-SOURCES = ("integrate", "gather_probe", "icp", "pyramid", "numerics")
+SOURCES = ("integrate", "gather_probe", "icp", "pyramid", "numerics",
+           "raycast")
 #: host sources, built with the C++ compiler
 HOST_SOURCES = ("io_native",)
 

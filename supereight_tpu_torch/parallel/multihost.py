@@ -225,7 +225,8 @@ def _frames_job(comm, job: dict, dev) -> dict:
     are set to 0 just before the frames and read just after."""
     import torch
     from supereight_tpu_torch.ops import icp_kernel, integrate_kernel as ik
-    from supereight_tpu_torch.ops import numerics_kernel, pyramid_kernel
+    from supereight_tpu_torch.ops import (numerics_kernel, pyramid_kernel,
+                                          raycast_kernel)
     from supereight_tpu_torch.pipeline import DenseSLAMSystem
     from .frame_dist import frame_sharding
 
@@ -241,7 +242,7 @@ def _frames_job(comm, job: dict, dev) -> dict:
     stats = {} if job.get("timed") else None
     est, tracked, integrated, ms, stages = [], [], [], [], []
     for counts in (ik.LAUNCHES, icp_kernel.LAUNCHES, pyramid_kernel.LAUNCHES,
-                   numerics_kernel.LAUNCHES):
+                   numerics_kernel.LAUNCHES, raycast_kernel.LAUNCHES):
         for name in counts:
             counts[name] = 0
     for f in range(len(depths)):
@@ -265,7 +266,8 @@ def _frames_job(comm, job: dict, dev) -> dict:
     out = dict(rank=rank, est=np.stack(est), tracked=tracked,
                integrated=integrated, ms=ms, stages=stages,
                launches={**ik.LAUNCHES, **pyramid_kernel.LAUNCHES,
-                         **numerics_kernel.LAUNCHES},
+                         **numerics_kernel.LAUNCHES,
+                         **raycast_kernel.LAUNCHES},
                icp_launches=dict(icp_kernel.LAUNCHES),
                state=state_record(st),
                collectives=dict(seconds=dict(comm.seconds),

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from supereight_tpu_torch.core import octree
-from supereight_tpu_torch.core.numerics import inv, trunc_i32
+from supereight_tpu_torch.core.numerics import div, dot3, inv, trunc_i32
 from supereight_tpu_torch.core.octree import BLOCK_SIDE, VoxelMap
 from . import camera, gradmap
 from .constants import INVALID
@@ -158,15 +158,39 @@ def _max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
     return F.max_pool2d(x[None, None], k, stride=1, padding=k // 2)[0, 0]
 
 
+def splat_cell(H: int, W: int) -> int:
+    """The splat grid's cell edge in pixels: the largest of 8, 4, 2, 1
+    dividing both H and W."""
+    for g in (8, 4, 2, 1):
+        if H % g == 0 and W % g == 0:
+            return g
+    return 1
+
+
 def _splat_bounds(m: VoxelMap, field, view, H: int, W: int, near: float,
                   far: float, near_rescue: bool = True, inside_any=None):
     """Phase 1: per-cell start and far depth from splatting the blocks that
     contain an inside voxel (``inside_any`` bool[capacity], from the brick
     table when None) into a coarse grid.  Returns (tmin, tmax, g) with
-    [H/g, W/g] grids."""
-    for g in (8, 4, 2, 1):
-        if H % g == 0 and W % g == 0:
-            break
+    [H/g, W/g] grids.  A CPU view takes :func:`_splat_bounds_twin`, a CUDA
+    view the kernel R1 (`ops/raycast_kernel.splat_bounds`), which raises if
+    it cannot launch."""
+    if view.device.type == "cpu":
+        return _splat_bounds_twin(m, field, view, H, W, near, far,
+                                  near_rescue, inside_any)
+    from supereight_tpu_torch.ops import raycast_kernel
+    return raycast_kernel.splat_bounds(m, field, view, H, W, near, far,
+                                       near_rescue, inside_any)
+
+
+def _splat_bounds_twin(m: VoxelMap, field, view, H: int, W: int,
+                       near: float, far: float, near_rescue: bool = True,
+                       inside_any=None):
+    """:func:`_splat_bounds` in plain PyTorch on any device.  CUDA
+    multiplies by the reciprocal of a Python-scalar divisor: by the power
+    of two ``g`` that is exact, and the blind-zone depth divides through
+    ``numerics.div``, so the twin rounds alike on every device."""
+    g = splat_cell(H, W)
     gh, gw = H // g, W // g
     dev = view.device
 
@@ -215,7 +239,7 @@ def _splat_bounds(m: VoxelMap, field, view, H: int, W: int, near: float,
     # z_blind inherit that neighbourhood's start depth
     R = 12
     twide = -_max_pool_same(-tmin, 2 * R + 1)
-    z_blind = 0.5 * diag * fx / (2.4 * g)
+    z_blind = div(0.5 * diag * fx, 2.4 * g)
     fallback = ~torch.isfinite(tmin) & (twide < z_blind)
     tmin = torch.where(fallback, twide, tmin)
     tmax = torch.where(fallback, twide + diag, tmax)
@@ -274,6 +298,310 @@ def _up2(a: torch.Tensor) -> torch.Tensor:
     return a.repeat_interleave(2, 0).repeat_interleave(2, 1)
 
 
+class ScanPlan(NamedTuple):
+    """The numbers every phase of a raycast shares (Python scalars)."""
+    H: int
+    W: int
+    near: float
+    far: float
+    half_res: bool       # the scan runs at half resolution
+    thickness: float     # the surface band: mu (SDF) or 2 voxels
+    diag: float          # a block's diagonal (m)
+    n_fine: int          # a window's steps (n_fine + 1 samples)
+    fine_span: float     # a window's depth span (m)
+    r0: int              # the first image row of the strip
+    rows: int            # the strip's image rows
+
+
+def scan_plan(m: VoxelMap, field, H: int, W: int, near: float, far: float,
+              span_factor: float, scan_stride: float, full_res_scan: bool,
+              row_range=None) -> ScanPlan:
+    """The scan's resolution, band and windows (see :func:`raycast`)."""
+    vs = m.voxel_size
+    thickness = field.mu if field.invert_normals else 2.0 * vs
+    diag = 1.7320508 * BLOCK_SIDE * vs
+    half_res = H % 2 == 0 and W % 2 == 0 and W >= 160 and not full_res_scan
+    fine_step = scan_stride * thickness
+    fine_span = span_factor * diag + 2.0 * thickness
+    n_fine = int(np.clip(np.ceil(fine_span / fine_step) + 1, 8, 48))
+    r0, rows = (0, H) if row_range is None else row_range
+    return ScanPlan(H, W, near, far, half_res, thickness, diag, n_fine,
+                    n_fine * fine_step, r0, rows)
+
+
+def _scan_dirs(view, plan: ScanPlan):
+    """(origin, the strip's full-resolution directions [rows, W, 3], the
+    strip's scan directions [h, w, 3]: the 2x2 mean at half resolution)."""
+    origin, dirs = ray_directions(view, plan.H, plan.W)
+    if plan.half_res:
+        fd = 0.25 * (dirs[0::2, 0::2] + dirs[1::2, 0::2]
+                     + dirs[0::2, 1::2] + dirs[1::2, 1::2])
+        f = 2
+    else:
+        fd, f = dirs, 1
+    r0, nr = plan.r0, plan.rows
+    return origin, dirs[r0:r0 + nr], fd[r0 // f:(r0 + nr) // f]
+
+
+class Scan(NamedTuple):
+    """A scan's rays [h, w] (the strip's, at the scan's resolution)."""
+    hit: torch.Tensor
+    z: torch.Tensor          # the crossing's ray depth (0 on miss)
+    need2: torch.Tensor      # the second window's rays (first window only)
+    z_start: torch.Tensor    # the first window's start depth
+    #: int32 [tiles]: the second window's rays in each kernel tile (the
+    #: kernel's; None from the twin)
+    tiles: object = None
+
+
+def ray_scan(m: VoxelMap, dense, field, view, plan: ScanPlan, tmin, tmax,
+             g: int) -> Scan:
+    """Phase 2's first window (see :func:`ray_scan_twin`): a CPU view takes
+    the twin, a CUDA view the kernel R2 (`ops/raycast_kernel.ray_scan`),
+    which raises if it cannot launch."""
+    if view.device.type == "cpu":
+        return ray_scan_twin(m, dense, field, view, plan, tmin, tmax, g)
+    from supereight_tpu_torch.ops import raycast_kernel
+    return raycast_kernel.ray_scan(m, dense, field, view, plan, tmin, tmax,
+                                   g)
+
+
+def ray_scan_twin(m: VoxelMap, dense, field, view, plan: ScanPlan, tmin,
+                  tmax, g: int) -> Scan:
+    """The strip's rays from the splat cells' bounds: active where the
+    start bound is finite, each scanned over one window from its start
+    depth; ``need2`` marks the rays without a hit whose far bound reaches
+    past the window."""
+    origin, _, fd = _scan_dirs(view, plan)
+    rep = g // 2 if plan.half_res else g
+    t0 = tmin.repeat_interleave(rep, 0).repeat_interleave(rep, 1)
+    t1 = tmax.repeat_interleave(rep, 0).repeat_interleave(rep, 1)
+    f = 2 if plan.half_res else 1
+    rows = slice(plan.r0 // f, (plan.r0 + plan.rows) // f)
+    t0, t1 = t0[rows, :fd.shape[1]], t1[rows, :fd.shape[1]]
+    active = torch.isfinite(t0)
+    z_start = torch.clamp(torch.where(active, t0, plan.near), plan.near,
+                          plan.far)
+    f1 = _fine_scan(m, dense, field, origin, fd, z_start, plan.fine_span,
+                    plan.n_fine, active)
+    need2 = active & ~f1.hit & (z_start + plan.fine_span < t1 + plan.diag)
+    return Scan(f1.hit, f1.z_hit, need2, z_start)
+
+
+def ray_scan_second(m: VoxelMap, dense, field, view, plan: ScanPlan,
+                    scan: Scan, second_window: bool, w2_budget: int,
+                    midsolve: bool) -> Scan:
+    """The second window and the midsolve (see
+    :func:`ray_scan_second_twin`): a CPU view takes the twin, a CUDA view
+    the kernel R3 (`ops/raycast_kernel.ray_scan_second`), which ranks the
+    rays on the card and raises if it cannot launch."""
+    if view.device.type == "cpu":
+        return ray_scan_second_twin(m, dense, field, view, plan, scan,
+                                    second_window, w2_budget, midsolve)
+    from supereight_tpu_torch.ops import raycast_kernel
+    return raycast_kernel.ray_scan_second(m, dense, field, view, plan, scan,
+                                          second_window, w2_budget, midsolve)
+
+
+def ray_scan_second_twin(m: VoxelMap, dense, field, view, plan: ScanPlan,
+                         scan: Scan, second_window: bool, w2_budget: int,
+                         midsolve: bool) -> Scan:
+    """With ``second_window``, the rays of ``scan.need2``, the first
+    ``w2_budget`` of them in raster order, scanned one window deeper, the
+    first window's hit kept; with ``midsolve``, every hit re-solved from
+    two samples inside the band."""
+    origin, _, fd = _scan_dirs(view, plan)
+    hit, z_hit = scan.hit, scan.z
+    h, w = hit.shape
+    if second_window:
+        # rays whose far bound reaches past window 1, compacted (the first
+        # w2_budget of them in raster order) and scanned one window deeper
+        idx = torch.nonzero(scan.need2.reshape(-1))[:, 0][
+            :min(w2_budget, h * w)]
+        f2 = _fine_scan(m, dense, field, origin, fd.reshape(-1, 3)[idx],
+                        (scan.z_start + plan.fine_span).reshape(-1)[idx],
+                        plan.fine_span, plan.n_fine,
+                        torch.ones_like(idx, dtype=torch.bool))
+        hit2 = torch.zeros(h * w, dtype=torch.bool, device=idx.device) \
+            .index_copy(0, idx, f2.hit).reshape(h, w)
+        z2 = torch.zeros(h * w, device=idx.device) \
+            .index_copy(0, idx, f2.z_hit).reshape(h, w)
+        z_hit = torch.where(hit, z_hit, z2)
+        hit = hit | hit2
+    if midsolve:
+        z_hit = _midsolve(m, dense, field, origin, fd, z_hit, hit,
+                          0.35 * plan.thickness)
+    return Scan(hit, z_hit, None, None)
+
+
+class Finish(NamedTuple):
+    """The full-resolution maps [rows, W] of the strip."""
+    vertex: torch.Tensor     # [.., 3] world-space hit points (0 on miss)
+    normal: object           # [.., 3] (x = INVALID on miss), or None
+    t_hit: torch.Tensor      # ray distance of the hit (0 on miss)
+    hit: torch.Tensor
+
+
+#: ray_refine_normals' re-solve: none, from nearest samples, from
+#: trilinear samples
+RESOLVE = ("none", "secant", "interp")
+#: ray_refine_normals' normals: left to :func:`gradient_normals` (stored,
+#: exact), the 6-tap gradient at the vertex, the hybrid gradient
+NORMALS = ("none", "volume", "hybrid")
+
+
+def ray_refine_normals(m: VoxelMap, dense, field, view, plan: ScanPlan,
+                       z, hit, resolve: str, normals: str,
+                       grad_decim: int = 1) -> Finish:
+    """The full-resolution re-solve, vertices, ray distances and normals
+    (see :func:`ray_refine_normals_twin`): a CPU view takes the twin, a
+    CUDA view the kernel R4 (`ops/raycast_kernel.ray_refine_normals`),
+    which raises if it cannot launch."""
+    if view.device.type == "cpu":
+        return ray_refine_normals_twin(m, dense, field, view, plan, z, hit,
+                                       resolve, normals, grad_decim)
+    from supereight_tpu_torch.ops import raycast_kernel
+    return raycast_kernel.ray_refine_normals(m, dense, field, view, plan, z,
+                                             hit, resolve, normals,
+                                             grad_decim)
+
+
+def ray_refine_normals_twin(m: VoxelMap, dense, field, view,
+                            plan: ScanPlan, z, hit, resolve: str,
+                            normals: str, grad_decim: int = 1) -> Finish:
+    """From the scan's ``z`` and ``hit`` (at half resolution where
+    ``resolve`` is not "none", each pixel taking its 2x2 parent's; else
+    full resolution): the secant re-solve (:func:`_refine`, nearest or
+    trilinear samples), the vertex and ray distance, and the ``normals``
+    (:data:`NORMALS`; "hybrid" takes the half-resolution ``z`` and ``hit``
+    as its lateral gradient's points, decimated by ``grad_decim``)."""
+    if normals == "hybrid" and resolve == "none":
+        raise ValueError("the hybrid normals need the half-resolution "
+                         "re-solve")
+    origin, dirs, fd = _scan_dirs(view, plan)
+    inv_vs = m.inverse_voxel_size
+    z_half, hit_half = z, hit
+    if resolve != "none":
+        # interp: unobserved taps blend the select channel's raw init
+        sub = next(c.init for c in m.channels
+                   if c.name == field.select_channel) \
+            if resolve == "interp" else None
+        delta = 0.7 * plan.thickness
+        z, hit, rf_lo, rf_hi, rf_pair = _refine(
+            m, dense, field, origin, dirs, _up2(z), _up2(hit), delta, sub)
+
+    vertex = origin + dirs * z[..., None]
+    ray_norm = norm(dirs)
+    t_hit = torch.where(hit, z * ray_norm, 0.0)
+    if normals == "none":
+        return Finish(torch.where(hit[..., None], vertex, 0.0), None, t_hit,
+                      hit)
+    bad_grad = torch.zeros_like(hit)
+    if normals == "hybrid":
+        h, w = hit_half.shape
+        vert_h = origin + fd * z_half[..., None]
+        gd = int(grad_decim)
+        if gd > 1 and h % gd == 0 and w % gd == 0:
+            g_q = _grad6(m, dense, field, vert_h[::gd, ::gd]) * inv_vs
+            g_h = g_q.repeat_interleave(gd, 0).repeat_interleave(gd, 1)
+            grad_ok_h = hit_half[::gd, ::gd].repeat_interleave(gd, 0) \
+                .repeat_interleave(gd, 1)
+        else:
+            g_h = _grad6(m, dense, field, vert_h) * inv_vs
+            grad_ok_h = torch.ones_like(hit_half)
+        g_m = _up2(g_h)
+        rn = torch.clamp(ray_norm, min=1e-12)
+        rhat = dirs / rn[..., None]
+        d_ray = (rf_hi - rf_lo) / (2.0 * delta * rn)
+        have = rf_pair & hit & _up2(hit_half)
+        corr = torch.where(have, d_ray - dot3(g_m, rhat), 0.0)
+        g_ = g_m + corr[..., None] * rhat
+        bad_grad = ~_up2(grad_ok_h)
+    else:
+        g_ = _grad6(m, dense, field, vertex)
+    return Finish(torch.where(hit[..., None], vertex, 0.0),
+                  _encode_normals(field, g_, hit, bad_grad), t_hit, hit)
+
+
+def _encode_normals(field, g_, hit, bad_grad=None):
+    """Unit normals from the gradient ``g_`` (negated for a field with
+    ``invert_normals``), (INVALID, 0, 0) where the ray missed, the
+    gradient is 0 or ``bad_grad``."""
+    if field.invert_normals:
+        g_ = -g_
+    gn = norm(g_, keepdim=True)
+    normal = g_ / torch.clamp(gn, min=1e-12)
+    bad = ~hit | (gn[..., 0] == 0)
+    if bad_grad is not None:
+        bad = bad | bad_grad
+    invalid = torch.zeros_like(normal)
+    invalid[..., 0] = INVALID
+    return torch.where(bad[..., None], invalid, normal)
+
+
+def gradient_normals(m: VoxelMap, field, fin: Finish, normals: str,
+                     grad_table=None) -> torch.Tensor:
+    """The normals of the hit vertices from the stored gradient table
+    (``normals="stored"``, at the hit voxel) or from ``octree.grad``, the
+    blended gradient of the brick table ("exact"), in PyTorch on every
+    device."""
+    pos = fin.vertex * m.inverse_voxel_size
+    if normals == "stored":
+        g_, _, _ = gradmap.sample(m, grad_table, pos)
+    else:
+        g_ = octree.grad(m, field.select_channel, pos)
+    return _encode_normals(field, g_, fin.hit)
+
+
+def _plane_refine(m: VoxelMap, grad_table, view, plan: ScanPlan,
+                  scan: Scan):
+    """The "plane" re-solve with stored normals, in PyTorch on every
+    device: each full-resolution ray meets the plane of its half-res
+    parent's hit (the stored normal there), inside the refine window.
+    Returns the full-resolution (z, hit)."""
+    origin, dirs, fd = _scan_dirs(view, plan)
+    delta = 0.7 * plan.thickness
+    vert_h = origin + fd * scan.z[..., None]
+    g_h, _, _ = gradmap.sample(m, grad_table, vert_h * m.inverse_voxel_size)
+    n_f, v_f = _up2(g_h), _up2(vert_h)
+    z_hit, hit = _up2(scan.z), _up2(scan.hit)
+    denom = dot3(dirs, n_f)
+    numer = dot3(v_f - origin, n_f)
+    okp = torch.abs(denom) > 1e-9
+    z_pl = torch.where(okp, numer / torch.where(okp, denom, 1.0), z_hit)
+    z_hit = torch.where(hit, torch.minimum(torch.maximum(
+        z_pl, z_hit - delta), z_hit + delta), z_hit)
+    return z_hit, hit
+
+
+def ray_finish(m: VoxelMap, dense, field, view, plan: ScanPlan, scan: Scan,
+               *, normals: str = "volume", refine: str = "secant",
+               grad_decim: int = 1, grad_table=None,
+               refine_normals=None) -> Finish:
+    """The scan's rays to full-resolution maps: the "plane" re-solve where
+    it applies (:func:`_plane_refine`), then ``refine_normals``
+    (:func:`ray_refine_normals` by default; its normals "none" for stored
+    and exact normals, which :func:`gradient_normals` computes)."""
+    z, hit, resolve = scan.z, scan.hit, "none"
+    if plan.half_res:
+        if normals == "stored" and refine == "plane":
+            z, hit = _plane_refine(m, grad_table, view, plan, scan)
+        else:
+            resolve = "interp" if refine == "interp" else "secant"
+    mode = "none" if normals in ("stored", "exact") else \
+        "hybrid" if normals == "hybrid" and resolve != "none" else "volume"
+    return (refine_normals or ray_refine_normals)(
+        m, dense, field, view, plan, z, hit, resolve, mode, grad_decim)
+
+
+#: the phases of :func:`raycast`, each dispatching on the view's device,
+#: and of :func:`raycast_twin`, the plain PyTorch twins
+_PHASES = dict(splat=_splat_bounds, scan=ray_scan, second=ray_scan_second,
+               finish=ray_refine_normals)
+_TWINS = dict(splat=_splat_bounds_twin, scan=ray_scan_twin,
+              second=ray_scan_second_twin, finish=ray_refine_normals_twin)
+
+
 def raycast(m: VoxelMap, field, view, H: int, W: int, near: float,
             far: float, dense=None, *, normals: str = "volume",
             second_window: bool = True, span_factor: float = 1.6,
@@ -305,140 +633,62 @@ def raycast(m: VoxelMap, field, view, H: int, W: int, near: float,
     nrows)`` runs the per-ray phases (scan, refine, normals) for the image
     rows ``[r0, r0 + nrows)`` only (both even with the half-res scan,
     whose rows are ``r0 // 2``) and returns maps of ``nrows`` rows.  The
-    splat grid still covers the whole image."""
+    splat grid still covers the whole image.
+
+    The phases dispatch on ``view``'s device: on the CPU the plain PyTorch
+    twins (:func:`raycast_twin`), on the card the kernels R1-R4 of
+    `csrc/raycast.cu`, which read nothing back to the host; the plane
+    re-solve and the stored and exact normals' gradients run in PyTorch on
+    both."""
+    return _raycast(_PHASES, m, field, view, H, W, near, far, dense,
+                    normals=normals, second_window=second_window,
+                    span_factor=span_factor, w2_budget=w2_budget,
+                    scan_stride=scan_stride, near_rescue=near_rescue,
+                    grad_decim=grad_decim, refine=refine,
+                    full_res_scan=full_res_scan, midsolve=midsolve,
+                    grad_table=grad_table, inside_any=inside_any,
+                    row_range=row_range)
+
+
+def raycast_twin(m: VoxelMap, field, view, H: int, W: int, near: float,
+                 far: float, dense=None, **knobs) -> RaycastResult:
+    """:func:`raycast` in plain PyTorch on any device: every phase its
+    twin (what :func:`raycast` runs on the CPU)."""
+    return _raycast(_TWINS, m, field, view, H, W, near, far, dense, **knobs)
+
+
+def _raycast(phases, m: VoxelMap, field, view, H: int, W: int, near: float,
+             far: float, dense=None, *, normals: str = "volume",
+             second_window: bool = True, span_factor: float = 1.6,
+             w2_budget: int = 8192, scan_stride: float = 0.5,
+             near_rescue: bool = True, grad_decim: int = 1,
+             refine: str = "secant", full_res_scan: bool = False,
+             midsolve: bool = False, grad_table=None, inside_any=None,
+             row_range=None) -> RaycastResult:
     if normals not in ("volume", "hybrid", "exact", "stored"):
         raise ValueError(f"unknown normals mode {normals!r}")
     if refine not in ("secant", "interp", "plane"):
         raise ValueError(f"unknown refine mode {refine!r}")
-    origin, dirs = ray_directions(view, H, W)
+    plan = scan_plan(m, field, H, W, near, far, span_factor, scan_stride,
+                     full_res_scan, row_range)
     if dense is None:
         dense = pack_view(m, field)
-    use_stored = normals == "stored"
-    if use_stored and grad_table is None:
+    if normals == "stored" and grad_table is None:
         grad_table = gradmap.build_table(m, field)
-    tgrid, tmax_grid, g = _splat_bounds(m, field, view, H, W, near, far,
-                                        near_rescue=near_rescue,
-                                        inside_any=inside_any)
-
-    vs = m.voxel_size
-    inv_vs = m.inverse_voxel_size
-    thickness = field.mu if field.invert_normals else 2.0 * vs
-    diag = 1.7320508 * BLOCK_SIDE * vs
-    half_res = H % 2 == 0 and W % 2 == 0 and W >= 160 and not full_res_scan
-    fine_step = scan_stride * thickness
-    fine_span = span_factor * diag + 2.0 * thickness
-    n_fine = int(np.clip(np.ceil(fine_span / fine_step) + 1, 8, 48))
-    fine_span = n_fine * fine_step
-
-    if half_res:
-        fd = 0.25 * (dirs[0::2, 0::2] + dirs[1::2, 0::2]
-                     + dirs[0::2, 1::2] + dirs[1::2, 1::2])
-        rep = g // 2
-    else:
-        fd = dirs
-        rep = g
-    h, w = fd.shape[:2]
-    t0 = tgrid.repeat_interleave(rep, 0).repeat_interleave(rep, 1)[:h, :w]
-    t1 = tmax_grid.repeat_interleave(rep, 0) \
-        .repeat_interleave(rep, 1)[:h, :w]
-    active = torch.isfinite(t0)
-    z_start = torch.clamp(torch.where(active, t0, near), near, far)
-    if row_range is not None:
-        r0, nr = row_range
-        f = 2 if half_res else 1
-        dirs = dirs[r0:r0 + nr]
-        fd, z_start, active, t1 = (a[r0 // f:(r0 + nr) // f]
-                                   for a in (fd, z_start, active, t1))
-        h = fd.shape[0]
-
-    f1 = _fine_scan(m, dense, field, origin, fd, z_start, fine_span, n_fine,
-                    active)
-    hit, z_hit = f1.hit, f1.z_hit
-    if second_window:
-        # rays whose far bound reaches past window 1, compacted (the first
-        # w2_budget of them in raster order) and scanned one window deeper
-        need2 = (active & ~f1.hit
-                 & (z_start + fine_span < t1 + diag)).reshape(-1)
-        idx = torch.nonzero(need2)[:, 0][:min(w2_budget, h * w)]
-        f2 = _fine_scan(m, dense, field, origin, fd.reshape(-1, 3)[idx],
-                        (z_start + fine_span).reshape(-1)[idx], fine_span,
-                        n_fine, torch.ones_like(idx, dtype=torch.bool))
-        hit2 = torch.zeros(h * w, dtype=torch.bool, device=idx.device) \
-            .index_copy(0, idx, f2.hit).reshape(h, w)
-        z2 = torch.zeros(h * w, device=idx.device) \
-            .index_copy(0, idx, f2.z_hit).reshape(h, w)
-        hit = f1.hit | hit2
-        z_hit = torch.where(f1.hit, f1.z_hit, z2)
-    if midsolve:
-        z_hit = _midsolve(m, dense, field, origin, fd, z_hit, hit,
-                          0.35 * thickness)
-
-    z_half, hit_half = z_hit, hit
-    if half_res:
-        delta = 0.7 * thickness
-        if use_stored and refine == "plane":
-            # each full-res ray meets the plane of its half-res parent's
-            # hit (stored normal there), inside the refine window
-            vert_h = origin + fd * z_half[..., None]
-            g_h, _, _ = gradmap.sample(m, grad_table, vert_h * inv_vs)
-            n_f, v_f = _up2(g_h), _up2(vert_h)
-            z_hit, hit = _up2(z_hit), _up2(hit)
-            denom = (dirs * n_f).sum(-1)
-            numer = ((v_f - origin) * n_f).sum(-1)
-            okp = torch.abs(denom) > 1e-9
-            z_pl = torch.where(okp, numer / torch.where(okp, denom, 1.0),
-                               z_hit)
-            z_hit = torch.where(hit, torch.minimum(torch.maximum(
-                z_pl, z_hit - delta), z_hit + delta), z_hit)
-        else:
-            # interp: unobserved taps blend the select channel's raw init
-            interp_sub = next(c.init for c in m.channels
-                              if c.name == field.select_channel) \
-                if refine == "interp" else None
-            z_hit, hit, rf_lo, rf_hi, rf_pair = _refine(
-                m, dense, field, origin, dirs, _up2(z_hit), _up2(hit), delta,
-                interp_sub)
-
-    vertex = origin + dirs * z_hit[..., None]
-    ray_norm = norm(dirs)
-    t_hit = torch.where(hit, z_hit * ray_norm, 0.0)
-
-    bad_grad = torch.zeros_like(hit)
-    if use_stored:
-        g_, _, _ = gradmap.sample(m, grad_table, vertex * inv_vs)
-    elif normals == "hybrid" and half_res:
-        vert_h = origin + fd * z_half[..., None]
-        gd = int(grad_decim)
-        if gd > 1 and h % gd == 0 and w % gd == 0:
-            g_q = _grad6(m, dense, field, vert_h[::gd, ::gd]) * inv_vs
-            g_h = g_q.repeat_interleave(gd, 0).repeat_interleave(gd, 1)
-            grad_ok_h = hit_half[::gd, ::gd].repeat_interleave(gd, 0) \
-                .repeat_interleave(gd, 1)
-        else:
-            g_h = _grad6(m, dense, field, vert_h) * inv_vs
-            grad_ok_h = torch.ones_like(hit_half)
-        g_m = _up2(g_h)
-        rn = torch.clamp(ray_norm, min=1e-12)
-        rhat = dirs / rn[..., None]
-        d_ray = (rf_hi - rf_lo) / (2.0 * delta * rn)
-        have = rf_pair & hit & _up2(hit_half)
-        corr = torch.where(have, d_ray - (g_m * rhat).sum(-1), 0.0)
-        g_ = g_m + corr[..., None] * rhat
-        bad_grad = ~_up2(grad_ok_h)
-    elif normals == "exact":
-        g_ = octree.grad(m, field.select_channel, vertex * inv_vs)
-    else:
-        g_ = _grad6(m, dense, field, vertex)
-    if field.invert_normals:
-        g_ = -g_
-    gn = norm(g_, keepdim=True)
-    normal = g_ / torch.clamp(gn, min=1e-12)
-    bad = ~hit | (gn[..., 0] == 0) | bad_grad
-    vertex = torch.where(hit[..., None], vertex, 0.0)
-    invalid = torch.zeros_like(normal)
-    invalid[..., 0] = INVALID
-    normal = torch.where(bad[..., None], invalid, normal)
-    return RaycastResult(vertex=vertex, normal=normal, t_hit=t_hit)
+    tmin, tmax, g = phases["splat"](m, field, view, H, W, near, far,
+                                    near_rescue=near_rescue,
+                                    inside_any=inside_any)
+    scan = phases["scan"](m, dense, field, view, plan, tmin, tmax, g)
+    if second_window or midsolve:
+        scan = phases["second"](m, dense, field, view, plan, scan,
+                                second_window, w2_budget, midsolve)
+    fin = ray_finish(m, dense, field, view, plan, scan, normals=normals,
+                     refine=refine, grad_decim=grad_decim,
+                     grad_table=grad_table, refine_normals=phases["finish"])
+    normal = fin.normal
+    if normal is None:
+        normal = gradient_normals(m, field, fin, normals, grad_table)
+    return RaycastResult(vertex=fin.vertex, normal=normal, t_hit=fin.t_hit)
 
 
 def _refine(m: VoxelMap, dense, field, origin, dirs, z_hit, hit,

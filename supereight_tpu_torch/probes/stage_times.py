@@ -39,6 +39,12 @@ take ``system.tracking_stage``, ``system._alloc_fires``, ``integration``'s
 ``allocate_sdf`` / ``allocate_ofusion``, ``fusion_operands``, ``fuse`` and
 ``_update_nodes``, ``raycast.view_alloc_fill`` / ``pack_view`` and
 ``gradmap.build_table``.
+
+After each of those frames it cuts the reference raycast of the frame's
+final state in the parts of :data:`RAY_PARTS` (:func:`raycast_parts`),
+each timed alone the same way; a run's ``ray_parts`` are their medians.
+Of the other checkout these take ``raycast``'s phases (on the card the
+kernels R1-R4).
 """
 
 from __future__ import annotations
@@ -199,6 +205,56 @@ def integration_parts(slam, depth_mm, k, frame: int):
     return out
 
 
+#: the reference raycast's parts: the read view's pack (``pack_view``,
+#: where no view is held), the splat bounds (with the slots' inside-voxel
+#: flags), the first window's scan (with the rays' directions and start
+#: depths), the second window with the midsolve, the full-resolution
+#: re-solve (with the volume and hybrid normals) and the stored and exact
+#: normals
+RAY_PARTS = ("pack", "splat", "scan", "window2", "refine", "normals")
+
+
+def raycast_parts(slam, k):
+    """The reference raycast of ``slam.state`` (the map, pose, held view
+    and gradient table that the frame's raycasting stage reads) in the
+    parts of :data:`RAY_PARTS` it runs, each timed alone with the device
+    synchronised before and after it: {part: (host ms, device ms)}.
+    The state is left as it was.  The phases run as ``raycast.raycast``
+    runs them (on the card the kernels R1-R4)."""
+    from supereight_tpu_torch.pipeline import camera, raycast
+    from supereight_tpu_torch.pipeline.constants import FAR_PLANE, NEAR_PLANE
+    st, cfg, field, m = slam.state, slam.config, slam.field, slam.state.map
+    kd, _ = slam._k(k)
+    view = st.pose @ camera.inverse_camera_matrix(kd)
+    H, W = st.float_depth.shape
+    near, far = NEAR_PLANE, FAR_PLANE
+    out = {}
+    part = _timer(slam, out)
+    plan = raycast.scan_plan(m, field, H, W, near, far,
+                             cfg.raycast_span_factor,
+                             cfg.raycast_scan_stride,
+                             cfg.raycast_full_res_scan)
+    dense = {"F": st.view} if st.view is not None else \
+        part("pack", lambda: raycast.pack_view(m, field))
+    tmin, tmax, g = part("splat", lambda: raycast._splat_bounds(
+        m, field, view, H, W, near, far,
+        near_rescue=cfg.raycast_near_rescue))
+    scan = part("scan", lambda: raycast.ray_scan(
+        m, dense, field, view, plan, tmin, tmax, g))
+    if cfg.raycast_second_window or cfg.raycast_midsolve:
+        scan = part("window2", lambda: raycast.ray_scan_second(
+            m, dense, field, view, plan, scan, cfg.raycast_second_window,
+            cfg.raycast_w2_budget, cfg.raycast_midsolve))
+    fin = part("refine", lambda: raycast.ray_finish(
+        m, dense, field, view, plan, scan, normals=cfg.raycast_normals,
+        refine=cfg.raycast_refine, grad_decim=cfg.raycast_grad_decim,
+        grad_table=st.grad))
+    if fin.normal is None:
+        part("normals", lambda: raycast.gradient_normals(
+            m, field, fin, cfg.raycast_normals, st.grad))
+    return out
+
+
 def part_medians(rows, names=PARTS):
     """{part: {"host": ms, "device": ms, "frames": n}}: the medians of
     :func:`track_parts`' (or :func:`integration_parts`') rows over the
@@ -216,10 +272,11 @@ def part_medians(rows, names=PARTS):
 
 def staged_run(slam, depths, k):
     """Every frame through ``step_staged``, each frame after the first
-    SKIP first cut in its tracking and its integration parts: (the
-    stages' medians, the tracking parts' medians or None, the integration
-    parts' medians or None)."""
-    rows, parts, int_parts = [], [], []
+    SKIP first cut in its tracking and its integration parts, and after
+    its step its reference raycast cut in its parts: (the stages'
+    medians, the tracking parts' medians or None, the integration parts'
+    medians or None, the raycast parts' medians)."""
+    rows, parts, int_parts, ray_parts = [], [], [], []
     for f in range(len(depths)):
         if f >= SKIP:
             cut = track_parts(slam, depths[f], k, f)
@@ -231,8 +288,10 @@ def staged_run(slam, depths, k):
         _, stage_s = slam.step_staged(depths[f], k, f)
         if f >= SKIP:
             rows.append(stage_s)
+            ray_parts.append(raycast_parts(slam, k))
     return (_medians(rows), part_medians(parts) if parts else None,
-            part_medians(int_parts, INT_PARTS) if int_parts else None)
+            part_medians(int_parts, INT_PARTS) if int_parts else None,
+            part_medians(ray_parts, RAY_PARTS))
 
 
 def format_parts(parts) -> str:
@@ -279,9 +338,11 @@ def preset_stages(smoke, name: str, dev) -> dict:
             for _ in range(2)]
     for slam in runs:
         slam.setPose(poses[0])
-    stages, parts, int_parts = staged_run(runs[0], depths, smoke.K)
+    stages, parts, int_parts, ray_parts = staged_run(runs[0], depths,
+                                                     smoke.K)
     del runs[0]
     return dict(stages, parts=parts, int_parts=int_parts,
+                ray_parts=ray_parts,
                 run=step_run(runs[0], depths, poses, smoke.K,
                              smoke.ate_rmse))
 
@@ -331,12 +392,14 @@ def main(argv=None):
         torch.cuda.empty_cache()
         print(f"# {args.root} {name}: " + ", ".join(
             f"{k} {v:.2f}" for k, v in res["ms"][name].items()
-            if k not in ("parts", "int_parts", "run")), flush=True)
+            if k not in ("parts", "int_parts", "ray_parts", "run")),
+            flush=True)
         if "run" in res["ms"][name]:
             print(f"# {args.root} {name} step run: " + ", ".join(
                 f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"
                 for k, v in res["ms"][name]["run"].items()), flush=True)
-        for key, what in (("parts", "tracking"), ("int_parts", "integration")):
+        for key, what in (("parts", "tracking"), ("int_parts", "integration"),
+                          ("ray_parts", "raycast")):
             if res["ms"][name].get(key):
                 print(f"# {args.root} {name} {what} parts (host / device "
                       "ms): " + format_parts(res["ms"][name][key]),

@@ -3,8 +3,11 @@ with ``supereight_tpu.apps.evaluate.ate`` (to 1e-9 m), its runs (the
 presets and phase F) are the configurations of the JAX records they are
 held against, its gates are the JAX package's CPU figures plus the stated
 margins, its ICP hold covers the headline's level shapes and every knob
-group (its CPU half run here on the twins), its JSON line lists the seven
-kernels, and without CUDA it exits non-zero and prints no result."""
+group (its CPU half run here on the twins), its raycast hold covers every
+normals and refine mode of the presets and of phase F (its plumbing run
+here with the twins standing in for the kernels), its JSON line lists the
+fifteen kernels, and without CUDA it exits non-zero and prints no
+result."""
 
 import json
 import os
@@ -306,24 +309,29 @@ def test_phase_g_runs(name):
 
 
 def test_kernel_line_order():
-    """The JSON line lists the eleven kernels in a fixed order: the fusion
+    """The JSON line lists the fifteen kernels in a fixed order: the fusion
     kernels, the gather-probe kernels, the ICP pair, the one-launch ICP,
-    then the frame's glue (the pyramid, the inverse, the frustum
-    selection, the node update); every counter of the SLAM paths is one of
-    them."""
+    the frame's glue (the pyramid, the inverse, the frustum selection, the
+    node update), then the raycast (R1-R4); every counter of the SLAM
+    paths is one of them."""
     assert chip_smoke.KERNEL_ORDER == (
         "fuse_sdf", "fuse_ofusion", "lane_shuffle_sum", "slab_row_sum",
         "icp_track_reduce", "icp_update", "icp_track_levels",
-        "build_pyramid", "pose_inv", "frustum_select", "update_nodes")
+        "build_pyramid", "pose_inv", "frustum_select", "update_nodes",
+        "splat_bounds", "ray_scan", "ray_scan_second", "ray_refine_normals")
     from supereight_tpu_torch.ops import (icp_kernel, integrate_kernel,
-                                          numerics_kernel, pyramid_kernel)
+                                          numerics_kernel, pyramid_kernel,
+                                          raycast_kernel)
     assert set(chip_smoke.FUSION) | {"frustum_select", "update_nodes"} == \
         set(integrate_kernel.LAUNCHES)
     assert set(chip_smoke.ICP) == set(icp_kernel.LAUNCHES)
     assert set(chip_smoke.GLUE) == {"frustum_select", "update_nodes"} | \
         set(pyramid_kernel.LAUNCHES) | set(numerics_kernel.LAUNCHES)
+    assert chip_smoke.RAYCAST == tuple(raycast_kernel.LAUNCHES) == \
+        chip_smoke.KERNEL_ORDER[-4:]
+    assert set(chip_smoke.RAYCAST_REPLACES) == set(chip_smoke.RAYCAST)
     assert set(chip_smoke.launches()) == set(chip_smoke.FUSION) | \
-        set(chip_smoke.ICP) | set(chip_smoke.GLUE)
+        set(chip_smoke.ICP) | set(chip_smoke.GLUE) | set(chip_smoke.RAYCAST)
 
 
 def test_glue_holds_on_the_cpu():
@@ -511,7 +519,8 @@ def test_tracking_parts_on_the_cpu(monkeypatch):
     for s in runs:
         s.setPose(poses[0])
     k = chip_smoke.K / 2
-    stages, parts, int_parts = stage_times.staged_run(runs[0], depths[:5], k)
+    stages, parts, int_parts, _ = stage_times.staged_run(runs[0],
+                                                         depths[:5], k)
     for f in range(5):
         runs[1].step_staged(depths[f], k, f)
     assert set(stages) == {"preprocessing", "tracking", "integration",
@@ -548,3 +557,194 @@ def test_step_run_on_the_cpu(monkeypatch):
     assert r["step"] > 0 and 1 <= r["tracked"] <= 5
     assert r["blocks"] == int(slam.state.map.n_blocks) > 0
     assert r["overflow"] == 0 and 0 <= r["ate_cm"] < 5
+
+
+def _twins_for_kernels(monkeypatch):
+    """The raycast kernels' wrappers replaced by their twins (R2's with the
+    tile counts it writes), each counting its launches: the hold's
+    plumbing runs on the CPU."""
+    import torch
+    from supereight_tpu_torch.ops import raycast_kernel as rk
+    from supereight_tpu_torch.pipeline import raycast as rc
+
+    def counted(name, fn):
+        def run(*args, **kwargs):
+            rk.LAUNCHES[name] += 1
+            return fn(*args, **kwargs)
+        return run
+
+    def scan(*args):
+        s = rc.ray_scan_twin(*args)
+        t = s.need2.reshape(-1)
+        t = torch.nn.functional.pad(t, (0, -t.numel() % rk.SCAN_TILE))
+        return s._replace(tiles=t.reshape(-1, rk.SCAN_TILE).sum(1).int())
+
+    stand_in = dict(splat_bounds=counted("splat_bounds",
+                                         rc._splat_bounds_twin),
+                    ray_scan=counted("ray_scan", scan),
+                    ray_scan_second=counted("ray_scan_second",
+                                            rc.ray_scan_second_twin),
+                    ray_refine_normals=counted("ray_refine_normals",
+                                               rc.ray_refine_normals_twin))
+    for name, fn in stand_in.items():
+        monkeypatch.setattr(rk, name, fn)
+    monkeypatch.setattr(rc, "_PHASES", dict(
+        splat=stand_in["splat_bounds"], scan=stand_in["ray_scan"],
+        second=stand_in["ray_scan_second"],
+        finish=stand_in["ray_refine_normals"]))
+
+
+@pytest.mark.parametrize("preset", ["headline", "ofusion"])
+def test_raycast_hold_on_the_cpu(monkeypatch, preset):
+    """The raycast phase's CPU form: ``hold_raycast`` in every knob group
+    of RAYCAST_MODES / RAYCAST_OF_MODES on a warmed 64^3 map at 320x240,
+    with the twins standing in for the kernels (the kernels run only on
+    the card): the phases compose, each launch is counted once a raycast
+    (R3 only with the second window or the midsolve), the budget group
+    cuts the second window, the strip is rank 1's of 2, and the run's own
+    raycast holds as ``check_path_raycast`` holds it."""
+    import dataclasses
+    import torch
+    from supereight_tpu_torch.pipeline import camera, raycast
+    torch.set_num_threads(1)
+    _twins_for_kernels(monkeypatch)
+    depths, poses = chip_smoke.load_sequence("synthetic_256_frames")
+    cfg = chip_smoke.preset_config(preset)
+    cfg = dataclasses.replace(cfg, volume_resolution=(64,) * 3,
+                              block_capacity=1024,
+                              integrate_budget=min(cfg.integrate_budget,
+                                                   1024))
+    slam = chip_smoke.warm_map(cfg, depths, poses, "cpu", 6)
+    st = slam.state
+    view = st.pose @ camera.inverse_camera_matrix(
+        torch.from_numpy(chip_smoke.K))
+    dense = {"F": st.view} if st.view is not None else \
+        raycast.pack_view(st.map, slam.field)
+    modes = chip_smoke.RAYCAST_MODES if preset == "headline" else \
+        chip_smoke.RAYCAST_OF_MODES
+    normals = set()
+    for mode, knobs in modes.items():
+        r, need2 = chip_smoke.hold_raycast(torch, mode, st.map, slam.field,
+                                           view, dense, knobs)
+        assert set(r) == set(chip_smoke.RAYCAST)
+        assert all(t["max_abs_err"] == 0.0 for t in r.values())
+        normals.add((knobs["normals"], knobs.get("refine", "secant")))
+        if knobs.get("w2_budget") == chip_smoke.RAYCAST_BUDGET:
+            assert need2 > chip_smoke.RAYCAST_BUDGET
+        if "row_range" in knobs:
+            assert knobs["row_range"] == (120, 120) and knobs["inside"]
+    kernels = {n: dict(max_abs_err=0.0) for n in chip_smoke.RAYCAST}
+    chip_smoke.check_path_raycast(torch, preset, slam, cfg, kernels)
+    if preset == "headline":
+        # every normals and refine mode of the presets and of phase F
+        runs = [chip_smoke.preset_config(p) for p in chip_smoke.RUNS] + \
+            [chip_smoke.f_config(f) for f in chip_smoke.F_RUNS]
+        sdf = {(c.raycast_normals, c.raycast_refine) for c in runs
+               if c.field_type == "sdf"}
+        assert sdf <= normals
+
+
+def test_raycast_work_counts_this_data():
+    """``raycast_work`` at the timed knob group (hybrid normals at
+    ``grad_decim`` 2) on a warmed 64^3 map: R2's samples are each ray's
+    count up to its first valid outside -> inside crossing (the window on
+    a miss, none when inactive), counted here ray by ray; R3's the second
+    windows of the rays the budget ranks; R4's taps are the secant pair of each pixel
+    whose parent hit and the 6 gradient taps of each decimated parent that
+    hit."""
+    import dataclasses
+    import torch
+    from supereight_tpu_torch.pipeline import camera, raycast as rc
+    from supereight_tpu_torch.pipeline.constants import FAR_PLANE, NEAR_PLANE
+    torch.set_num_threads(1)
+    depths, poses = chip_smoke.load_sequence("synthetic_256_frames")
+    cfg = dataclasses.replace(chip_smoke.preset_config("headline"),
+                              volume_resolution=(64,) * 3,
+                              block_capacity=1024, integrate_budget=1024)
+    slam = chip_smoke.warm_map(cfg, depths, poses, "cpu", 6)
+    m, field = slam.state.map, slam.field
+    view = slam.state.pose @ camera.inverse_camera_matrix(
+        torch.from_numpy(chip_smoke.K))
+    dense = rc.pack_view(m, field)
+    k = chip_smoke._full_knobs(chip_smoke.RAYCAST_MODES[
+        "hybrid gd2 near_rescue (headline)"])
+    plan = rc.scan_plan(m, field, 240, 320, NEAR_PLANE, FAR_PLANE,
+                        k["span_factor"], k["scan_stride"], False)
+    tmin, tmax, g = rc._splat_bounds_twin(m, field, view, 240, 320,
+                                          NEAR_PLANE, FAR_PLANE)
+    s1 = rc.ray_scan_twin(m, dense, field, view, plan, tmin, tmax, g)
+    s2 = rc.ray_scan_second_twin(m, dense, field, view, plan, s1, True,
+                                 k["w2_budget"], False)
+    fin = rc.ray_refine_normals_twin(m, dense, field, view, plan, s2.z,
+                                     s2.hit, "secant", "hybrid", 2)
+    work = chip_smoke.raycast_work(torch, m, dense, field, view, plan, k,
+                                   s1, s2, tmin, g, fin, 0)
+
+    origin, _, fd = rc._scan_dirs(view, plan)
+    nF = plan.n_fine + 1
+    rays = s1.hit.numel()
+
+    def by_ray(z0, dirs):
+        z = z0[None] + (plan.fine_span / plan.n_fine) * torch.arange(
+            nF, dtype=torch.float32).reshape((nF,) + (1,) * z0.ndim)
+        f, _ = rc._sample_volume(dense["F"], (origin + dirs[None]
+                                              * z[..., None])
+                                 * m.inverse_voxel_size, m.size,
+                                 float("nan"))
+        f = f.reshape(nF, -1).numpy()
+        total = 0
+        for r in range(f.shape[1]):
+            last, n = None, nF
+            for j in range(nF):
+                if np.isnan(f[j, r]):
+                    continue
+                inside = bool(field.is_inside(torch.tensor(f[j, r])))
+                if inside and last is False:
+                    n = j + 1
+                    break
+                last = inside
+            total += n
+        return total
+
+    active = torch.isfinite(tmin.repeat_interleave(g // 2, 0)
+                            .repeat_interleave(g // 2, 1))
+    a = active.reshape(-1)
+    n1 = by_ray(s1.z_start.reshape(-1)[a], fd.reshape(-1, 3)[a])
+    assert work["ray_scan"][1] == chip_smoke.RAY_FLOPS[True] * rays \
+        + chip_smoke.SAMPLE_FLOPS * n1
+    idx = torch.nonzero(s1.need2.reshape(-1))[:, 0][:k["w2_budget"]]
+    assert idx.numel() > 0
+    n2 = by_ray((s1.z_start + plan.fine_span).reshape(-1)[idx],
+                fd.reshape(-1, 3)[idx])
+    assert work["ray_scan_second"][1] == chip_smoke.RAY_FLOPS[True] * rays \
+        + chip_smoke.SAMPLE_FLOPS * n2
+    taps = 2 * 4 * int(s2.hit.sum()) + 6 * int(s2.hit[::2, ::2].sum())
+    assert work["ray_refine_normals"][1] == \
+        chip_smoke.PIXEL_FLOPS * fin.hit.numel() + chip_smoke.TAP_FLOPS * taps
+    assert work["ray_refine_normals"][0] == 2 * taps + 76800 * 29 + rays * 5
+
+
+def test_raycast_launch_gates():
+    """``check_raycast_launched``: R1, R2 and R4 once a raycast, R3 once a
+    raycast with the second window or the midsolve, and some raycast."""
+    ok = dict(splat_bounds=5, ray_scan=5, ray_scan_second=5,
+              ray_refine_normals=5)
+    chip_smoke.check_raycast_launched("ok", ok, 5)
+    chip_smoke.check_raycast_launched("ok", dict(ok, ray_scan_second=0), 5,
+                                      second=False)
+    for bad, n in ((dict(ok, ray_scan=4), 5), (ok, 6), (ok, 0),
+                   (dict(ok, ray_scan_second=0), 5)):
+        with pytest.raises(SystemExit):
+            chip_smoke.check_raycast_launched("bad", bad, n)
+
+
+def test_counting_raycasts():
+    """``counting_raycasts`` counts the calls of ``raycast.raycast`` made
+    through the module (the stage's and the renderers') and restores it."""
+    from supereight_tpu_torch.pipeline import raycast
+    inner = raycast.raycast
+    with chip_smoke.counting_raycasts() as calls:
+        with pytest.raises(ValueError):
+            raycast.raycast(None, None, None, 1, 1, 0.1, 1.0,
+                            normals="none of them")
+    assert calls == [1] and raycast.raycast is inner

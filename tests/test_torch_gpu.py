@@ -1383,3 +1383,138 @@ def test_glue_reads_nothing_back(cuda):
     for a, b in zip(m.node_values, want.node_values):
         for n in a:
             _same_bits(a[n], b[n])
+
+
+_RAYCAST_MAPS = {}
+
+
+def _raycast_map(cuda, preset):
+    """The ``preset`` map at full size (256^3, capacity 6144, 320x240)
+    after chip_smoke.RAYCAST_FRAMES frames, its view (held, or packed) and
+    the view matrix of its pose; built once a preset."""
+    import chip_smoke
+    from supereight_tpu_torch.pipeline import camera, raycast
+    if preset not in _RAYCAST_MAPS:
+        z = np.load(BENCH)
+        slam = chip_smoke.warm_map(chip_smoke.preset_config(preset),
+                                   z["depths"], z["poses"], cuda,
+                                   chip_smoke.RAYCAST_FRAMES)
+        st = slam.state
+        view = st.pose @ camera.inverse_camera_matrix(
+            torch.from_numpy(chip_smoke.K).to(cuda))
+        dense = {"F": st.view} if st.view is not None else \
+            raycast.pack_view(st.map, slam.field)
+        _RAYCAST_MAPS[preset] = (st.map, slam.field, view, dense)
+    return _RAYCAST_MAPS[preset]
+
+
+def _raycast_cases():
+    import chip_smoke
+    return [("headline", m) for m in chip_smoke.RAYCAST_MODES] + \
+        [("ofusion", m) for m in chip_smoke.RAYCAST_OF_MODES]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset,mode", _raycast_cases())
+def test_raycast_kernels_match_twins(cuda, preset, mode):
+    """R1-R4 (csrc/raycast.cu) on the full-size headline and ofusion maps
+    in every normals and refine mode of the presets and of phase F, the
+    second window cut by a budget of 64, and rank 1's row strip of 2:
+    each kernel equal to its twin on the card on the same operands, and
+    the whole raycast to ``raycast_twin`` on the card and to ``raycast``
+    on CPU copies, bit for bit; each kernel launched once a raycast
+    (``chip_smoke.hold_raycast``)."""
+    import chip_smoke
+    m, field, view, dense = _raycast_map(cuda, preset)
+    modes = chip_smoke.RAYCAST_MODES if preset == "headline" else \
+        chip_smoke.RAYCAST_OF_MODES
+    knobs = modes[mode]
+    _, need2 = chip_smoke.hold_raycast(torch, f"{preset} {mode}", m, field,
+                                       view, dense, knobs, cpu=True)
+    if knobs.get("w2_budget") == chip_smoke.RAYCAST_BUDGET:
+        assert need2 > chip_smoke.RAYCAST_BUDGET
+
+
+@pytest.mark.gpu
+def test_dot3_adds_alike_on_the_card(cuda):
+    """``numerics.dot3`` (the hybrid correction's and the plane refine's
+    dot products, added as R4 adds them) gives the CPU's bits on the card
+    (``.sum(-1)`` of a ``[..., 3]`` tensor adds in the order of the
+    device's reduction): values of mixed magnitude and signs, signed zeros
+    among them."""
+    from supereight_tpu_torch.core import numerics
+    rng = np.random.default_rng(5)
+    a, b = (rng.normal(size=(240, 320, 3))
+            * 10.0 ** rng.integers(-6, 7, (240, 320, 3)) for _ in range(2))
+    a[::7, :, 1] = -0.0
+    b[::5, ::3] = -0.0
+    a, b = (torch.from_numpy(x.astype(np.float32)) for x in (a, b))
+    want = numerics.dot3(a, b)
+    _same_bits(numerics.dot3(a.to(cuda), b.to(cuda)), want)
+
+
+@pytest.mark.gpu
+def test_raycast_kernels_reject_what_they_do_not_take(cuda):
+    """The wrappers raise for a CPU view, a view table of another dtype or
+    shape, and grids of another shape."""
+    from supereight_tpu_torch.ops import raycast_kernel as rk
+    from supereight_tpu_torch.pipeline import raycast
+    from supereight_tpu_torch.pipeline.constants import FAR_PLANE, NEAR_PLANE
+    m, field, view, dense = _raycast_map(cuda, "headline")
+    with pytest.raises(ValueError):
+        rk.splat_bounds(m, field, view.cpu(), 240, 320, NEAR_PLANE,
+                        FAR_PLANE)
+    plan = raycast.scan_plan(m, field, 240, 320, NEAR_PLANE, FAR_PLANE, 1.6,
+                             1.0, False)
+    tmin, tmax, g = rk.splat_bounds(m, field, view, 240, 320, NEAR_PLANE,
+                                    FAR_PLANE)
+    for bad in ({"F": dense["F"].to(torch.float16)},
+                {"F": dense["F"][:-1]}):
+        with pytest.raises(ValueError):
+            rk.ray_scan(m, bad, field, view, plan, tmin, tmax, g)
+    with pytest.raises(ValueError):
+        rk.ray_scan(m, dense, field, view, plan, tmin[:-1], tmax, g)
+    scan = raycast.ray_scan_twin(m, dense, field, view, plan, tmin, tmax, g)
+    with pytest.raises(ValueError):    # a twin's scan has no tile counts
+        rk.ray_scan_second(m, dense, field, view, plan, scan, True, 8192,
+                           False)
+    with pytest.raises(ValueError):
+        rk.ray_refine_normals(m, dense, field, view, plan, scan.z, scan.hit,
+                              "none", "hybrid")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset", ["quality", "ofusion"])
+def test_raycasting_stage_reads_nothing_back(cuda, preset):
+    """``raycasting_stage`` after 12 frames of ``quality`` (no held view:
+    ``pack_view`` runs) and of ``ofusion`` (the held bf16 view, hybrid
+    normals) under ``torch.cuda.set_sync_debug_mode("error")``: no host
+    read; R1-R4 launched once each; the reference maps equal
+    ``raycast_twin``'s on the card bit for bit."""
+    import chip_smoke
+    from supereight_tpu_torch.ops import raycast_kernel as rk
+    from supereight_tpu_torch.pipeline import camera, raycast, system
+    from supereight_tpu_torch.pipeline.constants import FAR_PLANE, NEAR_PLANE
+    z = np.load(BENCH)
+    cfg = chip_smoke.preset_config(preset)
+    slam = chip_smoke.warm_map(cfg, z["depths"], z["poses"], cuda, 12)
+    kd, neg_y = slam._k(chip_smoke.K)
+    st = slam.state
+    before = dict(rk.LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = system.raycasting_stage(st, kd, 12, cfg, slam.field, neg_y)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert {k: rk.LAUNCHES[k] - before[k] for k in before} == dict(
+        splat_bounds=1, ray_scan=1, ray_scan_second=1, ray_refine_normals=1)
+    want = raycast.raycast_twin(
+        st.map, slam.field, st.pose @ camera.inverse_camera_matrix(kd), 240,
+        320, NEAR_PLANE, FAR_PLANE,
+        dense=None if st.view is None else {"F": st.view},
+        **chip_smoke.raycast_knobs(cfg))
+    _same_bits(out.ref_vertex, want.vertex)
+    _same_bits(out.ref_normal, want.normal)
+    assert float((want.vertex.abs().sum(-1) > 0).float().mean()) > 0.5

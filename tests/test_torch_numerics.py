@@ -119,3 +119,21 @@ def test_inv_matches_jitted_jax():
         got = numerics.inv(torch.from_numpy(m))
         assert got.dtype == torch.float32
         np.testing.assert_array_equal(got.numpy(), np.asarray(jinv(m)))
+
+
+def test_dot3_adds_in_a_fixed_order():
+    """``numerics.dot3`` is ``(x + y) + z`` of the rounded float32
+    products (numpy's float32 arithmetic rounds each step), over values of
+    mixed magnitude and sign, signed zeros among them, where the order of
+    the sum decides the last bits."""
+    rng = np.random.default_rng(5)
+    a, b = (rng.normal(size=(20000, 3))
+            * 10.0 ** rng.integers(-6, 7, (20000, 3)) for _ in range(2))
+    a[::7, 1] = -0.0
+    b[::5] = -0.0
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    p = a * b
+    want = (p[:, 0] + p[:, 1]) + p[:, 2]
+    got = numerics.dot3(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert ((p[:, 0] + p[:, 2]) + p[:, 1] != want).any()

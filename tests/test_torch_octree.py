@@ -175,6 +175,40 @@ def test_octree_additions_match_jax(seed):
     assert torch.equal(back[cells], torch.from_numpy(dense)[cells])
 
 
+@pytest.mark.parametrize("partitions", [1, 2])
+def test_tile_rows_keeps_dead_slots_out(partitions):
+    """``tile_rows`` scatters every slot, the dead ones (past each
+    partition's count, holding stale keys of live blocks and garbage rows)
+    into a scratch row that is cut off: the view holds each live slot's
+    row at its block's row and the fill everywhere else, as a scatter of
+    the live slots alone gives it."""
+    rng = np.random.default_rng(7 + partitions)
+    cap, B = 64, 8
+    m = octree.init(64, 4.8, SDFField().channels, "cpu", capacity=cap,
+                    partitions=partitions)
+    cells = rng.permutation(B ** 3)[:cap].astype(np.int64)
+    keys = morton.block_key(*(torch.from_numpy(c) for c in np.unravel_index(
+        cells, (B,) * 3)))
+    counts = [20, 9] if partitions == 2 else [37]
+    per = cap // partitions
+    live = np.zeros(cap, bool)
+    for p, n in enumerate(counts):
+        live[p * per:p * per + n] = True
+    dead = np.flatnonzero(~live)
+    keys[dead[:8]] = keys[np.flatnonzero(live)[:8]]    # stale keys
+    m = m.replace(keys=keys, n_blocks=torch.tensor(sum(counts),
+                                                   dtype=torch.int32),
+                  part_counts=torch.tensor(counts, dtype=torch.int32))
+    rows = torch.from_numpy(rng.normal(size=(cap, 512)).astype(np.float32))
+    fill = torch.from_numpy(rng.normal(size=B ** 3).astype(np.float32))
+    got = octree.tile_rows(fill, m, rows)
+    want = fill[:, None].expand(-1, 512).clone()
+    for slot in np.flatnonzero(live):
+        want[octree.block_rows(m)[slot]] = rows[slot]
+    assert got.shape == (B ** 3, 512) and got.is_contiguous()
+    assert torch.equal(got, want)
+
+
 def test_allocate_blocks_matches_jax():
     """Out-of-bounds and invalid requests, with duplicates."""
     rng = np.random.default_rng(4)

@@ -565,7 +565,8 @@ def test_launch_two_ranks_matches_single():
     assert multi["diffs"]["pose"] <= 1e-4
     assert multi["launches_per_rank"] == [dict.fromkeys(
         ("fuse_sdf", "fuse_ofusion", "frustum_select", "update_nodes",
-         "build_pyramid", "pose_inv"), 0)] * 2
+         "build_pyramid", "pose_inv", "splat_bounds", "ray_scan",
+         "ray_scan_second", "ray_refine_normals"), 0)] * 2
 
 
 def test_knob_surface_parity_is_pinned():
