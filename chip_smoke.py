@@ -30,11 +30,16 @@ GPU.
    twin's, the pair's for the same trips, the launch floor and the card.
    Then the frame's glue, each kernel against its twin bit for bit and
    timed beside the launch floor and its bound: ``build_pyramid``
-   (``csrc/pyramid.cu``, a launch a level) on headline frames
-   PYRAMID_FRAMES at both ``neg_y``, against the twin on the card and on
-   the CPU; ``pose_inv`` (``csrc/numerics.cu``, one thread) on every pose
-   of the three cached sequences and on K, against the host twin and
-   timed beside ``torch.linalg.inv``; ``frustum_select``
+   (``csrc/pyramid.cu``, every level in one launch) on headline frames
+   PYRAMID_FRAMES at both ``neg_y``, then on a headline frame and on the
+   random PYRAMID_ODD depth with holes at every level count it takes,
+   against the twin on the card and on the CPU, one launch a call, and
+   raising above its largest count; ``pose_inv`` (``csrc/numerics.cu``,
+   one thread, a template on n in registers: its ``-Xptxas -v`` line for
+   n = 4 printed, no stack frame, no spills, no local loads or stores in
+   its SASS) on every pose of the three cached sequences, on K and on
+   ``pivot_matrices`` (every pivot pattern, n = 1..8), against the host
+   twin and timed beside ``torch.linalg.inv``; ``frustum_select``
    (``csrc/integrate.cu``, two launches) on the headline map after 12
    frames at its budget, 3072, and at one its candidates overflow (each
    preset's run holds it again on its own map: 6144, 24576 and 196608
@@ -71,7 +76,7 @@ GPU.
    on the one-device paths, B, D, the presets, F and G3's one-device
    frame; on G's ranks both kernels of the pair run once a trip of every
    level and ``icp_track_levels`` never; on the presets and F,
-   ``build_pyramid`` at least once a level of every frame with ICP,
+   ``build_pyramid`` at least once a frame with ICP (one launch a call),
    ``pose_inv`` at least once a frame with ICP and once an integrated
    frame, ``update_nodes`` once an integrated frame and ``frustum_select``
    once an integrated frame on the budget branch; on every path R1, R2
@@ -182,6 +187,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
 import json
 import os
 import statistics
@@ -341,7 +347,7 @@ KERNEL_ORDER = ("fuse_sdf", "fuse_ofusion", "lane_shuffle_sum",
                 "icp_track_levels", "build_pyramid", "pose_inv",
                 "frustum_select", "update_nodes", "splat_bounds",
                 "ray_scan", "ray_scan_second", "ray_refine_normals")
-#: the frame's glue on the card: the tracking pyramid (a launch a level),
+#: the frame's glue on the card: the tracking pyramid (one launch a call),
 #: the 4x4 inverse, the fusion's frustum selection and the node pyramid's
 #: update, each held bit for bit to its twin
 GLUE = ("build_pyramid", "pose_inv", "frustum_select", "update_nodes")
@@ -350,6 +356,9 @@ SEQUENCES = ("synthetic_256_frames", "synthetic_256_frames_trans",
              "synthetic_256_frames_noisy")
 #: the headline frames the pyramid is held on
 PYRAMID_FRAMES = (0, 30, 60, 95)
+#: the shape of ``random_depth`` (odd at every level), on which the
+#: pyramid is also held at every level count the kernel takes
+PYRAMID_ODD = (61, 83)
 #: float operations (an fma counts two) the glue needs: a pyramid pixel
 #: (its half sample 13, its vertex 6, its normal 24), an inverse (the 4x4
 #: LU and the four solves), a frustum test of a live slot (centre 3, the
@@ -411,6 +420,41 @@ ICP_TRACK_ATOL, ICP_TRACK_FLIPS = 1e-4, 1e-3
 #: 112), counted in csrc/icp.cu
 ICP_PIXEL_FLOPS = 163
 ICP_UPDATE_FLOPS = 432
+
+
+def pivot_matrices() -> dict:
+    """Matrices that drive every pivot pattern of the inverse's LU
+    (float32, from a seed): the 24 row orders of a diagonally dominant 4x4,
+    each a pivot sequence of its own, and for each n = 1..8 a random
+    matrix, a zero pivot in the first column (and in the second), a NaN
+    pivot and a singular matrix (row 1 twice row 0)."""
+    rng = np.random.default_rng(11)
+    base = np.diag([8.0, 4.0, 2.0, 1.0]) + rng.uniform(-0.3, 0.3, (4, 4))
+    out = {"rows " + "".join(map(str, p)): base[list(p)]
+           for p in itertools.permutations(range(4))}
+    for n in range(1, 9):
+        def m():
+            return rng.normal(size=(n, n)).astype(np.float32)
+        out[f"random {n}"] = m()
+        out[f"zero pivot {n}"] = z = m()
+        z[:, 0] = 0.0
+        out[f"nan pivot {n}"] = z = m()
+        z[0, 0] = np.nan
+        if n > 1:
+            out[f"zero second pivot {n}"] = z = m()
+            z[:, 1] = 0.0
+            out[f"singular {n}"] = z = m()
+            z[1] = 2.0 * z[0]
+    return {k: np.asarray(v, np.float32) for k, v in out.items()}
+
+
+def random_depth(shape=PYRAMID_ODD):
+    """A random depth image (m) with 15 % holes, and intrinsics (fx, fy,
+    cx, cy) with a negative fy, from a seed."""
+    rng = np.random.default_rng(7)
+    d = rng.uniform(0.3, 4.0, shape).astype(np.float32)
+    d[rng.random(d.shape) < 0.15] = 0.0
+    return d, np.array([70.1, -68.0, 41.5, 30.2], np.float32)
 
 
 def fail(msg: str):
@@ -681,34 +725,61 @@ def glue_entry(name, source, replaces, err, ms, plain_ms, b, library_ms,
 
 
 def hold_pyramid(torch, depths, dev, floor):
-    """``build_pyramid`` (csrc/pyramid.cu, a launch a level) against its
-    twin on the card and on the CPU at the headline's three levels, on
-    PYRAMID_FRAMES of the headline sequence at both ``neg_y``: every
-    level's depth, vertices and normals bit for bit.  Timed on the last."""
+    """``build_pyramid`` (csrc/pyramid.cu, every level in one launch)
+    against its twin on the card and on the CPU: at the headline's three
+    levels on PYRAMID_FRAMES of the headline sequence at both ``neg_y``,
+    then at every level count the kernel takes on the last of those frames
+    and on the random PYRAMID_ODD depth with holes; every level's depth,
+    vertices and normals bit for bit, one launch a call.  Above its
+    largest count it must raise without a launch.  Timed on the headline's
+    three levels."""
     from supereight_tpu_torch.ops import pyramid_kernel
     from supereight_tpu_torch.pipeline import preprocessing
     k = torch.from_numpy(K).to(dev)
     err, n_held = 0.0, 0
+
+    def hold(label, d, k, levels, neg_y):
+        nonlocal err, n_held
+        before = pyramid_kernel.LAUNCHES["build_pyramid"]
+        got = preprocessing.build_pyramid(d, k, levels, neg_y)
+        if pyramid_kernel.LAUNCHES["build_pyramid"] != before + 1:
+            fail("build_pyramid: not one launch a call")
+        card = preprocessing.build_pyramid_twin(d, k, levels, neg_y)
+        cpu = preprocessing.build_pyramid(d.cpu(), k.cpu(), levels, neg_y)
+        for g, a, b in zip(got, card, cpu):
+            if not len(g) == len(a) == len(b) == levels:
+                fail(f"build_pyramid {label}: {len(g)} levels, not {levels}")
+            for x, y, z in zip(g, a, b):
+                e1, s1 = bits_err(torch, x, y)
+                e2, s2 = bits_err(torch, x, z)
+                err = max(err, e1, e2)
+                n_held += 1
+                if not (s1 and s2):
+                    fail(f"build_pyramid {label} levels {levels} neg_y "
+                         f"{neg_y}: the kernel differs from its twin "
+                         f"({e1:.3g} on the card, {e2:.3g} on the CPU)")
+
     for f in PYRAMID_FRAMES:
         d = preprocessing.mm_to_meters(
             torch.from_numpy(depths[f].astype(np.int32)).to(dev), (240, 320))
         for neg_y in (False, True):
-            before = pyramid_kernel.LAUNCHES["build_pyramid"]
-            got = preprocessing.build_pyramid(d, k, 3, neg_y)
-            if pyramid_kernel.LAUNCHES["build_pyramid"] != before + 3:
-                fail("build_pyramid: not one launch a level")
-            card = preprocessing.build_pyramid_twin(d, k, 3, neg_y)
-            cpu = preprocessing.build_pyramid(d.cpu(), k.cpu(), 3, neg_y)
-            for g, a, b in zip(got, card, cpu):
-                for x, y, z in zip(g, a, b):
-                    e1, s1 = bits_err(torch, x, y)
-                    e2, s2 = bits_err(torch, x, z)
-                    err = max(err, e1, e2)
-                    n_held += 1
-                    if not (s1 and s2):
-                        fail(f"build_pyramid frame {f} neg_y {neg_y}: the "
-                             f"kernel differs from its twin ({e1:.3g} on "
-                             f"the card, {e2:.3g} on the CPU)")
+            hold(f"headline frame {f}", d, k, 3, neg_y)
+    odd, k_odd = (torch.from_numpy(x).to(dev) for x in random_depth())
+    for levels in range(1, pyramid_kernel.MAX_LEVELS + 1):
+        hold(f"headline frame {PYRAMID_FRAMES[-1]}", d, k, levels, False)
+        hold(f"random {PYRAMID_ODD[0]}x{PYRAMID_ODD[1]}", odd, k_odd, levels,
+             levels % 2 == 0)
+    before = pyramid_kernel.LAUNCHES["build_pyramid"]
+    try:
+        preprocessing.build_pyramid(d, k, pyramid_kernel.MAX_LEVELS + 1,
+                                    False)
+        fail(f"build_pyramid: {pyramid_kernel.MAX_LEVELS + 1} levels did "
+             "not raise")
+    except ValueError:
+        pass
+    if pyramid_kernel.LAUNCHES["build_pyramid"] != before:
+        fail("build_pyramid: launched above its largest level count")
+
     run = lambda: preprocessing.build_pyramid(d, k, 3, False)
     ms = median_ms(run)
     plain_ms = median_ms(lambda: preprocessing.build_pyramid_twin(
@@ -717,35 +788,71 @@ def hold_pyramid(torch, depths, dev, floor):
     px = [(240 >> l) * (320 >> l) for l in range(3)]
     nbytes = 4 * (px[0] + 6 * px[0] + 7 * (px[1] + px[2]) + 4)
     b = bound(nbytes, PYRAMID_FLOPS * sum(px))
-    print(f"# build_pyramid: {n_held} level images of {len(PYRAMID_FRAMES)} "
-          f"headline frames x both neg_y equal the twin's on the card and on "
-          f"the CPU bit for bit; median device time of a 3-level call over "
-          f"{TIMED_RUNS} runs {ms:.4f} ms (host clock, synchronised, "
-          f"{host:.4f} ms), plain twin {plain_ms:.4f} ms; bound {b[0]:.6f} ms "
-          f"({b[1]}: {nbytes / 1e6:.2f} MB); launch floor {floor:.4f} ms "
-          f"(3 launches)")
+    print(f"# build_pyramid: {n_held} level images equal the twin's on the "
+          f"card and on the CPU bit for bit ({len(PYRAMID_FRAMES)} headline "
+          f"frames x both neg_y at 3 levels; 1 to "
+          f"{pyramid_kernel.MAX_LEVELS} levels of a headline frame and of "
+          f"the random {PYRAMID_ODD[0]}x{PYRAMID_ODD[1]} depth), one launch "
+          f"a call, {pyramid_kernel.MAX_LEVELS + 1} levels raise; median "
+          f"device time of a 3-level call over {TIMED_RUNS} runs {ms:.4f} "
+          f"ms (host clock, synchronised, {host:.4f} ms), plain twin "
+          f"{plain_ms:.4f} ms; bound {b[0]:.6f} ms ({b[1]}: "
+          f"{nbytes / 1e6:.2f} MB); launch floor {floor:.4f} ms (1 launch)")
     return glue_entry("build_pyramid", "supereight_tpu_torch/csrc/pyramid.cu",
                       "supereight_tpu/pipeline/preprocessing.py:136", err,
                       ms, plain_ms, b, None, floor, host_ms=host)
 
 
+def inverse_registers():
+    """``pose_inv``'s instantiation for n = 4 as built: its ``-Xptxas -v``
+    line (stack frame, spills, registers) and its local-memory loads and
+    stores in the SASS; fails unless all are 0 (the LU in registers)."""
+    from supereight_tpu_torch.probes import sass_count
+    props = [(f, p) for f, p in sass_count.ptxas_properties(
+        sass_count.ptxas_log("numerics")).items()
+        if sass_count.kernel_name(f) == "inverse<4>" and "stack" in p]
+    if len(props) != 1:
+        fail("pose_inv: no -Xptxas -v line for the n = 4 kernel")
+    p = props[0][1]
+    local = sass_count.local_memory_ops(
+        sass_count.kernel_bodies("numerics"))["inverse<4>"]
+    print(f"# pose_inv n = 4 (-Xptxas -v): {p['stack']} bytes stack frame, "
+          f"{p['spill_stores']} bytes spill stores, {p['spill_loads']} "
+          f"bytes spill loads, {p.get('registers')} registers; "
+          f"{local} LDL/STL in its SASS")
+    if p["stack"] or p["spill_stores"] or p["spill_loads"] or local:
+        fail("pose_inv: the n = 4 kernel goes through local memory")
+    return p
+
+
 def hold_inverse(torch, dev, floor):
     """``numerics.inv`` on the card (``pose_inv``, csrc/numerics.cu) on
-    every pose of SEQUENCES and on K against its host twin, bit for bit;
-    timed beside ``torch.linalg.inv``."""
+    every pose of SEQUENCES, on K and on ``pivot_matrices`` (n = 1..8)
+    against its host twin, bit for bit, one launch a call; its n = 4
+    kernel in registers (:func:`inverse_registers`); timed beside
+    ``torch.linalg.inv``."""
     from supereight_tpu_torch.core import numerics
+    from supereight_tpu_torch.ops import numerics_kernel
     from supereight_tpu_torch.pipeline import camera
+    regs = inverse_registers()
     mats = [camera.camera_matrix(torch.from_numpy(K))]
     for seq in SEQUENCES:
         mats += list(torch.from_numpy(load_sequence(seq)[1]))
+    pivots = pivot_matrices()
+    mats += [torch.from_numpy(m) for m in pivots.values()]
+    before = numerics_kernel.LAUNCHES["pose_inv"]
     got = [numerics.inv(m.to(dev)) for m in mats]
     torch.cuda.synchronize()
+    if numerics_kernel.LAUNCHES["pose_inv"] != before + len(mats):
+        fail("pose_inv: not one launch a call")
     err = 0.0
     for g, m in zip(got, mats):
         e, same = bits_err(torch, g, numerics.inv_twin(m))
-        err = max(err, e)
         if not same:
-            fail(f"pose_inv: differs from the host twin by {e:.3g}")
+            fail(f"pose_inv: differs from the host twin by {e:.3g} on a "
+                 f"{m.shape[0]}x{m.shape[0]} matrix")
+        if torch.isfinite(g).all():
+            err = max(err, e)
     M = mats[1].to(dev)
     ms = median_ms(lambda: numerics.inv(M))
     plain_ms = median_ms(lambda: numerics.inv_twin(M))
@@ -753,14 +860,16 @@ def hold_inverse(torch, dev, floor):
     host = host_ms(torch, lambda: numerics.inv(M))
     b = bound(2 * 64, INV_FLOPS)
     print(f"# pose_inv: {len(mats)} matrices (every pose of "
-          f"{', '.join(SEQUENCES)} and K) equal the host twin bit for bit; "
-          f"median device time {ms:.4f} ms (host clock, synchronised, "
-          f"{host:.4f} ms), the host twin {plain_ms:.4f} ms, "
-          f"torch.linalg.inv {lib_ms:.4f} ms; bound {b[0]:.8f} ms ({b[1]}); "
-          f"launch floor {floor:.4f} ms")
+          f"{', '.join(SEQUENCES)}, K and {len(pivots)} pivot patterns of "
+          f"1x1 to 8x8) equal the host twin bit for bit; median device time "
+          f"{ms:.4f} ms (host clock, synchronised, {host:.4f} ms), the host "
+          f"twin {plain_ms:.4f} ms, torch.linalg.inv {lib_ms:.4f} ms; bound "
+          f"{b[0]:.8f} ms ({b[1]}); launch floor {floor:.4f} ms")
     return glue_entry("pose_inv", "supereight_tpu_torch/csrc/numerics.cu",
                       "supereight_tpu/pipeline/integration.py:503", err, ms,
-                      plain_ms, b, lib_ms, floor, host_ms=host)
+                      plain_ms, b, lib_ms, floor, host_ms=host,
+                      registers=regs.get("registers"),
+                      stack_bytes=regs["stack"])
 
 
 def hold_select(torch, label, m, T_cw, Km, hw, budget, timed=False):
@@ -913,13 +1022,13 @@ def check_glue_kernels(torch, depths, poses, dev):
 
 
 def check_glue_launched(label, counts, cfg, icp_frames, integrated):
-    """The glue kernels on a one-device path: the pyramid once a level of
-    every frame on which ICP runs, the inverse on each such frame and each
+    """The glue kernels on a one-device path: the pyramid once every frame
+    on which ICP runs (one launch builds every level; the frame-to-frame
+    publications add theirs), the inverse on each such frame and each
     integrated frame, the node update once an integrated frame, the
     frustum selection once an integrated frame on the budget branch."""
-    levels = len(cfg.pyramid)
     budget = 0 < cfg.integrate_budget < cfg.block_capacity
-    want = dict(build_pyramid=levels * icp_frames,
+    want = dict(build_pyramid=icp_frames,
                 pose_inv=icp_frames + integrated,
                 update_nodes=integrated,
                 frustum_select=integrated if budget else 0)

@@ -146,10 +146,17 @@ def inv_twin(M: torch.Tensor) -> torch.Tensor:
     pivoting (the first largest pivot), the dot products of its triangular
     solve taken from the last term to the first, those of its column
     update from the first, each a multiply-add chain from 0, and the
-    column scaled by the pivot's reciprocal; the solves run column-wise
-    axpys of multiply-adds, the upper one multiplying by the diagonal's
+    column scaled by the pivot's reciprocal (neither swapped nor scaled
+    where the pivot is 0 or NaN); the solves run column-wise axpys of
+    multiply-adds, the upper one multiplying by the diagonal's
     reciprocals.  The same bits for a matrix on any device (read back to
-    the host), returned on ``M``'s device."""
+    the host), returned on ``M``'s device.  These are XLA's bits for
+    matrices of 1, 2 or 4 rows (every pivot order, zero and NaN pivots,
+    singular matrices; ``tests/test_torch_glue.py``), not for 3 or more
+    than 4 rows, where OpenBLAS's triangular solve takes the rows in
+    blocks of 1, 2 and 4 with a rounded product between blocks and its LU
+    adds dot products of three terms or more in another order, nor for a
+    subnormal or infinite pivot."""
     A = M.detach().to("cpu", torch.float32).numpy()
     n = A.shape[0]
     A = [[np.float32(A[i, j]) for j in range(n)] for i in range(n)]
@@ -174,7 +181,7 @@ def inv_twin(M: torch.Tensor) -> torch.Tensor:
         piv.append(p)
         for i in range(n):
             A[i][j] = b[i]
-        if A[p][j] != 0:
+        if A[p][j] != 0 and A[p][j] == A[p][j]:
             r = one / A[p][j]
             A[j][:j + 1], A[p][:j + 1] = A[p][:j + 1], A[j][:j + 1]
             for i in range(j + 1, n):

@@ -136,8 +136,8 @@ def build_pyramid(depth: torch.Tensor, k: torch.Tensor, levels: int,
                   neg_y: bool):
     """Depth pyramid + per-level vertex/normal maps for coarse-to-fine ICP
     (see :func:`build_pyramid_twin`): CPU tensors take the twin, CUDA
-    tensors the kernel of `ops/pyramid_kernel.py`, one launch a level,
-    which raises if it cannot launch."""
+    tensors the kernel of `ops/pyramid_kernel.py`, one launch for every
+    level, which raises if it cannot launch."""
     if depth.device.type == "cpu":
         return build_pyramid_twin(depth, k, levels, neg_y)
     from supereight_tpu_torch.ops import pyramid_kernel

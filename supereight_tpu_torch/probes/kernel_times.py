@@ -1,5 +1,7 @@
 """Device times of the gather-probe kernels K2 and K3 at the probe's shapes
-and at their second shapes, for the package at a given checkout root.
+and at their second shapes, and of the frame's pyramid, inverse and
+raycast splat bounds at the headline's shapes, for the package at a given
+checkout root.
 
 Run on a CUDA device from the root of this checkout, once for each checkout
 to compare, in turns within one machine (for example the parent, this one,
@@ -15,7 +17,15 @@ one; of that package only the wrappers' call signature is assumed, which
 has not changed since the kernels were ported.  It prints one JSON object:
 the card's name and power limit, and the median device time (ms, CUDA
 events, 25 runs) of ``lane_shuffle_sum`` at 256 and 65536 rows (krep 64)
-and ``slab_row_sum`` at 2048 and 8192 slabs.
+and ``slab_row_sum`` at 2048 and 8192 slabs.  Then, with the other
+checkout's ``preprocessing.build_pyramid``, ``numerics.inv`` and
+``raycast_kernel.splat_bounds`` (and ``chip_smoke.warm_map`` run on its
+package): the headline pyramid (frame 40 of the cached sequence, 320x240,
+3 levels), the inverse of a pose (frame 30's) and R1 with its inverse on
+the headline map after 12 frames from the last pose, each's median device
+time (``ms``), host time with the device synchronised before and after
+(``host_ms``) and enqueue time, the call's own time from an idle device
+(``enqueue_ms``), over 25 runs.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 PKG = "supereight_tpu_torch"
 
@@ -42,6 +53,8 @@ def main(argv=None):
 
     dev = torch.device("cuda", 0)
     k2, table, k3 = probe.kernel_inputs(dev)
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as smoke
     # the package under ``--root`` in place of this one
     for name in [m for m in sys.modules if m.split(".")[0] == PKG]:
         del sys.modules[name]
@@ -59,8 +72,56 @@ def main(argv=None):
     for rows in k3:
         res["ms"][f"slab_row_sum_{rows.numel()}"] = med(
             lambda: gp.slab_row_sum(rows, table))
+    res["host_ms"], res["enqueue_ms"] = {}, {}
+    for name, fn in glue_calls(smoke, dev).items():
+        res["ms"][name] = med(fn)
+        res["host_ms"][name] = statistics.median(host_times_ms(fn, True))
+        res["enqueue_ms"][name] = statistics.median(host_times_ms(fn, False))
     print(json.dumps(res))
     return res
+
+
+def host_times_ms(fn, synchronised: bool, runs: int = 25):
+    """The host clock's ms of ``fn`` from an idle device, to its return
+    (the enqueue) or, ``synchronised``, to the device's end."""
+    import torch
+    fn()
+    out = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if synchronised:
+            torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return out
+
+
+def glue_calls(smoke, dev) -> dict:
+    """The calls timed beside K2 and K3, by name, on the package in place
+    (imported here, after the swap)."""
+    import numpy as np
+    import torch
+    from supereight_tpu_torch.core import numerics
+    from supereight_tpu_torch.ops import raycast_kernel as rk
+    from supereight_tpu_torch.pipeline import camera, preprocessing
+    from supereight_tpu_torch.pipeline.constants import FAR_PLANE, NEAR_PLANE
+    depths, poses = smoke.load_sequence("synthetic_256_frames")
+    k = torch.from_numpy(smoke.K).to(dev)
+    d = preprocessing.mm_to_meters(
+        torch.from_numpy(depths[40].astype(np.int32)).to(dev), (240, 320))
+    pose = torch.from_numpy(poses[30]).to(dev)
+    slam = smoke.warm_map(smoke.preset_config("headline"), depths, poses,
+                          dev, 12)
+    view = slam.state.pose @ camera.inverse_camera_matrix(k)
+    m, field = slam.state.map, slam.field
+    return {
+        "build_pyramid_320x240x3": lambda: preprocessing.build_pyramid(
+            d, k, 3, False),
+        "pose_inv_4x4": lambda: numerics.inv(pose),
+        "splat_bounds_headline": lambda: rk.splat_bounds(
+            m, field, view, 240, 320, NEAR_PLANE, FAR_PLANE)}
 
 
 if __name__ == "__main__":

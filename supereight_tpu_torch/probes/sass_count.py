@@ -96,7 +96,7 @@ def kernel_name(func: str) -> str:
         return "fuse_ofusion"
     if "Sdf" in func:
         return "fuse_sdf"
-    for name in ("lane_shuffle_sum", "slab_row_sum", "empty"):
+    for name in ("lane_shuffle_sum", "slab_row_sum", "empty", "inverse"):
         if name + "_kernel" in func:
             m = _TEMPLATE.search(func)
             if m is None:
@@ -287,6 +287,56 @@ def loop_issue_lower_bound_ms(trip: int, warp_trips: int,
     """Least time ``warp_trips`` trips of ``trip`` instructions take to
     issue at the card's issue rate (warp instructions a second)."""
     return 1e3 * trip * warp_trips / issue_per_s
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PROPS_FOR = re.compile(r"Function properties for (\S+)")
+_PROPS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_properties(log: str) -> Dict[str, Dict[str, int]]:
+    """{function: its stack frame, spill stores and spill loads (bytes) and
+    registers} from ``-Xptxas -v``'s output ``log``, by mangled name."""
+    out: Dict[str, Dict[str, int]] = {}
+    entry = props = None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = _PROPS_FOR.search(line)
+        if m:
+            props = m.group(1)
+            continue
+        m = _PROPS.search(line)
+        if m and props is not None:
+            out.setdefault(props, {}).update(zip(
+                ("stack", "spill_stores", "spill_loads"),
+                map(int, m.groups())))
+            continue
+        m = _REGS.search(line)
+        if m and entry is not None:
+            out.setdefault(entry, {})["registers"] = int(m.group(1))
+    return out
+
+
+def ptxas_log(source: str) -> str:
+    """``-Xptxas -v``'s output for ``csrc/<source>.cu``, built from the
+    checkout's sources (the log ``_build`` keeps beside the library)."""
+    from supereight_tpu_torch.ops import _build
+    _build.load(source)
+    lib = _build.library_path(source)
+    return lib.with_name(lib.name + ".log").read_text()
+
+
+def local_memory_ops(bodies: Dict[str, Tuple[Body, Body]]) -> Dict[str, int]:
+    """{kernel: its local-memory loads and stores (``LDL``, ``STL``)}, main
+    body and subroutines."""
+    return {k: sum(_op(x).split(".")[0] in ("LDL", "STL")
+                   for _, x in main + subs)
+            for k, (main, subs) in bodies.items()}
 
 
 def card_issue_rate() -> Tuple[str, float, float, int, float]:

@@ -371,11 +371,13 @@ def test_glue_holds_on_the_cpu():
     assert chip_smoke.bits_err(torch, a, a.clone()) == (0.0, True)
     assert chip_smoke.bits_err(torch, a, torch.tensor(
         [1.5, float("nan"), 0.0])) == (0.5, False)
-    counts = dict(build_pyramid=30, pose_inv=19, update_nodes=9,
+    counts = dict(build_pyramid=10, pose_inv=19, update_nodes=9,
                   frustum_select=9)
     hcfg = chip_smoke.preset_config("headline")
     chip_smoke.check_glue_launched("x", counts, hcfg, 10, 9)
-    for bad in (dict(build_pyramid=29), dict(update_nodes=10),
+    chip_smoke.check_glue_launched("x", {**counts, "build_pyramid": 12},
+                                   hcfg, 10, 9)
+    for bad in (dict(build_pyramid=9), dict(update_nodes=10),
                 dict(frustum_select=8), dict(pose_inv=18)):
         with pytest.raises(SystemExit, match="launched"):
             chip_smoke.check_glue_launched("x", {**counts, **bad}, hcfg, 10, 9)

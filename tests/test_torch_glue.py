@@ -6,8 +6,13 @@ On the card each of these is a hand-written kernel held bit for bit to
 its plain twin (``tests/test_torch_gpu.py``, ``chip_smoke.py``); here the
 twins, which are the CPU path, are held to the jitted JAX functions:
 - ``preprocessing.build_pyramid_twin`` to ``build_pyramid``, bit for bit;
+- the pyramid kernel's tiles (``pyramid_kernel.tile_plan``), emulated:
+  each CTA's pixels from its own region of level 0 alone, stitched, equal
+  the twin's bit for bit at every level count the kernel takes;
 - ``numerics.inv_twin`` to ``jnp.linalg.inv`` on every pose of the three
-  cached sequences and on K, bit for bit;
+  cached sequences and on K, and on matrices that drive every pivot
+  pattern of its LU (``chip_smoke.pivot_matrices`` of 1, 2 and 4 rows),
+  bit for bit;
 - ``integrate_kernel.frustum_select_twin`` to the budget branch of JAX's
   ``integrate`` (`supereight_tpu/pipeline/integration.py:515-536`, its
   ``jnp.nonzero(..., size=budget, fill_value=-1)`` and the overflow), bit
@@ -24,12 +29,16 @@ twins, which are the CPU path, are held to the jitted JAX functions:
 """
 
 import dataclasses
+import itertools
 
 import jax
 import jax.numpy as jnp
+import jax.scipy.linalg as jsl
 import numpy as np
 import pytest
 import torch
+
+import chip_smoke
 
 from supereight_tpu.config import Configuration, apply_preset
 from supereight_tpu.core import octree as joct
@@ -43,6 +52,7 @@ from supereight_tpu_torch import convert
 from supereight_tpu_torch.core import numerics
 from supereight_tpu_torch.fields import OFusionField, SDFField
 from supereight_tpu_torch.ops import integrate_kernel as ik
+from supereight_tpu_torch.ops import pyramid_kernel as pk
 from supereight_tpu_torch.pipeline import (DenseSLAMSystem, camera,
                                            integration, preprocessing)
 from supereight_tpu_torch.pipeline.constants import INVALID
@@ -109,6 +119,232 @@ def test_pyramid_twin_matches_jax(sequence, frame, neg_y):
                                           np.asarray(want[level]))
         invalid = np.asarray(jn[level])[..., 0] == INVALID
         assert invalid.any() and not invalid.all()
+
+
+def _region_read(buf, plan, level, cta, y, x):
+    """Level ``level``'s depth at the global pixels (y, x) (inside the
+    image) from the CTAs' regions ``buf`` [CTAs, rows, columns], by each
+    CTA's own region only: a pixel outside it fails the test."""
+    by, bx = cta // plan.grid[1], cta % plan.grid[1]
+    y0, x0 = plan.region(level, by, bx)
+    ly, lx = y - y0, x - x0
+    rows, cols = plan.levels[level].region
+    assert bool((ly >= 0).all() and (ly < rows).all()
+                and (lx >= 0).all() and (lx < cols).all()), \
+        f"level {level}: a read outside the CTA's region"
+    return buf[cta, ly, lx]
+
+
+def _tile_emulation(depth, k, levels, neg_y):
+    """``build_pyramid`` as ``csrc/pyramid.cu`` computes it, CTA by CTA of
+    ``pyramid_kernel.tile_plan``: each stages its region of level 0
+    (rows and columns outside the image clamped to the edge), computes its
+    region of each coarser level from its region of the level before at
+    the cells inside the image (reading through each level's clamped
+    coordinates), and its owned pixels of every level from its region of
+    that level alone; the owned pixels are stitched into the images, each
+    exactly once.  Returns (depths, vertices, normals) as the twin."""
+    H, W = depth.shape
+    plan = pk.tile_plan(H, W, levels)
+    n_cta = plan.grid[0] * plan.grid[1]
+    cta = torch.arange(n_cta)
+    by, bx = cta // plan.grid[1], cta % plan.grid[1]
+
+    rows, cols = plan.levels[0].region
+    y0, x0 = plan.region(0, by, bx)
+    ry = (y0[:, None] + torch.arange(rows)).clamp(0, H - 1)
+    rx = (x0[:, None] + torch.arange(cols)).clamp(0, W - 1)
+    bufs = [depth[ry[:, :, None], rx[:, None, :]]]
+    for level in range(1, levels):
+        hs, ws = plan.levels[level - 1].shape
+        h, w = plan.levels[level].shape
+        rows, cols = plan.levels[level].region
+        buf = torch.full((n_cta, rows, cols), float("nan"))
+        y0, x0 = plan.region(level, by, bx)
+        c, r, q = torch.meshgrid(cta, torch.arange(rows), torch.arange(cols),
+                                 indexing="ij")
+        y, x = y0[c] + r, x0[c] + q
+        inside = (y >= 0) & (y < h) & (x >= 0) & (x < w)
+        c, r, q, y, x = (t[inside] for t in (c, r, q, y, x))
+        src = bufs[-1]
+        center = _region_read(src, plan, level - 1, c, 2 * y, 2 * x)
+        t = torch.zeros_like(center)
+        s = torch.zeros_like(center)
+        for i in range(2):
+            for j in range(2):
+                cur = _region_read(src, plan, level - 1, c,
+                                   (2 * y + i).clamp(max=hs - 1),
+                                   (2 * x + j).clamp(max=ws - 1))
+                ok = torch.abs(cur - center) < pk.E_D
+                t = t + torch.where(ok, cur, 0.0)
+                s = s + ok.to(torch.float32)
+        buf[c, r, q] = t / torch.clamp(s, min=1e-20)
+        bufs.append(buf)
+
+    depths, vertices, normals = [depth], [], []
+    for level, lv in enumerate(plan.levels):
+        h, w = lv.shape
+        oy, ox = by * lv.side, bx * lv.side
+        c, i, j = torch.meshgrid(cta, torch.arange(lv.side),
+                                 torch.arange(lv.side), indexing="ij")
+        y, x = oy[c] + i, ox[c] + j
+        mine = (y < h) & (x < w)
+        c, y, x = c[mine], y[mine], x[mine]
+        seen = torch.zeros((h, w), dtype=torch.int64)
+        seen.index_put_((y, x), torch.ones_like(y), accumulate=True)
+        assert bool((seen == 1).all()), "a pixel owned by no CTA or by two"
+        ik_ = camera.inverse_camera_matrix(k / (1 << level))
+
+        def vertex(yy, xx):
+            d = _region_read(bufs[level], plan, level, c, yy, xx)
+            v = torch.stack([
+                d * numerics.fma(ik_[0, 0], xx.to(torch.float32), ik_[0, 2]),
+                d * numerics.fma(ik_[1, 1], yy.to(torch.float32), ik_[1, 2]),
+                d], dim=-1)
+            return d, torch.where(d[:, None] > 0, v, 0.0)
+
+        d, v = vertex(y, x)
+        left = vertex(y, (x - 1).clamp(min=0))[1]
+        right = vertex(y, (x + 1).clamp(max=w - 1))[1]
+        below, above = (y + 1).clamp(max=h - 1), (y - 1).clamp(min=0)
+        up = vertex(above if neg_y else below, x)[1]
+        down = vertex(below if neg_y else above, x)[1]
+        nrm = preprocessing.cross(right - left, up - down)
+        nrm = nrm / torch.clamp(preprocessing.norm(nrm, keepdim=True),
+                                min=1e-20)
+        ok = ((v[:, 2] != 0) & (left[:, 2] != 0) & (right[:, 2] != 0)
+              & (up[:, 2] != 0) & (down[:, 2] != 0))
+        invalid = torch.zeros_like(nrm)
+        invalid[:, 0] = INVALID
+        nrm = torch.where(ok[:, None], nrm, invalid)
+        if level:
+            img = torch.full((h, w), float("nan"))
+            img[y, x] = d
+            depths.append(img)
+        for out, val in ((vertices, v), (normals, nrm)):
+            img = torch.full((h, w, 3), float("nan"))
+            img[y, x] = val
+            out.append(img)
+    return depths, vertices, normals
+
+
+def _pyramid_input(case):
+    """The depth and intrinsics of a pyramid case: a cached headline
+    frame at 320x240 or 160x120, or the 61x83 random depth with holes."""
+    if case == "61x83":
+        d, k = chip_smoke.random_depth()
+        return torch.from_numpy(d), torch.from_numpy(k)
+    ratio = {"320x240": 1, "160x120": 2}[case]
+    depth = preprocessing.mm_to_meters(
+        torch.from_numpy(load_frames()[0][40].astype(np.int32)),
+        (240 // ratio, 320 // ratio))
+    return depth, torch.from_numpy(K_FULL / ratio).to(torch.float32)
+
+
+@pytest.mark.parametrize("neg_y", [False, True])
+@pytest.mark.parametrize("levels", range(1, pk.MAX_LEVELS + 1))
+@pytest.mark.parametrize("case", ["320x240", "160x120", "61x83"])
+def test_pyramid_tiles_match_twin(case, levels, neg_y):
+    """The kernel's tiling, emulated on the CPU (:func:`_tile_emulation`),
+    against ``build_pyramid_twin``: every level's depth, vertices and
+    normals bit for bit, so each CTA's region of level 0 holds every pixel
+    its owned pixels need, at every level count the kernel takes."""
+    depth, k = _pyramid_input(case)
+    got = _tile_emulation(depth, k, levels, neg_y)
+    want = preprocessing.build_pyramid_twin(depth, k, levels, neg_y)
+    for g, w in zip(got, want):
+        assert len(g) == len(w) == levels
+        for a, b in zip(g, w):
+            assert a.shape == b.shape
+            np.testing.assert_array_equal(a.numpy().view(np.int32),
+                                          b.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("levels", range(1, pk.MAX_LEVELS + 2))
+def test_pyramid_tile_plan(levels):
+    """``tile_plan``: level sizes halve with ceil, the grid's tiles cover
+    the coarsest level, every level's outputs lie end to end in one
+    buffer and its views take each float once, a CTA's shared memory is
+    at most ``kSmemFloats`` (exactly at the largest level count), and
+    above that count it raises."""
+    if levels > pk.MAX_LEVELS:
+        with pytest.raises(ValueError, match="levels"):
+            pk.tile_plan(61, 83, levels)
+        return
+    plan = pk.tile_plan(61, 83, levels)
+    shapes = [(61, 83)]
+    for _ in range(1, levels):
+        shapes.append(((shapes[-1][0] + 1) // 2, (shapes[-1][1] + 1) // 2))
+    assert [lv.shape for lv in plan.levels] == shapes
+    h, w = shapes[-1]
+    assert plan.grid == (-(-h // pk.TILE), -(-w // pk.TILE))
+    off = 0
+    for level, lv in enumerate(plan.levels):
+        halo = 1 << (levels - 1 - level)
+        assert lv.side == pk.TILE << (levels - 1 - level)
+        assert lv.halo[0] == halo and lv.region[0] == lv.side + 2 * halo
+        if level:
+            assert lv.halo[1] == halo and lv.region[1] == lv.side + 2 * halo
+        else:       # whole 16-byte loads from a multiple of four
+            assert lv.halo[1] % 4 == 0 and lv.region[1] % 4 == 0
+            assert lv.halo[1] >= halo
+            assert lv.region[1] >= lv.halo[1] + lv.side + halo
+        px = lv.shape[0] * lv.shape[1]
+        if level:
+            assert lv.depth == off
+            off += px
+        assert (lv.vertex, lv.normal) == (off, off + 3 * px)
+        off += 6 * px
+    assert plan.size == off
+    # the wrapper's views: contiguous, every float of the output once
+    seen = torch.zeros(plan.size, dtype=torch.int64)
+    buf = torch.arange(plan.size, dtype=torch.float64)
+    for im in plan.images:
+        view = buf.as_strided(*im)
+        assert view.is_contiguous()
+        seen[view.reshape(-1).long()] += 1
+    assert bool((seen == 1).all())
+    assert [im[0] for im in plan.images] == \
+        shapes[1:] + [s + (3,) for s in shapes] * 2
+    assert plan.smem <= pk.SMEM_FLOATS
+    assert (plan.smem == pk.SMEM_FLOATS) == (levels == pk.MAX_LEVELS)
+
+
+PIVOT_MATRICES = chip_smoke.pivot_matrices()
+
+
+def _same_inverse(got, want):
+    """Bit for bit, NaN where NaN (XLA and the host do not keep the same
+    NaN payloads)."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    nan = np.isnan(got) & np.isnan(want)
+    np.testing.assert_array_equal(np.where(nan, 0, got.view(np.int32)),
+                                  np.where(nan, 0, want.view(np.int32)))
+
+
+def test_pivot_matrices_drive_every_pivot_order():
+    """The 24 row orders of ``chip_smoke.pivot_matrices`` give the 24
+    pivot sequences a 4x4 LU can take (JAX's own ``lu_factor``)."""
+    pivots = {tuple(np.asarray(jax.jit(jsl.lu_factor)(m)[1]))
+              for name, m in PIVOT_MATRICES.items()
+              if name.startswith("rows")}
+    assert pivots == set(itertools.product(range(4), range(1, 4),
+                                           range(2, 4), (3,)))
+
+
+@pytest.mark.parametrize("name", [n for n, m in PIVOT_MATRICES.items()
+                                  if m.shape[0] in (1, 2, 4)])
+def test_inv_twin_matches_jax_pivot_patterns(name):
+    """``inv_twin`` against the jitted ``jnp.linalg.inv`` on a matrix of
+    ``chip_smoke.pivot_matrices`` of 1, 2 or 4 rows (row orders, zero and
+    NaN pivots, singular matrices): XLA's CPU inverse bit for bit.  Not at
+    3 or more than 4 rows, where OpenBLAS's triangular solve and LU take
+    another order than the twin's (``numerics.inv_twin``); the port
+    inverts 4x4 matrices only, and on the card ``pose_inv`` is held to the
+    twin at every size (``tests/test_torch_gpu.py``)."""
+    m = PIVOT_MATRICES[name]
+    _same_inverse(numerics.inv_twin(torch.from_numpy(m)).numpy(),
+                  jax.jit(jnp.linalg.inv)(m))
 
 
 def test_inv_twin_matches_jax_on_every_pose():

@@ -1161,10 +1161,8 @@ def _pyramid_case(ratio, odd=False):
     """A cached frame's depth at 320x240 / ratio and its intrinsics, or a
     61x83 random depth with holes."""
     if odd:
-        rng = np.random.default_rng(7)
-        d = rng.uniform(0.3, 4.0, (61, 83)).astype(np.float32)
-        d[rng.random(d.shape) < 0.15] = 0.0
-        return torch.from_numpy(d), torch.tensor([70.1, -68.0, 41.5, 30.2])
+        import chip_smoke
+        return tuple(map(torch.from_numpy, chip_smoke.random_depth()))
     from supereight_tpu_torch.pipeline import preprocessing
     z = np.load(BENCH)
     d = preprocessing.mm_to_meters(
@@ -1174,25 +1172,27 @@ def _pyramid_case(ratio, odd=False):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("levels", ["1", "3", "largest"])
 @pytest.mark.parametrize("neg_y", [False, True])
 @pytest.mark.parametrize("case", ["320x240", "160x120", "61x83"])
-def test_pyramid_kernel_matches_twin(cuda, neg_y, case):
-    """``build_pyramid`` on the card: one launch a level, every level's
-    depth, vertices and normals bit for bit with the twin on the card and
-    on the CPU."""
+def test_pyramid_kernel_matches_twin(cuda, neg_y, case, levels):
+    """``build_pyramid`` on the card at 1, 3 (the presets') and its
+    largest level count: one launch a call, every level's depth, vertices
+    and normals bit for bit with the twin on the card and on the CPU."""
     from supereight_tpu_torch.ops import pyramid_kernel
     from supereight_tpu_torch.pipeline import preprocessing
+    n = pyramid_kernel.MAX_LEVELS if levels == "largest" else int(levels)
     d, k = _pyramid_case({"320x240": 1, "160x120": 2}.get(case, 1),
                          odd=case == "61x83")
     before = pyramid_kernel.LAUNCHES["build_pyramid"]
-    got = preprocessing.build_pyramid(d.to(cuda), k.to(cuda), 3, neg_y)
+    got = preprocessing.build_pyramid(d.to(cuda), k.to(cuda), n, neg_y)
     torch.cuda.synchronize()
-    assert pyramid_kernel.LAUNCHES["build_pyramid"] == before + 3
-    on_card = preprocessing.build_pyramid_twin(d.to(cuda), k.to(cuda), 3,
+    assert pyramid_kernel.LAUNCHES["build_pyramid"] == before + 1
+    on_card = preprocessing.build_pyramid_twin(d.to(cuda), k.to(cuda), n,
                                                neg_y)
-    on_cpu = preprocessing.build_pyramid(d, k, 3, neg_y)
+    on_cpu = preprocessing.build_pyramid(d, k, n, neg_y)
     for g, w, c in zip(got, on_card, on_cpu):
-        assert len(g) == 3
+        assert len(g) == n
         for a, b, h in zip(g, w, c):
             _same_bits(a, b)
             _same_bits(a, h)
@@ -1200,10 +1200,27 @@ def test_pyramid_kernel_matches_twin(cuda, neg_y, case):
 
 
 @pytest.mark.gpu
+def test_pyramid_kernel_raises_above_its_levels(cuda):
+    """Above its largest level count ``build_pyramid`` raises on the card
+    and launches nothing (no per-level fallback)."""
+    from supereight_tpu_torch.ops import pyramid_kernel
+    from supereight_tpu_torch.pipeline import preprocessing
+    d, k = _pyramid_case(1)
+    before = pyramid_kernel.LAUNCHES["build_pyramid"]
+    with pytest.raises(ValueError, match="levels"):
+        preprocessing.build_pyramid(d.to(cuda), k.to(cuda),
+                                    pyramid_kernel.MAX_LEVELS + 1, False)
+    assert pyramid_kernel.LAUNCHES["build_pyramid"] == before
+
+
+@pytest.mark.gpu
 def test_pose_inv_matches_twin(cuda):
     """``numerics.inv`` on the card (``pose_inv``) on every pose of the
-    three cached sequences, on K and on random matrices (3x3 to 8x8): the
-    host twin's bits, one launch a call."""
+    three cached sequences, on K, on random matrices (3x3 to 8x8) and on
+    ``chip_smoke.pivot_matrices`` (every pivot pattern: the 24 row orders
+    of a 4x4, zero and NaN pivots, singular matrices, n = 1..8): the host
+    twin's bits, one launch a call."""
+    import chip_smoke
     from supereight_tpu_torch.core import numerics
     from supereight_tpu_torch.ops import numerics_kernel
     from supereight_tpu_torch.pipeline import camera
@@ -1214,6 +1231,7 @@ def test_pose_inv_matches_twin(cuda):
     rng = np.random.default_rng(3)
     mats += [torch.from_numpy(rng.normal(size=(n, n)).astype(np.float32))
              for n in (3, 4, 4, 5, 8)]
+    mats += [torch.from_numpy(m) for m in chip_smoke.pivot_matrices().values()]
     before = numerics_kernel.LAUNCHES["pose_inv"]
     got = [numerics.inv(m.to(cuda)) for m in mats]
     torch.cuda.synchronize()
@@ -1221,6 +1239,15 @@ def test_pose_inv_matches_twin(cuda):
     for g, m in zip(got, mats):
         assert g.device.type == "cuda"
         _same_bits(g.cpu(), numerics.inv_twin(m))
+
+
+@pytest.mark.gpu
+def test_pose_inv_in_registers(cuda):
+    """``pose_inv``'s n = 4 kernel as built: no stack frame, no spills
+    (``-Xptxas -v``) and no local loads or stores in its SASS."""
+    import chip_smoke
+    p = chip_smoke.inverse_registers()
+    assert p["stack"] == p["spill_stores"] == p["spill_loads"] == 0
 
 
 def _select_map(cuda, partitions=1):
@@ -1372,7 +1399,7 @@ def test_glue_reads_nothing_back(cuda):
              for k, n in c.items()}
     assert delta == dict(fuse_sdf=1, fuse_ofusion=0, frustum_select=1,
                          update_nodes=1, icp_track_reduce=0, icp_update=0,
-                         icp_track_levels=1, build_pyramid=3, pose_inv=2)
+                         icp_track_levels=1, build_pyramid=1, pose_inv=2)
     want = integration.integrate(kept, field, depth.cpu(), pose.cpu(),
                                  K.cpu(), timestamp,
                                  budget=cfg.integrate_budget)

@@ -109,6 +109,8 @@ def test_issue_lower_bound_sums_warp_classes():
      "kernelEPKiPKtPfiii", "slab_row_sum"),
     ("_ZN48_GLOBAL__N__0a9509dc_15_gather_probe_cu_f838b53012empty_kernelEv",
      "empty"),
+    ("_ZN46_GLOBAL__N__3e1f0c2a_11_numerics_cu_5b1a7d3c14inverse_kernelILi4EE"
+     "EvPKfPf", "inverse<4>"),
 ])
 def test_kernel_names(func, name):
     assert sc.kernel_name(func) == name
@@ -166,3 +168,34 @@ def test_loop_issue_lower_bound():
     got = sc.loop_issue_lower_bound_ms(300, 4 * 65536, rate)
     assert got == pytest.approx(1e3 * 300 * 4 * 65536 / rate)
     assert 0.075 < got < 0.076
+
+
+# -Xptxas -v's output as nvcc prints it for two entry functions, the second
+# with a stack frame and spills
+_PTXAS = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z14inverse_kernelILi4EEvPKfPf' for 'sm_90a'
+ptxas info    : Function properties for _Z14inverse_kernelILi4EEvPKfPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 38 registers, used 0 barriers, 368 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z14inverse_kernelILi8EEvPKfPf' for 'sm_90a'
+ptxas info    : Function properties for _Z14inverse_kernelILi8EEvPKfPf
+    264 bytes stack frame, 40 bytes spill stores, 36 bytes spill loads
+ptxas info    : Used 255 registers, used 0 barriers, 368 bytes cmem[0]
+"""
+
+
+def test_ptxas_properties():
+    props = sc.ptxas_properties(_PTXAS)
+    assert props == {
+        "_Z14inverse_kernelILi4EEvPKfPf": dict(
+            stack=0, spill_stores=0, spill_loads=0, registers=38),
+        "_Z14inverse_kernelILi8EEvPKfPf": dict(
+            stack=264, spill_stores=40, spill_loads=36, registers=255)}
+
+
+def test_local_memory_ops():
+    body = [(0, "LDG.E R2, desc[UR4][R2.64]"), (16, "STL [R1], R2"),
+            (32, "@P0 LDL.64 R4, [R1+0x8]"), (48, "LDS R6, [R0]"),
+            (64, "EXIT")]
+    assert sc.local_memory_ops({"a": (body, [(80, "STL.128 [R1], R8")]),
+                                "b": (body[3:], [])}) == dict(a=3, b=0)
