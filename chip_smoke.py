@@ -38,7 +38,8 @@ GPU.
    one thread, a template on n in registers: its ``-Xptxas -v`` line for
    n = 4 printed, no stack frame, no spills, no local loads or stores in
    its SASS) on every pose of the three cached sequences, on K and on
-   ``pivot_matrices`` (every pivot pattern, n = 1..8), against the host
+   ``pivot_matrices`` (every pivot pattern at n = 1, 2 and 4, the sizes
+   where its steps are XLA's; every other n must raise), against the host
    twin and timed beside ``torch.linalg.inv``; ``frustum_select``
    (``csrc/integrate.cu``, two launches) on the headline map after 12
    frames at its budget, 3072, and at one its candidates overflow (each
@@ -49,11 +50,16 @@ GPU.
    Then the raycast (``csrc/raycast.cu``), each kernel against its twin
    bit for bit on the same operands and the whole ``raycast`` against
    ``raycast_twin`` on the card and against ``raycast`` on CPU copies:
-   R1 ``splat_bounds`` (two launches), R2 ``ray_scan``, R3
-   ``ray_scan_second`` and R4 ``ray_refine_normals`` on the headline map
-   after RAYCAST_FRAMES frames in every knob group of RAYCAST_MODES (every
-   normals and refine mode of the presets and of phase F, the second
-   window cut by a budget of RAYCAST_BUDGET, rank 1's row strip of 2) and
+   R1 ``splat_bounds`` (one launch with the view's inverse inside it,
+   twice in a row on the same operands, and on a 640x480 grid above
+   kPoolSmemCells), R2 ``ray_scan`` alone, the merged launch of R2 with R3
+   (``ray_scan_second``: the second window and the midsolve, ranked by a
+   look-back on the card) and R4 ``ray_refine_normals`` (R1's and the
+   merged scan's ``-Xptxas -v`` lines: no stack frame, no spills) on the
+   headline map after RAYCAST_FRAMES frames in every knob group of
+   RAYCAST_MODES (every normals and refine mode of the presets and of
+   phase F, the second window cut by a budget of RAYCAST_BUDGET, rank 1's
+   row strip of 2) and
    on the ofusion map in those of RAYCAST_OF_MODES, timed at the
    headline's knobs beside the launch floor and their bounds; each
    preset's and phase-F run holds them again on its final map from its
@@ -80,8 +86,9 @@ GPU.
    ``pose_inv`` at least once a frame with ICP and once an integrated
    frame, ``update_nodes`` once an integrated frame and ``frustum_select``
    once an integrated frame on the budget branch; on every path R1, R2
-   and R4 once a raycast that fires, R3 too where the second window or
-   the midsolve is on; on G's ranks the four as often as each other):
+   and R4 once a raycast that fires, R3 (its count: the launches of R2
+   that ran the second window or the midsolve) too where one of those is
+   on; on G's ranks the four as often as each other):
    A. ``apps.benchmark`` in ground-truth mode (``-g``) at the headline
       preset on the cached base sequence, written as a .raw stream and a
       TUM trajectory with the port's ``io``: 96/96 frames, ATE < 1e-4 m,
@@ -827,10 +834,12 @@ def inverse_registers():
 
 def hold_inverse(torch, dev, floor):
     """``numerics.inv`` on the card (``pose_inv``, csrc/numerics.cu) on
-    every pose of SEQUENCES, on K and on ``pivot_matrices`` (n = 1..8)
-    against its host twin, bit for bit, one launch a call; its n = 4
-    kernel in registers (:func:`inverse_registers`); timed beside
-    ``torch.linalg.inv``."""
+    every pose of SEQUENCES, on K and on the ``pivot_matrices`` of 1, 2
+    and 4 rows (the sizes where its steps are XLA's) against its host
+    twin, bit for bit, one launch a call; at every other size of
+    ``pivot_matrices`` (3, 5, 6, 7, 8 rows) it must raise without a
+    launch; its n = 4 kernel in registers (:func:`inverse_registers`);
+    timed beside ``torch.linalg.inv``."""
     from supereight_tpu_torch.core import numerics
     from supereight_tpu_torch.ops import numerics_kernel
     from supereight_tpu_torch.pipeline import camera
@@ -839,7 +848,9 @@ def hold_inverse(torch, dev, floor):
     for seq in SEQUENCES:
         mats += list(torch.from_numpy(load_sequence(seq)[1]))
     pivots = pivot_matrices()
-    mats += [torch.from_numpy(m) for m in pivots.values()]
+    held = {n: m for n, m in pivots.items()
+            if m.shape[0] in numerics.INV_SIZES}
+    mats += [torch.from_numpy(m) for m in held.values()]
     before = numerics_kernel.LAUNCHES["pose_inv"]
     got = [numerics.inv(m.to(dev)) for m in mats]
     torch.cuda.synchronize()
@@ -853,6 +864,18 @@ def hold_inverse(torch, dev, floor):
                  f"{m.shape[0]}x{m.shape[0]} matrix")
         if torch.isfinite(g).all():
             err = max(err, e)
+    refused = [m for m in pivots.values()
+               if m.shape[0] not in numerics.INV_SIZES]
+    before = numerics_kernel.LAUNCHES["pose_inv"]
+    for m in refused:
+        try:
+            numerics.inv(torch.from_numpy(m).to(dev))
+            fail(f"pose_inv: a {m.shape[0]}x{m.shape[0]} matrix did not "
+                 "raise")
+        except ValueError:
+            pass
+    if numerics_kernel.LAUNCHES["pose_inv"] != before:
+        fail("pose_inv: launched outside its sizes")
     M = mats[1].to(dev)
     ms = median_ms(lambda: numerics.inv(M))
     plain_ms = median_ms(lambda: numerics.inv_twin(M))
@@ -860,8 +883,10 @@ def hold_inverse(torch, dev, floor):
     host = host_ms(torch, lambda: numerics.inv(M))
     b = bound(2 * 64, INV_FLOPS)
     print(f"# pose_inv: {len(mats)} matrices (every pose of "
-          f"{', '.join(SEQUENCES)}, K and {len(pivots)} pivot patterns of "
-          f"1x1 to 8x8) equal the host twin bit for bit; median device time "
+          f"{', '.join(SEQUENCES)}, K and {len(held)} pivot patterns of "
+          f"1, 2 and 4 rows) equal the host twin bit for bit, "
+          f"{len(refused)} of other sizes raise without a launch; median "
+          f"device time "
           f"{ms:.4f} ms (host clock, synchronised, {host:.4f} ms), the host "
           f"twin {plain_ms:.4f} ms, torch.linalg.inv {lib_ms:.4f} ms; bound "
           f"{b[0]:.8f} ms ({b[1]}); launch floor {floor:.4f} ms")
@@ -1044,11 +1069,20 @@ def check_glue_launched(label, counts, cfg, icp_frames, integrated):
 
 
 #: the raycast on the card (csrc/raycast.cu), each held bit for bit to its
-#: twin: R1 the splat bounds (two launches, counted once), R2 the first
-#: window's scan, R3 the second window with the midsolve, R4 the
-#: full-resolution re-solve with its vertices and normals
+#: twin: R1 the splat bounds (one launch, the view's inverse inside it), R2
+#: the first window's scan, R3 the second window with the midsolve (in R2's
+#: launch: its entry is the merged launch, counted where a raycast ran
+#: that phase), R4 the full-resolution re-solve with its vertices and
+#: normals.  R2 and R3 are one kernel: R2's entry counts every launch of it
+#: but times it with both knobs off; every path the smoke drives runs the
+#: merged launch, so R2's entry is marked ``launches_counted_in:
+#: ray_scan_second``, and launches times their time are summed once
 RAYCAST = ("splat_bounds", "ray_scan", "ray_scan_second",
            "ray_refine_normals")
+#: the CUDA kernel (sass_count.kernel_name) each entry times
+RAYCAST_KERNEL = {"splat_bounds": "splat_bounds", "ray_scan": "ray_scan",
+                  "ray_scan_second": "ray_scan",
+                  "ray_refine_normals": "ray_refine_normals"}
 #: the TPU-side code each replaces (XLA fused it; not a Pallas kernel)
 RAYCAST_REPLACES = {
     "splat_bounds": "supereight_tpu/pipeline/raycast.py:254",
@@ -1192,21 +1226,24 @@ def raycast_work(torch, m, dense, field, view, plan, k, scan1, scan, tmin,
                  g, fin, on_view):
     """The bytes and float operations each raycast kernel's function needs
     on this data (what its bound counts): R1 the live slots' keys, the
-    in-view slots' voxels (or inside flags), the grids; R2 the samples its
-    rays read (window_samples), the grids and its rays' outputs; R3 the
-    ranked rays' start depths and samples, the midsolve's two taps a hit
-    and every ray's flags, depths and outputs; R4 the parents' hits and
-    depths, the re-solve's taps of each pixel whose parent hit, the
-    gradient's 6 taps at each vertex (volume) or at each decimated parent
-    that hit (hybrid), and its outputs.  {kernel: (bytes, flops)}."""
+    in-view slots' voxels (or inside flags), the view, its inverse's
+    operations once, the grids; R2 alone (``ray_scan``: the first window)
+    the samples its rays read (window_samples), the grids and its rays'
+    hit and depth; the merged launch (``ray_scan_second``: R2 with R3)
+    those, the ranked rays' second-window samples, the midsolve's two taps
+    a hit and each tile's status word; R4 the parents' hits and depths,
+    the re-solve's taps of each pixel whose parent hit, the gradient's 6
+    taps at each vertex (volume) or at each decimated parent that hit
+    (hybrid), and its outputs.  ``scan1`` is the first window's twin scan
+    (its flags and start depths).  {kernel: (bytes, flops)}."""
     from supereight_tpu_torch.core import octree
     from supereight_tpu_torch.pipeline import raycast as rc
     esize = dense["F"].element_size()
     live = int(octree.slot_mask(m).sum())
     cells = tmin.numel()
     voxel_bytes = 1 if k["inside_any"] is not None else 4 * 512
-    r1 = (8 * live + on_view * voxel_bytes + 2 * 4 * 16 + 8 * cells,
-          SPLAT_SLOT_FLOPS * live + 512 * on_view
+    r1 = (8 * live + on_view * voxel_bytes + 4 * 16 + 8 * cells,
+          INV_FLOPS + SPLAT_SLOT_FLOPS * live + 512 * on_view
           + 9 * SPLAT_CELL_FLOPS * on_view
           + POOL_FLOPS[bool(k["near_rescue"])] * cells)
     origin, _, fd = rc._scan_dirs(view, plan)
@@ -1219,21 +1256,19 @@ def raycast_work(torch, m, dense, field, view, plan, k, scan1, scan, tmin,
     tiles = -(-rays // 256)
     n1 = window_samples(torch, m, dense, field, origin, fd, scan1.z_start,
                         plan, active)
-    r2 = (esize * n1 + 4 * 2 * cells + rays * (1 + 4 + 1 + 4) + 4 * tiles,
+    r2 = (esize * n1 + 4 * 2 * cells + rays * (1 + 4),
           RAY_FLOPS[plan.half_res] * rays + SAMPLE_FLOPS * n1)
-    n2 = ranked = 0
+    n2 = 0
     if k["second_window"]:
         idx = torch.nonzero(scan1.need2.reshape(-1))[:, 0][
             :min(k["w2_budget"], rays)]
-        ranked = idx.numel()
         n2 = window_samples(
             torch, m, dense, field, origin, fd.reshape(-1, 3)[idx],
             (scan1.z_start + plan.fine_span).reshape(-1)[idx], plan,
             torch.ones_like(idx, dtype=torch.bool))
     mid = 2 * int(scan.hit.sum()) if k["midsolve"] else 0
-    r3 = (esize * (n2 + mid) + 4 * ranked + 4 * tiles
-          + rays * (1 + 1 + 4 + 1 + 4),
-          RAY_FLOPS[plan.half_res] * rays + SAMPLE_FLOPS * (n2 + mid))
+    r3 = (r2[0] + esize * (n2 + mid) + 8 * tiles * k["second_window"],
+          r2[1] + SAMPLE_FLOPS * (n2 + mid))
     pixels = fin.hit.numel()
     resolve = plan.half_res and not (k["normals"] == "stored"
                                      and k["refine"] == "plane")
@@ -1260,19 +1295,25 @@ def raycast_work(torch, m, dense, field, view, plan, k, scan1, scan, tmin,
 
 def hold_raycast(torch, label, m, field, view, dense, knobs,
                  grad_table=None, cpu=False, timed=False, floor=None):
-    """The raycast kernels R1-R4 (csrc/raycast.cu) against their twins on
-    the card, each on the same operands (the kernels' own outputs before
-    it), bit for bit: R1 the grids, R2 every scan output, R3 the merged
-    hit and depth, R4 the vertex, normal, ray distance and hit maps; then
-    the whole ``raycast`` (the kernels, each launched once, R3 where the
-    second window or the midsolve is on) against ``raycast_twin`` on the
-    card, and with ``cpu`` R1 and the whole ``raycast`` against the CPU's
-    on copies of its operands, bit for bit.  ``knobs`` are ``raycast``'s;
-    ``inside=True`` gives R1 the slots' inside flags (as the sharded frame
-    does).  Returns {kernel:
-    entry fields} (max_abs_err; with ``timed`` the median device times of
-    the kernel and its twin over TIMED_RUNS, the host time, bound and
-    launch floor)."""
+    """The raycast kernels (csrc/raycast.cu) against their twins on the
+    card, each on the same operands (the kernels' own outputs before it),
+    bit for bit: R1 the grids, twice in a row on the same operands (its
+    scratch cleans itself); the scan alone (R2: both knobs off) its hit
+    and depth against ``ray_scan_twin``'s; the merged launch (R2 with R3,
+    where the second window or the midsolve is on) its hit and depth
+    against ``ray_scan_second_twin(ray_scan_twin(...))``'s, and R1's and
+    the scan's scratch left zero; R4 the vertex,
+    normal, ray distance and hit maps; then the whole ``raycast`` (R1, the
+    scan and R4 each launched once, no ``pose_inv``) against
+    ``raycast_twin`` on the card, and with ``cpu`` R1 and the whole
+    ``raycast`` against the CPU's on copies of its operands, bit for bit.
+    ``knobs`` are ``raycast``'s; ``inside=True`` gives R1 the slots'
+    inside flags (as the sharded frame does).  Returns {kernel: entry
+    fields} (max_abs_err; with ``timed`` the median device times of the
+    kernel and its twin over TIMED_RUNS, the host time, bound and launch
+    floor: ``ray_scan`` is the scan alone, ``ray_scan_second`` the merged
+    launch at ``knobs``)."""
+    from supereight_tpu_torch.ops import numerics_kernel
     from supereight_tpu_torch.ops import raycast_kernel as rk
     from supereight_tpu_torch.pipeline import raycast as rc
     from supereight_tpu_torch.pipeline.constants import FAR_PLANE, NEAR_PLANE
@@ -1295,11 +1336,12 @@ def hold_raycast(torch, label, m, field, view, dense, knobs,
     run1 = lambda: rk.splat_bounds(m, field, view, H, W, near, far, **sb)
     twin1 = lambda: rc._splat_bounds_twin(m, field, view, H, W, near, far,
                                           **sb)
-    tmin, tmax, g = run1()
     want = twin1()
-    for a, b in zip((tmin, tmax), want[:2]):
-        err["splat_bounds"] = max(err["splat_bounds"], same_bits(
-            torch, f"{label}: splat_bounds", a, b))
+    for _ in range(2):
+        tmin, tmax, g = run1()
+        for a, b in zip((tmin, tmax), want[:2]):
+            err["splat_bounds"] = max(err["splat_bounds"], same_bits(
+                torch, f"{label}: splat_bounds", a, b))
     if cpu:
         mc = to_device(m, "cpu")
         want = rc._splat_bounds_twin(
@@ -1309,31 +1351,31 @@ def hold_raycast(torch, label, m, field, view, dense, knobs,
         for a, b in zip((tmin, tmax), want[:2]):
             same_bits(torch, f"{label}: splat_bounds on the CPU", a, b)
 
-    run2 = lambda: rk.ray_scan(m, dense, field, view, plan, tmin, tmax, g)
-    twin2 = lambda: rc.ray_scan_twin(m, dense, field, view, plan, tmin,
-                                     tmax, g)
+    grids = (m, dense, field, view, plan, tmin, tmax, g)
+    scan_knobs = (k["second_window"], k["w2_budget"], k["midsolve"])
+    run2 = lambda: rk.ray_scan(*grids)
+    twin2 = lambda: rc.ray_scan_twin(*grids)
     s1, w1 = run2(), twin2()
-    for a, b in zip(s1[:4], w1[:4]):
+    for a, b in zip(s1[:2], w1[:2]):
         err["ray_scan"] = max(err["ray_scan"], same_bits(
             torch, f"{label}: ray_scan", a, b))
-    tiles = s1.need2.reshape(-1)
-    tiles = torch.nn.functional.pad(tiles, (0, -tiles.numel() % rk.SCAN_TILE))
-    same_bits(torch, f"{label}: ray_scan's tile counts", s1.tiles,
-              tiles.reshape(-1, rk.SCAN_TILE).sum(1).int())
-    need2 = int(s1.need2.sum())
+    need2 = int(w1.need2.sum())
 
     scan = s1
     run3 = twin3 = None
     if second:
-        args3 = (m, dense, field, view, plan, s1, k["second_window"],
-                 k["w2_budget"], k["midsolve"])
-        run3 = lambda: rk.ray_scan_second(*args3)
-        twin3 = lambda: rc.ray_scan_second_twin(*args3)
-        s2, w2 = run3(), twin3()
-        for a, b in zip(s2[:2], w2[:2]):
+        run3 = lambda: rk.ray_scan(*grids, *scan_knobs)
+        twin3 = lambda: rc.ray_scan_windows_twin(*grids, *scan_knobs)
+        w2 = rc.ray_scan_second_twin(m, dense, field, view, plan, w1,
+                                     *scan_knobs)
+        scan = run3()
+        for a, b in zip(scan[:2], w2[:2]):
             err["ray_scan_second"] = max(err["ray_scan_second"], same_bits(
-                torch, f"{label}: ray_scan_second", a, b))
-        scan = s2
+                torch, f"{label}: ray_scan_second (the merged launch)", a,
+                b))
+    sc = rk.scratch(view.device)
+    if any(bool(t.any()) for t in (sc.enc, sc.status, sc.ctl)):
+        fail(f"{label}: R1 or the scan left its scratch not zero")
 
     fk = dict(normals=k["normals"], refine=k["refine"],
               grad_decim=k["grad_decim"], grad_table=grad_table)
@@ -1347,6 +1389,7 @@ def hold_raycast(torch, label, m, field, view, dense, knobs,
             torch, f"{label}: ray_refine_normals", a, b))
 
     before = dict(rk.LAUNCHES)
+    inv_before = numerics_kernel.LAUNCHES["pose_inv"]
     whole = rc.raycast(m, field, view, H, W, near, far, dense, **knobs,
                        grad_table=grad_table)
     ran = {n: rk.LAUNCHES[n] - before[n] for n in RAYCAST}
@@ -1354,6 +1397,8 @@ def hold_raycast(torch, label, m, field, view, dense, knobs,
                     ray_scan_second=int(second), ray_refine_normals=1)
     if ran != want_ran:
         fail(f"{label}: the raycast launched {ran}, not {want_ran}")
+    if numerics_kernel.LAUNCHES["pose_inv"] != inv_before:
+        fail(f"{label}: the raycast launched pose_inv")
     twin_whole = rc.raycast_twin(m, field, view, H, W, near, far, dense,
                                  **knobs, grad_table=grad_table)
     for a, b in zip(whole, twin_whole):
@@ -1369,17 +1414,18 @@ def hold_raycast(torch, label, m, field, view, dense, knobs,
         note = " and on the CPU"
     hit = float(fin.hit.float().mean())
     budget = min(k["w2_budget"], s1.hit.numel())
-    print(f"# {label}: R1-R4 equal their twins bit for bit, each on the "
-          f"same operands, and the whole raycast raycast_twin's on the card"
-          f"{note}; launches {ran}; {need2} rays flagged for the second "
-          f"window (budget {budget}{', cut' if need2 > budget else ''}), "
+    print(f"# {label}: R1 (twice), the scan alone, the merged scan and R4 "
+          f"equal their twins bit for bit, each on the same operands, and "
+          f"the whole raycast raycast_twin's on the card{note}; launches "
+          f"{ran}, no pose_inv; {need2} rays flagged for the second window "
+          f"(budget {budget}{', cut' if need2 > budget else ''}), "
           f"{hit:.3f} of {tuple(fin.hit.shape)} pixels hit")
     if hit < 0.3:
         fail(f"{label}: the raycast hit only {hit:.3f} of the pixels")
     out = {n: dict(max_abs_err=e) for n, e in err.items()}
     if not timed:
         return out, need2
-    work = raycast_work(torch, m, dense, field, view, plan, k, s1, scan,
+    work = raycast_work(torch, m, dense, field, view, plan, k, w1, scan,
                         tmin, g, fin,
                         _on_view(torch, m, field, view, H, W, k))
     for name, run, twin in (("splat_bounds", run1, twin1),
@@ -1421,16 +1467,72 @@ def _on_view(torch, m, field, view, H, W, k) -> int:
     return int(ok.sum())
 
 
+def hold_splat_scratch(torch, label, m, field, pose, dev):
+    """R1 on a 640x480 frame of the same pose (K doubled), whose 60x80
+    splat grid is above kPoolSmemCells, so that it pools in the scratch:
+    with and without near_rescue, twice in a row on the same operands,
+    bit for bit with its twin.  Returns the largest error."""
+    from supereight_tpu_torch.ops import raycast_kernel as rk
+    from supereight_tpu_torch.pipeline import camera
+    from supereight_tpu_torch.pipeline import raycast as rc
+    from supereight_tpu_torch.pipeline.constants import FAR_PLANE, NEAR_PLANE
+    H, W = 480, 640
+    g = rc.splat_cell(H, W)
+    if (H // g) * (W // g) <= rk.POOL_SMEM_CELLS:
+        fail("splat_bounds: the scratch grid is not above kPoolSmemCells")
+    view = pose @ camera.inverse_camera_matrix(
+        torch.from_numpy(2 * K).to(dev))
+    err = 0.0
+    for near_rescue in (True, False):
+        want = rc._splat_bounds_twin(m, field, view, H, W, NEAR_PLANE,
+                                     FAR_PLANE, near_rescue)
+        for _ in range(2):
+            got = rk.splat_bounds(m, field, view, H, W, NEAR_PLANE,
+                                  FAR_PLANE, near_rescue)
+            for a, b in zip(got[:2], want[:2]):
+                err = max(err, same_bits(
+                    torch, f"{label}: splat_bounds at {W}x{H}", a, b))
+    print(f"# {label}: splat_bounds at {W}x{H} ({H // g}x{W // g} cells, "
+          f"above {rk.POOL_SMEM_CELLS}: the scratch pool) equals its twin "
+          "bit for bit with and without near_rescue, twice in a row")
+    return err
+
+
+def raycast_registers():
+    """The raycast kernels as built: each one's ``-Xptxas -v`` registers,
+    stack frame and spills; fails if R1 or the merged scan has a stack
+    frame or spills.  {kernel: its properties}."""
+    from supereight_tpu_torch.probes import sass_count
+    props = {sass_count.kernel_name(f): p for f, p in
+             sass_count.ptxas_properties(
+                 sass_count.ptxas_log("raycast")).items() if "stack" in p}
+    for name in ("splat_bounds", "ray_scan", "ray_refine_normals"):
+        if name not in props:
+            fail(f"raycast: no -Xptxas -v line for {name}")
+        p = props[name]
+        print(f"# {name} (-Xptxas -v): {p.get('registers')} registers, "
+              f"{p['stack']} bytes stack frame, {p['spill_stores']} bytes "
+              f"spill stores, {p['spill_loads']} bytes spill loads")
+        if name != "ray_refine_normals" and (
+                p["stack"] or p["spill_stores"] or p["spill_loads"]):
+            fail(f"{name}: goes through local memory")
+    return props
+
+
 def check_raycast_kernels(torch, depths, poses, dev):
-    """The raycast phase: R1-R4 held against their twins (hold_raycast) on
-    the headline map after RAYCAST_FRAMES frames in every knob group of
-    RAYCAST_MODES and on the ofusion map (its held view) in those of
-    RAYCAST_OF_MODES, each also against the raycast on CPU copies; the
-    budget group must cut the second window.  Timed at the headline's own
-    knobs.  Returns their JSON entries."""
+    """The raycast phase: R1, the scan (alone, and merged with the second
+    window and the midsolve) and R4 held against their twins
+    (hold_raycast) on the headline map after RAYCAST_FRAMES frames in
+    every knob group of RAYCAST_MODES and on the ofusion map (its held
+    view) in those of RAYCAST_OF_MODES, each also against the raycast on
+    CPU copies; the budget group must cut the second window; R1 on a grid
+    above kPoolSmemCells (hold_splat_scratch); the kernels' registers
+    (raycast_registers).  Timed at the headline's own knobs.  Returns
+    their JSON entries."""
     from supereight_tpu_torch.ops import gather_probe as gp
     from supereight_tpu_torch.pipeline import camera, raycast
     floor = median_ms(lambda: gp.empty_launch(dev))
+    regs = raycast_registers()
     out = {}
     for preset, modes in (("headline", RAYCAST_MODES),
                           ("ofusion", RAYCAST_OF_MODES)):
@@ -1456,10 +1558,17 @@ def check_raycast_kernels(torch, depths, poses, dev):
                     n, "supereight_tpu_torch/csrc/raycast.cu",
                     RAYCAST_REPLACES[n], 0.0, t["ms"], t["plain_ms"],
                     (t["bound_ms"], t["bound_by"]), None, floor,
-                    host_ms=t["host_ms"]) for n, t in r.items()}
+                    host_ms=t["host_ms"],
+                    registers=regs[RAYCAST_KERNEL[n]].get("registers"))
+                    for n, t in r.items()}
+                out["ray_scan"]["launches_counted_in"] = "ray_scan_second"
             for n, t in r.items():
                 out[n]["max_abs_err"] = max(out[n]["max_abs_err"],
                                             t["max_abs_err"])
+        e = hold_splat_scratch(torch, f"{preset} map", st.map, slam.field,
+                               st.pose, dev)
+        out["splat_bounds"]["max_abs_err"] = max(
+            out["splat_bounds"]["max_abs_err"], e)
         del slam, st, dense
     torch.cuda.empty_cache()
     return out

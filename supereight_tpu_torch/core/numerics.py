@@ -127,12 +127,26 @@ def _fma_host(a, b, c) -> np.float32:
     return np.float32(s)
 
 
+#: the sizes (rows) at which :func:`inv_twin` is XLA's inverse
+INV_SIZES = (1, 2, 4)
+
+
+def check_inv_size(fn: str, M: torch.Tensor) -> None:
+    """Raise ValueError unless ``M`` is square with INV_SIZES rows."""
+    if M.dim() != 2 or M.shape[0] != M.shape[1] or \
+            M.shape[0] not in INV_SIZES:
+        raise ValueError(f"{fn}: a square matrix of {INV_SIZES} rows, where "
+                         "the inverse is XLA's, got "
+                         f"{tuple(M.shape)}")
+
+
 def inv(M: torch.Tensor) -> torch.Tensor:
-    """Inverse of a small square float32 matrix, rounded as XLA's CPU
-    ``jnp.linalg.inv`` rounds it (see :func:`inv_twin`).  A CPU matrix
-    takes the twin; a CUDA matrix the kernel ``pose_inv``
-    (`ops/numerics_kernel.py`), which takes the same steps on the card,
-    so the inverse needs no host read; it raises if it cannot launch."""
+    """Inverse of a square float32 matrix of 1, 2 or 4 rows, rounded as
+    XLA's CPU ``jnp.linalg.inv`` rounds it (see :func:`inv_twin`); raises
+    ValueError for another size.  A CPU matrix takes the twin; a CUDA
+    matrix the kernel ``pose_inv`` (`ops/numerics_kernel.py`), which takes
+    the same steps on the card, so the inverse needs no host read; it
+    raises if it cannot launch."""
     if M.device.type == "cpu":
         return inv_twin(M)
     from supereight_tpu_torch.ops import numerics_kernel
@@ -155,8 +169,10 @@ def inv_twin(M: torch.Tensor) -> torch.Tensor:
     singular matrices; ``tests/test_torch_glue.py``), not for 3 or more
     than 4 rows, where OpenBLAS's triangular solve takes the rows in
     blocks of 1, 2 and 4 with a rounded product between blocks and its LU
-    adds dot products of three terms or more in another order, nor for a
-    subnormal or infinite pivot."""
+    adds dot products of three terms or more in another order: so it
+    raises ValueError at any other size.  Nor are they for a subnormal or
+    infinite pivot."""
+    check_inv_size("inv", M)
     A = M.detach().to("cpu", torch.float32).numpy()
     n = A.shape[0]
     A = [[np.float32(A[i, j]) for j in range(n)] for i in range(n)]

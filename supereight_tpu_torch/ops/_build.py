@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so``, where
-the hash covers the source and the flags, then loaded with ``ctypes``.
+the hash covers the source, the ``csrc/`` headers it includes and the
+flags, then loaded with ``ctypes``.
 Each ``csrc/<name>.cpp`` (host code: the ``.raw`` reader) is compiled the
 same way with the host C++ compiler.  The build directory is not
 committed; a checkout builds on its first use, or all at once with
@@ -70,15 +71,37 @@ def _host_cpu() -> str:
         return ""
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def headers(path: Path):
+    """The ``#include "..."`` files of ``path`` found beside the file that
+    includes them, and theirs, in the order first included."""
+    found, todo = [], [path]
+    while todo:
+        cur = todo.pop(0)
+        for inc in _INCLUDE.findall(cur.read_text()):
+            h = (cur.parent / inc).resolve()
+            if h.is_file() and h not in found:
+                found.append(h)
+                todo.append(h)
+    return found
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` (or ``.cpp``) builds to, keyed by source
-    and flags (and, for host code, the CPU's features)."""
+    """Where ``csrc/<name>.cu`` (or ``.cpp``) builds to, keyed by source,
+    the headers it includes (so that editing a shared header rebuilds
+    every library that includes it) and flags (and, for host code, the
+    CPU's features)."""
     flags = " ".join(NVCC_FLAGS)
     if name in HOST_SOURCES:
         flags = " ".join(CXX_FLAGS) + _host_cpu()
-    digest = hashlib.sha256(_source(name).read_bytes()
-                            + flags.encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    src = _source(name)
+    h = hashlib.sha256(src.read_bytes())
+    for inc in headers(src):
+        h.update(inc.name.encode() + b"\0" + inc.read_bytes())
+    h.update(flags.encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 #: every kernel source of the package

@@ -10,26 +10,23 @@ import ctypes
 
 import torch
 
+from supereight_tpu_torch.core.numerics import check_inv_size
 from . import _build
-
-#: the largest matrix the kernel takes
-MAX_N = _build.constants("numerics")["kMaxN"]
 
 #: kernel launches so far
 LAUNCHES = {"pose_inv": 0}
 
 
 def pose_inv(M: torch.Tensor) -> torch.Tensor:
-    """``numerics.inv(M)`` of a square float32 CUDA matrix of at most
-    MAX_N rows, computed on the card by one thread (a new tensor on M's
-    device, queued on the current stream).  Raises for another device or
-    shape, or when the launch fails."""
+    """``numerics.inv(M)`` of a square float32 CUDA matrix of INV_SIZES
+    (1, 2 or 4) rows, the sizes at which the steps are XLA's, computed on
+    the card by one thread (a new tensor on M's device, queued on the
+    current stream).  Raises for another device or shape, or when the
+    launch fails."""
     if M.device.type != "cuda":
         raise ValueError(f"pose_inv: no kernel for device {M.device}")
+    check_inv_size("pose_inv", M)
     n = M.shape[0]
-    if M.dim() != 2 or M.shape[1] != n or not 1 <= n <= MAX_N:
-        raise ValueError(f"pose_inv: a square matrix of at most {MAX_N} "
-                         f"rows, got {tuple(M.shape)}")
     M = M.detach().to(torch.float32).contiguous()
     out = torch.empty_like(M)
     fn = _build.load("numerics").pose_inv

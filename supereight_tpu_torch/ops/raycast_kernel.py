@@ -1,42 +1,93 @@
-"""The raycast on the card: the hand-written CUDA kernels R1-R4 of
+"""The raycast on the card: the hand-written CUDA kernels of
 `csrc/raycast.cu`, each beside its plain PyTorch twin in
 :mod:`supereight_tpu_torch.pipeline.raycast`:
 
-- :func:`splat_bounds` (R1, two launches: ``splat_slots``, ``splat_pool``)
+- :func:`splat_bounds` (R1, one launch with the view's inverse inside it)
   for ``raycast._splat_bounds_twin``;
-- :func:`ray_scan` (R2) for ``raycast.ray_scan_twin``;
-- :func:`ray_scan_second` (R3) for ``raycast.ray_scan_second_twin``;
+- :func:`ray_scan` (R2 with R3, one launch) for ``raycast.ray_scan_twin``
+  and, with the second window or the midsolve, then
+  ``raycast.ray_scan_second_twin``;
 - :func:`ray_refine_normals` (R4) for ``raycast.ray_refine_normals_twin``.
 
 ``pipeline/raycast.py`` dispatches: CPU tensors take the twins, CUDA
 tensors these kernels, with no fallback between the two.  Each wrapper
 checks its operands and raises for another device, dtype or shape, and
-when a launch fails; each queues its launches on the current stream and
-reads nothing back."""
+when a launch fails; each queues its launch on the current stream and
+reads nothing back.  R1's encoded grid and ticket and the scan's
+look-back state live in a scratch of each (device, stream)
+(:class:`Scratch`), zeroed once: the kernels leave it zero."""
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Dict
 
 import numpy as np
 import torch
 
-from supereight_tpu_torch.core import numerics, octree
+from supereight_tpu_torch.core import octree
 from supereight_tpu_torch.core.octree import BLOCK_SIDE, BLOCK_VOXELS
 from . import _build
 
 _K = _build.constants("raycast")
-#: rays a tile of R2 and R3 (the second window's ranks count by tile)
+#: rays a tile of R2 (the second window's ranks count by tile)
 SCAN_TILE = _K["kScanThreads"]
+#: slots a CTA of R1
+SPLAT_SLOTS = _K["kSplatThreads"] // _K["kSlotLanes"]
 #: the largest splat grid R1 pools in shared memory (else in a scratch)
 POOL_SMEM_CELLS = _K["kPoolSmemCells"]
 
-#: kernel launches so far (one a call; R1 counts its two launches once)
+#: kernel launches so far, one a call: ``ray_scan`` counts every launch of
+#: the scan, ``ray_scan_second`` those that also ran the second window or
+#: the midsolve (R3's work, in the same launch: not a launch of its own)
 LAUNCHES = {"splat_bounds": 0, "ray_scan": 0, "ray_scan_second": 0,
             "ray_refine_normals": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+class Scratch:
+    """The raycast kernels' state on one (device, stream), allocated zeroed
+    at first use and never read back; each launch leaves what it used
+    zero: R1's encoded grid and ticket (``enc``), the scan's tile status
+    words (``status``) and its two counters (``ctl``: tickets drawn,
+    look-backs ended)."""
+
+    def __init__(self, device):
+        self.device = device
+        self.enc = torch.zeros(0, dtype=torch.int32, device=device)
+        self.status = torch.zeros(0, dtype=torch.int64, device=device)
+        self.ctl = torch.zeros(2, dtype=torch.int32, device=device)
+
+    def splat(self, cells: int) -> torch.Tensor:
+        """R1's zero [>= 2 cells + 1] int32."""
+        if self.enc.numel() < 2 * cells + 1:
+            self.enc = torch.zeros(2 * cells + 1, dtype=torch.int32,
+                                   device=self.device)
+        return self.enc
+
+    def scan(self, tiles: int) -> torch.Tensor:
+        """The zero status words [>= tiles] int64 of a scan that ranks
+        its rays over ``tiles`` tiles."""
+        if self.status.numel() < tiles:
+            self.status = torch.zeros(tiles, dtype=torch.int64,
+                                      device=self.device)
+        return self.status
+
+
+_SCRATCH: Dict[tuple, Scratch] = {}
+
+
+def scratch(dev) -> Scratch:
+    """The :class:`Scratch` of ``dev`` and its current stream (one for the
+    CPU, where no kernel runs)."""
+    dev = torch.device(dev)
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream
+           if dev.type == "cuda" else None)
+    if key not in _SCRATCH:
+        _SCRATCH[key] = Scratch(dev)
+    return _SCRATCH[key]
 
 
 def _check(fn: str, dev, specs) -> None:
@@ -101,8 +152,8 @@ def _view(fn: str, view, dev) -> torch.Tensor:
 def splat_bounds(m, field, view, H: int, W: int, near: float, far: float,
                  near_rescue: bool = True, inside_any=None):
     """``raycast._splat_bounds`` on the card: (tmin, tmax, g), the [H/g,
-    W/g] start and far depth grids, by R1's two launches after
-    ``numerics.inv(view)`` (``pose_inv``).  The slots' inside flags come
+    W/g] start and far depth grids, by R1's one launch, which inverts the
+    view itself (``numerics.inv``'s bits).  The slots' inside flags come
     from ``inside_any`` (bool[capacity]) or from the select channel's
     float32 table."""
     from supereight_tpu_torch.pipeline.raycast import splat_cell
@@ -128,12 +179,11 @@ def splat_bounds(m, field, view, H: int, W: int, near: float, far: float,
     _check(fn, dev, specs)
     if voxels is not None and voxels.data_ptr() % 16:
         raise ValueError(f"{fn}: the select channel must be 16-byte aligned")
-    inv_view = numerics.inv(view)
     f32 = dict(dtype=torch.float32, device=dev)
-    enc = torch.empty((2, cells), dtype=torch.int32, device=dev)
+    enc = scratch(dev).splat(cells)
     tmin = torch.empty((gh, gw), **f32)
     tmax = torch.empty((gh, gw), **f32)
-    scratch = torch.empty((3, cells), **f32) \
+    pool = torch.empty((4, cells), **f32) \
         if cells > POOL_SMEM_CELLS else None
     vs = m.voxel_size
     diag = 1.7320508 * BLOCK_SIDE * vs
@@ -143,10 +193,10 @@ def splat_bounds(m, field, view, H: int, W: int, near: float, far: float,
            for d in ((0, 0), (1, 0), (1, 1))]
     ptr = lambda t: None if t is None else t.data_ptr()
     _launch(fn, dev, "splat_bounds",
-            [_P] * 10 + [_I] * 6 + [_F, _I] + [_F] * 11,
+            [_P] * 9 + [_I] * 6 + [_F, _I] + [_F] * 11,
             m.keys.data_ptr(), counts.data_ptr(), ptr(voxels),
-            ptr(inside_any), view.data_ptr(), inv_view.data_ptr(),
-            enc.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), ptr(scratch),
+            ptr(inside_any), view.data_ptr(), enc.data_ptr(),
+            tmin.data_ptr(), tmax.data_ptr(), ptr(pool),
             cap, cap // m.partitions, g, gh, gw, int(near_rescue),
             field.surf_boundary, _inside_below(field),
             BLOCK_SIDE * vs, 0.5 * diag, diag, near, marg, W - 1 + marg,
@@ -161,10 +211,14 @@ def _rays(plan):
     return (int(plan.half_res), plan.r0 // f, plan.rows // f, plan.W // f)
 
 
-def ray_scan(m, dense, field, view, plan, tmin, tmax, g: int):
-    """``raycast.ray_scan`` on the card (R2): a :class:`raycast.Scan` of
-    new tensors, with ``tiles`` the second window's rays of each tile of
-    SCAN_TILE rays."""
+def ray_scan(m, dense, field, view, plan, tmin, tmax, g: int,
+             second_window: bool = False, w2_budget: int = 0,
+             midsolve: bool = False):
+    """``raycast.ray_scan`` on the card (R2 with R3, one launch): the first
+    window of every ray; with ``second_window`` the flagged rays ranked in
+    raster order on the card (the look-back), those of rank below
+    ``w2_budget`` scanned one window deeper; with ``midsolve`` every hit
+    re-solved.  A :class:`raycast.Scan` of new tensors (hit and z)."""
     from supereight_tpu_torch.pipeline.raycast import Scan
     fn = "ray_scan"
     dev = _device(fn, view)
@@ -174,64 +228,30 @@ def ray_scan(m, dense, field, view, plan, tmin, tmax, g: int):
     gh, gw = plan.H // g, plan.W // g
     _check(fn, dev, [("tmin", tmin, torch.float32, (gh, gw)),
                      ("tmax", tmax, torch.float32, (gh, gw))])
+    if w2_budget < 0:
+        raise ValueError(f"{fn}: w2_budget must be >= 0, got {w2_budget}")
     b8 = dict(dtype=torch.bool, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    hit, need2 = torch.empty((h, w), **b8), torch.empty((h, w), **b8)
-    z, z_start = torch.empty((h, w), **f32), torch.empty((h, w), **f32)
-    tiles = torch.empty((-(-(h * w) // SCAN_TILE),), dtype=torch.int32,
-                        device=dev)
+    hit, z = torch.empty((h, w), **b8), torch.empty((h, w), **f32)
+    tiles = -(-(h * w) // SCAN_TILE)
+    sc = scratch(dev)
+    status = sc.scan(tiles) if second_window else None
+    delta = 0.35 * plan.thickness
+    ptr = lambda t: None if t is None else t.data_ptr()
     _launch(fn, dev, "ray_scan",
             [_P, _P, _I, _I, _F, _F] + [_I] * 7 + [_P, _P] + [_F] * 5
-            + [_I] + [_P] * 5,
+            + [_I] * 4 + [_F, _F] + [_P] * 4,
             view.data_ptr(), *vol, field.surf_boundary,
             _inside_below(field), half, r0s, h, w,
             g // 2 if plan.half_res else g, gw, tmin.data_ptr(),
             tmax.data_ptr(), plan.near, plan.far, plan.fine_span,
             plan.fine_span / plan.n_fine, plan.diag, plan.n_fine + 1,
-            hit.data_ptr(), z.data_ptr(), need2.data_ptr(),
-            z_start.data_ptr(), tiles.data_ptr())
-    LAUNCHES["ray_scan"] += 1
-    return Scan(hit, z, need2, z_start, tiles)
-
-
-def ray_scan_second(m, dense, field, view, plan, scan, second_window: bool,
-                    w2_budget: int, midsolve: bool):
-    """``raycast.ray_scan_second`` on the card (R3, one launch): the
-    flagged rays ranked in raster order on the card from ``scan.tiles``
-    (R2's), those of rank below ``w2_budget`` scanned one window deeper,
-    the midsolve of every hit.  A :class:`raycast.Scan` of new
-    tensors."""
-    from supereight_tpu_torch.pipeline.raycast import Scan
-    fn = "ray_scan_second"
-    dev = _device(fn, view)
-    view = _view(fn, view, dev)
-    vol = _volume(fn, m, dense, dev)
-    half, r0s, h, w = _rays(plan)
-    if scan.tiles is None:
-        raise ValueError(f"{fn}: the scan must come from ray_scan on the "
-                         "card (its tiles' counts)")
-    _check(fn, dev, [("hit", scan.hit, torch.bool, (h, w)),
-                     ("z", scan.z, torch.float32, (h, w)),
-                     ("need2", scan.need2, torch.bool, (h, w)),
-                     ("z_start", scan.z_start, torch.float32, (h, w)),
-                     ("tiles", scan.tiles, torch.int32,
-                      (-(-(h * w) // SCAN_TILE),))])
-    if w2_budget < 0:
-        raise ValueError(f"{fn}: w2_budget must be >= 0, got {w2_budget}")
-    hit = torch.empty((h, w), dtype=torch.bool, device=dev)
-    z = torch.empty((h, w), dtype=torch.float32, device=dev)
-    delta = 0.35 * plan.thickness
-    _launch(fn, dev, "ray_scan_second",
-            [_P, _P, _I, _I, _F, _F] + [_I] * 5 + [_F, _F, _I] + [_P] * 5
-            + [_I] * 3 + [_F, _F, _P, _P],
-            view.data_ptr(), *vol, field.surf_boundary,
-            _inside_below(field), half, r0s, h, w, plan.fine_span,
-            plan.fine_span / plan.n_fine, plan.n_fine + 1,
-            scan.need2.data_ptr(), scan.z_start.data_ptr(),
-            scan.tiles.data_ptr(), scan.hit.data_ptr(), scan.z.data_ptr(),
             int(second_window), min(w2_budget, h * w), int(midsolve), delta,
-            2.0 * delta, hit.data_ptr(), z.data_ptr())
-    LAUNCHES["ray_scan_second"] += 1
+            2.0 * delta, ptr(status), sc.ctl.data_ptr(), hit.data_ptr(),
+            z.data_ptr())
+    LAUNCHES["ray_scan"] += 1
+    if second_window or midsolve:
+        LAUNCHES["ray_scan_second"] += 1
     return Scan(hit, z, None, None)
 
 

@@ -347,23 +347,39 @@ class Scan(NamedTuple):
     """A scan's rays [h, w] (the strip's, at the scan's resolution)."""
     hit: torch.Tensor
     z: torch.Tensor          # the crossing's ray depth (0 on miss)
-    need2: torch.Tensor      # the second window's rays (first window only)
-    z_start: torch.Tensor    # the first window's start depth
-    #: int32 [tiles]: the second window's rays in each kernel tile (the
-    #: kernel's; None from the twin)
-    tiles: object = None
+    need2: object            # the second window's rays (the first
+                             # window's twin only; else None)
+    z_start: object          # the first window's start depth (likewise)
 
 
 def ray_scan(m: VoxelMap, dense, field, view, plan: ScanPlan, tmin, tmax,
-             g: int) -> Scan:
-    """Phase 2's first window (see :func:`ray_scan_twin`): a CPU view takes
-    the twin, a CUDA view the kernel R2 (`ops/raycast_kernel.ray_scan`),
-    which raises if it cannot launch."""
+             g: int, second_window: bool = False, w2_budget: int = 0,
+             midsolve: bool = False) -> Scan:
+    """Phase 2: the first window, then with ``second_window`` or
+    ``midsolve`` the second window and the midsolve (see
+    :func:`ray_scan_windows_twin`).  A CPU view takes the twins, a CUDA
+    view the kernel R2 with R3 in one launch
+    (`ops/raycast_kernel.ray_scan`), which ranks the flagged rays on the
+    card and raises if it cannot launch."""
     if view.device.type == "cpu":
-        return ray_scan_twin(m, dense, field, view, plan, tmin, tmax, g)
+        return ray_scan_windows_twin(m, dense, field, view, plan, tmin, tmax,
+                                     g, second_window, w2_budget, midsolve)
     from supereight_tpu_torch.ops import raycast_kernel
     return raycast_kernel.ray_scan(m, dense, field, view, plan, tmin, tmax,
-                                   g)
+                                   g, second_window, w2_budget, midsolve)
+
+
+def ray_scan_windows_twin(m: VoxelMap, dense, field, view, plan: ScanPlan,
+                          tmin, tmax, g: int, second_window: bool = False,
+                          w2_budget: int = 0,
+                          midsolve: bool = False) -> Scan:
+    """:func:`ray_scan` in plain PyTorch: :func:`ray_scan_twin`, then
+    with ``second_window`` or ``midsolve`` :func:`ray_scan_second_twin`."""
+    scan = ray_scan_twin(m, dense, field, view, plan, tmin, tmax, g)
+    if second_window or midsolve:
+        scan = ray_scan_second_twin(m, dense, field, view, plan, scan,
+                                    second_window, w2_budget, midsolve)
+    return scan
 
 
 def ray_scan_twin(m: VoxelMap, dense, field, view, plan: ScanPlan, tmin,
@@ -386,21 +402,6 @@ def ray_scan_twin(m: VoxelMap, dense, field, view, plan: ScanPlan, tmin,
                     plan.n_fine, active)
     need2 = active & ~f1.hit & (z_start + plan.fine_span < t1 + plan.diag)
     return Scan(f1.hit, f1.z_hit, need2, z_start)
-
-
-def ray_scan_second(m: VoxelMap, dense, field, view, plan: ScanPlan,
-                    scan: Scan, second_window: bool, w2_budget: int,
-                    midsolve: bool) -> Scan:
-    """The second window and the midsolve (see
-    :func:`ray_scan_second_twin`): a CPU view takes the twin, a CUDA view
-    the kernel R3 (`ops/raycast_kernel.ray_scan_second`), which ranks the
-    rays on the card and raises if it cannot launch."""
-    if view.device.type == "cpu":
-        return ray_scan_second_twin(m, dense, field, view, plan, scan,
-                                    second_window, w2_budget, midsolve)
-    from supereight_tpu_torch.ops import raycast_kernel
-    return raycast_kernel.ray_scan_second(m, dense, field, view, plan, scan,
-                                          second_window, w2_budget, midsolve)
 
 
 def ray_scan_second_twin(m: VoxelMap, dense, field, view, plan: ScanPlan,
@@ -596,10 +597,9 @@ def ray_finish(m: VoxelMap, dense, field, view, plan: ScanPlan, scan: Scan,
 
 #: the phases of :func:`raycast`, each dispatching on the view's device,
 #: and of :func:`raycast_twin`, the plain PyTorch twins
-_PHASES = dict(splat=_splat_bounds, scan=ray_scan, second=ray_scan_second,
-               finish=ray_refine_normals)
-_TWINS = dict(splat=_splat_bounds_twin, scan=ray_scan_twin,
-              second=ray_scan_second_twin, finish=ray_refine_normals_twin)
+_PHASES = dict(splat=_splat_bounds, scan=ray_scan, finish=ray_refine_normals)
+_TWINS = dict(splat=_splat_bounds_twin, scan=ray_scan_windows_twin,
+              finish=ray_refine_normals_twin)
 
 
 def raycast(m: VoxelMap, field, view, H: int, W: int, near: float,
@@ -636,8 +636,9 @@ def raycast(m: VoxelMap, field, view, H: int, W: int, near: float,
     splat grid still covers the whole image.
 
     The phases dispatch on ``view``'s device: on the CPU the plain PyTorch
-    twins (:func:`raycast_twin`), on the card the kernels R1-R4 of
-    `csrc/raycast.cu`, which read nothing back to the host; the plane
+    twins (:func:`raycast_twin`), on the card the three kernels of
+    `csrc/raycast.cu` (R1, R2 with R3, R4), which read nothing back to the
+    host; the plane
     re-solve and the stored and exact normals' gradients run in PyTorch on
     both."""
     return _raycast(_PHASES, m, field, view, H, W, near, far, dense,
@@ -678,10 +679,8 @@ def _raycast(phases, m: VoxelMap, field, view, H: int, W: int, near: float,
     tmin, tmax, g = phases["splat"](m, field, view, H, W, near, far,
                                     near_rescue=near_rescue,
                                     inside_any=inside_any)
-    scan = phases["scan"](m, dense, field, view, plan, tmin, tmax, g)
-    if second_window or midsolve:
-        scan = phases["second"](m, dense, field, view, plan, scan,
-                                second_window, w2_budget, midsolve)
+    scan = phases["scan"](m, dense, field, view, plan, tmin, tmax, g,
+                          second_window, w2_budget, midsolve)
     fin = ray_finish(m, dense, field, view, plan, scan, normals=normals,
                      refine=refine, grad_decim=grad_decim,
                      grad_table=grad_table, refine_normals=phases["finish"])

@@ -13,19 +13,21 @@ this one, the parent):
 (built from its own sources).  The inputs are always this checkout's
 (`gather_probe.kernel_inputs`, the data ``chip_smoke.py`` holds the kernels
 on), made before the other checkout's package is imported in place of this
-one; of that package only the wrappers' call signature is assumed, which
-has not changed since the kernels were ported.  It prints one JSON object:
+one; of that package only the wrappers' call signatures are assumed, as
+this checkout has them.  It prints one JSON object:
 the card's name and power limit, and the median device time (ms, CUDA
 events, 25 runs) of ``lane_shuffle_sum`` at 256 and 65536 rows (krep 64)
 and ``slab_row_sum`` at 2048 and 8192 slabs.  Then, with the other
 checkout's ``preprocessing.build_pyramid``, ``numerics.inv`` and
-``raycast_kernel.splat_bounds`` (and ``chip_smoke.warm_map`` run on its
-package): the headline pyramid (frame 40 of the cached sequence, 320x240,
-3 levels), the inverse of a pose (frame 30's) and R1 with its inverse on
-the headline map after 12 frames from the last pose, each's median device
-time (``ms``), host time with the device synchronised before and after
-(``host_ms``) and enqueue time, the call's own time from an idle device
-(``enqueue_ms``), over 25 runs.
+``raycast_kernel``'s ``splat_bounds`` and scan (and ``chip_smoke.warm_map``
+run on its package): the headline pyramid (frame 40 of the cached
+sequence, 320x240, 3 levels), the inverse of a pose (frame 30's), R1 (the
+view's inverse inside it) and the headline's scan (one ``ray_scan``
+launch: the first window, the second window cut at its budget, the
+midsolve off) on the headline map after 12 frames from the last pose,
+each's median device time (``ms``), host time with the device
+synchronised before and after (``host_ms``) and enqueue time, the call's
+own time from an idle device (``enqueue_ms``), over 25 runs.
 """
 
 from __future__ import annotations
@@ -105,7 +107,7 @@ def glue_calls(smoke, dev) -> dict:
     import torch
     from supereight_tpu_torch.core import numerics
     from supereight_tpu_torch.ops import raycast_kernel as rk
-    from supereight_tpu_torch.pipeline import camera, preprocessing
+    from supereight_tpu_torch.pipeline import camera, preprocessing, raycast
     from supereight_tpu_torch.pipeline.constants import FAR_PLANE, NEAR_PLANE
     depths, poses = smoke.load_sequence("synthetic_256_frames")
     k = torch.from_numpy(smoke.K).to(dev)
@@ -116,12 +118,23 @@ def glue_calls(smoke, dev) -> dict:
                           dev, 12)
     view = slam.state.pose @ camera.inverse_camera_matrix(k)
     m, field = slam.state.map, slam.field
+    cfg = slam.config
+    dense = {"F": slam.state.view} if slam.state.view is not None else \
+        raycast.pack_view(m, field)
+    plan = raycast.scan_plan(m, field, 240, 320, NEAR_PLANE, FAR_PLANE,
+                             cfg.raycast_span_factor,
+                             cfg.raycast_scan_stride, False)
+    grids = rk.splat_bounds(m, field, view, 240, 320, NEAR_PLANE, FAR_PLANE)
+
     return {
         "build_pyramid_320x240x3": lambda: preprocessing.build_pyramid(
             d, k, 3, False),
         "pose_inv_4x4": lambda: numerics.inv(pose),
         "splat_bounds_headline": lambda: rk.splat_bounds(
-            m, field, view, 240, 320, NEAR_PLANE, FAR_PLANE)}
+            m, field, view, 240, 320, NEAR_PLANE, FAR_PLANE),
+        "ray_scan_headline": lambda: rk.ray_scan(
+            m, dense, field, view, plan, *grids, True, cfg.raycast_w2_budget,
+            False)}
 
 
 if __name__ == "__main__":

@@ -43,8 +43,9 @@ take ``system.tracking_stage``, ``system._alloc_fires``, ``integration``'s
 After each of those frames it cuts the reference raycast of the frame's
 final state in the parts of :data:`RAY_PARTS` (:func:`raycast_parts`),
 each timed alone the same way; a run's ``ray_parts`` are their medians.
-Of the other checkout these take ``raycast``'s phases (on the card the
-kernels R1-R4).
+Of the other checkout these take ``raycast``'s phases (on the card its
+raycast kernels; the ``scan`` part holds the second window and the
+midsolve, which run in the scan's launch).
 """
 
 from __future__ import annotations
@@ -207,11 +208,10 @@ def integration_parts(slam, depth_mm, k, frame: int):
 
 #: the reference raycast's parts: the read view's pack (``pack_view``,
 #: where no view is held), the splat bounds (with the slots' inside-voxel
-#: flags), the first window's scan (with the rays' directions and start
-#: depths), the second window with the midsolve, the full-resolution
-#: re-solve (with the volume and hybrid normals) and the stored and exact
-#: normals
-RAY_PARTS = ("pack", "splat", "scan", "window2", "refine", "normals")
+#: flags), the scan (with the rays' directions and start depths, the
+#: second window and the midsolve), the full-resolution re-solve (with the
+#: volume and hybrid normals) and the stored and exact normals
+RAY_PARTS = ("pack", "splat", "scan", "refine", "normals")
 
 
 def raycast_parts(slam, k):
@@ -240,11 +240,9 @@ def raycast_parts(slam, k):
         m, field, view, H, W, near, far,
         near_rescue=cfg.raycast_near_rescue))
     scan = part("scan", lambda: raycast.ray_scan(
-        m, dense, field, view, plan, tmin, tmax, g))
-    if cfg.raycast_second_window or cfg.raycast_midsolve:
-        scan = part("window2", lambda: raycast.ray_scan_second(
-            m, dense, field, view, plan, scan, cfg.raycast_second_window,
-            cfg.raycast_w2_budget, cfg.raycast_midsolve))
+        m, dense, field, view, plan, tmin, tmax, g,
+        cfg.raycast_second_window, cfg.raycast_w2_budget,
+        cfg.raycast_midsolve))
     fin = part("refine", lambda: raycast.ray_finish(
         m, dense, field, view, plan, scan, normals=cfg.raycast_normals,
         refine=cfg.raycast_refine, grad_decim=cfg.raycast_grad_decim,

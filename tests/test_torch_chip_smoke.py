@@ -562,10 +562,9 @@ def test_step_run_on_the_cpu(monkeypatch):
 
 
 def _twins_for_kernels(monkeypatch):
-    """The raycast kernels' wrappers replaced by their twins (R2's with the
-    tile counts it writes), each counting its launches: the hold's
-    plumbing runs on the CPU."""
-    import torch
+    """The raycast kernels' wrappers replaced by their twins (the merged
+    scan's by ``ray_scan_windows_twin``), each counting its launches as
+    the kernels do: the hold's plumbing runs on the CPU."""
     from supereight_tpu_torch.ops import raycast_kernel as rk
     from supereight_tpu_torch.pipeline import raycast as rc
 
@@ -576,23 +575,21 @@ def _twins_for_kernels(monkeypatch):
         return run
 
     def scan(*args):
-        s = rc.ray_scan_twin(*args)
-        t = s.need2.reshape(-1)
-        t = torch.nn.functional.pad(t, (0, -t.numel() % rk.SCAN_TILE))
-        return s._replace(tiles=t.reshape(-1, rk.SCAN_TILE).sum(1).int())
+        rk.LAUNCHES["ray_scan"] += 1
+        if len(args) > 8 and (args[8] or args[10]):
+            rk.LAUNCHES["ray_scan_second"] += 1
+        return rc.ray_scan_windows_twin(*args)._replace(need2=None,
+                                                        z_start=None)
 
     stand_in = dict(splat_bounds=counted("splat_bounds",
                                          rc._splat_bounds_twin),
-                    ray_scan=counted("ray_scan", scan),
-                    ray_scan_second=counted("ray_scan_second",
-                                            rc.ray_scan_second_twin),
+                    ray_scan=scan,
                     ray_refine_normals=counted("ray_refine_normals",
                                                rc.ray_refine_normals_twin))
     for name, fn in stand_in.items():
         monkeypatch.setattr(rk, name, fn)
     monkeypatch.setattr(rc, "_PHASES", dict(
         splat=stand_in["splat_bounds"], scan=stand_in["ray_scan"],
-        second=stand_in["ray_scan_second"],
         finish=stand_in["ray_refine_normals"]))
 
 
@@ -602,9 +599,9 @@ def test_raycast_hold_on_the_cpu(monkeypatch, preset):
     of RAYCAST_MODES / RAYCAST_OF_MODES on a warmed 64^3 map at 320x240,
     with the twins standing in for the kernels (the kernels run only on
     the card): the phases compose, each launch is counted once a raycast
-    (R3 only with the second window or the midsolve), the budget group
-    cuts the second window, the strip is rank 1's of 2, and the run's own
-    raycast holds as ``check_path_raycast`` holds it."""
+    (R3's count only with the second window or the midsolve), the budget
+    group cuts the second window, the strip is rank 1's of 2, and the
+    run's own raycast holds as ``check_path_raycast`` holds it."""
     import dataclasses
     import torch
     from supereight_tpu_torch.pipeline import camera, raycast
@@ -650,10 +647,10 @@ def test_raycast_work_counts_this_data():
     """``raycast_work`` at the timed knob group (hybrid normals at
     ``grad_decim`` 2) on a warmed 64^3 map: R2's samples are each ray's
     count up to its first valid outside -> inside crossing (the window on
-    a miss, none when inactive), counted here ray by ray; R3's the second
-    windows of the rays the budget ranks; R4's taps are the secant pair of each pixel
-    whose parent hit and the 6 gradient taps of each decimated parent that
-    hit."""
+    a miss, none when inactive), counted here ray by ray; the merged
+    launch's (R2 with R3) those and the second windows of the rays the
+    budget ranks; R4's taps are the secant pair of each pixel whose parent
+    hit and the 6 gradient taps of each decimated parent that hit."""
     import dataclasses
     import torch
     from supereight_tpu_torch.pipeline import camera, raycast as rc
@@ -719,7 +716,7 @@ def test_raycast_work_counts_this_data():
     n2 = by_ray((s1.z_start + plan.fine_span).reshape(-1)[idx],
                 fd.reshape(-1, 3)[idx])
     assert work["ray_scan_second"][1] == chip_smoke.RAY_FLOPS[True] * rays \
-        + chip_smoke.SAMPLE_FLOPS * n2
+        + chip_smoke.SAMPLE_FLOPS * (n1 + n2)
     taps = 2 * 4 * int(s2.hit.sum()) + 6 * int(s2.hit[::2, ::2].sum())
     assert work["ray_refine_normals"][1] == \
         chip_smoke.PIXEL_FLOPS * fin.hit.numel() + chip_smoke.TAP_FLOPS * taps

@@ -163,3 +163,30 @@ def test_slab_warp_trips(n, wide, want):
 
 def test_shuffle_warp_trips():
     assert gp.shuffle_warp_trips(65536) == 4 * 65536
+
+
+def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
+    """``_build.library_path`` keys a library by its source and by every
+    ``csrc/`` header it includes (and theirs): editing a copied header
+    changes the path of each source that includes it, and of no other."""
+    from supereight_tpu_torch.ops import _build
+    for name in ("raycast.cu", "numerics.cu", "pyramid.cu",
+                 "lu_inverse.cuh"):
+        (tmp_path / name).write_text((_build.CSRC / name).read_text())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [h.name for h in _build.headers(tmp_path / "raycast.cu")] == \
+        ["lu_inverse.cuh"]
+    names = ("raycast", "numerics", "pyramid")
+    before = {n: _build.library_path(n) for n in names}
+    hdr = tmp_path / "lu_inverse.cuh"
+    hdr.write_text(hdr.read_text() + "\n// an edit\n")
+    after = {n: _build.library_path(n) for n in names}
+    assert after["raycast"] != before["raycast"]
+    assert after["numerics"] != before["numerics"]
+    assert after["pyramid"] == before["pyramid"]
+    # a header the header includes counts too
+    (tmp_path / "inner.cuh").write_text("// inner\n")
+    hdr.write_text('#include "inner.cuh"\n' + hdr.read_text())
+    nested = _build.library_path("raycast")
+    (tmp_path / "inner.cuh").write_text("// inner, edited\n")
+    assert _build.library_path("raycast") != nested

@@ -1216,10 +1216,12 @@ def test_pyramid_kernel_raises_above_its_levels(cuda):
 @pytest.mark.gpu
 def test_pose_inv_matches_twin(cuda):
     """``numerics.inv`` on the card (``pose_inv``) on every pose of the
-    three cached sequences, on K, on random matrices (3x3 to 8x8) and on
-    ``chip_smoke.pivot_matrices`` (every pivot pattern: the 24 row orders
-    of a 4x4, zero and NaN pivots, singular matrices, n = 1..8): the host
-    twin's bits, one launch a call."""
+    three cached sequences, on K, on random 4x4 matrices and on the
+    ``chip_smoke.pivot_matrices`` of 1, 2 and 4 rows (every pivot pattern:
+    the 24 row orders of a 4x4, zero and NaN pivots, singular matrices):
+    the host twin's bits, one launch a call.  At 3, 5 and 8 rows (random
+    matrices and every other size of ``pivot_matrices``), where the twin
+    is not XLA's inverse, it raises without a launch."""
     import chip_smoke
     from supereight_tpu_torch.core import numerics
     from supereight_tpu_torch.ops import numerics_kernel
@@ -1229,9 +1231,15 @@ def test_pose_inv_matches_twin(cuda):
         mats += list(torch.from_numpy(np.load(os.path.join(
             os.path.dirname(BENCH), seq + ".npz"))["poses"]))
     rng = np.random.default_rng(3)
-    mats += [torch.from_numpy(rng.normal(size=(n, n)).astype(np.float32))
-             for n in (3, 4, 4, 5, 8)]
-    mats += [torch.from_numpy(m) for m in chip_smoke.pivot_matrices().values()]
+    random = [torch.from_numpy(rng.normal(size=(n, n)).astype(np.float32))
+              for n in (3, 4, 4, 5, 8)]
+    pivots = [torch.from_numpy(m)
+              for m in chip_smoke.pivot_matrices().values()]
+    held = [m for m in random + pivots if m.shape[0] in numerics.INV_SIZES]
+    refused = [m for m in random + pivots
+               if m.shape[0] not in numerics.INV_SIZES]
+    assert {m.shape[0] for m in refused} >= {3, 5, 8}
+    mats += held
     before = numerics_kernel.LAUNCHES["pose_inv"]
     got = [numerics.inv(m.to(cuda)) for m in mats]
     torch.cuda.synchronize()
@@ -1239,6 +1247,11 @@ def test_pose_inv_matches_twin(cuda):
     for g, m in zip(got, mats):
         assert g.device.type == "cuda"
         _same_bits(g.cpu(), numerics.inv_twin(m))
+    before = numerics_kernel.LAUNCHES["pose_inv"]
+    for m in refused:
+        with pytest.raises(ValueError, match="rows"):
+            numerics.inv(m.to(cuda))
+    assert numerics_kernel.LAUNCHES["pose_inv"] == before
 
 
 @pytest.mark.gpu
@@ -1413,6 +1426,7 @@ def test_glue_reads_nothing_back(cuda):
 
 
 _RAYCAST_MAPS = {}
+_RAYCAST_POSES = {}
 
 
 def _raycast_map(cuda, preset):
@@ -1432,6 +1446,7 @@ def _raycast_map(cuda, preset):
         dense = {"F": st.view} if st.view is not None else \
             raycast.pack_view(st.map, slam.field)
         _RAYCAST_MAPS[preset] = (st.map, slam.field, view, dense)
+        _RAYCAST_POSES[preset] = st.pose
     return _RAYCAST_MAPS[preset]
 
 
@@ -1483,7 +1498,7 @@ def test_dot3_adds_alike_on_the_card(cuda):
 @pytest.mark.gpu
 def test_raycast_kernels_reject_what_they_do_not_take(cuda):
     """The wrappers raise for a CPU view, a view table of another dtype or
-    shape, and grids of another shape."""
+    shape, grids of another shape and a negative budget."""
     from supereight_tpu_torch.ops import raycast_kernel as rk
     from supereight_tpu_torch.pipeline import raycast
     from supereight_tpu_torch.pipeline.constants import FAR_PLANE, NEAR_PLANE
@@ -1501,13 +1516,97 @@ def test_raycast_kernels_reject_what_they_do_not_take(cuda):
             rk.ray_scan(m, bad, field, view, plan, tmin, tmax, g)
     with pytest.raises(ValueError):
         rk.ray_scan(m, dense, field, view, plan, tmin[:-1], tmax, g)
+    with pytest.raises(ValueError):
+        rk.ray_scan(m, dense, field, view, plan, tmin, tmax, g, True, -1,
+                    False)
     scan = raycast.ray_scan_twin(m, dense, field, view, plan, tmin, tmax, g)
-    with pytest.raises(ValueError):    # a twin's scan has no tile counts
-        rk.ray_scan_second(m, dense, field, view, plan, scan, True, 8192,
-                           False)
     with pytest.raises(ValueError):
         rk.ray_refine_normals(m, dense, field, view, plan, scan.z, scan.hit,
                               "none", "hybrid")
+
+
+@pytest.mark.gpu
+def test_splat_bounds_one_launch_cleans_its_scratch(cuda):
+    """R1 (one launch, its inverse inside it) twice in a row on the same
+    operands and then on a 640x480 grid above kPoolSmemCells (the scratch
+    pool), with and without near_rescue, each bit for bit with its twin;
+    a launch a call and no ``pose_inv``; the encoded grid and its ticket
+    are zero after every call."""
+    import chip_smoke
+    from supereight_tpu_torch.ops import numerics_kernel
+    from supereight_tpu_torch.ops import raycast_kernel as rk
+    from supereight_tpu_torch.pipeline import raycast
+    from supereight_tpu_torch.pipeline.constants import FAR_PLANE, NEAR_PLANE
+    m, field, view, _ = _raycast_map(cuda, "headline")
+    for near_rescue in (True, False):
+        # the twin inverts the view by pose_inv on the card: before the count
+        want = raycast._splat_bounds_twin(m, field, view, 240, 320,
+                                          NEAR_PLANE, FAR_PLANE, near_rescue)
+        before = dict(rk.LAUNCHES)
+        inv_before = numerics_kernel.LAUNCHES["pose_inv"]
+        got = [rk.splat_bounds(m, field, view, 240, 320, NEAR_PLANE,
+                               FAR_PLANE, near_rescue) for _ in range(2)]
+        assert rk.LAUNCHES["splat_bounds"] == before["splat_bounds"] + 2
+        assert numerics_kernel.LAUNCHES["pose_inv"] == inv_before
+        for tmin, tmax, _ in got:
+            _same_bits(tmin, want[0])
+            _same_bits(tmax, want[1])
+        assert not bool(rk.scratch(view.device).enc.any())
+    assert chip_smoke.hold_splat_scratch(torch, "headline", m, field,
+                                         _RAYCAST_POSES["headline"],
+                                         cuda) == 0.0
+    assert not bool(rk.scratch(view.device).enc.any())
+
+
+@pytest.mark.gpu
+def test_scan_ranks_across_tile_counts(cuda):
+    """The merged scan (R2 with R3) against ``ray_scan_second_twin(
+    ray_scan_twin(...))`` bit for bit while the tile count changes from
+    call to call (75 at half resolution, 300 with ``full_res_scan``, 38 on
+    rank 1's strip of 2), at budgets 0, 64, one that cuts a tile, the
+    flagged rays' count and 8192, with and without the midsolve, and the
+    scan alone against ``ray_scan_twin``: each launch leaves the
+    look-back's status words and counters zero for the next."""
+    from supereight_tpu_torch.ops import raycast_kernel as rk
+    from supereight_tpu_torch.pipeline import raycast
+    from supereight_tpu_torch.pipeline.constants import FAR_PLANE, NEAR_PLANE
+    m, field, view, dense = _raycast_map(cuda, "headline")
+    tmin, tmax, g = rk.splat_bounds(m, field, view, 240, 320, NEAR_PLANE,
+                                    FAR_PLANE)
+    plans = [raycast.scan_plan(m, field, 240, 320, NEAR_PLANE, FAR_PLANE,
+                               1.6, 1.0, full, rows)
+             for full, rows in ((False, None), (True, None),
+                                (False, (120, 120)))]
+    for _ in range(2):
+        for plan in plans:
+            grids = (m, dense, field, view, plan, tmin, tmax, g)
+            first = raycast.ray_scan_twin(*grids)
+            flagged = int(first.need2.sum())
+            assert flagged > 0
+            for budget in (0, 64, flagged // 2 + 3, flagged, 8192):
+                for mid in (False, True):
+                    want = raycast.ray_scan_second_twin(
+                        m, dense, field, view, plan, first, True, budget,
+                        mid)
+                    got = rk.ray_scan(*grids, True, budget, mid)
+                    assert torch.equal(got.hit, want.hit)
+                    _same_bits(got.z, want.z)
+                    sc = rk.scratch(view.device)
+                    assert not bool(sc.status.any() or sc.ctl.any())
+            alone = rk.ray_scan(*grids)
+            assert torch.equal(alone.hit, first.hit)
+            _same_bits(alone.z, first.z)
+
+
+@pytest.mark.gpu
+def test_raycast_kernels_in_registers(cuda):
+    """R1 and the merged scan as built: no stack frame, no spills
+    (``-Xptxas -v``, ``chip_smoke.raycast_registers``)."""
+    import chip_smoke
+    props = chip_smoke.raycast_registers()
+    for name in ("splat_bounds", "ray_scan"):
+        p = props[name]
+        assert p["stack"] == p["spill_stores"] == p["spill_loads"] == 0
 
 
 @pytest.mark.gpu
@@ -1516,9 +1615,11 @@ def test_raycasting_stage_reads_nothing_back(cuda, preset):
     """``raycasting_stage`` after 12 frames of ``quality`` (no held view:
     ``pack_view`` runs) and of ``ofusion`` (the held bf16 view, hybrid
     normals) under ``torch.cuda.set_sync_debug_mode("error")``: no host
-    read; R1-R4 launched once each; the reference maps equal
-    ``raycast_twin``'s on the card bit for bit."""
+    read; R1, the merged scan (counted as R2 and R3) and R4 launched once
+    each, and no ``pose_inv``; the reference maps equal ``raycast_twin``'s
+    on the card bit for bit."""
     import chip_smoke
+    from supereight_tpu_torch.ops import numerics_kernel
     from supereight_tpu_torch.ops import raycast_kernel as rk
     from supereight_tpu_torch.pipeline import camera, raycast, system
     from supereight_tpu_torch.pipeline.constants import FAR_PLANE, NEAR_PLANE
@@ -1528,6 +1629,7 @@ def test_raycasting_stage_reads_nothing_back(cuda, preset):
     kd, neg_y = slam._k(chip_smoke.K)
     st = slam.state
     before = dict(rk.LAUNCHES)
+    inv_before = numerics_kernel.LAUNCHES["pose_inv"]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1537,6 +1639,7 @@ def test_raycasting_stage_reads_nothing_back(cuda, preset):
     torch.cuda.synchronize()
     assert {k: rk.LAUNCHES[k] - before[k] for k in before} == dict(
         splat_bounds=1, ray_scan=1, ray_scan_second=1, ray_refine_normals=1)
+    assert numerics_kernel.LAUNCHES["pose_inv"] == inv_before
     want = raycast.raycast_twin(
         st.map, slam.field, st.pose @ camera.inverse_camera_matrix(kd), 240,
         320, NEAR_PLANE, FAR_PLANE,

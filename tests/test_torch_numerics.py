@@ -137,3 +137,42 @@ def test_dot3_adds_in_a_fixed_order():
     got = numerics.dot3(torch.from_numpy(a), torch.from_numpy(b)).numpy()
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
     assert ((p[:, 0] + p[:, 2]) + p[:, 1] != want).any()
+
+
+@pytest.mark.parametrize("n", [3, 5])
+def test_inv_raises_where_it_is_not_xlas(n):
+    """At 3 and 5 rows the transcribed steps are not XLA's inverse
+    (OpenBLAS solves in blocks of 1, 2 and 4 there): ``numerics.inv``,
+    ``inv_twin`` and the kernel's wrapper ``pose_inv`` (before it would
+    launch) raise ValueError rather than give other bits."""
+    from supereight_tpu_torch.ops import numerics_kernel
+    m = torch.from_numpy(np.random.default_rng(n).standard_normal(
+        (n, n)).astype(np.float32))
+    for fn in (numerics.inv, numerics.inv_twin):
+        with pytest.raises(ValueError, match="rows"):
+            fn(m)
+    with pytest.raises(ValueError, match="rows"):
+        numerics.check_inv_size("pose_inv", m)
+    before = dict(numerics_kernel.LAUNCHES)
+    with pytest.raises(ValueError):
+        numerics_kernel.pose_inv(m)     # a CPU matrix: no kernel either
+    assert numerics_kernel.LAUNCHES == before
+
+
+@pytest.mark.parametrize("shape", [(4, 3), (2, 2, 2), (0, 0)])
+def test_inv_raises_for_a_matrix_that_is_not_square(shape):
+    with pytest.raises(ValueError, match="rows"):
+        numerics.inv(torch.zeros(shape))
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_inv_keeps_xlas_bits_at_its_sizes(n):
+    """At 1, 2 and 4 rows ``numerics.inv`` is XLA's CPU inverse, bit for
+    bit, on random matrices."""
+    jinv = jax.jit(jnp.linalg.inv)
+    rng = np.random.default_rng(10 + n)
+    for _ in range(20):
+        m = rng.standard_normal((n, n)).astype(np.float32)
+        got = numerics.inv(torch.from_numpy(m)).numpy()
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      np.asarray(jinv(m)).view(np.int32))

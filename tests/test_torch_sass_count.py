@@ -111,6 +111,12 @@ def test_issue_lower_bound_sums_warp_classes():
      "empty"),
     ("_ZN46_GLOBAL__N__3e1f0c2a_11_numerics_cu_5b1a7d3c14inverse_kernelILi4EE"
      "EvPKfPf", "inverse<4>"),
+    ("_ZN45_GLOBAL__N__7c1e2f0a_10_raycast_cu_9d2b4e1119splat_bounds_kernel"
+     "ENS_5SplatE", "splat_bounds"),
+    ("_ZN45_GLOBAL__N__7c1e2f0a_10_raycast_cu_9d2b4e1115ray_scan_kernelENS_4"
+     "RaysE", "ray_scan"),
+    ("_ZN45_GLOBAL__N__7c1e2f0a_10_raycast_cu_9d2b4e1125ray_refine_normals_"
+     "kernelENS_6FinishE", "ray_refine_normals"),
 ])
 def test_kernel_names(func, name):
     assert sc.kernel_name(func) == name
