@@ -44,9 +44,12 @@ GPU.
    (``csrc/integrate.cu``, two launches) on the headline map after 12
    frames at its budget, 3072, and at one its candidates overflow (each
    preset's run holds it again on its own map: 6144, 24576 and 196608
-   slots); ``update_nodes`` (``csrc/integrate.cu``, one launch for every
-   node level) on random node tables at 256^3 and 1024^3 for both fields
-   (each preset's run holds it again on its own map).
+   slots); ``update_nodes`` (``csrc/integrate.cu``: inside the fusion's
+   launch, alone a fusion launch with no rows) on random node
+   tables at 256^3 and 1024^3 for both fields, alone and inside the
+   fusion's launch at 3072 slots of a map of the frame's blocks, timed
+   beside the two launches apart (each preset's run holds it again on its
+   own map inside its fusion).
    Then the raycast (``csrc/raycast.cu``), each kernel against its twin
    bit for bit on the same operands and the whole ``raycast`` against
    ``raycast_twin`` on the card and against ``raycast`` on CPU copies:
@@ -54,8 +57,9 @@ GPU.
    twice in a row on the same operands, and on a 640x480 grid above
    kPoolSmemCells), R2 ``ray_scan`` alone, the merged launch of R2 with R3
    (``ray_scan_second``: the second window and the midsolve, ranked by a
-   look-back on the card) and R4 ``ray_refine_normals`` (R1's and the
-   merged scan's ``-Xptxas -v`` lines: no stack frame, no spills) on the
+   look-back on the card) and R4 ``ray_refine_normals`` (in 2-D tiles;
+   R1's, the merged scan's and R4's ``-Xptxas -v`` lines: no stack
+   frame, no spills) on the
    headline map after RAYCAST_FRAMES frames in every knob group of
    RAYCAST_MODES (every normals and refine mode of the presets and of
    phase F, the second window cut by a budget of RAYCAST_BUDGET, rank 1's
@@ -65,10 +69,13 @@ GPU.
    preset's and phase-F run holds them again on its final map from its
    last pose.
 3. Holds the SDF and the OFusion fusion kernel, each updating a map's
-   block table in place, against their plain PyTorch twins on clones of
-   the same table at main-path shapes (3072 distinct slots of a real map,
-   a 320x240 depth): whole tables and ``active`` compared, with the
-   median device time of each and the kernel's bound.
+   block table in place and the node pyramid in the same launch, against
+   their plain PyTorch twins (then ``update_nodes_twin``) on clones of the
+   same table at main-path shapes (3072 distinct slots of a real map, a
+   320x240 depth): whole tables, ``active`` and the node tables compared,
+   with the median device time of each, of the rows and the nodes apart,
+   the kernel's bound and its ``-Xptxas -v`` line (at most 40 registers,
+   no more spill stores than before the node update went in).
 4. Holds the gather-probe kernels (K2 ``lane_shuffle_sum``, K3
    ``slab_row_sum``) against their twins at the probe's shapes and at a
    second shape each (K2 at 65536 rows, K3 at 8192 slabs), bit for bit,
@@ -84,7 +91,8 @@ GPU.
    level and ``icp_track_levels`` never; on the presets and F,
    ``build_pyramid`` at least once a frame with ICP (one launch a call),
    ``pose_inv`` at least once a frame with ICP and once an integrated
-   frame, ``update_nodes`` once an integrated frame and ``frustum_select``
+   frame, ``update_nodes`` once an integrated frame and once inside each
+   fusion launch, and ``frustum_select``
    once an integrated frame on the budget branch; on every path R1, R2
    and R4 once a raycast that fires, R3 (its count: the launches of R2
    that ran the second window or the midsolve) too where one of those is
@@ -358,6 +366,12 @@ KERNEL_ORDER = ("fuse_sdf", "fuse_ofusion", "lane_shuffle_sum",
 #: the 4x4 inverse, the fusion's frustum selection and the node pyramid's
 #: update, each held bit for bit to its twin
 GLUE = ("build_pyramid", "pose_inv", "frustum_select", "update_nodes")
+#: entries of the kernels line whose launches run inside another entry's
+#: kernel (marked ``launches_counted_in``): R2 is the merged scan's kernel
+#: (timed with both knobs off), the node update runs in the fusions'
+#: launches (timed alone, a fusion launch with no rows)
+LAUNCHES_COUNTED_IN = {"ray_scan": "ray_scan_second",
+                       "update_nodes": ["fuse_sdf", "fuse_ofusion"]}
 #: the cached sequences whose every pose pose_inv is held on
 SEQUENCES = ("synthetic_256_frames", "synthetic_256_frames_trans",
              "synthetic_256_frames_noisy")
@@ -376,6 +390,9 @@ PYRAMID_FLOPS = 43
 INV_FLOPS = 200
 SELECT_FLOPS = 35
 NODE_FLOPS = {"sdf": 49, "ofusion": 80}
+#: a node cell's bytes: its two channels and flag read, its two new
+#: channels written (the depth image is counted once, beside the cells)
+NODE_CELL_BYTES = 4 + 4 + 1 + 4 + 4
 FUSION = ("fuse_sdf", "fuse_ofusion")
 #: the sharded frame's ICP kernels (a trip: kernel A, the all_reduce,
 #: kernel B), and the one-device frame's (every trip in one launch)
@@ -434,7 +451,12 @@ def pivot_matrices() -> dict:
     (float32, from a seed): the 24 row orders of a diagonally dominant 4x4,
     each a pivot sequence of its own, and for each n = 1..8 a random
     matrix, a zero pivot in the first column (and in the second), a NaN
-    pivot and a singular matrix (row 1 twice row 0)."""
+    pivot and a singular matrix (row 1 twice row 0); and at 1, 2 and 4
+    rows, where the inverse is XLA's, a subnormal, an infinite and a huge
+    first pivot (its reciprocal subnormal), subnormal products in the
+    second column, every entry subnormal, an infinite last diagonal entry,
+    and a zero that an underflowed product leaves in the LU's triangular
+    solve (XLA's CPU code flushes subnormals to zero: numerics.inv_twin)."""
     rng = np.random.default_rng(11)
     base = np.diag([8.0, 4.0, 2.0, 1.0]) + rng.uniform(-0.3, 0.3, (4, 4))
     out = {"rows " + "".join(map(str, p)): base[list(p)]
@@ -452,6 +474,27 @@ def pivot_matrices() -> dict:
             z[:, 1] = 0.0
             out[f"singular {n}"] = z = m()
             z[1] = 2.0 * z[0]
+    rng = np.random.default_rng(12)
+    for n in (1, 2, 4):
+        def m():
+            return rng.normal(size=(n, n)).astype(np.float32)
+        for tag, v in (("subnormal", 1e-39), ("infinite", np.inf),
+                       ("huge", -3e38)):
+            out[f"{tag} pivot {n}"] = z = m()
+            z[:, 0] = 0.0
+            z[0, 0] = v
+        if n > 1:
+            out[f"subnormal products {n}"] = z = m()
+            z[:, 1] = 0.0
+            z[1, 1] = 2e-38
+            out[f"all subnormal {n}"] = m() * np.float32(1e-39)
+            out[f"infinite diagonal {n}"] = z = m()
+            z[n - 1, n - 1] = -np.inf
+    out["flushed zero 4"] = np.array(
+        [[9.9999997e-21, 1.0e+20, 1.2687483e-37, 1.3059919e+22],
+         [6.1610434e-13, 9.9999997e-20, 5.4581766e+14, -8.0940120e-40],
+         [1.2616628e+20, -1.5375848e-13, 2.0702150e-07, 1.5e-38],
+         [-2.4650041e-12, 4.6421881e+30, -0.0, 1.9351799e-23]])
     return {k: np.asarray(v, np.float32) for k, v in out.items()}
 
 
@@ -552,13 +595,18 @@ def clone_tables(m):
 
 def hold_kernel(torch, label, kernel, m, field, frame, now, slots=None,
                 view=None):
-    """The in-place fusion kernel and its twin on clones of ``m``'s
-    tables (and of ``view``) with ``slots`` (None: every live slot).
-    Whole tables and ``active`` must agree (the SDF and its view, visible
-    and timestamp bit for bit, occupancy within OF_RTOL / OF_ATOL), the
-    slots not fused must keep their rows and flags, and some voxel must
-    fuse.  Then both are timed, launching again on their clones.  Returns
-    dict(rows, max_abs_err, ms, plain_ms, bound_ms, bound_by, issue_ms)."""
+    """The in-place fusion kernel with the node pyramid's update in its
+    launch (``nodes=True``, as the main path runs it) and its twin (the
+    fusion's, then ``update_nodes_twin``) on clones of ``m``'s tables (and
+    of ``view``) with ``slots`` (None: every live slot).  Whole tables and
+    ``active`` must agree (the SDF and its view, visible and timestamp bit
+    for bit, occupancy within OF_RTOL / OF_ATOL), every node level's new
+    tables bit for bit, the slots not fused must keep their rows and
+    flags, and some voxel must fuse.  Then both are timed, launching again
+    on their clones, and the kernel also without the nodes (``rows_ms``)
+    and with the nodes alone (``nodes_ms``: ``update_nodes``, a launch with
+    no rows).  Returns dict(rows, max_abs_err, ms, plain_ms, rows_ms,
+    nodes_ms, bound_ms, bound_by, issue_ms)."""
     from supereight_tpu_torch.core import morton, octree
     from supereight_tpu_torch.ops import integrate_kernel as ik
     from supereight_tpu_torch.probes import sass_count
@@ -571,11 +619,14 @@ def hold_kernel(torch, label, kernel, m, field, frame, now, slots=None,
     km, tm = clone_tables(m), clone_tables(m)
     kw = [{}, {}] if view is None else [dict(view=view.clone()),
                                          dict(view=view.clone())]
-    run = lambda: fn(km, *frame, *params, slots=slots, **kw[0])
-    run_plain = lambda: plain(tm, *frame, *params, slots=slots, **kw[1])
-    run()
-    run_plain()
+    run = lambda: fn(km, *frame, *params, slots=slots, nodes=True, **kw[0])
+    run_plain = lambda: plain(tm, *frame, *params, slots=slots, nodes=True,
+                              **kw[1])
+    got_nodes = run()
+    want_nodes = run_plain()
     torch.cuda.synchronize()
+    node_err = hold_node_tables(torch, label, kernel, m, got_nodes,
+                                want_nodes)
 
     rows = (torch.nonzero(octree.slot_mask(m) & m.active)[:, 0]
             if slots is None else slots[slots >= 0].long())
@@ -619,6 +670,10 @@ def hold_kernel(torch, label, kernel, m, field, frame, now, slots=None,
     # live set depends on `active`, which each launch rewrites
     ms = median_ms(run, lambda: km.active.copy_(m.active))
     plain_ms = median_ms(run_plain, lambda: tm.active.copy_(m.active))
+    rows_ms = median_ms(lambda: fn(km, *frame, *params, slots=slots,
+                                   **kw[0]),
+                        lambda: km.active.copy_(m.active))
+    nodes_ms = median_ms(lambda: ik.update_nodes(km, field, *frame, now))
 
     # What the function needs to move: whether a voxel updates depends on
     # the pose, the depth and the field, never on the stored values, so
@@ -635,8 +690,11 @@ def hold_kernel(torch, label, kernel, m, field, frame, now, slots=None,
         + n * (8 + 1) + (m.capacity + 4 if slots is None
                          else 4 * slots.numel()) \
         + depth.numel() * 4 + 2 * 64
+    cells = sum(a.numel() for a in m.node_alloc[1:])
+    nbytes += cells * NODE_CELL_BYTES
     b_ms, b_by = bound(nbytes, n * 512 * PROJECT_FLOPS
-                       + fused * UPDATE_FLOPS[kernel])
+                       + fused * UPDATE_FLOPS[kernel]
+                       + cells * NODE_FLOPS[field.name])
     # the fewest instructions the launch's warps can issue, from the
     # compiled code and which voxels of each warp this data updates
     bc = torch.stack(morton.block_key_decode(m.keys[rows]), -1)
@@ -648,14 +706,35 @@ def hold_kernel(torch, label, kernel, m, field, frame, now, slots=None,
         bodies[kernel][0], sass_count.warp_classes(ds > 0, updated[rows]),
         dead_warps, issue_per_s)
     del ds
-    print(f"# {label}: {kernel} median device time over {TIMED_RUNS} runs "
-          f"at {n} rows: kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms; "
+    print(f"# {label}: {kernel} with the node update in its launch, "
+          f"median device time over {TIMED_RUNS} runs at {n} rows and "
+          f"{cells} node cells: {ms:.4f} ms (the rows alone {rows_ms:.4f}, "
+          f"the nodes alone {nodes_ms:.4f}, the two launches apart "
+          f"{rows_ms + nodes_ms:.4f}), plain twins {plain_ms:.4f} ms; "
           f"bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB of "
-          f"{fused} updated voxels), {100 * b_ms / ms:.0f} % of it; "
-          f"issue lower bound {issue_ms:.4f} ms, "
-          f"{100 * issue_ms / ms:.0f} % of it")
-    return dict(rows=n, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+          f"{fused} updated voxels and the node tables), "
+          f"{100 * b_ms / ms:.0f} % of it; the rows' issue lower bound "
+          f"{issue_ms:.4f} ms, {100 * issue_ms / ms:.0f} % of it")
+    return dict(rows=n, max_abs_err=max(max_err, node_err), ms=ms,
+                plain_ms=plain_ms, rows_ms=rows_ms, nodes_ms=nodes_ms,
                 bound_ms=b_ms, bound_by=b_by, issue_ms=issue_ms)
+
+
+def hold_node_tables(torch, label, kernel, m, got, want) -> float:
+    """Every node level's new tables of a fusion with ``nodes`` (``got``)
+    against the twin's (``want``), bit for bit, and the map's own node
+    tables untouched.  Returns the max abs err (0)."""
+    err = 0.0
+    for level in range(1, m.block_level + 1):
+        for name in want[level]:
+            e, same = bits_err(torch, got[level][name], want[level][name])
+            err = max(err, e)
+            if not same:
+                fail(f"{label}: {kernel}'s node update, level {level} "
+                     f"{name}, differs from update_nodes_twin by {e:.3g}")
+            if got[level][name] is m.node_values[level][name]:
+                fail(f"{label}: {kernel} wrote the map's node tables")
+    return err
 
 
 def synthetic_table(torch, m, n_rows: int, rows=None):
@@ -700,6 +779,7 @@ def check_fusion_kernel(torch, kernel, preset, frames, depths, poses, dev):
     label = f"3072 slots of the {preset} map after {frames} frames " \
         f"({int(slam.state.map.n_blocks)} blocks)"
     r = hold_kernel(torch, label, kernel, m, slam.field, frame, now, slots)
+    regs = fusion_registers()[kernel]
     replaces = ("supereight_tpu/ops/integrate_kernel.py:38"
                 if kernel == "fuse_sdf"
                 else "supereight_tpu/pipeline/integration.py:396")
@@ -707,7 +787,44 @@ def check_fusion_kernel(torch, kernel, preset, frames, depths, poses, dev):
                 source="supereight_tpu_torch/csrc/integrate.cu",
                 replaces=replaces, launches=0, max_abs_err=r["max_abs_err"],
                 ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                bound_by=r["bound_by"], library_ms=None)
+                bound_by=r["bound_by"], library_ms=None,
+                rows_ms=r["rows_ms"], nodes_ms=r["nodes_ms"],
+                registers=regs.get("registers"))
+
+
+#: the fusion kernels' register budget: __launch_bounds__(128, 12)
+FUSION_MAX_REGISTERS = 40
+#: the fusion kernels' spill stores (bytes, -Xptxas -v): fuse_sdf's as
+#: before the node update went into its launch, fuse_ofusion's 28 then and
+#: 48 with the node path, whose spills cost the rows less than operands
+#: read in place (__grid_constant__) that avoided them
+FUSION_MAX_SPILL_STORES = {"fuse_sdf": 20, "fuse_ofusion": 48}
+
+
+@functools.lru_cache(maxsize=None)
+def fusion_registers():
+    """The fusion kernels as built (each with the node pyramid's CTAs):
+    their ``-Xptxas -v`` registers, stack frame and spills; fails on more
+    than FUSION_MAX_REGISTERS registers or more spill stores than
+    FUSION_MAX_SPILL_STORES.  {kernel: its properties}."""
+    from supereight_tpu_torch.probes import sass_count
+    props = {sass_count.kernel_name(f): p for f, p in
+             sass_count.ptxas_properties(
+                 sass_count.ptxas_log("integrate")).items() if "stack" in p}
+    for name in FUSION:
+        if name not in props:
+            fail(f"integrate: no -Xptxas -v line for {name}")
+        p = props[name]
+        print(f"# {name} (-Xptxas -v, the node update inside): "
+              f"{p.get('registers')} registers, {p['stack']} bytes stack "
+              f"frame, {p['spill_stores']} bytes spill stores, "
+              f"{p['spill_loads']} bytes spill loads")
+        if p["spill_stores"] > FUSION_MAX_SPILL_STORES[name] or \
+                p.get("registers", 0) > FUSION_MAX_REGISTERS:
+            fail(f"{name}: spills more than {FUSION_MAX_SPILL_STORES[name]}"
+                 f" bytes or uses more than {FUSION_MAX_REGISTERS} "
+                 "registers")
+    return props
 
 
 def bits_err(torch, got, want) -> float:
@@ -954,10 +1071,36 @@ def node_map(torch, size, field, dev, seed):
     return m.replace(node_values=values, node_alloc=alloc)
 
 
+def fusion_map(torch, size, field, dev, seed, depth, pose, Km):
+    """A ``size``^3 map for a fusion with the node update: the blocks the
+    field's allocation takes for the frame (``depth``, camera-to-world
+    ``pose``, ``Km``), every row's voxels random in the field's range, and
+    :func:`node_map`'s random node levels."""
+    from supereight_tpu_torch.core import octree
+    from supereight_tpu_torch.pipeline import integration
+    rng = np.random.default_rng(seed)
+    m = octree.init(size, 4.8, field.channels, dev,
+                    capacity=6144 if size <= 256 else 32768)
+    if field.name == "sdf":
+        m = integration.allocate_sdf(m, depth, pose, Km, field.alloc_band())
+        vals = (rng.uniform(-1, 1, (m.capacity, 512)),
+                rng.integers(0, 12, (m.capacity, 512)))
+    else:
+        m = integration.allocate_ofusion(m, depth, pose, Km,
+                                         field.alloc_band())
+        vals = (rng.uniform(-20, 20, (m.capacity, 512)),
+                rng.uniform(0, 0.9, (m.capacity, 512)))
+    nm = node_map(torch, size, field, dev, seed)
+    return m.replace(
+        voxels={c.name: torch.from_numpy(v.astype(np.float32)).to(dev)
+                for c, v in zip(field.channels, vals)},
+        node_values=nm.node_values, node_alloc=nm.node_alloc)
+
+
 def hold_nodes(torch, label, m, field, frame, now, timed=False):
-    """``update_nodes`` (one launch) against its twin on the card: every
-    node level's tables bit for bit.  Returns (max abs err, (ms, plain
-    ms, bound) when ``timed``)."""
+    """``update_nodes`` (on the card the fusion kernel's launch with no
+    rows) against its twin: every node level's tables bit for bit.
+    Returns (max abs err, (ms, plain ms, bound) when ``timed``)."""
     from supereight_tpu_torch.ops import integrate_kernel as ik
     got = ik.update_nodes(m, field, *frame, now)
     want = ik.update_nodes_twin(m, field, *frame, now)
@@ -977,7 +1120,8 @@ def hold_nodes(torch, label, m, field, frame, now, timed=False):
           f"changed")
     if not timed:
         return err, None
-    nbytes = cells * (4 + 4 + 1 + 4 + 4) + 2 * 64
+    nbytes = cells * NODE_CELL_BYTES + min(cells, frame[0].numel()) * 4 \
+        + 2 * 64
     b = bound(nbytes, cells * NODE_FLOPS[field.name])
     return err, (median_ms(lambda: ik.update_nodes(m, field, *frame, now)),
                  median_ms(lambda: ik.update_nodes_twin(m, field, *frame,
@@ -991,10 +1135,14 @@ def check_glue_kernels(torch, depths, poses, dev):
     headline map after 12 frames at its budget and at one its candidates
     overflow (the presets' runs hold it again on their own maps),
     ``update_nodes`` on random node tables at 256^3 and 1024^3 for both
-    fields with the headline's frame 30.  Returns their JSON entries."""
+    fields with the headline's frame 30, alone (a fusion launch with no
+    rows) and inside the fusion's launch at the budget's 3072 slots of a
+    map the frame allocated (``fusion_map``), beside the two launches
+    apart.  Returns their JSON entries."""
     from supereight_tpu_torch.core import numerics
     from supereight_tpu_torch.fields import OFusionField, SDFField
     from supereight_tpu_torch.ops import gather_probe as gp
+    from supereight_tpu_torch.ops import integrate_kernel as ik
     from supereight_tpu_torch.pipeline import camera, preprocessing
     floor = median_ms(lambda: gp.empty_launch(dev))
     out = {"build_pyramid": hold_pyramid(torch, depths, dev, floor),
@@ -1020,9 +1168,10 @@ def check_glue_kernels(torch, depths, poses, dev):
 
     depth = preprocessing.mm_to_meters(
         torch.from_numpy(depths[30].astype(np.int32)).to(dev), (240, 320))
-    frame = (depth, numerics.inv(torch.from_numpy(poses[30]).to(dev)), Km)
+    pose = torch.from_numpy(poses[30]).to(dev)
+    frame = (depth, numerics.inv(pose), Km)
     now = float(np.float32(1.0 / 30.0) * np.float32(30))
-    err, entry = 0.0, None
+    err, entry, merged = 0.0, None, {}
     for size in (256, 1024):
         for fname in ("sdf", "ofusion"):
             field = SDFField(mu=0.1) if fname == "sdf" else \
@@ -1038,10 +1187,21 @@ def check_glue_kernels(torch, depths, poses, dev):
             if size == 256 and fname == "sdf":
                 entry = t
             del nm
+            fm = fusion_map(torch, size, field, dev, size, depth, pose, Km)
+            slots, _ = ik.frustum_select(fm, frame[1], Km, (240, 320), 3072)
+            kernel = "fuse_ofusion" if fname == "ofusion" else "fuse_sdf"
+            r = hold_kernel(torch, f"{size}^3 {fname} map of the frame's "
+                            f"{int(fm.n_blocks)} blocks, random node tables",
+                            kernel, fm, field, frame, now, slots)
+            err = max(err, r["max_abs_err"])
+            merged[f"{kernel}_{size}"] = dict(
+                ms=r["ms"], rows_ms=r["rows_ms"], nodes_ms=r["nodes_ms"])
+            del fm, slots
     out["update_nodes"] = glue_entry(
         "update_nodes", "supereight_tpu_torch/csrc/integrate.cu",
         "supereight_tpu/pipeline/integration.py:581", err, entry[0],
-        entry[1], entry[2], None, floor)
+        entry[1], entry[2], None, floor, inside_fusion=merged,
+        launches_counted_in=LAUNCHES_COUNTED_IN["update_nodes"])
     torch.cuda.empty_cache()
     return out
 
@@ -1050,8 +1210,9 @@ def check_glue_launched(label, counts, cfg, icp_frames, integrated):
     """The glue kernels on a one-device path: the pyramid once every frame
     on which ICP runs (one launch builds every level; the frame-to-frame
     publications add theirs), the inverse on each such frame and each
-    integrated frame, the node update once an integrated frame, the
-    frustum selection once an integrated frame on the budget branch."""
+    integrated frame, the node update once an integrated frame and inside
+    each fusion launch (one count each), the frustum selection once an
+    integrated frame on the budget branch."""
     budget = 0 < cfg.integrate_budget < cfg.block_capacity
     want = dict(build_pyramid=icp_frames,
                 pose_inv=icp_frames + integrated,
@@ -1060,6 +1221,10 @@ def check_glue_launched(label, counts, cfg, icp_frames, integrated):
     got = {k: counts.get(k, 0) for k in GLUE}
     print(f"# {label}: glue LAUNCHES {got} ({icp_frames} ICP frames, "
           f"{integrated} integrated)")
+    fusions = sum(counts.get(k, 0) for k in FUSION)
+    if got["update_nodes"] != fusions:
+        fail(f"{label}: {got['update_nodes']} node updates, not one inside "
+             f"each of the {fusions} fusion launches")
     for k, n in want.items():
         if got[k] < n or (k in ("update_nodes", "frustum_select")
                           and got[k] != n):
@@ -1500,12 +1665,21 @@ def hold_splat_scratch(torch, label, m, field, pose, dev):
 
 def raycast_registers():
     """The raycast kernels as built: each one's ``-Xptxas -v`` registers,
-    stack frame and spills; fails if R1 or the merged scan has a stack
+    stack frame and spills; fails if R1, the merged scan or R4 has a stack
     frame or spills.  {kernel: its properties}."""
     from supereight_tpu_torch.probes import sass_count
-    props = {sass_count.kernel_name(f): p for f, p in
-             sass_count.ptxas_properties(
-                 sass_count.ptxas_log("raycast")).items() if "stack" in p}
+    props = {}
+    for f, p in sass_count.ptxas_properties(
+            sass_count.ptxas_log("raycast")).items():
+        if "stack" not in p:
+            continue
+        # R4 is built for each view type: keep the heavier instantiation
+        name = sass_count.kernel_name(f)
+        if name not in props or (p["stack"], p["spill_stores"],
+                                 p.get("registers", 0)) > (
+                props[name]["stack"], props[name]["spill_stores"],
+                props[name].get("registers", 0)):
+            props[name] = p
     for name in ("splat_bounds", "ray_scan", "ray_refine_normals"):
         if name not in props:
             fail(f"raycast: no -Xptxas -v line for {name}")
@@ -1513,8 +1687,7 @@ def raycast_registers():
         print(f"# {name} (-Xptxas -v): {p.get('registers')} registers, "
               f"{p['stack']} bytes stack frame, {p['spill_stores']} bytes "
               f"spill stores, {p['spill_loads']} bytes spill loads")
-        if name != "ray_refine_normals" and (
-                p["stack"] or p["spill_stores"] or p["spill_loads"]):
+        if p["stack"] or p["spill_stores"] or p["spill_loads"]:
             fail(f"{name}: goes through local memory")
     return props
 
@@ -1561,7 +1734,8 @@ def check_raycast_kernels(torch, depths, poses, dev):
                     host_ms=t["host_ms"],
                     registers=regs[RAYCAST_KERNEL[n]].get("registers"))
                     for n, t in r.items()}
-                out["ray_scan"]["launches_counted_in"] = "ray_scan_second"
+                out["ray_scan"]["launches_counted_in"] = \
+                    LAUNCHES_COUNTED_IN["ray_scan"]
             for n, t in r.items():
                 out[n]["max_abs_err"] = max(out[n]["max_abs_err"],
                                             t["max_abs_err"])
@@ -2434,7 +2608,8 @@ def check_path_kernel(torch, name, slam, cfg):
     time of that launch is the fusion step's.  When the candidates are
     fewer than the budget, the kernel is held again at the budget's shape:
     a table of ``budget`` distinct slots repeating the candidates' blocks
-    (`synthetic_table`).  Returns (kernel, max abs err)."""
+    (`synthetic_table`).  The node update rides in each launch, held on
+    the run's own node tables.  Returns (kernel, max abs err)."""
     from supereight_tpu_torch.core import numerics
     from supereight_tpu_torch.pipeline import camera, integration
 
@@ -2454,8 +2629,10 @@ def check_path_kernel(torch, name, slam, cfg):
     r = hold_kernel(torch, name, kernel, m, field, frame, now, slots, view)
     print(f"# {name}: fusion step (in-place {kernel} on the run's "
           f"{r['rows']} {'live' if slots is None else 'listed'} slots"
-          f"{', held view' if view is not None else ''}) device time "
-          f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
+          f"{', held view' if view is not None else ''}, the node update "
+          f"inside) device time {r['ms']:.4f} ms (two launches apart "
+          f"{r['rows_ms'] + r['nodes_ms']:.4f}), bound "
+          f"{r['bound_ms']:.4f} ms")
     max_err = r["max_abs_err"]
     listed = None if slots is None else slots[slots >= 0]
     if listed is not None and listed.numel() < cfg.integrate_budget:
@@ -2472,7 +2649,6 @@ def check_path_kernel(torch, name, slam, cfg):
         cand, _ = hold_select(torch, name, m, T_cw, Km, depth.shape,
                               cfg.integrate_budget)
         hold_select(torch, name, m, T_cw, Km, depth.shape, max(cand // 2, 1))
-    hold_nodes(torch, name, m, field, frame, now)
     return kernel, max_err
 
 

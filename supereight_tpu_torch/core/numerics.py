@@ -153,25 +153,60 @@ def inv(M: torch.Tensor) -> torch.Tensor:
     return numerics_kernel.pose_inv(M)
 
 
+_FLT_MIN = np.float32(np.finfo(np.float32).tiny)
+
+
+def _flush(x) -> np.float32:
+    """A subnormal float32 as the signed zero that x86's flush-to-zero and
+    denormals-are-zero modes make of it; any other value unchanged."""
+    x = np.float32(x)
+    if x != 0 and abs(x) < _FLT_MIN:
+        return np.float32(math.copysign(0.0, float(x)))
+    return x
+
+
+def _fma_ftz(a, b, c) -> np.float32:
+    return _flush(_fma_host(_flush(a), _flush(b), _flush(c)))
+
+
+def _sub_ftz(a, b) -> np.float32:
+    return _flush(_flush(a) - _flush(b))
+
+
+def _mul_ftz(a, b) -> np.float32:
+    with np.errstate(all="ignore"):
+        return _flush(_flush(a) * _flush(b))
+
+
+def _div_ftz(a, b) -> np.float32:
+    with np.errstate(all="ignore"):
+        return _flush(_flush(a) / _flush(b))
+
+
 def inv_twin(M: torch.Tensor) -> torch.Tensor:
     """:func:`inv` in plain Python on the host: LAPACK's ``getrf`` and
     ``getrs`` (an identity right-hand side) as the OpenBLAS that the JAX
     package calls computes them.  The LU is left-looking with partial
     pivoting (the first largest pivot), the dot products of its triangular
-    solve taken from the last term to the first, those of its column
-    update from the first, each a multiply-add chain from 0, and the
-    column scaled by the pivot's reciprocal (neither swapped nor scaled
-    where the pivot is 0 or NaN); the solves run column-wise axpys of
-    multiply-adds, the upper one multiplying by the diagonal's
-    reciprocals.  The same bits for a matrix on any device (read back to
-    the host), returned on ``M``'s device.  These are XLA's bits for
-    matrices of 1, 2 or 4 rows (every pivot order, zero and NaN pivots,
-    singular matrices; ``tests/test_torch_glue.py``), not for 3 or more
-    than 4 rows, where OpenBLAS's triangular solve takes the rows in
-    blocks of 1, 2 and 4 with a rounded product between blocks and its LU
-    adds dot products of three terms or more in another order: so it
-    raises ValueError at any other size.  Nor are they for a subnormal or
-    infinite pivot."""
+    solve taken from the last term to the first (a zero result is +0, as a
+    sum over vector lanes leaves it), those of its column update from the
+    first, each a multiply-add chain from 0, and the column scaled by the
+    pivot's reciprocal (neither swapped nor scaled where the pivot is 0 or
+    NaN; set to 0 where the reciprocal is 0, as BLAS ``scal`` by 0 does);
+    the solves run column-wise axpys of multiply-adds, the upper one
+    multiplying by the diagonal's reciprocals.  XLA runs its CPU code with
+    flush-to-zero and denormals-are-zero set, so every operation here reads
+    a subnormal operand as a signed zero and flushes a subnormal result to
+    one (a subnormal pivot is a zero pivot; LAPACK's ``sfmin`` branch, which
+    divides by a pivot below FLT_MIN, is never taken).  The same bits for a
+    matrix on any device (read back to the host), returned on ``M``'s
+    device.  These are XLA's bits for matrices of 1, 2 or 4 rows (every
+    pivot order; zero, NaN, subnormal, infinite and huge pivots; singular
+    matrices; ``tests/test_torch_glue.py``), not for 3 or more than 4 rows,
+    where OpenBLAS's triangular solve takes the rows in blocks of 1, 2 and
+    4 with a rounded product between blocks and its LU adds dot products of
+    three terms or more in another order: so it raises ValueError at any
+    other size."""
     check_inv_size("inv", M)
     A = M.detach().to("cpu", torch.float32).numpy()
     n = A.shape[0]
@@ -181,7 +216,7 @@ def inv_twin(M: torch.Tensor) -> torch.Tensor:
     def dot(row, col, ks):
         t = zero
         for k in ks:
-            t = _fma_host(row[k], col[k], t)
+            t = _fma_ftz(row[k], col[k], t)
         return t
 
     piv = []
@@ -190,18 +225,19 @@ def inv_twin(M: torch.Tensor) -> torch.Tensor:
         for i, p in enumerate(piv):
             b[i], b[p] = b[p], b[i]
         for i in range(1, j):
-            b[i] = b[i] - dot(A[i], b, range(i - 1, -1, -1))
+            b[i] = _sub_ftz(b[i], dot(A[i], b, range(i - 1, -1, -1)) + zero)
         for i in range(j, n):
-            b[i] = b[i] - dot(A[i], b, range(j))
-        p = j + max(range(n - j), key=lambda i: (abs(b[j + i]), -i))
+            b[i] = _sub_ftz(b[i], dot(A[i], b, range(j)))
+        p = j + max(range(n - j), key=lambda i: (abs(_flush(b[j + i])), -i))
         piv.append(p)
         for i in range(n):
             A[i][j] = b[i]
-        if A[p][j] != 0 and A[p][j] == A[p][j]:
-            r = one / A[p][j]
+        pivot = _flush(A[p][j])
+        if pivot != 0 and pivot == pivot:
+            r = _div_ftz(one, pivot)
             A[j][:j + 1], A[p][:j + 1] = A[p][:j + 1], A[j][:j + 1]
             for i in range(j + 1, n):
-                A[i][j] = A[i][j] * r
+                A[i][j] = _mul_ftz(A[i][j], r) if r != 0 else zero
     X = [[one if i == c else zero for c in range(n)] for i in range(n)]
     for i, p in enumerate(piv):
         X[i], X[p] = X[p], X[i]
@@ -209,11 +245,11 @@ def inv_twin(M: torch.Tensor) -> torch.Tensor:
         x = [X[i][c] for i in range(n)]
         for i in range(n):
             for k in range(i + 1, n):
-                x[k] = _fma_host(-x[i], A[k][i], x[k])
+                x[k] = _fma_ftz(-x[i], A[k][i], x[k])
         for i in range(n - 1, -1, -1):
-            x[i] = x[i] * (one / A[i][i])
+            x[i] = _mul_ftz(x[i], _div_ftz(one, A[i][i]))
             for k in range(i):
-                x[k] = _fma_host(-x[i], A[k][i], x[k])
+                x[k] = _fma_ftz(-x[i], A[k][i], x[k])
         for i in range(n):
             X[i][c] = x[i]
     return torch.tensor(np.array(X, np.float32), device=M.device)

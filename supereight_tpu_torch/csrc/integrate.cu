@@ -1,7 +1,8 @@
 // Projective map updates in place on the block table, for Hopper (sm_90a):
-// SDF (fuse_sdf) and OFusion (fuse_ofusion); the fusion's frustum selection
-// (frustum_select) and the coarse node pyramid's update (update_nodes_sdf,
-// update_nodes_ofusion), which share their projection and field updates.
+// SDF (fuse_sdf) and OFusion (fuse_ofusion), each launch also running the
+// coarse node pyramid's update (node_cells) where the caller asks, and the
+// fusion's frustum selection (frustum_select), which shares the
+// projection.
 //
 // What they replace.  fuse_sdf replaces supereight_tpu/ops/integrate_kernel.py:
 // _kernel / fused_integrate (the Pallas TPU kernel K1) and, like fuse_ofusion,
@@ -283,14 +284,125 @@ __device__ __forceinline__ void store4(float* base, int slot, int v0,
                              v0) = make_float4(x[0], x[1], x[2], x[3]);
 }
 
+struct Projected {
+  float cx, cy, cz, zs, px, py;
+};
+
+// integrate_kernel.project: T_cw then K's first two rows, multiply-add
+// chains as numerics.matvec, the pixel +0.5.
+__device__ __forceinline__ Projected project_point(const float* T,
+                                                   const float* K, float wx,
+                                                   float wy, float wz) {
+  Projected q;
+  q.cx = fmaf(T[2], wz, fmaf(T[1], wy, T[0] * wx)) + T[3];
+  q.cy = fmaf(T[6], wz, fmaf(T[5], wy, T[4] * wx)) + T[7];
+  q.cz = fmaf(T[10], wz, fmaf(T[9], wy, T[8] * wx)) + T[11];
+  q.zs = q.cz == 0.0f ? 1.0f : q.cz;
+  const float h0 = fmaf(K[2], q.cz, fmaf(K[1], q.cy, K[0] * q.cx));
+  const float h1 = fmaf(K[6], q.cz, fmaf(K[5], q.cy, K[4] * q.cx));
+  q.px = h0 / q.zs + 0.5f;
+  q.py = h1 / q.zs + 0.5f;
+  return q;
+}
+
+// ---------------------------------------------------------------------
+// The coarse node pyramid's update, inside the fusion's launch
+// ---------------------------------------------------------------------
+//
+// What it replaces.  The port's node update in PyTorch (about 25
+// launches a level, 5 levels at 256^3 and 7 at 1024^3), the counterpart of
+// supereight_tpu/pipeline/integration.py:581-600: every cell of node
+// levels 1..block_level projects its corner (the cell's index times its
+// edge), and an allocated cell whose corner lands in the frame takes its
+// depth sample (the nearest pixel, int-truncated and clamped) through the
+// field's update, the same device code as the fusion's.  The values go to
+// new tables (the map's node tables are not written in place).  It reads
+// only the node tables, their allocation flags, the depth, T_cw and K, and
+// the fusion writes none of them, so the fusion's launch runs it: its grid
+// gets node_ctas(N) CTAs after its row CTAs, a cell a thread, through
+// node_cells.  What bounds it: nothing but the launch at 256^3 (37448
+// cells, 0.6 MB), which it now shares with the fusion; the bytes at 1024^3
+// (2.4 M cells, 41 MB read and written once): a thread's loads (its cell's
+// two channels and flag, its depth sample) are issued together before the
+// update.  Two cells a thread spilled under the fusion's 40 registers.
+
+constexpr int kMaxNodeLevels = 12;
+
+struct Nodes {
+  const float* a[kMaxNodeLevels];       // channel 0 of each level [s^3]
+  const float* b[kMaxNodeLevels];       // channel 1
+  const uint8_t* alloc[kMaxNodeLevels];
+  float* out_a[kMaxNodeLevels];
+  float* out_b[kMaxNodeLevels];
+  float cell[kMaxNodeLevels];           // the level's cell edge in m
+  int first[kMaxNodeLevels + 1];        // the level's first cell
+  int n_levels;                         // 0: no node update
+};
+
+// Cell cta * kThreads + threadIdx.x of the node update.  Level l (of edge
+// s = 2 << l cells) holds the cells first[l] .. first[l + 1] - 1.
+template <class Update>
+__device__ __forceinline__ void node_cells(const Table& tb, const Nodes& N,
+                                           const Update& up, int cta) {
+  // T_cw and K in shared memory, read where the projection needs them
+  __shared__ float t_cw[12], k[8];
+  if (threadIdx.x < 12) t_cw[threadIdx.x] = tb.t_cw[threadIdx.x];
+  if (threadIdx.x < 7) k[threadIdx.x] = tb.k[threadIdx.x];
+  __syncthreads();
+  const int g = cta * kThreads + threadIdx.x;
+  if (g >= N.first[N.n_levels]) return;
+  int l = 0;
+  while (g >= N.first[l + 1]) ++l;
+  const int idx = g - N.first[l];
+  const float a0 = N.a[l][idx], b0 = N.b[l][idx];
+  const bool alloc = N.alloc[l][idx] != 0;
+  const int s = 2 << l;
+  const float c = N.cell[l];
+  const Projected q = project_point(
+      t_cw, k, static_cast<float>(idx / (s * s)) * c,
+      static_cast<float>((idx / s) % s) * c, static_cast<float>(idx % s) * c);
+  // integration._pixel_valid
+  VoxelSample v;
+  v.cx = q.cx;
+  v.cy = q.cy;
+  v.cz = q.cz;
+  v.zs = q.zs;
+  v.valid = q.cz >= 1e-4f && q.px >= 0.5f &&
+            q.px <= static_cast<float>(tb.W) - 1.5f && q.py >= 0.5f &&
+            q.py <= static_cast<float>(tb.H) - 1.5f;
+  // integration._sample_depth: int-truncated, clamped
+  const int ix = min(max(__float2int_rz(q.px), 0), tb.W - 1);
+  const int iy = min(max(__float2int_rz(q.py), 0), tb.H - 1);
+  v.pixel = iy * tb.W + ix;
+  v.ds = v.valid ? tb.depth[v.pixel] : 0.0f;
+  float a = a0, b = b0;
+  // the cell takes its sample where it is allocated and in the frame
+  if (alloc && v.valid && v.ds > 0.0f) up(v, a, b);
+  N.out_a[l][idx] = a;
+  N.out_b[l][idx] = b;
+}
+
+__host__ __device__ __forceinline__ int node_ctas(const Nodes& N) {
+  return (N.first[N.n_levels] + kThreads - 1) / kThreads;
+}
+
 // One CTA per row: row i fuses slots[i] (a slot outside the table returns
 // at once), or slot i on the whole-table branch, where a slot that is not
 // live returns at once.  A thread's channel bytes move only where one of
 // its voxels is in the patch (loads) or was updated (stores; see above).
+// The CTAs after the n_rows rows update the node pyramid (node_cells).
+// Under the 40 registers the node path adds spill stores to fuse_ofusion
+// (-Xptxas -v: 48 bytes where the fusion alone had 28; fuse_sdf keeps its
+// 20).  __grid_constant__ operands avoided them, but measured slower on
+// the rows than the spills cost.
 template <class Update>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
-fuse_kernel(const Table tb, const Update up) {
+fuse_kernel(const Table tb, const Update up, const Nodes N) {
   __shared__ RowParams p;
+  if (static_cast<int>(blockIdx.x) >= tb.n_rows) {
+    node_cells(tb, N, up, blockIdx.x - tb.n_rows);
+    return;
+  }
   int slot = blockIdx.x;
   if (tb.slots != nullptr) {
     slot = tb.slots[slot];
@@ -342,11 +454,41 @@ fuse_kernel(const Table tb, const Update up) {
 }
 
 template <class Update>
-int launch(const Table& tb, const Update& up, void* stream) {
-  if (tb.n_rows <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  fuse_kernel<Update><<<tb.n_rows, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(tb, up);
+int launch(const Table& tb, const Update& up, const Nodes& N,
+           void* stream) {
+  const int ctas = tb.n_rows + node_ctas(N);
+  if (tb.n_rows < 0 || ctas <= 0)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  fuse_kernel<Update><<<ctas, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(tb, up, N);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Nodes from the host's pointers: ptrs holds 3 x n_levels (each level's
+// channel 0, then each's channel 1, then each's alloc), out the new tables,
+// 2 x cells float32 (each level's new channel 0, then its channel 1, level
+// after level), cell each level's cell edge in m; level l (0-based) is node level
+// l + 1, of (2 << l)^3 cells.  n_levels 0: no node update.  Returns false
+// for a level count or a size the kernel does not take.
+bool make_nodes(Nodes& N, void* const* ptrs, void* out, const float* cell,
+                int n_levels) {
+  if (n_levels < 0 || n_levels > kMaxNodeLevels) return false;
+  N.n_levels = n_levels;
+  N.first[0] = 0;
+  for (int l = 0; l < n_levels; ++l) {
+    N.a[l] = static_cast<const float*>(ptrs[l]);
+    N.b[l] = static_cast<const float*>(ptrs[n_levels + l]);
+    N.alloc[l] = static_cast<const uint8_t*>(ptrs[2 * n_levels + l]);
+    N.cell[l] = cell[l];
+    const long long s = 2LL << l;
+    if (N.first[l] + s * s * s > 0x3fffffffLL - kThreads) return false;
+    N.first[l + 1] = N.first[l] + static_cast<int>(s * s * s);
+  }
+  for (int l = 0; l < n_levels; ++l) {
+    N.out_a[l] = static_cast<float*>(out) + 2 * N.first[l];
+    N.out_b[l] = N.out_a[l] + (N.first[l + 1] - N.first[l]);
+  }
+  return true;
 }
 
 Table make_table(const void* slots, const void* keys, const void* n_blocks,
@@ -405,27 +547,6 @@ struct Select {
   int capacity, per_cap, H, W, budget, tiles;
   float voxel_size, diag;
 };
-
-struct Projected {
-  float cx, cy, cz, zs, px, py;
-};
-
-// integrate_kernel.project: T_cw then K's first two rows, multiply-add
-// chains as numerics.matvec, the pixel +0.5.
-__device__ __forceinline__ Projected project_point(const float* T,
-                                                   const float* K, float wx,
-                                                   float wy, float wz) {
-  Projected q;
-  q.cx = fmaf(T[2], wz, fmaf(T[1], wy, T[0] * wx)) + T[3];
-  q.cy = fmaf(T[6], wz, fmaf(T[5], wy, T[4] * wx)) + T[7];
-  q.cz = fmaf(T[10], wz, fmaf(T[9], wy, T[8] * wx)) + T[11];
-  q.zs = q.cz == 0.0f ? 1.0f : q.cz;
-  const float h0 = fmaf(K[2], q.cz, fmaf(K[1], q.cy, K[0] * q.cx));
-  const float h1 = fmaf(K[6], q.cz, fmaf(K[5], q.cy, K[4] * q.cx));
-  q.px = h0 / q.zs + 0.5f;
-  q.py = h1 / q.zs + 0.5f;
-  return q;
-}
 
 // frustum_candidates' test of one slot.
 __device__ __forceinline__ bool candidate(const Select& S, int slot) {
@@ -509,133 +630,30 @@ select_write(const Select S) {
     S.overflow_out[0] = S.overflow_in[0] + max(total - S.budget, 0);
 }
 
-// ---------------------------------------------------------------------
-// update_nodes: the coarse node pyramid's update, on the card
-// ---------------------------------------------------------------------
-//
-// What it replaces.  pipeline/integration.py:_update_nodes (about 25
-// launches a level, 5 levels at 256^3 and 7 at 1024^3), the counterpart of
-// supereight_tpu/pipeline/integration.py:581-600: every cell of node
-// levels 1..block_level projects its corner (the cell's index times its
-// edge), and an allocated cell whose corner lands in the frame takes its
-// depth sample (the nearest pixel, int-truncated and clamped) through the
-// field's update, the same device code as the fusion kernels'.  One thread
-// a cell, every level in one launch; the values go to new tables (the
-// map's node tables are not written in place).  What bounds it: the launch
-// at 256^3 (37448 cells, 0.6 MB), the bytes at 1024^3 (2.4 M cells, 41 MB
-// read and written once).
-
-constexpr int kMaxNodeLevels = 12;
-constexpr int kNodeThreads = 256;
-
-struct Nodes {
-  const float* a[kMaxNodeLevels];       // channel 0 of each level [s^3]
-  const float* b[kMaxNodeLevels];       // channel 1
-  const uint8_t* alloc[kMaxNodeLevels];
-  float* out_a[kMaxNodeLevels];
-  float* out_b[kMaxNodeLevels];
-  float cell[kMaxNodeLevels];           // the level's cell edge in m
-  int side[kMaxNodeLevels];             // s, cells along an edge
-  int first[kMaxNodeLevels + 1];        // the level's first thread
-  int n_levels;
-  const float* depth;                   // [H, W]
-  const float* t_cw;                    // [4, 4]
-  const float* k;                       // [4, 4]
-  int H, W;
-};
-
-template <class Update>
-__global__ void __launch_bounds__(kNodeThreads)
-nodes_kernel(const Nodes N, const Update up) {
-  const int g = blockIdx.x * kNodeThreads + threadIdx.x;
-  if (g >= N.first[N.n_levels]) return;
-  int l = 0;
-  while (g >= N.first[l + 1]) ++l;
-  const int idx = g - N.first[l];
-  const int s = N.side[l];
-  const float c = N.cell[l];
-  const Projected q = project_point(
-      N.t_cw, N.k, static_cast<float>(idx / (s * s)) * c,
-      static_cast<float>((idx / s) % s) * c, static_cast<float>(idx % s) * c);
-  // integration._pixel_valid, with the cell's allocation
-  const bool ok = N.alloc[l][idx] != 0 && q.cz >= 1e-4f && q.px >= 0.5f &&
-                  q.px <= static_cast<float>(N.W) - 1.5f && q.py >= 0.5f &&
-                  q.py <= static_cast<float>(N.H) - 1.5f;
-  VoxelSample v;
-  v.cx = q.cx;
-  v.cy = q.cy;
-  v.cz = q.cz;
-  v.zs = q.zs;
-  v.valid = ok;
-  v.pixel = 0;
-  v.ds = 0.0f;
-  if (ok) {
-    // integration._sample_depth: int-truncated, clamped
-    const int ix = min(max(__float2int_rz(q.px), 0), N.W - 1);
-    const int iy = min(max(__float2int_rz(q.py), 0), N.H - 1);
-    v.ds = N.depth[iy * N.W + ix];
-  }
-  float a = N.a[l][idx], b = N.b[l][idx];
-  if (ok && v.ds > 0.0f) up(v, a, b);
-  N.out_a[l][idx] = a;
-  N.out_b[l][idx] = b;
-}
-
-template <class Update>
-int launch_nodes(const Nodes& N, const Update& up, void* stream) {
-  const int n = N.first[N.n_levels];
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  nodes_kernel<Update><<<(n + kNodeThreads - 1) / kNodeThreads,
-                         kNodeThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(N, up);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Nodes from the host's pointer arrays (n_levels entries each).
-int make_nodes(Nodes& N, void* const* a, void* const* b, void* const* alloc,
-               void* const* out_a, void* const* out_b, const float* cell,
-               const int* side, int n_levels, const void* depth,
-               const void* t_cw, const void* k, int H, int W) {
-  if (n_levels < 1 || n_levels > kMaxNodeLevels) return 1;
-  N.n_levels = n_levels;
-  N.first[0] = 0;
-  for (int l = 0; l < n_levels; ++l) {
-    N.a[l] = static_cast<const float*>(a[l]);
-    N.b[l] = static_cast<const float*>(b[l]);
-    N.alloc[l] = static_cast<const uint8_t*>(alloc[l]);
-    N.out_a[l] = static_cast<float*>(out_a[l]);
-    N.out_b[l] = static_cast<float*>(out_b[l]);
-    N.cell[l] = cell[l];
-    N.side[l] = side[l];
-    const long long n = static_cast<long long>(side[l]) * side[l] * side[l];
-    if (side[l] < 1 || N.first[l] + n > 0x7fffffffLL) return 1;
-    N.first[l + 1] = N.first[l] + static_cast<int>(n);
-  }
-  N.depth = static_cast<const float*>(depth);
-  N.t_cw = static_cast<const float*>(t_cw);
-  N.k = static_cast<const float*>(k);
-  N.H = H;
-  N.W = W;
-  return 0;
-}
-
 }  // namespace
 
 // n_rows: the length of `slots`, or the capacity when slots is null (the
-// whole-table branch).  `view` may be null; a given view must hold the
-// encoding of the table's rows (a held view does), since only the entries
-// of updated voxels are written.  Repeated slots race.
+// whole-table branch); 0 with nodes alone.  `view` may be null; a given
+// view must hold the encoding of the table's rows (a held view does),
+// since only the entries of updated voxels are written.  Repeated slots
+// race.  node_ptrs, node_out, node_cell, n_levels: the node pyramid's
+// levels 1..n_levels and their new tables (make_nodes), updated in the
+// same launch; n_levels 0 for none.
 extern "C" int fuse_sdf(const void* slots, const void* keys,
                         const void* n_blocks, void* active, void* tsdf,
                         void* weight, void* view, const void* depth,
                         const void* t_cw, const void* k, int n_rows,
                         int capacity, int H, int W, int B, float mu,
                         float max_weight, float voxel_size, float diag,
-                        int patch, void* stream) {
+                        int patch, void* const* node_ptrs, void* node_out,
+                        const float* node_cell, int n_levels, void* stream) {
+  Nodes N;
+  if (!make_nodes(N, node_ptrs, node_out, node_cell, n_levels))
+    return static_cast<int>(cudaErrorInvalidValue);
   return launch(make_table(slots, keys, n_blocks, active, tsdf, weight, view,
                            depth, t_cw, k, n_rows, capacity, H, W, B,
                            voxel_size, diag, patch),
-                SdfUpdate{mu, max_weight}, stream);
+                SdfUpdate{mu, max_weight}, N, stream);
 }
 
 extern "C" int fuse_ofusion(const void* slots, const void* keys,
@@ -645,11 +663,16 @@ extern "C" int fuse_ofusion(const void* slots, const void* keys,
                             const void* k, int n_rows, int capacity, int H,
                             int W, float mu, float sigma_lo, float now,
                             float voxel_size, float diag, int patch,
+                            void* const* node_ptrs, void* node_out,
+                            const float* node_cell, int n_levels,
                             void* stream) {
+  Nodes N;
+  if (!make_nodes(N, node_ptrs, node_out, node_cell, n_levels))
+    return static_cast<int>(cudaErrorInvalidValue);
   return launch(make_table(slots, keys, n_blocks, active, occupancy,
                            timestamp, nullptr, depth, t_cw, k, n_rows,
                            capacity, H, W, 0, voxel_size, diag, patch),
-                OFusionUpdate{mu, sigma_lo, now}, stream);
+                OFusionUpdate{mu, sigma_lo, now}, N, stream);
 }
 
 // keys, active: the map's [capacity]; counts: [capacity / per_cap] live
@@ -680,35 +703,4 @@ extern "C" int frustum_select(const void* keys, const void* active,
   select_count<<<tiles, kSelectThreads, 0, st>>>(S);
   select_write<<<tiles, kSelectThreads, 0, st>>>(S);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The node levels 1..block_level, n_levels of them: a, b, alloc the map's
-// node tables of each level ([s^3] float32, float32, bool), out_a, out_b
-// new [s^3] tables, cell the level's cell edge (m), side its s.
-extern "C" int update_nodes_sdf(void* const* a, void* const* b,
-                                void* const* alloc, void* const* out_a,
-                                void* const* out_b, const float* cell,
-                                const int* side, int n_levels,
-                                const void* depth, const void* t_cw,
-                                const void* k, int H, int W, float mu,
-                                float max_weight, void* stream) {
-  Nodes N;
-  if (make_nodes(N, a, b, alloc, out_a, out_b, cell, side, n_levels, depth,
-                 t_cw, k, H, W))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch_nodes(N, SdfUpdate{mu, max_weight}, stream);
-}
-
-extern "C" int update_nodes_ofusion(void* const* a, void* const* b,
-                                    void* const* alloc, void* const* out_a,
-                                    void* const* out_b, const float* cell,
-                                    const int* side, int n_levels,
-                                    const void* depth, const void* t_cw,
-                                    const void* k, int H, int W, float mu,
-                                    float sigma_lo, float now, void* stream) {
-  Nodes N;
-  if (make_nodes(N, a, b, alloc, out_a, out_b, cell, side, n_levels, depth,
-                 t_cw, k, H, W))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch_nodes(N, OFusionUpdate{mu, sigma_lo, now}, stream);
 }

@@ -16,6 +16,14 @@
 //   the forward solve (axpys of fmaf, x[k] = fmaf(-x[i], L[k][i], x[k])) and
 //   the backward solve (x[i] times the reciprocal of U[i][i], then the same
 //   axpys).
+// XLA runs its CPU code with flush-to-zero and denormals-are-zero set, so
+// every operation reads a subnormal operand as a signed zero and flushes a
+// subnormal result to one: the .ftz forms of PTX's fma, mul, sub and div,
+// and the flushed value in the pivot's comparisons (a subnormal pivot is a
+// zero pivot).  Two more of OpenBLAS's rules: a zero result of the
+// triangular solve's dot product is +0 (its sum over vector lanes), and a
+// column scaled by a reciprocal of 0 (a huge or infinite pivot) is set to 0,
+// as BLAS scal by 0 does.
 // These are XLA's bits at 1, 2 and 4 rows only: at 3 and above 4 rows
 // OpenBLAS's triangular solve takes the rows in blocks of 1, 2 and 4 with a
 // rounded product between blocks.  So lu_inverse is instantiated at those
@@ -26,12 +34,39 @@
 // in registers (`-Xptxas -v`: no stack frame, no spills).  The row swaps
 // that the pivots pick at run time are predicated selects over the rows
 // they may pick (a pivot of column j lies in rows j..n-1).  Rounding: every
-// product and sum other than the fmaf calls rounds on its own, and / is
-// IEEE division.
+// product, sum and quotient rounds on its own (IEEE division) but the
+// multiply-adds, which round once.
 
 #pragma once
 
+#include <float.h>
+
 namespace lu {
+
+// the flush-to-zero forms: subnormal operands and results as signed zeros
+__device__ __forceinline__ float fma_ftz(float a, float b, float c) {
+  float d;
+  asm("fma.rn.ftz.f32 %0, %1, %2, %3;" : "=f"(d) : "f"(a), "f"(b), "f"(c));
+  return d;
+}
+__device__ __forceinline__ float mul_ftz(float a, float b) {
+  float d;
+  asm("mul.rn.ftz.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+__device__ __forceinline__ float sub_ftz(float a, float b) {
+  float d;
+  asm("sub.rn.ftz.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+__device__ __forceinline__ float div_ftz(float a, float b) {
+  float d;
+  asm("div.rn.ftz.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+__device__ __forceinline__ float flush(float x) {
+  return fabsf(x) < FLT_MIN ? copysignf(0.0f, x) : x;
+}
 
 // v[i] and v[piv] swapped (piv >= i) by selects over the rows piv may
 // be, so that every index stays a constant.
@@ -66,23 +101,24 @@ __device__ __forceinline__ void lu_inverse(float (&A)[N][N],
     for (int i = 1; i < j; ++i) {
       float t = 0.0f;
 #pragma unroll
-      for (int k = i - 1; k >= 0; --k) t = fmaf(A[i][k], b[k], t);
-      b[i] = b[i] - t;
+      for (int k = i - 1; k >= 0; --k) t = fma_ftz(A[i][k], b[k], t);
+      b[i] = sub_ftz(b[i], __fadd_rn(t, 0.0f));
     }
 #pragma unroll
     for (int i = j; i < N; ++i) {
       float t = 0.0f;
 #pragma unroll
-      for (int k = 0; k < j; ++k) t = fmaf(A[i][k], b[k], t);
-      b[i] = b[i] - t;
+      for (int k = 0; k < j; ++k) t = fma_ftz(A[i][k], b[k], t);
+      b[i] = sub_ftz(b[i], t);
     }
     // the first largest |pivot| (a NaN never wins)
     int p = j;
-    float best = fabsf(b[j]);
+    float best = fabsf(flush(b[j]));
 #pragma unroll
     for (int i = j + 1; i < N; ++i) {
-      const bool more = fabsf(b[i]) > best;
-      best = more ? fabsf(b[i]) : best;
+      const float a = fabsf(flush(b[i]));
+      const bool more = a > best;
+      best = more ? a : best;
       p = more ? i : p;
     }
     piv[j] = p;
@@ -91,8 +127,9 @@ __device__ __forceinline__ void lu_inverse(float (&A)[N][N],
     for (int i = 0; i < N; ++i) A[i][j] = b[i];
 #pragma unroll
     for (int r = j + 1; r < N; ++r) pivot = p == r ? b[r] : pivot;
+    pivot = flush(pivot);
     if (pivot != 0.0f && pivot == pivot) {
-      const float r = 1.0f / pivot;
+      const float r = div_ftz(1.0f, pivot);
 #pragma unroll
       for (int c = 0; c <= j; ++c) {
         float col[N];
@@ -103,7 +140,8 @@ __device__ __forceinline__ void lu_inverse(float (&A)[N][N],
         for (int i = j; i < N; ++i) A[i][c] = col[i];
       }
 #pragma unroll
-      for (int i = j + 1; i < N; ++i) A[i][j] = A[i][j] * r;
+      for (int i = j + 1; i < N; ++i)
+        A[i][j] = r == 0.0f ? 0.0f : mul_ftz(A[i][j], r);
     }
   }
 
@@ -121,12 +159,12 @@ __device__ __forceinline__ void lu_inverse(float (&A)[N][N],
 #pragma unroll
     for (int i = 0; i < N; ++i)
 #pragma unroll
-      for (int k = i + 1; k < N; ++k) x[k] = fmaf(-x[i], A[k][i], x[k]);
+      for (int k = i + 1; k < N; ++k) x[k] = fma_ftz(-x[i], A[k][i], x[k]);
 #pragma unroll
     for (int i = N - 1; i >= 0; --i) {
-      x[i] = x[i] * (1.0f / A[i][i]);
+      x[i] = mul_ftz(x[i], div_ftz(1.0f, A[i][i]));
 #pragma unroll
-      for (int k = 0; k < i; ++k) x[k] = fmaf(-x[i], A[k][i], x[k]);
+      for (int k = 0; k < i; ++k) x[k] = fma_ftz(-x[i], A[k][i], x[k]);
     }
 #pragma unroll
     for (int i = 0; i < N; ++i) X[i][c] = x[i];

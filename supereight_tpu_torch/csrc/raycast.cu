@@ -40,14 +40,15 @@
 //   (exactly nonzero(...)[:budget]) take that window's hit; then the
 //   midsolve of every hit.
 // - R4 ray_refine_normals (twin ray_refine_normals_twin, JAX :376-441), a
-//   thread a full-resolution pixel: its parent's hit and depth, the secant
-//   re-solve at +/- 0.7 thickness from nearest or trilinear taps, the
-//   vertex and ray distance, and the volume (6 taps at the vertex) or
-//   hybrid (6 taps at the decimated half-resolution parent's vertex plus
-//   the along-ray correction) normal, negated for an SDF, normalised,
-//   (INVALID, 0, 0) where it is not valid.  A pixel whose parent missed
-//   writes the miss at once: the twin's re-solve may move such a pixel's
-//   depth, but nothing reads that depth.
+//   thread a full-resolution pixel in 2-D tiles: its parent's hit and
+//   depth, the secant re-solve at +/- 0.7 thickness from nearest or
+//   trilinear taps, the vertex and ray distance, and the volume (6 taps at
+//   the vertex) or hybrid (6 taps at the decimated half-resolution
+//   parent's vertex, once a tile in shared memory, plus the along-ray
+//   correction) normal, negated for an SDF, normalised, (INVALID, 0, 0)
+//   where it is not valid.  A pixel whose parent missed takes no tap and
+//   writes the miss: the twin's re-solve may move such a pixel's depth,
+//   but nothing reads that depth.
 //
 // What bounds them.  Not bytes: R2 and R4 gather a few hundred thousand
 // 2-4 byte view entries (a few MB of 32-byte sectors at 320x240) and R1
@@ -56,13 +57,17 @@
 // is left is latency: in R1 the view's inverse (one thread's dependent
 // chain), the slowest CTA's voxel reads, the ticket and the last CTA's
 // passes over the grid on one SM; in the scan a thread's window of
-// gathers and the look-back's wait for the slowest tile before it.  So
+// gathers and the look-back's wait for the slowest tile before it; in R4
+// a pixel's chain of dependent loads (its parent, the secant's taps, the
+// gradient's, the stores).  So
 // the design keeps one thread a ray, no host read from the splat to the
 // maps and three launches a raycast; a window's samples are gathered a
 // chunk of kChunk at a time, in one branch-free block, before its carry
 // logic runs over them, so the early exit at the first crossing waits on
 // one chunk's latency, not on a chain of dependent loads; the second
-// window runs while warp 0 looks back.  The look-back's status words and
+// window runs while warp 0 looks back; R4 issues a pixel's secant taps
+// with its tile's gradient taps in one round (its layout above the
+// kernel).  The look-back's status words and
 // the tiles' tickets live in a scratch the wrapper zeroes once: the last
 // CTA to end its look-back leaves them zero for the next launch, as R1's
 // last CTA leaves its grid.
@@ -93,7 +98,9 @@ constexpr int kPoolSmemCells = 3072;   // grids pooled in shared memory
 constexpr int kScanThreads = 256;      // rays a tile (a CTA) of R2 with R3
 constexpr int kScanWarps = kScanThreads / 32;
 constexpr int kChunk = 4;              // samples gathered before the carry
-constexpr int kPixelThreads = 256;     // pixels a CTA of R4
+constexpr int kTileW = 32;             // R4's tile: a warp a row
+constexpr int kTileH = 4;              // R4's tile: rows
+constexpr int kPixelThreads = kTileW * kTileH;
 constexpr int kBlockVoxels = 512;
 constexpr float kInvalid = -2.0f;      // pipeline/constants.py INVALID
 
@@ -175,33 +182,6 @@ __device__ __forceinline__ float sample(const Volume V, const float p[3],
 // int32 addition as PyTorch's (wrapping)
 __device__ __forceinline__ int add_wrap(int a, int b) {
   return static_cast<int>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
-}
-
-// _sample_volume_interp: the 8 corners in the twin's order, NaN and
-// out-of-volume taps reading `sub`
-__device__ float sample_interp(const Volume V, const float p[3],
-                               float sub) {
-  const int b[3] = {voxel_of(p[0]), voxel_of(p[1]), voxel_of(p[2])};
-  float fr[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) fr[a] = p[a] - static_cast<float>(b[a]);
-  float out = 0.0f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int o[3] = {i & 1, (i >> 1) & 1, (i >> 2) & 1};
-    const int x = add_wrap(b[0], o[0]), y = add_wrap(b[1], o[1]),
-              z = add_wrap(b[2], o[2]);
-    float val = sub;
-    if (in_volume(V, x, y, z)) {
-      const float v = view_value(V, tiled(V, x, y, z));
-      if (!isnan(v)) val = v;
-    }
-    float w[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) w[a] = o[a] ? fr[a] : 1.0f - fr[a];
-    out = out + val * ((w[0] * w[1]) * w[2]);
-  }
-  return out;
 }
 
 // (origin + dir * z) * inv_vs
@@ -314,40 +294,105 @@ struct Secant {
   bool pair, crossing;
 };
 
-__device__ Secant secant(const Volume V, const Field fd, const float o[3],
-                         const float d[3], float z, float delta,
-                         float two_delta, int interp, float sub) {
-  float p[3];
+// The re-solve from the two samples lo, hi at z -/+ delta.
+__device__ __forceinline__ Secant secant_solve(const Field fd, float lo,
+                                               float hi, float z,
+                                               float delta,
+                                               float two_delta) {
   Secant s;
-  ray_point(V, o, d, z - delta, p);
-  s.lo = interp ? sample_interp(V, p, sub) : sample(V, p, nan_f());
-  ray_point(V, o, d, z + delta, p);
-  s.hi = interp ? sample_interp(V, p, sub) : sample(V, p, nan_f());
-  s.pair = !isnan(s.lo) && !isnan(s.hi);
-  s.crossing = s.pair && !is_inside(fd, s.lo) && is_inside(fd, s.hi);
-  float denom = s.lo - s.hi;
+  s.lo = lo;
+  s.hi = hi;
+  s.pair = !isnan(lo) && !isnan(hi);
+  s.crossing = s.pair && !is_inside(fd, lo) && is_inside(fd, hi);
+  float denom = lo - hi;
   if (fabsf(denom) < 1e-12f) denom = -1e-12f;
-  const float frac = (s.hi - fd.surf) / denom;
+  const float frac = (hi - fd.surf) / denom;
   s.z_new = (z + delta) + two_delta * frac;
   return s;
 }
 
-// _grad6 at b (voxel units): 6 nearest taps (+x, -x, +y, -y, +z, -z),
-// out-of-volume taps `empty`, NaN taps `init` (torch.nan_to_num, which
-// also maps the infinities to the largest floats)
-__device__ void grad6(const Volume V, const float b[3], float empty,
-                      float init, float g[3]) {
+// _midsolve's re-solve from the nearest samples
+__device__ Secant secant(const Volume V, const Field fd, const float o[3],
+                         const float d[3], float z, float delta,
+                         float two_delta) {
+  float p[3];
+  ray_point(V, o, d, z - delta, p);
+  const float lo = sample(V, p, nan_f());
+  ray_point(V, o, d, z + delta, p);
+  const float hi = sample(V, p, nan_f());
+  return secant_solve(fd, lo, hi, z, delta, two_delta);
+}
+
+// R4's taps are gathered in two steps, so that every load of a round is in
+// flight before any is used: an index into the view (row 0 for a tap
+// outside the volume, which is then masked), the raw loads, then the
+// values.
+__device__ __forceinline__ int64_t tap_at(const Volume V, const float p[3],
+                                          bool& in) {
+  const int x = voxel_of(p[0]), y = voxel_of(p[1]), z = voxel_of(p[2]);
+  in = in_volume(V, x, y, z);
+  return in ? tiled(V, x, y, z) : 0;
+}
+
+template <bool kBf16>
+__device__ __forceinline__ float load_at(const Volume V, int64_t i) {
+  if (kBf16)
+    return __uint_as_float(
+        static_cast<uint32_t>(static_cast<const uint16_t*>(V.F)[i]) << 16);
+  return static_cast<const float*>(V.F)[i];
+}
+
+// _sample_volume_interp's corner c (x fastest) of the voxel b
+__device__ __forceinline__ int64_t corner_at(const Volume V, const int b[3],
+                                             int c, bool& in) {
+  const int x = add_wrap(b[0], c & 1), y = add_wrap(b[1], (c >> 1) & 1),
+            z = add_wrap(b[2], (c >> 2) & 1);
+  in = in_volume(V, x, y, z);
+  return in ? tiled(V, x, y, z) : 0;
+}
+
+// _sample_volume_interp at p from its 8 corners' loads: NaN and
+// out-of-volume taps read `sub`, summed in the twin's order
+__device__ __forceinline__ float interp_value(const float p[3],
+                                              const int b[3],
+                                              const float (&v)[8],
+                                              const bool (&in)[8],
+                                              float sub) {
+  float fr[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) fr[a] = p[a] - static_cast<float>(b[a]);
+  float out = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float val = in[c] && !isnan(v[c]) ? v[c] : sub;
+    float w[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) w[a] = ((c >> a) & 1) ? fr[a] : 1.0f - fr[a];
+    out = out + val * ((w[0] * w[1]) * w[2]);
+  }
+  return out;
+}
+
+// _grad6's tap k at b (voxel units): +x, -x, +y, -y, +z, -z
+__device__ __forceinline__ int64_t grad_at(const Volume V, const float b[3],
+                                           int k, bool& in) {
+  float p[3] = {b[0], b[1], b[2]};
+  p[k >> 1] = p[k >> 1] + ((k & 1) ? -1.0f : 1.0f);
+  return tap_at(V, p, in);
+}
+
+// _grad6 from its 6 taps' loads: out-of-volume taps `empty`, NaN taps
+// `init` (torch.nan_to_num, which also maps the infinities to the largest
+// floats)
+__device__ __forceinline__ void grad6_value(const float (&v)[6],
+                                            const bool (&in)[6],
+                                            float empty, float init,
+                                            float g[3]) {
   float t[6];
 #pragma unroll
   for (int k = 0; k < 6; ++k) {
-    float p[3] = {b[0], b[1], b[2]};
-    p[k >> 1] = p[k >> 1] + ((k & 1) ? -1.0f : 1.0f);
-    float v = sample(V, p, empty);
-    if (isnan(v))
-      v = init;
-    else if (isinf(v))
-      v = v > 0.0f ? FLT_MAX : -FLT_MAX;
-    t[k] = v;
+    const float x = in[k] ? v[k] : empty;
+    t[k] = isnan(x) ? init : isinf(x) ? (x > 0.0f ? FLT_MAX : -FLT_MAX) : x;
   }
 #pragma unroll
   for (int a = 0; a < 3; ++a) g[a] = (t[2 * a] - t[2 * a + 1]) * 0.5f;
@@ -752,8 +797,7 @@ ray_scan_kernel(const Rays R) {
   }
   if (!in) return;
   if (R.midsolve && hit) {
-    const Secant s = secant(R.V, R.field, o, d, z, R.m_delta, R.m_two_delta,
-                            0, 0.0f);
+    const Secant s = secant(R.V, R.field, o, d, z, R.m_delta, R.m_two_delta);
     if (s.crossing) z = s.z_new;
   }
   R.hit[ray] = hit;
@@ -786,93 +830,179 @@ struct Finish {
   uint8_t* hit;                 // [rows, W] out
 };
 
-__device__ __forceinline__ void write3(float* out, int i, float x, float y,
-                                       float z) {
-  out[3 * i] = x;
-  out[3 * i + 1] = y;
-  out[3 * i + 2] = z;
-}
-
+// R4's layout.  A CTA takes a kTileW x kTileH tile of full-resolution
+// pixels, a warp a row: 32 x 4 covers 16 x 2 half-resolution parents,
+// aligned to the decimated parents at grad_decim 1 and 2, and gives 600
+// CTAs at 320x240, 4 or 5 an SM (32 x 8 gives 300, and the SMs that take
+// 3 of them rather than 2 end last).  A
+// pixel's work is a chain of rounds of loads; each round's loads are all
+// issued before any of them is used:
+// 1. its half-resolution parent's hit and depth and, for hybrid normals,
+//    its gradient point's (the decimated parent's, or the parent itself);
+// 2. for a pixel whose parent hit, the secant's taps (2 nearest or 16
+//    trilinear) and the gradient point's 6 taps, before the secant decides
+//    the hit (an out-of-volume tap reads row 0 and is masked);
+// 3. for volume normals, the 6 taps at the re-solved vertex;
+// 4. the stores: the vertex and normal rows through shared memory, so that
+//    a warp writes its row's 3 x 32 floats contiguously.
+// The 16 pixels of a decimated parent gather its 6 taps alike, from L1; a
+// gradient once a tile in shared memory was measured slower (its barrier
+// waits for the slowest point).  The kernel is a template on the view's
+// type, so that its loads carry no branch.
+template <bool kBf16>
 __global__ void __launch_bounds__(kPixelThreads)
 ray_refine_normals_kernel(const Finish P) {
-  const int pix = blockIdx.x * kPixelThreads + threadIdx.x;
-  if (pix >= P.rows * P.W) return;
-  const int yl = pix / P.W, x = pix - yl * P.W;
-  const int src = P.up ? (yl >> 1) * P.ws + (x >> 1) : pix;
-  bool hit = P.hit_in[src] != 0;
+  __shared__ float row_out[kTileH][2][3 * kTileW];
+  const int tx = threadIdx.x % kTileW, ty = threadIdx.x / kTileW;
+  const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
+  const int x = x0 + tx, yl = y0 + ty;
+  const bool live = x < P.W && yl < P.rows;
+  const int pix = yl * P.W + x;
+  const bool hybrid = P.normals == 2;
+
+  // round 1
+  const int src = live ? (P.up ? (yl >> 1) * P.ws + (x >> 1) : pix) : 0;
+  int q = 0;                    // the gradient point, a scan ray
+  if (hybrid) {
+    const int xh = x >> 1, yh = yl >> 1;
+    const int gd =
+        P.gd > 1 && P.hs % P.gd == 0 && P.ws % P.gd == 0 ? P.gd : 1;
+    q = live ? (yh - yh % gd) * P.ws + (xh - xh % gd) : 0;
+  }
+  const bool hit_in = P.hit_in[src] != 0, q_hit_in = P.hit_in[q] != 0;
   float z = P.z_in[src];
+  const float zq = P.z_in[q];
+  bool hit = live && hit_in;
+  const bool q_hit = q_hit_in;
+
+  // round 2
   float o[3], d[3];
   view_origin(P.view, o);
   pixel_dir(P.view, x, P.r0 + yl, d);
+  const bool solve = hit && P.resolve;
+  const bool interp = P.resolve == 2;
+  float p_lo[3], p_hi[3];
+  ray_point(P.V, o, d, z - P.delta, p_lo);
+  ray_point(P.V, o, d, z + P.delta, p_hi);
+  int b_lo[3], b_hi[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    b_lo[a] = voxel_of(p_lo[a]);
+    b_hi[a] = voxel_of(p_hi[a]);
+  }
+  float s_lo[8], s_hi[8];
+  bool in_lo[8], in_hi[8];
+  if (interp) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int64_t i = corner_at(P.V, b_lo, c, in_lo[c]);
+      const int64_t j = corner_at(P.V, b_hi, c, in_hi[c]);
+      s_lo[c] = solve ? load_at<kBf16>(P.V, i) : 0.0f;
+      s_hi[c] = solve ? load_at<kBf16>(P.V, j) : 0.0f;
+    }
+  } else {
+    const int64_t i = tap_at(P.V, p_lo, in_lo[0]);
+    const int64_t j = tap_at(P.V, p_hi, in_hi[0]);
+    s_lo[0] = solve ? load_at<kBf16>(P.V, i) : 0.0f;
+    s_hi[0] = solve ? load_at<kBf16>(P.V, j) : 0.0f;
+  }
+  float t6[6];
+  bool in6[6];
+  if (hybrid) {
+    float fq[3], bq[3];
+    scan_dir(P.view, 1, q % P.ws, (P.r0 >> 1) + q / P.ws, fq);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) bq[a] = (o[a] + fq[a] * zq) * P.V.inv_vs;
+    const bool grad = hit && q_hit;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      const int64_t i = grad_at(P.V, bq, k, in6[k]);
+      t6[k] = grad ? load_at<kBf16>(P.V, i) : 0.0f;
+    }
+  }
   Secant s{0.0f, 0.0f, 0.0f, false, false};
-  if (hit && P.resolve) {
-    s = secant(P.V, P.field, o, d, z, P.delta, P.two_delta, P.resolve == 2,
-               P.sub);
+  if (solve) {
+    const float lo = interp ? interp_value(p_lo, b_lo, s_lo, in_lo, P.sub)
+                            : (in_lo[0] ? s_lo[0] : nan_f());
+    const float hi = interp ? interp_value(p_hi, b_hi, s_hi, in_hi, P.sub)
+                            : (in_hi[0] ? s_hi[0] : nan_f());
+    s = secant_solve(P.field, lo, hi, z, P.delta, P.two_delta);
     if (s.crossing) z = s.z_new;
     if (s.pair && !s.crossing) hit = false;
   }
-  P.hit[pix] = hit;
-  if (!hit) {
-    write3(P.vertex, pix, 0.0f, 0.0f, 0.0f);
-    P.t_hit[pix] = 0.0f;
-    if (P.normals) write3(P.normal, pix, kInvalid, 0.0f, 0.0f);
-    return;
-  }
-  const float v[3] = {o[0] + d[0] * z, o[1] + d[1] * z, o[2] + d[2] * z};
-  const float ray_norm = norm3(d);
-  write3(P.vertex, pix, v[0], v[1], v[2]);
-  P.t_hit[pix] = z * ray_norm;
-  if (!P.normals) return;
 
-  float g[3];
-  if (P.normals == 1) {
-    const float b[3] = {v[0] * P.V.inv_vs, v[1] * P.V.inv_vs,
-                        v[2] * P.V.inv_vs};
-    grad6(P.V, b, P.empty, P.init, g);
-  } else {
-    // the lateral gradient at the half-resolution parent's vertex (of its
-    // decimated parent), then the along-ray correction
-    const int yh = yl >> 1, xh = x >> 1;
-    int yq = yh, xq = xh;
-    if (P.gd > 1 && P.hs % P.gd == 0 && P.ws % P.gd == 0) {
-      yq -= yh % P.gd;
-      xq -= xh % P.gd;
-      if (!P.hit_in[yq * P.ws + xq]) {
-        write3(P.normal, pix, kInvalid, 0.0f, 0.0f);
-        return;
+  // the vertex, ray distance and normal (round 3 for volume normals)
+  float v[3] = {0.0f, 0.0f, 0.0f}, nrm[3] = {kInvalid, 0.0f, 0.0f};
+  float t = 0.0f;
+  if (hit) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) v[a] = o[a] + d[a] * z;
+    const float ray_norm = norm3(d);
+    t = z * ray_norm;
+    float g[3];
+    bool ok = P.normals != 0;
+    if (P.normals == 1) {
+      const float b[3] = {v[0] * P.V.inv_vs, v[1] * P.V.inv_vs,
+                          v[2] * P.V.inv_vs};
+      float tv[6];
+      bool inv[6];
+#pragma unroll
+      for (int k = 0; k < 6; ++k)
+        tv[k] = load_at<kBf16>(P.V, grad_at(P.V, b, k, inv[k]));
+      grad6_value(tv, inv, P.empty, P.init, g);
+    } else if (hybrid) {
+      // the point's lateral gradient, then the along-ray correction; the
+      // pixel hits, so its parent did (a decimated point may not have)
+      ok = q_hit;
+      float gq[3];
+      grad6_value(t6, in6, P.empty, P.init, gq);
+#pragma unroll
+      for (int a = 0; a < 3; ++a) gq[a] = gq[a] * P.V.inv_vs;
+      const float rn = clamp_lo(ray_norm, 1e-12f);
+      const float rh[3] = {d[0] / rn, d[1] / rn, d[2] / rn};
+      const float d_ray = (s.hi - s.lo) / (P.two_delta * rn);
+      // the pair alone decides; the dot product adds as the twin's
+      // numerics.dot3: (x + y) + z
+      const float dot = (gq[0] * rh[0] + gq[1] * rh[1]) + gq[2] * rh[2];
+      const float corr = s.pair ? d_ray - dot : 0.0f;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) g[a] = gq[a] + corr * rh[a];
+    }
+    if (ok) {
+      if (P.invert) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) g[a] = -g[a];
+      }
+      const float gn = norm3(g);
+      if (gn != 0.0f) {
+        const float n = clamp_lo(gn, 1e-12f);
+#pragma unroll
+        for (int a = 0; a < 3; ++a) nrm[a] = g[a] / n;
       }
     }
-    const float zq = P.z_in[yq * P.ws + xq];
-    float fq[3];
-    scan_dir(P.view, 1, xq, (P.r0 >> 1) + yq, fq);
-    float b[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) b[a] = (o[a] + fq[a] * zq) * P.V.inv_vs;
-    float gq[3];
-    grad6(P.V, b, P.empty, P.init, gq);
-#pragma unroll
-    for (int a = 0; a < 3; ++a) gq[a] = gq[a] * P.V.inv_vs;
-    const float rn = clamp_lo(ray_norm, 1e-12f);
-    const float rh[3] = {d[0] / rn, d[1] / rn, d[2] / rn};
-    const float d_ray = (s.hi - s.lo) / (P.two_delta * rn);
-    // the pixel hits, so its parent did: the pair alone decides.  The dot
-    // product adds as the twin's numerics.dot3: (x + y) + z
-    const float dot = (gq[0] * rh[0] + gq[1] * rh[1]) + gq[2] * rh[2];
-    const float corr = s.pair ? d_ray - dot : 0.0f;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) g[a] = gq[a] + corr * rh[a];
   }
-  if (P.invert) {
+
+  // round 4
+  if (live) {
+    P.hit[pix] = hit;
+    P.t_hit[pix] = t;
+  }
 #pragma unroll
-    for (int a = 0; a < 3; ++a) g[a] = -g[a];
+  for (int a = 0; a < 3; ++a) {
+    row_out[ty][0][3 * tx + a] = v[a];
+    row_out[ty][1][3 * tx + a] = nrm[a];
   }
-  const float gn = norm3(g);
-  if (gn == 0.0f) {
-    write3(P.normal, pix, kInvalid, 0.0f, 0.0f);
-    return;
+  __syncwarp();
+  const int row_floats = yl < P.rows ? 3 * min(kTileW, P.W - x0) : 0;
+  const int64_t row0 = 3 * (static_cast<int64_t>(yl) * P.W + x0);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int i = k * kTileW + tx;
+    if (i < row_floats) {
+      P.vertex[row0 + i] = row_out[ty][0][i];
+      if (P.normals) P.normal[row0 + i] = row_out[ty][1][i];
+    }
   }
-  const float n = clamp_lo(gn, 1e-12f);
-  write3(P.normal, pix, g[0] / n, g[1] / n, g[2] / n);
 }
 
 Volume make_volume(const void* F, int bf16, int size, float inv_vs) {
@@ -1034,8 +1164,12 @@ extern "C" int ray_refine_normals(const void* view, const void* F, int bf16,
   P.normal = static_cast<float*>(normal);
   P.t_hit = static_cast<float*>(t_hit);
   P.hit = static_cast<uint8_t*>(hit);
-  const int blocks = (rows * W + kPixelThreads - 1) / kPixelThreads;
-  ray_refine_normals_kernel<<<blocks, kPixelThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(P);
+  const dim3 tiles((W + kTileW - 1) / kTileW, (rows + kTileH - 1) / kTileH);
+  if (bf16)
+    ray_refine_normals_kernel<true><<<tiles, kPixelThreads, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(P);
+  else
+    ray_refine_normals_kernel<false><<<tiles, kPixelThreads, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(P);
   return static_cast<int>(cudaGetLastError());
 }

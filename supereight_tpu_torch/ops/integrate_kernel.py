@@ -2,7 +2,8 @@
 kernels (`csrc/integrate.cu`) and their plain PyTorch twins, for the SDF
 (:func:`fuse_sdf`) and the OFusion field (:func:`fuse_ofusion`), with the
 budget branch's frustum selection (:func:`frustum_select`) before them
-and the coarse node pyramid's update (:func:`update_nodes`) after them.
+and the coarse node pyramid's update (:func:`update_nodes`), which runs
+inside their launch (``nodes=True``).
 
 Counterparts of `supereight_tpu/ops/integrate_kernel.py` (the Pallas TPU
 kernel K1, SDF only) and of the body of `supereight_tpu/pipeline/
@@ -20,7 +21,8 @@ the JAX package by the CPU tests).  :func:`frustum_select` and
 :func:`update_nodes` are the rest of JAX's ``integrate``
 (`supereight_tpu/pipeline/integration.py:515-536` and ``_update_nodes``,
 `:581-600`), which the port ran as chains of small launches with a host
-read; on the card each is one call of its kernel and reads nothing back.
+read; on the card the selection is one call of its kernel, the node
+update part of the fusion's launch, and neither reads anything back.
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ _SELECT_TILE = _build.constants("integrate")["kSelectThreads"]
 
 #: kernel launches so far, one counter per kernel (the chip smoke test reads
 #: them to show that the main path went through the kernels; a call of
-#: frustum_select launches its two kernels and counts once)
+#: frustum_select launches its two kernels and counts once; update_nodes
+#: counts each node update, which runs inside a fusion's launch)
 LAUNCHES = {"fuse_sdf": 0, "fuse_ofusion": 0, "frustum_select": 0,
             "update_nodes": 0}
 
@@ -172,9 +175,10 @@ def _twin(row_fn, names, m: VoxelMap, depth, T_cw, K, params,
 def fuse_sdf_twin(m: VoxelMap, depth, T_cw, K, mu: float, max_weight: float,
                   slots: Optional[torch.Tensor] = None,
                   view: Optional[torch.Tensor] = None,
-                  patch: int = PATCH) -> None:
+                  patch: int = PATCH, nodes: bool = False):
     """Plain PyTorch version of the SDF kernel, with its in-place contract
-    (see :func:`fuse_sdf`)."""
+    (see :func:`fuse_sdf`): the fusion, then with ``nodes``
+    :func:`update_nodes_twin`, whose node values it returns."""
     bc, tsdf, weight = _twin(fuse_sdf_reference, SDF_CHANNELS, m, depth,
                              T_cw, K, (mu, max_weight), slots, patch)
     if view is not None:
@@ -182,13 +186,18 @@ def fuse_sdf_twin(m: VoxelMap, depth, T_cw, K, mu: float, max_weight: float,
         rows = ((bc[:, 0] * B + bc[:, 1]) * B + bc[:, 2]).long()
         enc = torch.where(weight != 0, tsdf, float("nan")).to(view.dtype)
         view.index_copy_(0, rows, enc)
+    if nodes:
+        return update_nodes_twin(m, SDFField(mu=mu, max_weight=max_weight),
+                                 depth, T_cw, K, 0.0)
 
 
 def fuse_sdf(m: VoxelMap, depth, T_cw, K, mu: float, max_weight: float,
              slots: Optional[torch.Tensor] = None,
              view: Optional[torch.Tensor] = None,
-             patch: int = PATCH) -> None:
-    """SDF fusion of one depth frame into the map ``m``, in place.
+             patch: int = PATCH, nodes: bool = False):
+    """SDF fusion of one depth frame into the map ``m``, in place; with
+    ``nodes``, also the node pyramid's update (:func:`update_nodes`), whose
+    new ``node_values`` it returns, in the same launch on the card.
 
     ``slots`` int32[n], ascending and unique, inside the table (the budget
     branch): the slots to fuse, live or not, then any -1 entries
@@ -208,35 +217,42 @@ def fuse_sdf(m: VoxelMap, depth, T_cw, K, mu: float, max_weight: float,
     cannot."""
     if m.voxels["tsdf"].device.type == "cpu":
         return fuse_sdf_twin(m, depth, T_cw, K, mu, max_weight, slots, view,
-                             patch)
-    _launch("fuse_sdf", m, SDF_CHANNELS, slots, view, depth, T_cw, K,
-            (mu, max_weight), patch)
+                             patch, nodes)
+    return _launch("fuse_sdf", m, SDF_CHANNELS, slots, view, depth, T_cw, K,
+                   (mu, max_weight), patch, nodes)
 
 
 def fuse_ofusion_twin(m: VoxelMap, depth, T_cw, K, mu: float,
                       sigma_lo: float, now: float,
                       slots: Optional[torch.Tensor] = None,
-                      patch: int = PATCH) -> None:
+                      patch: int = PATCH, nodes: bool = False):
     """Plain PyTorch version of the OFusion kernel, with its in-place
-    contract (see :func:`fuse_ofusion`)."""
+    contract (see :func:`fuse_ofusion`): the fusion, then with ``nodes``
+    :func:`update_nodes_twin`, whose node values it returns."""
     _twin(fuse_ofusion_reference, OFUSION_CHANNELS, m, depth, T_cw, K,
           (mu, sigma_lo, now), slots, patch)
+    if nodes:
+        # with voxel_size 0 the field's sigma lower bound is sigma_floor
+        field = OFusionField(mu=mu, voxel_size=0.0, sigma_floor=sigma_lo)
+        return update_nodes_twin(m, field, depth, T_cw, K, now)
 
 
 def fuse_ofusion(m: VoxelMap, depth, T_cw, K, mu: float, sigma_lo: float,
                  now: float, slots: Optional[torch.Tensor] = None,
-                 patch: int = PATCH) -> None:
+                 patch: int = PATCH, nodes: bool = False):
     """OFusion fusion of one depth frame taken at ``now`` (a float32 value)
     into the map ``m``, in place: the contract of :func:`fuse_sdf` with the
     channels occupancy and timestamp and the update of
     :func:`fuse_ofusion_reference` (no view: a multiscale view is
-    rebuilt).  CPU tensors take the plain twin; CUDA tensors launch the
-    kernel, which raises if it cannot."""
+    rebuilt), and with ``nodes`` the node pyramid's new ``node_values``
+    returned, from the same launch on the card.  CPU tensors take the
+    plain twin; CUDA tensors launch the kernel, which raises if it
+    cannot."""
     if m.voxels["occupancy"].device.type == "cpu":
         return fuse_ofusion_twin(m, depth, T_cw, K, mu, sigma_lo, now, slots,
-                                 patch)
-    _launch("fuse_ofusion", m, OFUSION_CHANNELS, slots, None, depth, T_cw, K,
-            (mu, sigma_lo, now), patch)
+                                 patch, nodes)
+    return _launch("fuse_ofusion", m, OFUSION_CHANNELS, slots, None, depth,
+                   T_cw, K, (mu, sigma_lo, now), patch, nodes)
 
 
 def frustum_candidates(m: VoxelMap, T_cw, K, frame_hw) -> torch.Tensor:
@@ -349,61 +365,52 @@ def update_nodes(m: VoxelMap, field, depth, T_cw, K, timestamp: float):
     ``timestamp``: the map's ``node_values`` list with levels
     1..block_level replaced by new tables, where every allocated cell whose
     corner projects into the frame took its depth sample through the
-    field's update (SDF or OFusion).  CPU tensors take the plain twin;
-    CUDA tensors launch one kernel for every level, which raises if it
-    cannot."""
+    field's update (SDF or OFusion).  CPU tensors take the plain twin; on
+    the card the fusion runs it (``fuse_sdf`` / ``fuse_ofusion`` with
+    ``nodes``), and this call launches that kernel with no rows, which
+    raises if it cannot."""
     if m.device.type == "cpu":
         return update_nodes_twin(m, field, depth, T_cw, K, timestamp)
-    dev = m.device
-    ofusion = field.name == "ofusion"
-    names = OFUSION_CHANNELS if ofusion else SDF_CHANNELS
+    empty = torch.empty((0,), dtype=torch.int32, device=m.device)
+    if field.name == "ofusion":
+        return _launch("fuse_ofusion", m, OFUSION_CHANNELS, empty, None,
+                       depth, T_cw, K, (field.mu, field.sigma_lo, timestamp),
+                       PATCH, True)
+    return _launch("fuse_sdf", m, SDF_CHANNELS, empty, None, depth, T_cw, K,
+                   (field.mu, field.max_weight), PATCH, True)
+
+
+def _node_operands(m: VoxelMap, names, dev, specs):
+    """The node pyramid's operands of a fusion launch: (a ctypes array of
+    the 3 x L table pointers ``make_nodes`` takes, the new tables in one
+    allocation (each level's two channels, level after level), the L cell
+    edges, L, the new node values: views of it), for the map's levels
+    1..L = block_level; ``specs`` gains their checks."""
     levels = range(1, m.block_level + 1)
-    node_values = list(m.node_values)
-    if not levels:
-        return node_values
-    H, W = depth.shape
-    specs = [("depth", depth, torch.float32, (H, W), 4),
-             ("T_cw", T_cw, torch.float32, (4, 4), 4),
-             ("K", K, torch.float32, (4, 4), 4)]
-    ins, outs = [], []
+    tables = [[], [], []]
     for level in levels:
         s = 1 << level
         vals = m.node_values[level]
-        specs += [(f"level {level} {n}", vals[n], torch.float32, (s, s, s), 4)
-                  for n in names]
+        for k, n in enumerate(names):
+            specs.append((f"level {level} {n}", vals[n], torch.float32,
+                          (s, s, s), 4))
+            tables[k].append(vals[n])
         specs.append((f"level {level} alloc", m.node_alloc[level],
                       torch.bool, (s, s, s), 1))
-        ins.append((vals[names[0]], vals[names[1]], m.node_alloc[level]))
-        outs.append(tuple(torch.empty_like(vals[n]) for n in names))
-    _check("update_nodes", dev, specs)
-    n = len(ins)
-    ptrs = lambda ts: (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
-    cell = (ctypes.c_float * n)(*(float(np.float32(
+        tables[2].append(m.node_alloc[level])
+    cells = [1 << (3 * level) for level in levels]
+    out = torch.empty((2 * sum(cells),), dtype=torch.float32, device=dev)
+    new = out.split([n for n in cells for _ in names]) if cells else ()
+    tables = [t for ts in tables for t in ts]
+    ptrs = (ctypes.c_void_p * len(tables))(*(t.data_ptr() for t in tables))
+    cell = (ctypes.c_float * len(cells))(*(float(np.float32(
         (m.size // (1 << level)) * m.voxel_size)) for level in levels))
-    side = (ctypes.c_int * n)(*(1 << level for level in levels))
-    if ofusion:
-        fn = _build.load("integrate").update_nodes_ofusion
-        params = (field.mu, field.sigma_lo, timestamp)
-    else:
-        fn = _build.load("integrate").update_nodes_sdf
-        params = (field.mu, field.max_weight)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 7 + [I] + [P] * 3 + [I, I] \
-        + [ctypes.c_float] * len(params) + [P]
-    fn.restype = I
-    with torch.cuda.device(dev):
-        err = fn(ptrs(i[0] for i in ins), ptrs(i[1] for i in ins),
-                 ptrs(i[2] for i in ins), ptrs(o[0] for o in outs),
-                 ptrs(o[1] for o in outs), cell, side, n, depth.data_ptr(),
-                 T_cw.data_ptr(), K.data_ptr(), H, W, *params,
-                 torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"update_nodes kernel launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES["update_nodes"] += 1
-    for level, out in zip(levels, outs):
-        node_values[level] = dict(zip(names, out))
-    return node_values
+    node_values = list(m.node_values)
+    for i, level in enumerate(levels):
+        s = (1 << level,) * 3
+        node_values[level] = {name: new[2 * i + k].view(s)
+                              for k, name in enumerate(names)}
+    return ptrs, out, cell, len(cells), node_values
 
 
 def _check(fn: str, dev, specs) -> None:
@@ -417,10 +424,12 @@ def _check(fn: str, dev, specs) -> None:
 
 def _launch(fn: str, m: VoxelMap, names: Tuple[str, str],
             slots: Optional[torch.Tensor], view: Optional[torch.Tensor],
-            depth, T_cw, K, params, patch: int) -> None:
+            depth, T_cw, K, params, patch: int, nodes: bool = False):
     """Check the operands and launch kernel ``fn`` of `csrc/integrate.cu`
     on the map's channels ``names`` with the field's float ``params``:
-    one CTA per listed slot, or per slot of the table."""
+    one CTA per listed slot, or per slot of the table, and with ``nodes``
+    the node pyramid's CTAs after them, whose new ``node_values`` it
+    returns."""
     a, b = (m.voxels[name] for name in names)
     dev = a.device
     if dev.type != "cuda":
@@ -448,24 +457,35 @@ def _launch(fn: str, m: VoxelMap, names: Tuple[str, str],
     if view is not None:
         specs.append(("view", view, torch.bfloat16,
                       (B * B * B, BLOCK_VOXELS), 8))
+    node_ptrs, node_out, cell, n_levels = None, None, None, 0
+    if nodes:
+        node_ptrs, node_out, cell, n_levels, node_values = _node_operands(
+            m, names, dev, specs)
     _check(fn, dev, specs)
     n_rows = cap if slots is None else slots.shape[0]
-    if n_rows == 0:
-        return
-
-    c_fn = getattr(_build.load("integrate"), fn)
-    P = ctypes.c_void_p
-    ptrs = [slots, m.keys, m.n_blocks, m.active, a, b] \
-        + ([view] if fn == "fuse_sdf" else []) + [depth, T_cw, K]
-    ints = [n_rows, cap, H, W] + ([B] if fn == "fuse_sdf" else [])
-    c_fn.argtypes = [P] * len(ptrs) + [ctypes.c_int] * len(ints) \
-        + [ctypes.c_float] * (len(params) + 2) + [ctypes.c_int, P]
-    c_fn.restype = ctypes.c_int
-    diag = 1.7320508 * BLOCK_SIDE * m.voxel_size
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = c_fn(*(None if t is None else t.data_ptr() for t in ptrs),
-                   *ints, *params, m.voxel_size, diag, patch, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")
-    LAUNCHES[fn] += 1
+    if n_rows or n_levels:
+        c_fn = getattr(_build.load("integrate"), fn)
+        P, I = ctypes.c_void_p, ctypes.c_int
+        ptrs = [slots, m.keys, m.n_blocks, m.active, a, b] \
+            + ([view] if fn == "fuse_sdf" else []) + [depth, T_cw, K]
+        ints = [n_rows, cap, H, W] + ([B] if fn == "fuse_sdf" else [])
+        c_fn.argtypes = [P] * len(ptrs) + [I] * len(ints) \
+            + [ctypes.c_float] * (len(params) + 2) + [I, P, P, P, I, P]
+        c_fn.restype = I
+        diag = 1.7320508 * BLOCK_SIDE * m.voxel_size
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = c_fn(*(None if t is None else t.data_ptr() for t in ptrs),
+                       *ints, *params, m.voxel_size, diag, patch, node_ptrs,
+                       None if node_out is None else node_out.data_ptr(),
+                       cell, n_levels, stream)
+        if err != 0:
+            raise RuntimeError(f"{fn} kernel launch failed: CUDA error "
+                               f"{err}")
+        if n_rows:
+            LAUNCHES[fn] += 1
+    if not nodes:
+        return None
+    if n_levels:    # once a fusion, inside the fusion's launch
+        LAUNCHES["update_nodes"] += 1
+    return node_values

@@ -245,13 +245,15 @@ class ShardedFrame:
                     m, comm.all_reduce_sum(wanted.int()) > 0)
             a_pose, a_count = pose.clone(), a_count + 1
         # owner-local fusion: the kernel on this rank's rows, then the
-        # replicated active flags from every rank's
+        # replicated active flags from every rank's; the local map holds
+        # the whole map's node tables, so the same launch updates the
+        # replicated node pyramid on every rank
         T_cw = inv(pose)
         K, depth = K.contiguous(), depth.contiguous()
-        loc = local_map(m, rank, n)
-        integration.fuse(field, loc, None, depth, T_cw, K, timestamp)
-        m = m.replace(active=comm.all_gather_cat(loc.active))
-        m = integration._update_nodes(m, field, depth, T_cw, K, timestamp)
+        loc = integration.fuse(field, local_map(m, rank, n), None, depth,
+                               T_cw, K, timestamp)
+        m = m.replace(active=comm.all_gather_cat(loc.active),
+                      node_values=loc.node_values)
         return st.replace(map=m, alloc_pose=a_pose, alloc_count=a_count,
                           integrated=True)
 

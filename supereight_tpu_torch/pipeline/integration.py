@@ -8,8 +8,9 @@ mask per octree level.  Fusion picks at most ``budget`` frustum candidates
 (``frustum_select``) or every live slot and fuses them in place on the
 map's block table through the field's kernel (`ops/integrate_kernel.py`:
 ``fuse_sdf`` or ``fuse_ofusion``, which also writes a held SDF read view's
-fused rows), then updates the coarse node pyramid (``update_nodes``); on
-the card a frame without allocation reads nothing back.
+fused rows and updates the coarse node pyramid, ``update_nodes``' values,
+in the same launch on the card); on the card a frame without allocation
+reads nothing back.
 ``unallocated_fraction`` is the on-demand allocation gate's signal.
 """
 
@@ -244,17 +245,21 @@ def fusion_operands(m: VoxelMap, T_cw, K, frame_hw, budget: int = 0):
 
 
 def fuse(field, m: VoxelMap, slots, depth, T_cw, K, timestamp: float,
-         patch: int = PATCH, view=None) -> None:
+         patch: int = PATCH, view=None) -> VoxelMap:
     """The field's fusion kernel on the map ``m``, in place: its channel
     tables and ``active`` (and ``view``'s fused rows) take the update of
-    the ``slots`` of ``fusion_operands``."""
+    the ``slots`` of ``fusion_operands``, and the coarse node pyramid its
+    update (``integrate_kernel.update_nodes``' values), in the same launch
+    on the card.  Returns the map with the new ``node_values``."""
     if field.name == "ofusion":
-        integrate_kernel.fuse_ofusion(m, depth, T_cw, K, field.mu,
-                                      field.sigma_lo, timestamp, slots,
-                                      patch)
+        nodes = integrate_kernel.fuse_ofusion(
+            m, depth, T_cw, K, field.mu, field.sigma_lo, timestamp, slots,
+            patch, nodes=True)
     else:
-        integrate_kernel.fuse_sdf(m, depth, T_cw, K, field.mu,
-                                  field.max_weight, slots, view, patch)
+        nodes = integrate_kernel.fuse_sdf(
+            m, depth, T_cw, K, field.mu, field.max_weight, slots, view, patch,
+            nodes=True)
+    return m.replace(node_values=nodes)
 
 
 def integrate(m: VoxelMap, field, depth, pose, K, timestamp: float = 0.0,
@@ -282,16 +287,6 @@ def integrate(m: VoxelMap, field, depth, pose, K, timestamp: float = 0.0,
     K = K.contiguous()
     depth = depth.contiguous()
     slots, overflow = fusion_operands(m, T_cw, K, depth.shape, budget)
-    fuse(field, m, slots, depth, T_cw, K, timestamp, patch, view)
-    m = _update_nodes(m.replace(overflow=overflow), field, depth, T_cw, K,
-                      timestamp)
+    m = fuse(field, m, slots, depth, T_cw, K, timestamp, patch,
+             view).replace(overflow=overflow)
     return m if view is None else (m, view)
-
-
-def _update_nodes(m: VoxelMap, field, depth, T_cw, K,
-                  timestamp: float) -> VoxelMap:
-    """Coarse node-pyramid updates: project every allocated pyramid cell's
-    corner and fuse its depth sample (``integrate_kernel.update_nodes``:
-    one launch on the card)."""
-    return m.replace(node_values=integrate_kernel.update_nodes(
-        m, field, depth, T_cw, K, timestamp))

@@ -183,16 +183,28 @@ def _distances(succ: List[List[int]], src: int) -> Dict[int, int]:
 
 
 def waypoints(body: Body) -> Dict[str, object]:
-    """Indices in the main body of the instructions a warp's class must
+    """Indices in the main body of the instructions a row's warp class must
     pass: ``sync`` (``BAR.RED``), ``store`` (the first ``STG.E.128``),
     ``setup`` (thread 0's shared-memory stores of the row's parameters,
     every ``STS`` before the ``BAR.SYNC``) and ``update`` (the four
-    ``MUFU.RSQ``, voxel 0 to 3)."""
+    ``MUFU.RSQ`` between the ``BAR.SYNC`` and the sync, voxel 0 to 3).  The
+    node pyramid's CTAs, which branch away before the row's code, have
+    their own set-up, barrier and updates, on no path to the sync."""
     find = lambda p: [i for i, (_, x) in enumerate(body)
                       if _op(x).startswith(p)]
     sync, store, bar, update = (find("BAR.RED"), find("STG.E.128"),
                                 find("BAR.SYNC"), find("MUFU.RSQ"))
-    setup = [i for i in find("STS") if bar and i < bar[0]]
+    setup = []
+    if len(sync) == 1:
+        # the row's: what lies on a path through its barrier to the sync
+        succ = successors(body)
+        reaches = lambda i, j: j in _distances(succ, i)
+        bar = [b for b in bar if reaches(b, sync[0])]
+        if bar:
+            setup = [i for i in find("STS") if i < bar[0]
+                     and reaches(i, bar[0])]
+            update = [i for i in update
+                      if reaches(bar[0], i) and reaches(i, sync[0])]
     if len(sync) != 1 or not store or len(bar) != 1 or not setup \
             or len(update) != VOXELS_PER_THREAD:
         raise ValueError(f"unexpected main body: {len(sync)} BAR.RED, "
@@ -386,6 +398,8 @@ def main(argv=None) -> Dict[str, object]:
     res: Dict[str, object] = dict(device=name, power_limit_w=power, sms=sms,
                                   max_sm_mhz=mhz, kernels={})
     for kernel, (main_body, subs) in kernel_bodies().items():
+        if kernel not in ("fuse_sdf", "fuse_ofusion"):
+            continue        # the frustum selection's two kernels
         c = count(main_body, subs)
         wp, succ = waypoints(main_body), successors(main_body)
         c["min_warp"] = dict(

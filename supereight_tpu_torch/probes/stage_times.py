@@ -36,9 +36,10 @@ of :data:`INT_PARTS` (:func:`integration_parts`), each timed alone the
 same way on clones of the map's tables; a run's ``int_parts`` are their
 medians over the frames that run each part.  Of the other checkout these
 take ``system.tracking_stage``, ``system._alloc_fires``, ``integration``'s
-``allocate_sdf`` / ``allocate_ofusion``, ``fusion_operands``, ``fuse`` and
-``_update_nodes``, ``raycast.view_alloc_fill`` / ``pack_view`` and
-``gradmap.build_table``.
+``allocate_sdf`` / ``allocate_ofusion``, ``fusion_operands``, ``fuse``
+(which returns the map with its new node tables: a checkout from before
+the node update went into the fusion's launch is cut by its own probe),
+``raycast.view_alloc_fill`` / ``pack_view`` and ``gradmap.build_table``.
 
 After each of those frames it cuts the reference raycast of the frame's
 final state in the parts of :data:`RAY_PARTS` (:func:`raycast_parts`),
@@ -117,9 +118,9 @@ def track_parts(slam, depth_mm, k, frame: int):
 #: assignment (allocating frames), the held view's fill (an SDF view's
 #: ``view_alloc_fill``, a multiscale view's rebuild), ``inv(pose)``, the
 #: frustum candidates and their selection (``fusion_operands``), the
-#: fusion launch, the node-pyramid update and the stored gradient table's
-#: rebuild (``raycast_normals="stored"``)
-INT_PARTS = ("alloc", "fill", "inv", "select", "fuse", "nodes", "grad")
+#: fusion launch (with the node pyramid's update inside it) and the stored
+#: gradient table's rebuild (``raycast_normals="stored"``)
+INT_PARTS = ("alloc", "fill", "inv", "select", "fuse", "grad")
 
 
 def _timer(slam, out):
@@ -194,11 +195,9 @@ def integration_parts(slam, depth_mm, k, frame: int):
     K, depth = K.contiguous(), depth.contiguous()
     slots, _ = part("select", lambda: integration.fusion_operands(
         m, T_cw, K, depth.shape, cfg.integrate_budget))
-    part("fuse", lambda: integration.fuse(
+    m = part("fuse", lambda: integration.fuse(
         field, m, slots, depth, T_cw, K, timestamp, cfg.integrate_patch,
         view if sdf_view else None))
-    m = part("nodes", lambda: integration._update_nodes(
-        m, field, depth, T_cw, K, timestamp))
     if view is not None and not sdf_view:
         part("fill", lambda: raycast.pack_view(m, field)["F"])
     if st.grad is not None:

@@ -334,6 +334,54 @@ def test_kernel_line_order():
         set(chip_smoke.ICP) | set(chip_smoke.GLUE) | set(chip_smoke.RAYCAST)
 
 
+def test_kernels_line_marks_merged_launches():
+    """The kernels line's ``launches_counted_in``: R2's entry under the
+    merged scan, the node update's under both fusion kernels (it runs in
+    their launches), each naming entries of the line; a fusion map's node
+    update (``fusion_map`` at 64^3 on the CPU: live blocks, random node
+    tables) equals ``update_nodes_twin`` through the fusion's ``nodes``."""
+    import torch
+    from supereight_tpu_torch.core import numerics
+    from supereight_tpu_torch.fields import OFusionField, SDFField
+    from supereight_tpu_torch.ops import integrate_kernel as ik
+    from supereight_tpu_torch.pipeline import camera, preprocessing
+    assert chip_smoke.LAUNCHES_COUNTED_IN == {
+        "ray_scan": "ray_scan_second",
+        "update_nodes": ["fuse_sdf", "fuse_ofusion"]}
+    for name, inside in chip_smoke.LAUNCHES_COUNTED_IN.items():
+        inside = [inside] if isinstance(inside, str) else inside
+        assert name in chip_smoke.KERNEL_ORDER
+        assert set(inside) <= set(chip_smoke.KERNEL_ORDER) - {name}
+    assert chip_smoke.LAUNCHES_COUNTED_IN["update_nodes"] == \
+        list(chip_smoke.FUSION)
+    torch.set_num_threads(1)
+    depths, poses = chip_smoke.load_sequence("synthetic_256_frames")
+    k = chip_smoke.K / 2
+    depth = preprocessing.mm_to_meters(
+        torch.from_numpy(depths[30][::2, ::2].astype(np.int32)), (120, 160))
+    pose = torch.from_numpy(poses[30])
+    Km = camera.camera_matrix(torch.from_numpy(k)).contiguous()
+    T_cw = numerics.inv(pose)
+    for field in (SDFField(mu=0.1), OFusionField(mu=0.008, voxel_size=0.075)):
+        m = chip_smoke.fusion_map(torch, 64, field, "cpu", 2, depth, pose, Km)
+        assert int(m.n_blocks) > 10 and m.block_level == 3
+        kept = chip_smoke.clone_tables(m)
+        params = (field.mu, field.max_weight) if field.name == "sdf" else \
+            (field.mu, field.sigma_lo, 0.5)
+        fn = ik.fuse_sdf if field.name == "sdf" else ik.fuse_ofusion
+        got = fn(m, depth, T_cw, Km, *params, nodes=True)
+        want = ik.update_nodes_twin(kept, field, depth, T_cw, Km,
+                                    params[-1] if field.name != "sdf"
+                                    else 0.0)
+        changed = 0
+        for level in range(1, m.block_level + 1):
+            for n in want[level]:
+                assert torch.equal(got[level][n], want[level][n])
+                changed += int((want[level][n]
+                                != kept.node_values[level][n]).sum())
+        assert changed > 0
+
+
 def test_glue_holds_on_the_cpu():
     """The glue holds' CPU half (the kernels run only on the card): the
     frustum selection of a warmed 64^3 map at a budget its candidates
@@ -372,14 +420,18 @@ def test_glue_holds_on_the_cpu():
     assert chip_smoke.bits_err(torch, a, torch.tensor(
         [1.5, float("nan"), 0.0])) == (0.5, False)
     counts = dict(build_pyramid=10, pose_inv=19, update_nodes=9,
-                  frustum_select=9)
+                  frustum_select=9, fuse_sdf=9)
     hcfg = chip_smoke.preset_config("headline")
     chip_smoke.check_glue_launched("x", counts, hcfg, 10, 9)
     chip_smoke.check_glue_launched("x", {**counts, "build_pyramid": 12},
                                    hcfg, 10, 9)
-    for bad in (dict(build_pyramid=9), dict(update_nodes=10),
+    for bad in (dict(build_pyramid=9), dict(update_nodes=10, fuse_sdf=10),
                 dict(frustum_select=8), dict(pose_inv=18)):
         with pytest.raises(SystemExit, match="launched"):
+            chip_smoke.check_glue_launched("x", {**counts, **bad}, hcfg, 10, 9)
+    # the node update counts once inside each fusion launch
+    for bad in (dict(fuse_sdf=8), dict(fuse_ofusion=1)):
+        with pytest.raises(SystemExit, match="inside"):
             chip_smoke.check_glue_launched("x", {**counts, **bad}, hcfg, 10, 9)
 
 
@@ -528,8 +580,9 @@ def test_tracking_parts_on_the_cpu(monkeypatch):
     assert set(stages) == {"preprocessing", "tracking", "integration",
                            "raycasting", "total"}
     assert tuple(parts) == stage_times.PARTS
-    # frames 2-4 fuse; the default config allocates on each of them
-    assert tuple(int_parts) == ("alloc", "inv", "select", "fuse", "nodes")
+    # frames 2-4 fuse; the default config allocates on each of them; the
+    # node update is part of the fusion's call
+    assert tuple(int_parts) == ("alloc", "inv", "select", "fuse")
     for t in (*parts.values(), *int_parts.values()):
         assert t["host"] > 0 and t["device"] is None and t["frames"] == 3
     assert "not measured" in stage_times.format_parts(parts)

@@ -336,8 +336,10 @@ def test_pivot_matrices_drive_every_pivot_order():
                                   if m.shape[0] in (1, 2, 4)])
 def test_inv_twin_matches_jax_pivot_patterns(name):
     """``inv_twin`` against the jitted ``jnp.linalg.inv`` on a matrix of
-    ``chip_smoke.pivot_matrices`` of 1, 2 or 4 rows (row orders, zero and
-    NaN pivots, singular matrices): XLA's CPU inverse bit for bit.  Not at
+    ``chip_smoke.pivot_matrices`` of 1, 2 or 4 rows (row orders; zero,
+    NaN, subnormal, infinite and huge pivots; subnormal products and
+    entries; singular matrices): XLA's CPU inverse bit for bit, with its
+    flush-to-zero of subnormals.  Not at
     3 or more than 4 rows, where OpenBLAS's triangular solve and LU take
     another order than the twin's (``numerics.inv_twin``); the port
     inverts 4x4 matrices only, and on the card ``pose_inv`` is held to the

@@ -1218,7 +1218,8 @@ def test_pose_inv_matches_twin(cuda):
     """``numerics.inv`` on the card (``pose_inv``) on every pose of the
     three cached sequences, on K, on random 4x4 matrices and on the
     ``chip_smoke.pivot_matrices`` of 1, 2 and 4 rows (every pivot pattern:
-    the 24 row orders of a 4x4, zero and NaN pivots, singular matrices):
+    the 24 row orders of a 4x4; zero, NaN, subnormal, infinite and huge
+    pivots; subnormal products and entries; singular matrices):
     the host twin's bits, one launch a call.  At 3, 5 and 8 rows (random
     matrices and every other size of ``pivot_matrices``), where the twin
     is not XLA's inverse, it raises without a launch."""
@@ -1316,30 +1317,87 @@ def _node_map(cuda, size, field, seed):
     return m.replace(node_values=values, node_alloc=alloc)
 
 
+def _fusion_operands(launch, m, T_cw, K):
+    """The table and slots a merged fusion launch takes: ``budget`` the
+    frustum selection's 3072 slots, ``whole`` every live slot, ``sharded``
+    rank 0 of 2's slot range as ``frame_dist.local_map`` gives the fusion
+    (its rows, keys and active flags, its live count as n_blocks, and the
+    whole map's node tables)."""
+    if launch == "budget":
+        return m, ik.frustum_select(m, T_cw, K, (240, 320), 3072)[0]
+    if launch == "whole":
+        return m, None
+    cap = m.capacity // 2
+    return m.replace(capacity=cap, keys=m.keys[:cap], active=m.active[:cap],
+                     n_blocks=m.n_blocks.clamp(max=cap),
+                     voxels={n: v[:cap] for n, v in m.voxels.items()}), None
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("launch", ["alone", "budget", "whole", "sharded"])
 @pytest.mark.parametrize("size", [256, 1024])
 @pytest.mark.parametrize("field_name", ["sdf", "ofusion"])
-def test_update_nodes_matches_twin(cuda, size, field_name):
-    """``update_nodes`` on the card (one launch for every level) on random
-    node tables and a cached frame: every level's new tables bit for bit
-    with the twin's on the card; the map's own tables untouched."""
+def test_update_nodes_matches_twin(cuda, size, field_name, launch):
+    """The node pyramid's update on the card on random node tables and a
+    cached frame, every level's new tables bit for bit with
+    ``update_nodes_twin``'s on the card, the map's own node tables
+    untouched: ``alone``, ``update_nodes`` (the fusion kernel's launch with
+    no rows); else inside the fusion's launch (``nodes=True``) on a map of
+    the frame's blocks (``chip_smoke.fusion_map``) on the budget branch,
+    the whole-table branch and a rank's slot range of the sharded frame,
+    against ``fuse_*_twin`` followed by ``update_nodes_twin`` (the tables
+    and ``active`` as the fusion's own tests hold them), one launch
+    counted once under each name."""
+    import chip_smoke
     from supereight_tpu_torch.core import numerics
     from supereight_tpu_torch.pipeline import camera, preprocessing
     field = SDFField(mu=0.1) if field_name == "sdf" else \
         OFusionField(mu=0.008, voxel_size=4.8 / size)
-    m = _node_map(cuda, size, field, size)
     z = np.load(BENCH)
     depth = preprocessing.mm_to_meters(torch.from_numpy(
         z["depths"][30].astype(np.int32)), (240, 320)).to(cuda)
-    T_cw = numerics.inv(torch.from_numpy(z["poses"][30]).to(cuda))
+    pose = torch.from_numpy(z["poses"][30]).to(cuda)
+    T_cw = numerics.inv(pose)
     K = camera.camera_matrix(torch.tensor(
         [240.6, 240.0, 160.0, 120.0], device=cuda)).contiguous()
+    kernel = "fuse_sdf" if field_name == "sdf" else "fuse_ofusion"
+    params = (field.mu, field.max_weight) if field_name == "sdf" else \
+        (field.mu, field.sigma_lo, NOW)
+    if launch == "alone":
+        m = _node_map(cuda, size, field, size)
+    else:
+        m, slots = _fusion_operands(launch, chip_smoke.fusion_map(
+            torch, size, field, cuda, size, depth, pose, K), T_cw, K)
+        km, tm = chip_smoke.clone_tables(m), chip_smoke.clone_tables(m)
     kept = [{n: v.clone() for n, v in d.items()} for d in m.node_values]
-    before = ik.LAUNCHES["update_nodes"]
-    got = ik.update_nodes(m, field, depth, T_cw, K, NOW)
+    before = dict(ik.LAUNCHES)
+    if launch == "alone":
+        got = ik.update_nodes(m, field, depth, T_cw, K, NOW)
+    else:
+        got = getattr(ik, kernel)(km, depth, T_cw, K, *params, slots=slots,
+                                  nodes=True)
     torch.cuda.synchronize()
-    assert ik.LAUNCHES["update_nodes"] == before + 1
-    want = ik.update_nodes_twin(m, field, depth, T_cw, K, NOW)
+    ran = {n: ik.LAUNCHES[n] - before[n] for n in before}
+    want_ran = dict(fuse_sdf=0, fuse_ofusion=0, frustum_select=0,
+                    update_nodes=1)
+    want_ran[kernel] = int(launch != "alone")
+    assert ran == want_ran
+    if launch != "alone":
+        getattr(ik, kernel + "_twin")(tm, depth, T_cw, K, *params,
+                                      slots=slots)
+        assert torch.equal(km.active, tm.active)
+        assert bool(tm.active.any())
+        a, b = (ik.SDF_CHANNELS if field_name == "sdf"
+                else ik.OFUSION_CHANNELS)
+        if field_name == "sdf":
+            _same_bits(km.voxels[a], tm.voxels[a])
+        else:
+            torch.testing.assert_close(km.voxels[a], tm.voxels[a],
+                                       rtol=1e-5, atol=1e-6)
+        _same_bits(km.voxels[b], tm.voxels[b])
+        assert int((tm.voxels[b] != m.voxels[b]).sum()) > 100
+    want = ik.update_nodes_twin(m, field, depth, T_cw, K,
+                                NOW if field_name == "ofusion" else 0.0)
     changed = 0
     for level in range(m.block_level + 1):
         for n in want[level]:
@@ -1600,13 +1658,72 @@ def test_scan_ranks_across_tile_counts(cuda):
 
 @pytest.mark.gpu
 def test_raycast_kernels_in_registers(cuda):
-    """R1 and the merged scan as built: no stack frame, no spills
+    """R1, the merged scan and R4 as built: no stack frame, no spills
     (``-Xptxas -v``, ``chip_smoke.raycast_registers``)."""
     import chip_smoke
     props = chip_smoke.raycast_registers()
-    for name in ("splat_bounds", "ray_scan"):
+    for name in ("splat_bounds", "ray_scan", "ray_refine_normals"):
         p = props[name]
         assert p["stack"] == p["spill_stores"] == p["spill_loads"] == 0
+
+
+#: R4's image shapes (H, W) and a strip (r0, rows) of each: both widths off
+#: R4's 32 x 4 tile, and 138 rows and the 70- and 66-row strips off its
+#: height; grad_decim 2 divides the first's 70 x 98 scan grid (so its
+#: height is a multiple of 4), 3 the second's 69 x 99 and its strip's
+#: 36 x 99; each strip's r0 / 2 is odd
+R4_SHAPES = {"140x196": ((140, 196), (70, 70)),
+             "138x198": ((138, 198), (66, 72))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strip", [False, True])
+@pytest.mark.parametrize("shape", sorted(R4_SHAPES))
+@pytest.mark.parametrize("preset", ["headline", "ofusion"])
+def test_refine_normals_kernel_in_every_mode(cuda, preset, shape, strip):
+    """R4 (``raycast_kernel.ray_refine_normals``, 2-D tiles) against
+    ``ray_refine_normals_twin`` on the same scan on the full-size headline
+    and ofusion maps, in every re-solve x normals mode it takes (the
+    secant and trilinear re-solves with no, volume and hybrid normals, the
+    hybrid ones at grad_decim 1, 2 and 3; at full resolution no re-solve
+    with no and volume normals), on an image whose width and height are
+    not multiples of the tile and on a strip of it whose r0 / 2 is odd:
+    vertex, normal, ray distance and hit bit for bit, one launch a call."""
+    from supereight_tpu_torch.ops import raycast_kernel as rk
+    from supereight_tpu_torch.pipeline import camera
+    from supereight_tpu_torch.pipeline import raycast as rc
+    from supereight_tpu_torch.pipeline.constants import FAR_PLANE, NEAR_PLANE
+    m, field, _, dense = _raycast_map(cuda, preset)
+    (H, W), rows = R4_SHAPES[shape]
+    k = torch.tensor([150.0, 150.0, W / 2, H / 2], device=cuda)
+    view = _RAYCAST_POSES[preset] @ camera.inverse_camera_matrix(k)
+    tmin, tmax, g = rc._splat_bounds_twin(m, field, view, H, W, NEAR_PLANE,
+                                          FAR_PLANE)
+    modes = [(False, r, n, 1) for r in ("secant", "interp")
+             for n in ("none", "volume")] \
+        + [(False, r, "hybrid", gd) for r in ("secant", "interp")
+           for gd in (1, 2, 3)] \
+        + [(True, "none", n, 1) for n in ("none", "volume")]
+    hits = 0
+    for full, resolve, normals, gd in modes:
+        plan = rc.scan_plan(m, field, H, W, NEAR_PLANE, FAR_PLANE, 1.0, 1.0,
+                            full, rows if strip else None)
+        assert plan.half_res != full
+        scan = rc.ray_scan_twin(m, dense, field, view, plan, tmin, tmax, g)
+        args = (m, dense, field, view, plan, scan.z, scan.hit, resolve,
+                normals, gd)
+        before = rk.LAUNCHES["ray_refine_normals"]
+        got = rk.ray_refine_normals(*args)
+        torch.cuda.synchronize()
+        assert rk.LAUNCHES["ray_refine_normals"] == before + 1
+        want = rc.ray_refine_normals_twin(*args)
+        for a, b in zip(got, want):
+            if b is None or b.dtype == torch.bool:
+                assert a is b is None or torch.equal(a, b)
+            else:
+                _same_bits(a, b)
+        hits += int(want.hit.sum())
+    assert hits > 0.2 * len(modes) * W * (rows[1] if strip else H)
 
 
 @pytest.mark.gpu

@@ -52,6 +52,32 @@ def test_parse_splits_main_body_and_subroutines():
                       update=[8, 11, 14, 17])
 
 
+def test_waypoints_skip_the_node_cells():
+    """A body laid out as the fusion with the node pyramid's CTAs in its
+    launch compiles: a branch to the node cells at the entry (their own
+    set-up, barrier, update's ``MUFU.RSQ``, store and exit), then the
+    row's code.  The row's waypoints are the same, the nodes' skipped."""
+    import re
+    node = ["ISETP.GE.AND P4, PT, R0, R5, PT",
+            "@!P4 BRA 0x80",                      # a row's CTA
+            "STS [R0], R9",                       # T_cw and K
+            "BAR.SYNC.DEFER_BLOCKING 0x0",
+            "MUFU.RSQ R6, R7",
+            "STG.E desc[UR4][R8.64], R6",
+            "EXIT",
+            "NOP R0"]
+    # the row's code 0x80 further on, its branches with it
+    row = [re.sub(r"BRA 0x([0-9a-f]+)",
+                  lambda t: f"BRA 0x{int(t.group(1), 16) + 0x80:x}", x)
+           for x in _BODY[:24]]
+    body = [(16 * i, x) for i, x in enumerate(node + row)]
+    assert body[len(node)][0] == 0x80
+    wp = sc.waypoints(body)
+    assert wp == dict(sync=19 + len(node), store=21 + len(node),
+                      setup=[3 + len(node), 5 + len(node)],
+                      update=[8 + len(node) + 3 * j for j in range(4)])
+
+
 @pytest.mark.parametrize("through,want", [
     ([], 2),                                      # returns at once
     (["sync"], 10),                               # projects only
