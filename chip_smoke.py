@@ -15,7 +15,12 @@ GPU.
    ICP_SUM_MAG x their terms' absolute sum; kernel B ``icp_update`` on
    kernel A's sums, the twist and pose within ICP_UPDATE_ATOL + the
    float32 solve's error bound (each beside its distance from the float64
-   solve); both timed beside the launch floor and their bounds; a whole
+   solve); kernel A with those sums pending (the sharded trip: the
+   previous trip's update inside its launch), its carry kernel B's bit
+   for bit, its status image and sums kernel A's from that carry; kernel
+   A with an update inside timed at every shape, kernel B alone, beside
+   the launch floor and their bounds, and both kernels' ``-Xptxas -v``
+   lines with the frustum selection's (``select_trip_registers``); a whole
    ``track`` on the kernels against one on CPU copies of its operands (the
    twins; ICP_TRACK_ATOL, ICP_TRACK_FLIPS); and ``track_levels`` under
    ``torch.cuda.set_sync_debug_mode("error")``: the level loops must not
@@ -41,10 +46,13 @@ GPU.
    ``pivot_matrices`` (every pivot pattern at n = 1, 2 and 4, the sizes
    where its steps are XLA's; every other n must raise), against the host
    twin and timed beside ``torch.linalg.inv``; ``frustum_select``
-   (``csrc/integrate.cu``, two launches) on the headline map after 12
-   frames at its budget, 3072, and at one its candidates overflow (each
-   preset's run holds it again on its own map: 6144, 24576 and 196608
-   slots); ``update_nodes`` (``csrc/integrate.cu``: inside the fusion's
+   (``csrc/integrate.cu``, one launch: the pose's inverse in each CTA, a
+   look-back over its tiles; its T_cw pose_inv's bit for bit, its scratch
+   zero after each launch) on the headline map after 12 frames at its
+   budget, 3072, and at one its candidates overflow, and on maps of a
+   frame's blocks at SELECT_CAPACITIES, each timed (each preset's run
+   holds it again on its own map: 6144, 24576 and 196608 slots);
+   ``update_nodes`` (``csrc/integrate.cu``: inside the fusion's
    launch, alone a fusion launch with no rows) on random node
    tables at 256^3 and 1024^3 for both fields, alone and inside the
    fusion's launch at 3072 slots of a map of the frame's blocks, timed
@@ -87,13 +95,15 @@ GPU.
    integrated frame must launch a fusion kernel; every frame on which ICP
    runs must launch ``icp_track_levels`` exactly once and the pair never
    on the one-device paths, B, D, the presets, F and G3's one-device
-   frame; on G's ranks both kernels of the pair run once a trip of every
-   level and ``icp_track_levels`` never; on the presets and F,
+   frame; on G's ranks kernel A once a trip of every level (the previous
+   trip's update inside it), kernel B once a level and
+   ``icp_track_levels`` never; on the presets and F,
    ``build_pyramid`` at least once a frame with ICP (one launch a call),
    ``pose_inv`` at least once a frame with ICP and once an integrated
-   frame, ``update_nodes`` once an integrated frame and once inside each
-   fusion launch, and ``frustum_select``
-   once an integrated frame on the budget branch; on every path R1, R2
+   frame of the whole-table branch (the budget branch's inverse is inside
+   the selection's launch), ``update_nodes`` once an integrated frame
+   and once inside each fusion launch, and ``frustum_select`` once an
+   integrated frame on the budget branch; on every path R1, R2
    and R4 once a raycast that fires, R3 (its count: the launches of R2
    that ran the second window or the midsolve) too where one of those is
    on; on G's ranks the four as often as each other):
@@ -389,12 +399,17 @@ PYRAMID_ODD = (61, 83)
 PYRAMID_FLOPS = 43
 INV_FLOPS = 200
 SELECT_FLOPS = 35
+#: the larger capacities the selection is held and timed at beside the
+#: headline's 6144 slots: (map size, capacity, budget) of
+#: demo512-ofusion's and 1024-quality's
+SELECT_CAPACITIES = ((512, 24576, 6144), (1024, 196608, 98304))
 NODE_FLOPS = {"sdf": 49, "ofusion": 80}
 #: a node cell's bytes: its two channels and flag read, its two new
 #: channels written (the depth image is counted once, beside the cells)
 NODE_CELL_BYTES = 4 + 4 + 1 + 4 + 4
 FUSION = ("fuse_sdf", "fuse_ofusion")
-#: the sharded frame's ICP kernels (a trip: kernel A, the all_reduce,
+#: the sharded frame's ICP kernels (a trip: kernel A with the previous
+#: trip's update inside, then the all_reduce; a level's last update:
 #: kernel B), and the one-device frame's (every trip in one launch)
 ICP_PAIR = ("icp_track_reduce", "icp_update")
 ICP = ICP_PAIR + ("icp_track_levels",)
@@ -455,8 +470,10 @@ def pivot_matrices() -> dict:
     rows, where the inverse is XLA's, a subnormal, an infinite and a huge
     first pivot (its reciprocal subnormal), subnormal products in the
     second column, every entry subnormal, an infinite last diagonal entry,
-    and a zero that an underflowed product leaves in the LU's triangular
-    solve (XLA's CPU code flushes subnormals to zero: numerics.inv_twin)."""
+    a zero that an underflowed product leaves in the LU's triangular solve
+    (XLA's CPU code flushes subnormals to zero: numerics.inv_twin), and a
+    NaN below the first row, alone and with a +inf or -inf, in columns 0-2
+    (OpenBLAS's isamax: numerics._isamax)."""
     rng = np.random.default_rng(11)
     base = np.diag([8.0, 4.0, 2.0, 1.0]) + rng.uniform(-0.3, 0.3, (4, 4))
     out = {"rows " + "".join(map(str, p)): base[list(p)]
@@ -490,6 +507,22 @@ def pivot_matrices() -> dict:
             out[f"all subnormal {n}"] = m() * np.float32(1e-39)
             out[f"infinite diagonal {n}"] = z = m()
             z[n - 1, n - 1] = -np.inf
+    # a NaN below the first row, where OpenBLAS's isamax can pick the NaN
+    # or an entry after it (numerics._isamax)
+    out["nan below the first row 4"] = np.array(
+        [[1, 2, 0, 0], [np.nan, 3, 0, 0], [0, 0, 1, 0], [np.inf, 0, 0, 1]])
+    rng = np.random.default_rng(13)
+    for n in (2, 4):
+        for c in range(min(n, 3)):
+            last = n - 1
+            out[f"nan in column {c} {n}"] = z = rng.normal(size=(n, n))
+            z[min(c + 1, last), c] = np.nan
+            z[last, c] = 4.0 if c + 1 < last else z[last, c]
+            for sign in (1, -1):
+                out[f"nan and {sign:+d}inf in column {c} {n}"] = z = \
+                    rng.normal(size=(n, n))
+                z[min(c + 1, last), c] = np.nan
+                z[last if c + 1 < last else max(c - 1, 0), c] = sign * np.inf
     out["flushed zero 4"] = np.array(
         [[9.9999997e-21, 1.0e+20, 1.2687483e-37, 1.3059919e+22],
          [6.1610434e-13, 9.9999997e-20, 5.4581766e+14, -8.0940120e-40],
@@ -827,6 +860,41 @@ def fusion_registers():
     return props
 
 
+#: the one-launch frustum selection and the sharded ICP trip
+#: (sass_count.kernel_name) by source, each with the most bytes of stack
+#: frame and of spill stores its -Xptxas -v line may show (as built on an
+#: H100 with CUDA 12.8): the selection none; the trip the 32-byte frame
+#: that icp_update and icp_track_levels have too (sinf's and cosf's slow
+#: argument reduction in solve_step), no spills
+LOOK_BACK_AND_TRIP = {"integrate": {"frustum_select": (0, 0)},
+                      "icp": {"icp_track_reduce": (32, 0)}}
+
+
+def select_trip_registers():
+    """The frustum selection's and the sharded ICP trip's kernels as built:
+    their ``-Xptxas -v`` registers, stack frame and spills; fails where one
+    has more stack frame or spill stores than LOOK_BACK_AND_TRIP names.
+    {kernel: its properties}."""
+    from supereight_tpu_torch.probes import sass_count
+    props = {}
+    for source, names in LOOK_BACK_AND_TRIP.items():
+        found = {sass_count.kernel_name(f): p for f, p in
+                 sass_count.ptxas_properties(
+                     sass_count.ptxas_log(source)).items() if "stack" in p}
+        for name, (stack, spills) in names.items():
+            if name not in found:
+                fail(f"{source}: no -Xptxas -v line for {name}")
+            p = props[name] = found[name]
+            print(f"# {name} (-Xptxas -v): {p.get('registers')} registers, "
+                  f"{p['stack']} bytes stack frame, {p['spill_stores']} "
+                  f"bytes spill stores, {p['spill_loads']} bytes spill "
+                  f"loads (at most {stack} and {spills})")
+            if p["stack"] > stack or p["spill_stores"] > spills:
+                fail(f"{name}: more stack frame or spill stores than "
+                     f"{stack} and {spills} bytes")
+    return props
+
+
 def bits_err(torch, got, want) -> float:
     """The largest |got - want| of two float32 tensors (NaN where NaN
     counts 0), and whether they are equal bit for bit: (err, same)."""
@@ -1014,42 +1082,78 @@ def hold_inverse(torch, dev, floor):
                       stack_bytes=regs["stack"])
 
 
-def hold_select(torch, label, m, T_cw, Km, hw, budget, timed=False):
-    """``frustum_select`` (two launches) against its twin on the card and
-    on the CPU at ``budget``: slots and overflow equal.  Returns (the
-    candidates' count, (ms, plain ms, bound) when ``timed``)."""
-    from supereight_tpu_torch.core import octree
+def hold_select(torch, label, m, pose, Km, hw, budget, timed=False):
+    """``frustum_select`` (one launch, the pose's inverse inside it)
+    against its twin on the card and on the CPU at ``budget``: slots,
+    overflow and ``T_cw`` equal, ``T_cw`` also ``numerics.inv``'s
+    (``pose_inv``) bit for bit; one launch a call, and the look-back's
+    status words and tickets zero after it.  Returns (the candidates'
+    count, (ms, plain ms, bound) when ``timed``)."""
+    from supereight_tpu_torch.core import numerics, octree
     from supereight_tpu_torch.ops import integrate_kernel as ik
-    slots, ovf = ik.frustum_select(m, T_cw, Km, hw, budget)
+    from supereight_tpu_torch.ops import look_back
+    before = ik.LAUNCHES["frustum_select"]
+    slots, ovf, T_cw = ik.frustum_select(m, pose, Km, hw, budget)
+    if m.device.type == "cuda":
+        if ik.LAUNCHES["frustum_select"] != before + 1:
+            fail(f"{label}: frustum_select not one launch a call")
+        sc = look_back.scratch(m.device)
+        torch.cuda.synchronize()
+        if bool(sc.status.any()) or bool(sc.ctl.any()):
+            fail(f"{label}: frustum_select left its look-back's scratch "
+                 "dirty")
     cand = int(ik.frustum_candidates(m, T_cw, Km, hw).sum())
     cpu = m.replace(voxels={}, node_values=[], node_alloc=[], **{
         f: getattr(m, f).cpu() for f in ("block_index", "keys", "active",
                                          "n_blocks", "overflow",
                                          "part_counts")})
-    for where, (w_slots, w_ovf) in (
-            ("the card", ik.frustum_select_twin(m, T_cw, Km, hw, budget)),
-            ("the CPU", ik.frustum_select_twin(cpu, T_cw.cpu(), Km.cpu(),
+    if not torch.equal(T_cw, numerics.inv(pose)):
+        fail(f"{label}: frustum_select's T_cw is not pose_inv's")
+    for where, (w_slots, w_ovf, w_T) in (
+            ("the card", ik.frustum_select_twin(m, pose, Km, hw, budget)),
+            ("the CPU", ik.frustum_select_twin(cpu, pose.cpu(), Km.cpu(),
                                                hw, budget))):
         if not torch.equal(slots.cpu(), w_slots.cpu()) or \
-                int(ovf) != int(w_ovf):
+                int(ovf) != int(w_ovf) or not torch.equal(T_cw.cpu(),
+                                                          w_T.cpu()):
             fail(f"{label}: frustum_select at budget {budget} differs from "
                  f"its twin on {where}")
     dropped = int(ovf) - int(m.overflow)
     print(f"# {label}: frustum_select at budget {budget} of {m.capacity} "
           f"slots ({cand} candidates, {dropped} dropped) equals its twin on "
-          f"the card and on the CPU")
+          f"the card and on the CPU, T_cw pose_inv's; scratch zero")
     if dropped != max(cand - budget, 0):
         fail(f"{label}: frustum_select dropped {dropped}, not "
              f"{max(cand - budget, 0)}")
     if not timed:
         return cand, None
     live = int((octree.slot_mask(m) & m.active).sum())
-    nbytes = m.capacity * 1 + live * 8 + 4 * budget + 2 * 64 + 8
-    b = bound(nbytes, SELECT_FLOPS * live)
-    return cand, (median_ms(lambda: ik.frustum_select(m, T_cw, Km, hw,
+    b = bound(select_bytes(m.capacity, m.partitions, live, budget),
+              SELECT_FLOPS * live + INV_FLOPS)
+    return cand, (median_ms(lambda: ik.frustum_select(m, pose, Km, hw,
                                                       budget)),
-                  median_ms(lambda: ik.frustum_select_twin(m, T_cw, Km, hw,
+                  median_ms(lambda: ik.frustum_select_twin(m, pose, Km, hw,
                                                            budget)), b)
+
+
+def select_bytes(capacity, partitions, live, budget) -> int:
+    """Bytes ``frustum_select`` must move: ``active`` and the live slots'
+    keys, the partitions' counts, the pose and K read; the slots, T_cw and
+    the overflow written (and the overflow read)."""
+    return capacity + 8 * live + 4 * partitions + 2 * 64 + 4 * budget \
+        + 64 + 8
+
+
+def select_map(torch, size, capacity, dev, depth, pose, Km):
+    """A ``size``^3 SDF map of ``capacity`` slots holding the blocks the
+    allocation takes for the frame (``depth``, camera-to-world ``pose``):
+    the selection's operands at a preset's capacity."""
+    from supereight_tpu_torch.core import octree
+    from supereight_tpu_torch.fields import SDFField
+    from supereight_tpu_torch.pipeline import integration
+    field = SDFField(mu=0.1)
+    m = octree.init(size, 4.8, field.channels, dev, capacity=capacity)
+    return integration.allocate_sdf(m, depth, pose, Km, field.alloc_band())
 
 
 def node_map(torch, size, field, dev, seed):
@@ -1151,24 +1255,43 @@ def check_glue_kernels(torch, depths, poses, dev):
     Km = camera.camera_matrix(torch.from_numpy(K).to(dev)).contiguous()
     slam = warm_map(preset_config("headline"), depths, poses, dev, 12)
     m = slam.state.map
-    T_cw = numerics.inv(slam.state.pose)
-    cand, timed = hold_select(torch, "headline map after 12 frames", m, T_cw,
+    pose = slam.state.pose
+    cand, timed = hold_select(torch, "headline map after 12 frames", m, pose,
                               Km, (240, 320), 3072, timed=True)
-    hold_select(torch, "headline map after 12 frames", m, T_cw, Km,
+    hold_select(torch, "headline map after 12 frames", m, pose, Km,
                 (240, 320), max(cand // 2, 1))
     ms, plain_ms, b = timed
-    print(f"# frustum_select at 3072 of 6144 slots: median device time "
-          f"{ms:.4f} ms, plain twin {plain_ms:.4f} ms; bound {b[0]:.6f} ms "
-          f"({b[1]}); launch floor {floor:.4f} ms (2 launches)")
-    out["frustum_select"] = glue_entry(
-        "frustum_select", "supereight_tpu_torch/csrc/integrate.cu",
-        "supereight_tpu/pipeline/integration.py:512", 0.0, ms, plain_ms, b,
-        None, floor)
+    print(f"# frustum_select at 3072 of 6144 slots (one launch, the inverse "
+          f"inside): median device time {ms:.4f} ms, plain twin "
+          f"{plain_ms:.4f} ms; bound {b[0]:.6f} ms ({b[1]}); launch floor "
+          f"{floor:.4f} ms")
     del slam, m
 
     depth = preprocessing.mm_to_meters(
         torch.from_numpy(depths[30].astype(np.int32)).to(dev), (240, 320))
     pose = torch.from_numpy(poses[30]).to(dev)
+    # the selection at the larger presets' capacities (demo512-ofusion's
+    # and 1024-quality's), on maps of the frame's blocks, at their budgets
+    # and at one above the candidates
+    at_capacity = {6144: ms}
+    for size, cap, budget in SELECT_CAPACITIES:
+        sm = select_map(torch, size, cap, dev, depth, pose, Km)
+        label = f"{size}^3 map of the frame's {int(sm.n_blocks)} blocks"
+        c, t = hold_select(torch, label, sm, pose, Km, (240, 320), budget,
+                           timed=True)
+        hold_select(torch, label, sm, pose, Km, (240, 320), c + 7)
+        at_capacity[cap] = t[0]
+        print(f"# frustum_select at {budget} of {cap} slots: median device "
+              f"time {t[0]:.4f} ms, plain twin {t[1]:.4f} ms; bound "
+              f"{t[2][0]:.6f} ms ({t[2][1]})")
+        del sm
+    regs = select_trip_registers()
+    out["frustum_select"] = glue_entry(
+        "frustum_select", "supereight_tpu_torch/csrc/integrate.cu",
+        "supereight_tpu/pipeline/integration.py:512", 0.0, ms, plain_ms, b,
+        None, floor, ms_at_capacity=at_capacity,
+        registers=regs["frustum_select"].get("registers"),
+        stack_bytes=regs["frustum_select"]["stack"])
     frame = (depth, numerics.inv(pose), Km)
     now = float(np.float32(1.0 / 30.0) * np.float32(30))
     err, entry, merged = 0.0, None, {}
@@ -1188,7 +1311,7 @@ def check_glue_kernels(torch, depths, poses, dev):
                 entry = t
             del nm
             fm = fusion_map(torch, size, field, dev, size, depth, pose, Km)
-            slots, _ = ik.frustum_select(fm, frame[1], Km, (240, 320), 3072)
+            slots, _, _ = ik.frustum_select(fm, pose, Km, (240, 320), 3072)
             kernel = "fuse_ofusion" if fname == "ofusion" else "fuse_sdf"
             r = hold_kernel(torch, f"{size}^3 {fname} map of the frame's "
                             f"{int(fm.n_blocks)} blocks, random node tables",
@@ -1210,12 +1333,13 @@ def check_glue_launched(label, counts, cfg, icp_frames, integrated):
     """The glue kernels on a one-device path: the pyramid once every frame
     on which ICP runs (one launch builds every level; the frame-to-frame
     publications add theirs), the inverse on each such frame and each
-    integrated frame, the node update once an integrated frame and inside
-    each fusion launch (one count each), the frustum selection once an
-    integrated frame on the budget branch."""
+    integrated frame of the whole-table branch (the budget branch's is
+    inside the selection's launch), the node update once an integrated
+    frame and inside each fusion launch (one count each), the frustum
+    selection once an integrated frame on the budget branch."""
     budget = 0 < cfg.integrate_budget < cfg.block_capacity
     want = dict(build_pyramid=icp_frames,
-                pose_inv=icp_frames + integrated,
+                pose_inv=icp_frames + (0 if budget else integrated),
                 update_nodes=integrated,
                 frustum_select=integrated if budget else 0)
     got = {k: counts.get(k, 0) for k in GLUE}
@@ -1478,7 +1602,7 @@ def hold_raycast(torch, label, m, field, view, dense, knobs,
     kernel and its twin over TIMED_RUNS, the host time, bound and launch
     floor: ``ray_scan`` is the scan alone, ``ray_scan_second`` the merged
     launch at ``knobs``)."""
-    from supereight_tpu_torch.ops import numerics_kernel
+    from supereight_tpu_torch.ops import look_back, numerics_kernel
     from supereight_tpu_torch.ops import raycast_kernel as rk
     from supereight_tpu_torch.pipeline import raycast as rc
     from supereight_tpu_torch.pipeline.constants import FAR_PLANE, NEAR_PLANE
@@ -1538,8 +1662,9 @@ def hold_raycast(torch, label, m, field, view, dense, knobs,
             err["ray_scan_second"] = max(err["ray_scan_second"], same_bits(
                 torch, f"{label}: ray_scan_second (the merged launch)", a,
                 b))
-    sc = rk.scratch(view.device)
-    if any(bool(t.any()) for t in (sc.enc, sc.status, sc.ctl)):
+    lb = look_back.scratch(view.device)
+    if any(bool(t.any()) for t in (rk.scratch(view.device).enc, lb.status,
+                                   lb.ctl)):
         fail(f"{label}: R1 or the scan left its scratch not zero")
 
     fk = dict(normals=k["normals"], refine=k["refine"],
@@ -2119,24 +2244,20 @@ def hold_icp(torch, ops, shape, knobs):
     st = icp_carry(torch, ops["start"])
     res = torch.zeros(iv.shape[:2], dtype=torch.int32, device=dev)
     sums = torch.zeros(icp.N_SUMS, device=dev)
-    got = icp.icp_track_reduce(*args, st, 4, res.clone(), sums.clone(), **kn)
-    want = icp.icp_track_reduce_twin(*args, st, 4, res, sums, **kn)
-    td = tracking.track_kernel(*args[:4], st.pose, args[4],
-                               symmetric=kn["symmetric"], assoc=kn["assoc"])
-    mag = icp.term_magnitudes(td, tracking.robust_weights(
-        td, kn["robust"], kn["robust_delta"]))
-    g, w = got[1].double(), want[1].double()
-    beyond = int((torch.abs(g - w) > ICP_SUM_RTOL * w.abs()
-                  + ICP_SUM_MAG * mag).sum())
-    flips = int((got[0] != want[0]).sum())
+    _, got_res, got_sums = icp.icp_track_reduce(*args, st, 4, res.clone(),
+                                                sums.clone(), **kn)
+    _, want_res, want_sums = icp.icp_track_reduce_twin(*args, st, 4, res,
+                                                       sums, **kn)
+    g, w, beyond = sums_beyond(torch, args, st.pose, kn, got_sums, want_sums)
+    flips = int((got_res != want_res).sum())
     x_k, x_t = (torch.zeros(6, device=dev) for _ in range(2))
-    k_st = icp.icp_update(got[1], icp_carry(torch, ops["start"]), 4, 1e-5,
+    k_st = icp.icp_update(got_sums, icp_carry(torch, ops["start"]), 4, 1e-5,
                           twist=x_k)
-    t_st = icp.icp_update_twin(got[1], icp_carry(torch, ops["start"]), 4,
+    t_st = icp.icp_update_twin(got_sums, icp_carry(torch, ops["start"]), 4,
                                1e-5, twist=x_t)
     d_x = float((x_k - x_t).abs().max())
     d_pose = float((k_st.pose - t_st.pose).abs().max())
-    tol_x, exact = solve_tolerance(torch, got[1])
+    tol_x, exact = solve_tolerance(torch, got_sums)
     tol_pose = ICP_UPDATE_ATOL + (tol_x - ICP_UPDATE_ATOL) * float(
         ops["start"].abs().sum(0).max())
     same = all(torch.equal(getattr(k_st, f), getattr(t_st, f))
@@ -2146,10 +2267,57 @@ def hold_icp(torch, ops, shape, knobs):
              f"differ, {beyond} sums beyond the tolerance, twist {d_x:.3g} "
              f"(tolerance {tol_x:.3g}), pose {d_pose:.3g} (tolerance "
              f"{tol_pose:.3g}), carry fields equal {same}")
+    hold_merged_trip(torch, ops, shape, knobs, args, kn, got_sums, k_st)
     to_exact = [float((x.double().cpu() - exact).abs().max())
                 for x in (x_k, x_t)]
     return (float((g - w).abs().max()), max(d_x, d_pose),
-            int((got[0] == 1).sum()), to_exact)
+            int((got_res == 1).sum()), to_exact)
+
+
+def sums_beyond(torch, args, pose, kn, got, want):
+    """(kernel sums, twin sums, float64, and how many differ beyond the
+    ICP tolerances) of one trip at ``pose``."""
+    from supereight_tpu_torch.ops import icp_kernel as icp
+    from supereight_tpu_torch.pipeline import tracking
+    td = tracking.track_kernel(*args[:4], pose, args[4],
+                               symmetric=kn["symmetric"], assoc=kn["assoc"])
+    mag = icp.term_magnitudes(td, tracking.robust_weights(
+        td, kn["robust"], kn["robust_delta"]))
+    g, w = got.double(), want.double()
+    return g, w, int((torch.abs(g - w) > ICP_SUM_RTOL * w.abs()
+                      + ICP_SUM_MAG * mag).sum())
+
+
+def hold_merged_trip(torch, ops, shape, knobs, args, kn, pending, b_st):
+    """The merged trip: kernel A with ``pending`` (a first trip's sums) to
+    apply, from the start carry.  Its carry must be kernel B's on the same
+    sums (``b_st``) bit for bit, its status image and sums kernel A's from
+    that carry with nothing pending bit for bit, and its sums within the
+    ICP tolerances of the twin's (the twin's pass at the same pose)."""
+    from supereight_tpu_torch.ops import icp_kernel as icp
+    dev = ops["start"].device
+    st = icp_carry(torch, ops["start"])
+    res = torch.zeros(args[0].shape[:2], dtype=torch.int32, device=dev)
+    sums = torch.zeros(icp.N_SUMS, device=dev)
+    st, res, sums = icp.icp_track_reduce(*args, st, 4, res, sums,
+                                         pending=pending.clone(),
+                                         icp_threshold=1e-5, **kn)
+    carry = all(torch.equal(a, b) for a, b in zip(st, b_st))
+    ref = icp.icp_track_reduce(*args, icp_carry(torch, b_st.pose), 4,
+                               torch.zeros_like(res), torch.zeros_like(sums),
+                               **kn)
+    twin = icp.icp_track_reduce_twin(*args, icp_carry(torch, b_st.pose), 4,
+                                     torch.zeros_like(res),
+                                     torch.zeros_like(sums), **kn)
+    _, _, beyond = sums_beyond(torch, args, b_st.pose, kn, sums, twin[2])
+    if not carry or not torch.equal(res, ref[1]) or \
+            not torch.equal(sums, ref[2]) or not torch.equal(res, twin[1]) \
+            or beyond:
+        fail(f"the merged trip at {shape} {knobs}: carry kernel B's "
+             f"{carry}, status image and sums kernel A's "
+             f"{torch.equal(res, ref[1])} {torch.equal(sums, ref[2])}, "
+             f"status image the twin's {torch.equal(res, twin[1])}, "
+             f"{beyond} sums beyond the tolerance")
 
 
 def solve_tolerance(torch, sums):
@@ -2219,9 +2387,10 @@ def check_icp_levels(torch, ops, dev, a_ms, b_ms, floor):
     the headline's level set and knobs, its device time a frame (CUDA
     events, median of TIMED_RUNS) and host time beside its bound, its
     twin's, the pair's for the same trips (the trips each level runs times
-    kernel A's time at that level, ``a_ms``, plus kernel B's, ``b_ms``,
-    and the pair's level loops timed as ``_level_loop`` runs them) and the
-    launch floor.  Returns its JSON entry (launches 0)."""
+    kernel A's time at that level with an update inside, ``a_ms``, plus
+    kernel B's once a level, ``b_ms``, and the pair's level loops timed as
+    ``_level_loop`` runs them) and the launch floor.  Returns its JSON
+    entry (launches 0)."""
     from supereight_tpu_torch.ops import icp_kernel as icp
     from supereight_tpu_torch.pipeline import tracking
     cfg = ops["cfg"]
@@ -2278,8 +2447,8 @@ def check_icp_levels(torch, ops, dev, a_ms, b_ms, floor):
     k_host, pair_host = host_ms(torch, run), host_ms(torch, pair)
     trips = level_trips(torch, ops, levels, cfg.pyramid, cfg.icp_threshold)
     shapes = ("160x120 decimated", "160x120", "80x60")
-    pair_sum = sum(n * (a_ms[shapes[l]] + b_ms)
-                   for l, n in enumerate(cfg.pyramid))
+    pair_sum = sum(n * a_ms[shapes[l]] + b_ms
+                   for l, n in enumerate(cfg.pyramid) if n)
     main = dict(ICP_KNOBS[0])
     n_px = [iv.shape[0] * iv.shape[1] for iv, _ in levels]
     nbytes = icp_levels_bytes(torch, ops, levels, main)
@@ -2293,9 +2462,11 @@ def check_icp_levels(torch, ops, dev, a_ms, b_ms, floor):
           f"{b[0]:.6f} ms ({b[1]}: {nbytes / 1e6:.3f} MB, "
           f"{flops / 1e6:.1f} MFLOP); the pair for the same "
           f"{sum(cfg.pyramid)} trips: {pair_sum:.4f} ms (each trip's "
-          f"kernel A at its level + kernel B), its level loops "
-          f"{pair_dev:.4f} ms of device time and {pair_host:.4f} ms on the "
-          f"host clock ({2 * sum(cfg.pyramid)} launches); launch floor "
+          f"kernel A with its update at its level, a level's kernel B), its "
+          f"level loops {pair_dev:.4f} ms of device time and "
+          f"{pair_host:.4f} ms on the host clock "
+          f"({sum(cfg.pyramid) + sum(1 for n in cfg.pyramid if n)} "
+          f"launches); launch floor "
           f"{floor:.4f} ms; {card()}")
     return dict(
         name="icp_track_levels", route="cuda",
@@ -2368,44 +2539,57 @@ def check_icp_kernels(torch, depths, poses, dev):
     main = dict(ICP_KNOBS[0])
     iv, inm = icp_level(ops, ICP_MAIN)
     args = (iv, inm, ops["ref_v"], ops["ref_n"], ops["view"])
+    kn = icp_knobs(torch, main, dev)
+    floor = median_ms(lambda: gp.empty_launch(dev))
+    # a trip as the sharded loop runs it: the previous trip's update
+    # (another trip's sums) then the pass, the threshold 0 so that the
+    # pass runs; the carry restored before each run
+    a_times, pending = {}, {}
+    for shape in ICP_SHAPES:
+        lv = icp_level(ops, shape)
+        r2 = torch.zeros(lv[0].shape[:2], dtype=torch.int32, device=dev)
+        first = icp.icp_track_reduce(
+            *lv, ops["ref_v"], ops["ref_n"], ops["view"],
+            icp_carry(torch, ops["start"]), 4, r2,
+            torch.zeros(icp.N_SUMS, device=dev), **kn)[2]
+        carry, out = icp_carry(torch, ops["start"]), torch.zeros_like(first)
+        start = icp_carry(torch, ops["start"])
+        scratch = icp.make_scratch(r2.numel(), dev)
+        a_times[shape] = median_ms(
+            lambda: icp.icp_track_reduce(
+                *lv, ops["ref_v"], ops["ref_n"], ops["view"], carry, 4, r2,
+                out, scratch=scratch, pending=first, icp_threshold=0.0,
+                **kn),
+            lambda: [a.copy_(b) for a, b in zip(carry, start)])
+        pending[shape] = first
+        print(f"# icp_track_reduce (the previous trip's update inside) at "
+              f"{shape} ({lv[0].shape[0]}x{lv[0].shape[1]} pixels): median "
+              f"device time over {TIMED_RUNS} runs {a_times[shape]:.4f} ms")
+    a_ms = a_times[ICP_MAIN]
     st = icp_carry(torch, ops["start"])
     res = torch.zeros(iv.shape[:2], dtype=torch.int32, device=dev)
     sums = torch.zeros(icp.N_SUMS, device=dev)
-    scratch = icp.make_scratch(res.numel(), dev)
-    kn = icp_knobs(torch, main, dev)
-    run_a = lambda: icp.icp_track_reduce(*args, st, 4, res, sums,
-                                         scratch=scratch, **kn)
-    plain_a = lambda: icp.icp_track_reduce_twin(*args, st, 4, res, sums,
-                                                **kn)
-    run_a()
+    plain_a = lambda: icp.icp_track_reduce_twin(
+        *args, st, 4, res, sums, pending=pending[ICP_MAIN],
+        icp_threshold=0.0, **kn)
     carry = icp_carry(torch, ops["start"])
     reset = lambda: [a.copy_(b) for a, b in zip(
         carry, icp_carry(torch, ops["start"]))]
-    run_b = lambda: icp.icp_update(sums, carry, 4, 1e-5)
-    plain_b = lambda: icp.icp_update_twin(sums, carry, 4, 1e-5)
-    floor = median_ms(lambda: gp.empty_launch(dev))
-    a_ms, a_plain = median_ms(run_a), median_ms(plain_a)
+    run_b = lambda: icp.icp_update(pending[ICP_MAIN], carry, 4, 1e-5)
+    plain_b = lambda: icp.icp_update_twin(pending[ICP_MAIN], carry, 4, 1e-5)
+    a_plain = median_ms(plain_a, reset)
     b_ms, b_plain = median_ms(run_b, reset), median_ms(plain_b, reset)
-    a_bytes = icp_bytes(torch, ops, iv, inm, main)
-    a_bound = bound(a_bytes, iv.shape[0] * iv.shape[1] * ICP_PIXEL_FLOPS)
+    a_bytes = icp_bytes(torch, ops, iv, inm, main) + icp.N_SUMS * 4 + 4 * 4
+    a_bound = bound(a_bytes, iv.shape[0] * iv.shape[1] * ICP_PIXEL_FLOPS
+                    + ICP_UPDATE_FLOPS)
     b_bound = bound(icp.N_SUMS * 4 + 2 * 64 + 4 * 4, ICP_UPDATE_FLOPS)
     print(f"# icp_track_reduce at {ICP_MAIN} (nearest, plain residual, no "
-          f"weights): median device time over {TIMED_RUNS} runs "
-          f"{a_ms:.4f} ms, plain twin {a_plain:.4f} ms, launch floor "
-          f"{floor:.4f} ms; bound {a_bound[0]:.6f} ms ({a_bound[1]}: "
-          f"{a_bytes / 1e6:.3f} MB)")
-    print(f"# icp_update: {b_ms:.4f} ms, plain twin {b_plain:.4f} ms; bound "
-          f"{b_bound[0]:.2e} ms ({b_bound[1]})")
-    a_times = {ICP_MAIN: a_ms}
-    for shape in ICP_SHAPES:
-        if shape == ICP_MAIN:
-            continue
-        lv = icp_level(ops, shape)
-        r2 = torch.zeros(lv[0].shape[:2], dtype=torch.int32, device=dev)
-        a_times[shape] = median_ms(lambda: icp.icp_track_reduce(
-            *lv, ops["ref_v"], ops["ref_n"], ops["view"], st, 4, r2, sums,
-            **kn))
-        print(f"# icp_track_reduce at {shape}: {a_times[shape]:.4f} ms")
+          f"weights, the previous trip's update inside): median device time "
+          f"over {TIMED_RUNS} runs {a_ms:.4f} ms, plain twin {a_plain:.4f} "
+          f"ms, launch floor {floor:.4f} ms; bound {a_bound[0]:.6f} ms "
+          f"({a_bound[1]}: {a_bytes / 1e6:.3f} MB)")
+    print(f"# icp_update (a level's last update alone): {b_ms:.4f} ms, plain "
+          f"twin {b_plain:.4f} ms; bound {b_bound[0]:.2e} ms ({b_bound[1]})")
     levels_entry = check_icp_levels(torch, ops, dev, a_times, b_ms, floor)
 
     # a whole track on the card against one on the twins (the CPU path)
@@ -2452,13 +2636,16 @@ def check_icp_kernels(torch, depths, poses, dev):
           "launch and none of the pair each")
 
     src = "supereight_tpu_torch/csrc/icp.cu"
+    regs = select_trip_registers()
     return {
         "icp_track_reduce": dict(
             name="icp_track_reduce", route="cuda", source=src,
             replaces="supereight_tpu/pipeline/tracking.py:235", launches=0,
             max_abs_err=sum_err, ms=a_ms, plain_ms=a_plain,
             bound_ms=a_bound[0], bound_by=a_bound[1], library_ms=None,
-            launch_floor_ms=floor,
+            launch_floor_ms=floor, ms_by_shape=a_times,
+            registers=regs["icp_track_reduce"].get("registers"),
+            stack_bytes=regs["icp_track_reduce"]["stack"],
             levels_host_ms=levels_entry["pair_levels_host_ms"],
             levels_device_ms=levels_entry["pair_levels_ms"]),
         "icp_update": dict(
@@ -2477,11 +2664,13 @@ def icp_frames(cfg, n_frames: int) -> int:
     return sum(1 for f in range(n_frames) if f % cfg.tracking_rate == 0)
 
 
-def icp_expected(cfg, n_frames: int) -> int:
-    """Launches of each kernel of the pair on a rank of the sharded frame
-    over ``n_frames`` frames: every trip of every level of each frame on
-    which ICP runs."""
-    return sum(cfg.pyramid) * icp_frames(cfg, n_frames)
+def icp_expected(cfg, n_frames: int):
+    """Launches of the pair on a rank of the sharded frame over
+    ``n_frames`` frames: kernel A every trip of every level of each frame
+    on which ICP runs, kernel B once each level that runs a trip."""
+    frames = icp_frames(cfg, n_frames)
+    return (sum(cfg.pyramid) * frames,
+            sum(1 for n in cfg.pyramid if n) * frames)
 
 
 def check_icp_launched(label, counts, frames=None):
@@ -2500,17 +2689,19 @@ def check_icp_launched(label, counts, frames=None):
 
 
 def check_icp_pair_launched(label, counts, expected):
-    """A rank of the sharded frame ran every trip through the pair: both
-    kernels ``expected`` times (every trip of every level of every frame
-    with ICP), and ``icp_track_levels`` never."""
+    """A rank of the sharded frame ran every trip through the pair:
+    ``expected`` = (kernel A's launches, one a trip of every level of every
+    frame with ICP, each with the previous trip's update inside; kernel
+    B's, one a level), and ``icp_track_levels`` never."""
     a, b = (counts[k] for k in ICP_PAIR)
     n = counts["icp_track_levels"]
-    print(f"# {label}: ICP LAUNCHES icp_track_reduce {a}, icp_update {b} "
-          f"(every trip: {expected}), icp_track_levels {n}")
-    if a != expected or b != expected or n:
+    print(f"# {label}: ICP LAUNCHES icp_track_reduce {a} (one a trip: "
+          f"{expected[0]}), icp_update {b} (one a level: {expected[1]}), "
+          f"icp_track_levels {n}")
+    if (a, b) != tuple(expected) or n:
         fail(f"{label}: ICP launches {a} / {b}, icp_track_levels {n}, "
-             f"expected {expected} / {expected} and 0: the rank did not go "
-             "through the ICP kernels every trip")
+             f"expected {expected[0]} / {expected[1]} and 0: the rank did "
+             "not go through the ICP kernels every trip")
 
 
 def run_slam(torch, cfg, depths, poses, dev):
@@ -2617,11 +2808,10 @@ def check_path_kernel(torch, name, slam, cfg):
     m = st.map
     depth = (st.scaled_depth if cfg.fuse_filtered else st.float_depth) \
         .contiguous()
-    T_cw = numerics.inv(st.pose)
     Km = camera.camera_matrix(torch.from_numpy(K).to(depth.device)) \
         .contiguous()
-    slots, _ = integration.fusion_operands(m, T_cw, Km, depth.shape,
-                                           cfg.integrate_budget)
+    slots, _, T_cw = integration.fusion_operands(m, st.pose, Km, depth.shape,
+                                                 cfg.integrate_budget)
     now = float(np.float32(1.0 / 30.0) * np.float32(95))
     kernel = "fuse_ofusion" if field.name == "ofusion" else "fuse_sdf"
     view = st.view if kernel == "fuse_sdf" else None
@@ -2646,9 +2836,10 @@ def check_path_kernel(torch, name, slam, cfg):
     # the glue on the run's own map: the frustum selection at the
     # preset's budget and at one its candidates overflow, the node update
     if cfg.integrate_budget > 0:
-        cand, _ = hold_select(torch, name, m, T_cw, Km, depth.shape,
+        cand, _ = hold_select(torch, name, m, st.pose, Km, depth.shape,
                               cfg.integrate_budget)
-        hold_select(torch, name, m, T_cw, Km, depth.shape, max(cand // 2, 1))
+        hold_select(torch, name, m, st.pose, Km, depth.shape,
+                    max(cand // 2, 1))
     return kernel, max_err
 
 

@@ -166,11 +166,13 @@ def _flush(x) -> np.float32:
 
 
 def _fma_ftz(a, b, c) -> np.float32:
-    return _flush(_fma_host(_flush(a), _flush(b), _flush(c)))
+    with np.errstate(all="ignore"):
+        return _flush(_fma_host(_flush(a), _flush(b), _flush(c)))
 
 
 def _sub_ftz(a, b) -> np.float32:
-    return _flush(_flush(a) - _flush(b))
+    with np.errstate(all="ignore"):
+        return _flush(_flush(a) - _flush(b))
 
 
 def _mul_ftz(a, b) -> np.float32:
@@ -183,11 +185,34 @@ def _div_ftz(a, b) -> np.float32:
         return _flush(_flush(a) / _flush(b))
 
 
+def _max_sse(d, s):
+    """x86's ``maxss d, s``: the second operand where either is NaN."""
+    return d if d > s else s
+
+
+def _isamax(a) -> int:
+    """OpenBLAS's ``isamax`` (0-based) on the magnitudes ``a`` of a column
+    of at most 4 entries, NaN included: the lanes padded with zeros to 4,
+    the largest taken as ``maxps`` pairs them (lane 2 with lane 0 and lane
+    3 with lane 1, then the two), each pair giving its second operand where
+    either is NaN; then the first entry that is not below that largest.  So
+    a NaN can win (where the largest is NaN, or where it comes before the
+    largest), and an entry after a NaN can win over one before it.  Read
+    from ``jax.lax.linalg.lu``'s pivots on every column of 0, 1, 2, 3, NaN
+    and +-inf of 1 to 4 entries, the same under OpenBLAS's SkylakeX,
+    Haswell, Sandybridge and Nehalem kernels (``OPENBLAS_CORETYPE``); with
+    no NaN it is the first largest."""
+    v = list(a) + [np.float32(0.0)] * (4 - len(a))
+    m = _max_sse(_max_sse(v[2], v[0]), _max_sse(v[3], v[1]))
+    return next((i for i, x in enumerate(a) if not x < m), 0)
+
+
 def inv_twin(M: torch.Tensor) -> torch.Tensor:
     """:func:`inv` in plain Python on the host: LAPACK's ``getrf`` and
     ``getrs`` (an identity right-hand side) as the OpenBLAS that the JAX
     package calls computes them.  The LU is left-looking with partial
-    pivoting (the first largest pivot), the dot products of its triangular
+    pivoting (the pivot as OpenBLAS's ``isamax`` picks it: the first largest,
+    but for a NaN, :func:`_isamax`), the dot products of its triangular
     solve taken from the last term to the first (a zero result is +0, as a
     sum over vector lanes leaves it), those of its column update from the
     first, each a multiply-add chain from 0, and the column scaled by the
@@ -228,7 +253,7 @@ def inv_twin(M: torch.Tensor) -> torch.Tensor:
             b[i] = _sub_ftz(b[i], dot(A[i], b, range(i - 1, -1, -1)) + zero)
         for i in range(j, n):
             b[i] = _sub_ftz(b[i], dot(A[i], b, range(j)))
-        p = j + max(range(n - j), key=lambda i: (abs(_flush(b[j + i])), -i))
+        p = j + _isamax([abs(_flush(x)) for x in b[j:]])
         piv.append(p)
         for i in range(n):
             A[i][j] = b[i]

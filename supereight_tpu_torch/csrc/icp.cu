@@ -1,9 +1,10 @@
 // ICP tracking on the card, for Hopper (sm_90a).  icp_track_levels runs
 // every trip of every pyramid level of a tracked frame in one cooperative
-// launch (the one-device frame); icp_track_reduce (association, residuals,
-// IRLS weights and the normal equations' sums) and icp_update (the solve
-// and the pose update) run one trip each (the sharded frame, whose sums
-// are all-reduced between the two).
+// launch (the one-device frame); icp_track_reduce runs one trip of the
+// sharded frame, whose sums are all-reduced between trips: the previous trip's
+// update (the solve and the pose update), then the association,
+// residuals, IRLS weights and the normal equations' sums; icp_update
+// applies a level's last update alone.
 //
 // What they replace.  No Pallas kernel: the JAX package's per-level
 // `lax.while_loop`, supereight_tpu/pipeline/tracking.py:_level_loop (`body`,
@@ -17,13 +18,13 @@
 // PyTorch twins are supereight_tpu_torch/ops/icp_kernel.py's, which run
 // the port's own pipeline/tracking.py functions.
 //
-// The exit.  The pair: the host queues every trip of a level (n_iters of
-// them) and never reads the carry back: once `converged` is set or
-// `iteration` has reached n_iters, both kernels return at once and write
-// nothing, so the carry and the status image stay those of the last trip
-// that ran, as `lax.while_loop` leaves them.  icp_track_levels: every CTA
-// computes the exit from the same sums, so all leave a level at the same
-// trip, and CTA 0 writes the carry at the end.
+// The exit.  The sharded frame: the host queues every trip of a level
+// (n_iters of them, then one icp_update) and never reads the carry back:
+// once `converged` is set or `iteration` has reached n_iters, a launch
+// writes nothing, so the carry and the status image stay those of the
+// last trip that ran, as `lax.while_loop` leaves them.  icp_track_levels:
+// every CTA computes the exit from the same sums, so all leave a level at
+// the same trip, and CTA 0 writes the carry at the end.
 //
 // What bounds them on the H100.  At the headline's level 0 the work is the
 // 160x120 pixels of the decimated 320x240 level, gathering from the 320x240
@@ -33,19 +34,18 @@
 // microsecond at 3.35 TB/s, and about 250 float operations a pixel, under
 // 0.1 us at 67 TFLOP/s.  A trip's solve is about 400 dependent float
 // operations on one thread.  So a launch a trip is bound by the launch
-// floor (~5 us), not bytes or operations, and a frame of 19 trips by the
-// host's enqueue of 38 launches.  What the designs do about that:
+// floor (~5 us), not bytes or operations, and a sharded frame of 19 trips
+// by the host's enqueue of its launches.  What the designs do about that:
 // - icp_track_levels: one launch a frame.  A fixed grid (the CTAs an SM
 //   holds times the SMs) owns fixed pixels of every level, keeps the input
 //   maps of up to kOwn pixels a thread in registers over a level's trips,
 //   and a trip costs its pixel pass, one grid barrier, every CTA's sum of
 //   the CTAs' partials (the same fixed order in every CTA) and one thread's
 //   solve.  The reference maps stay in the 50 MB L2.
-// - The pair: one launch a kernel a trip; the cross-CTA sum in kernel A's
-//   launch: each CTA writes its partial, __threadfence, and the CTA that
-//   draws the last ticket sums the partials in a fixed order and resets
-//   the ticket, so no second launch and no atomics on the sums (which
-//   would also make them vary run to run).
+// - icp_track_reduce: one launch a trip, the previous trip's solve at its
+//   start and the cross-CTA sum at its end in a fixed order (a last-CTA
+//   ticket), so no second launch and no atomics on the sums (which would also make them vary run
+//   to run).
 // - The strided finest level and a rank's row strip are read in place
 //   through a base pointer and row / column strides: no copy of the level.
 // - The solve, the exponential and the pose product run on one thread: 6x6
@@ -288,67 +288,6 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-__global__ void __launch_bounds__(kThreads)
-icp_track_reduce_kernel(Level L, Knobs k, const float* __restrict__ view,
-                        const float* __restrict__ pose,
-                        const uint8_t* __restrict__ converged,
-                        const int* __restrict__ iteration, int n_iters,
-                        int* __restrict__ result, float* partials,
-                        unsigned int* ticket, float* __restrict__ sums) {
-  // the level has ended: leave the status image and the sums as they are
-  if (*converged || *iteration >= n_iters) return;
-  __shared__ float T[16], V[16];
-  __shared__ float warp_part[kWarps][kSums];
-  __shared__ bool last;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (tid < 16) {
-    T[tid] = pose[tid];
-    V[tid] = view[tid];
-  }
-  __syncthreads();
-
-  const int n_px = L.rows * L.cols;
-  const int p = blockIdx.x * kThreads + tid;
-  float v[kSums];
-  if (p < n_px) {
-    float x[6];
-    load_input(L, p, x);
-    result[p] = pixel_terms(L, k, T, V, x, v);
-  } else {
-#pragma unroll
-    for (int i = 0; i < kSums; ++i) v[i] = 0.0f;
-  }
-
-  // this CTA's partial: warp trees, then the warps in order
-#pragma unroll
-  for (int i = 0; i < kSums; ++i) {
-    const float s = warp_sum(v[i]);
-    if (lane == 0) warp_part[warp][i] = s;
-  }
-  __syncthreads();
-  if (tid < kSums) {
-    float s = warp_part[0][tid];
-    for (int w = 1; w < kWarps; ++w) s += warp_part[w][tid];
-    partials[blockIdx.x * kSums + tid] = s;
-  }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-
-  // the last CTA: each warp sums its values over the CTAs in a fixed order
-  const int n_blocks = gridDim.x;
-  for (int i = warp; i < kSums; i += kWarps) {
-    float s = 0.0f;
-    for (int b = lane; b < n_blocks; b += 32)
-      s += __ldcg(partials + b * kSums + i);
-    s = warp_sum(s);
-    if (lane == 0) sums[i] = s;
-  }
-  if (tid == 0) *ticket = 0u;
-}
-
 // One thread: the twist x of the normal equations in ``sums``, ``pose =
 // se3_exp(x) @ pose`` in place, and whether |x| < icp_threshold.
 __device__ bool solve_step(const float* sums, float* pose,
@@ -447,6 +386,152 @@ __global__ void icp_update_kernel(const float* __restrict__ sums,
   *count = sums[kSums - 1];
   if (twist != nullptr)
     for (int i = 0; i < 6; ++i) twist[i] = x[i];
+}
+
+// ---------------------------------------------------------------------
+// icp_track_reduce: one trip of the sharded frame, with the previous
+// trip's update inside its launch
+// ---------------------------------------------------------------------
+//
+// Trip t's launch (1) applies trip t-1's update from that trip's
+// all-reduced sums (`pending`; none at a level's first trip): the same
+// solve_step as icp_update_kernel, on one thread of every CTA into the
+// CTA's shared copy of the carry, so every CTA holds the same bits; (2)
+// runs trip t's pixel pass from that pose (the status image) and (3) sums
+// its 29 sums into `sums`, which is never `pending`.  The carry is written
+// once, by the CTA that finishes the reduction, after every CTA has read
+// the old one.  lax.while_loop's exit: where the pending update sets
+// `converged` or takes `iteration` to n_iters, the launch writes the carry
+// and skips the pass, leaving the status image and the sums as they were;
+// a launch that finds the level ended writes nothing.  After a level's
+// last trip icp_update applies that trip's update alone, so a level of n
+// trips takes n + 1 launches.
+//
+// The cross-CTA sum: a CTA of kThreads threads, a pixel each; each CTA
+// writes its partial, __threadfence, and the CTA that draws the last ticket
+// sums the partials in a fixed order, writes the carry and resets the
+// ticket.  (A one-cluster form summing over distributed shared memory was
+// slower on an H100: see PERF.md.)
+
+struct Carry {
+  float* pose;                         // [4, 4]
+  float* error2;
+  float* count;
+  uint8_t* converged;
+  int* iteration;
+};
+
+// A trip's carry in shared memory: the pose after the pending update, the
+// update's outputs, and what the launch does.
+struct TripState {
+  float T[16];
+  float error2, count;
+  int iteration;
+  int converged;
+  int ran;                             // the level ran at the launch's start
+  int pass;                            // this trip's pixel pass runs
+  int updated;                         // the pending update was applied
+};
+
+// Thread 0: the carry as the launch finds it, then the pending update.
+__device__ void trip_start(TripState& S, const Carry& c, int n_iters,
+                           float icp_threshold,
+                           const float* __restrict__ pending) {
+  const bool conv = *c.converged != 0;
+  const int it = *c.iteration;
+  for (int i = 0; i < 16; ++i) S.T[i] = c.pose[i];
+  S.ran = !conv && it < n_iters;
+  S.pass = S.ran;
+  S.updated = 0;
+  if (S.ran && pending != nullptr) {
+    float x[6];
+    const bool now = solve_step(pending, S.T, icp_threshold, x);
+    S.converged = now;
+    S.iteration = it + 1;
+    S.error2 = pending[0];
+    S.count = pending[kSums - 1];
+    S.updated = 1;
+    S.pass = !now && it + 1 < n_iters;
+  }
+}
+
+// The CTA that finishes the reduction: the new carry.
+__device__ __forceinline__ void write_carry(const TripState& S,
+                                            const Carry& c, int tid) {
+  if (!S.updated) return;
+  if (tid < 16) c.pose[tid] = S.T[tid];
+  if (tid == 0) {
+    *c.error2 = S.error2;
+    *c.count = S.count;
+    *c.converged = static_cast<uint8_t>(S.converged);
+    *c.iteration = S.iteration;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+icp_track_reduce_kernel(Level L, Knobs k, const float* __restrict__ view,
+                        Carry c, int n_iters, float icp_threshold,
+                        const float* __restrict__ pending,
+                        int* __restrict__ result, float* partials,
+                        unsigned int* ticket, float* __restrict__ sums) {
+  __shared__ TripState S;
+  __shared__ float V[16];
+  __shared__ float warp_part[kWarps][kSums];
+  __shared__ bool last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) trip_start(S, c, n_iters, icp_threshold, pending);
+  if (tid >= 32 && tid < 48) V[tid - 32] = view[tid - 32];
+  __syncthreads();
+  // the level had ended: every CTA leaves, and nothing is written
+  if (!S.ran) return;
+
+  if (S.pass) {
+    const int n_px = L.rows * L.cols;
+    const int p = blockIdx.x * kThreads + tid;
+    float v[kSums];
+    if (p < n_px) {
+      float x[6];
+      load_input(L, p, x);
+      result[p] = pixel_terms(L, k, S.T, V, x, v);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kSums; ++i) v[i] = 0.0f;
+    }
+    // this CTA's partial: warp trees, then the warps in order
+#pragma unroll
+    for (int i = 0; i < kSums; ++i) {
+      const float s = warp_sum(v[i]);
+      if (lane == 0) warp_part[warp][i] = s;
+    }
+    __syncthreads();
+    if (tid < kSums) {
+      float s = warp_part[0][tid];
+      for (int w = 1; w < kWarps; ++w) s += warp_part[w][tid];
+      partials[blockIdx.x * kSums + tid] = s;
+    }
+  }
+  // every CTA has read the carry (and written its partial) before its
+  // ticket
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+
+  // the last CTA: each warp sums its values over the CTAs in a fixed
+  // order; the carry
+  if (S.pass) {
+    const int n_blocks = gridDim.x;
+    for (int i = warp; i < kSums; i += kWarps) {
+      float s = 0.0f;
+      for (int b = lane; b < n_blocks; b += 32)
+        s += __ldcg(partials + b * kSums + i);
+      s = warp_sum(s);
+      if (lane == 0) sums[i] = s;
+    }
+  }
+  write_carry(S, c, tid);
+  if (tid == 0) *ticket = 0u;
 }
 
 // Every level's loop of a tracked frame in one cooperative launch of a
@@ -589,31 +674,40 @@ icp_track_levels_kernel(Levels P, Knobs k, const float* __restrict__ view,
 
 extern "C" {
 
-// The CTAs kernel A needs for n_px pixels (the partials' rows).
+// The CTAs of icp_track_reduce for n_px pixels (the partials' rows).
 int icp_track_reduce_blocks(int n_px) {
   return (n_px + kThreads - 1) / kThreads;
 }
 
+// One trip of the sharded frame (see icp_track_reduce_kernel): pending
+// (the previous trip's all-reduced sums, or null at a level's first
+// trip), the status image `result`, the sums `sums` (not `pending`), the
+// carry (pose, error2, count, converged, iteration) in place; partials:
+// icp_track_reduce_blocks(n_px) x 29 floats; ticket zero, left zero.
 int icp_track_reduce(const float* in_vertex, const float* in_normal,
                      long long row_stride, long long col_stride, int rows,
                      int cols, const float* ref_vertex,
                      const float* ref_normal, int rH, int rW,
-                     const float* view, const float* pose,
-                     const uint8_t* converged, const int* iteration,
-                     int n_iters, int symmetric, const uint8_t* gate,
-                     int robust, float delta, float tukey_inv, int bilinear,
+                     const float* view, float* pose, float* error2,
+                     float* count, uint8_t* converged, int* iteration,
+                     int n_iters, float icp_threshold, const float* pending,
+                     int symmetric, const uint8_t* gate, int robust,
+                     float delta, float tukey_inv, int bilinear,
                      float dist_threshold, float normal_threshold,
-                     int* result, float* partials, unsigned int* ticket,
-                     float* sums, cudaStream_t stream) {
+                     int* result, float* partials,
+                     unsigned int* ticket, float* sums,
+                     cudaStream_t stream) {
   const int n_px = rows * cols;
   if (n_px <= 0) return 0;
+  if (pending == sums) return static_cast<int>(cudaErrorInvalidValue);
   Level L{in_vertex, in_normal, row_stride, col_stride, rows, cols,
           ref_vertex, ref_normal, rH, rW};
   Knobs k{symmetric, gate, robust, delta, tukey_inv, bilinear,
           dist_threshold, normal_threshold};
+  Carry c{pose, error2, count, converged, iteration};
   icp_track_reduce_kernel<<<icp_track_reduce_blocks(n_px), kThreads, 0,
-                            stream>>>(L, k, view, pose, converged, iteration,
-                                      n_iters, result, partials, ticket,
+                            stream>>>(L, k, view, c, n_iters, icp_threshold,
+                                      pending, result, partials, ticket,
                                       sums);
   return static_cast<int>(cudaGetLastError());
 }

@@ -78,6 +78,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "look_back.cuh"
+#include "lu_inverse.cuh"
+
 namespace {
 
 constexpr int kBlockVoxels = 512;
@@ -510,124 +513,187 @@ Table make_table(const void* slots, const void* keys, const void* n_blocks,
 }
 
 // ---------------------------------------------------------------------
-// frustum_select: the budget branch's slots, on the card
+// frustum_select: the budget branch's slots and T_cw, on the card
 // ---------------------------------------------------------------------
 //
 // What it replaces.  pipeline/integration.py:frustum_candidates and the
 // compaction of fusion_operands (about twenty launches over the whole slot
 // table, then torch.nonzero and a host read of the count), the counterpart
-// of supereight_tpu/pipeline/integration.py:515-536: a live active slot is
-// a candidate when its block's centre projects into the frame dilated by
-// the block's footprint and the block is not wholly behind the camera; the
-// first `budget` candidates in ascending slot order are the slots (-1 past
-// the count, jnp.nonzero's fill), and max(count - budget, 0) adds to the
-// map's overflow.  Two launches, a deterministic scan: select_count writes
-// each tile's candidate count; select_write recomputes each slot's test
-// (about fifty operations, cheaper than storing it), adds the counts of the
-// tiles before its own and its rank inside the tile (warp ballots), and
-// writes the slot, the fill and the overflow.  Every number is an integer
-// sum, so the result does not depend on the order.  The projection is the
-// twin's: fmaf chains as numerics.matvec, the full K rows.  What bounds
-// it: the two launches (the bytes, `active` and the live slots' keys, are
-// 70 KB at 6144 slots).
+// of supereight_tpu/pipeline/integration.py:515-536, and the fusion's
+// inverse before it (:503, T_cw = jnp.linalg.inv(pose), which the port ran
+// as its own launch of pose_inv): a live active slot is a candidate when
+// its block's centre projects into the frame dilated by the block's
+// footprint and the block is not wholly behind the camera; the first
+// `budget` candidates in ascending slot order are the slots (-1 past the
+// count, jnp.nonzero's fill), and max(count - budget, 0) adds to the map's
+// overflow.
+//
+// One launch, a tile of kSelectTile slots a CTA (kSelectSlots consecutive
+// slots a thread).  Thread 0 of every CTA inverts the pose in registers
+// (lu_inverse.cuh, as pose_inv and R1 do: the same code and flags, so T_cw
+// is pose_inv's bit for bit) while the other threads load their slots'
+// keys, `active` flags and partition counts; tile 0's CTA writes T_cw.
+// Each thread tests its slots (the projection is the twin's: fmaf chains
+// as numerics.matvec, the full K rows), a warp scan of the threads'
+// counts ranks them in the tile, and a decoupled look-back over the tiles
+// before it (look_back.cuh; the tile drawn from a ticket) gives the
+// tile's first rank: a candidate writes its slot there if that is below
+// the budget.  The -1 fill is spread over the tiles, though only the last
+// knows the total: with `before` the candidates of the tiles before tile
+// t and `count` its own, no candidate lands at or past L(t) = before +
+// count + the slots after tile t, so tile t writes -1 to [L(t), L(t - 1))
+// below the budget (L(-1) the budget): disjoint ranges, each at most the
+// tile's non-candidates, whose union is [total, budget).  The last tile
+// writes the overflow.  Every number is an integer sum, so the result does
+// not depend on the order the tiles run in; the status words and the
+// tickets start zero and the last tile to end its look-back leaves them
+// zero.  What bounds it: the launch, the one thread's inverse and the
+// look-back (the bytes, `active` and the live slots' keys, are 70 KB at
+// 6144 slots, 20 ns at 3.35 TB/s).
+// The tile's shape, timed on an H100 (700 W) among 1024 x 1, 1024 x 2,
+// 1024 x 4, 512 x 1, 256 x 4 threads x slots and 1024 threads held to two
+// CTAs an SM: 512 x 2 (46 registers, two CTAs an SM, so 196608 slots are
+// one wave of 192 tiles) was the fastest or within 0.4 us of it at 6144,
+// 24576 and 196608 slots.
 
-constexpr int kSelectThreads = 1024;      // slots a tile (a CTA)
+constexpr int kSelectThreads = 512;       // threads a tile (a CTA)
+constexpr int kSelectSlots = 2;           // consecutive slots a thread
+constexpr int kSelectTile = kSelectThreads * kSelectSlots;   // slots a tile
 constexpr int kWarps = kSelectThreads / 32;
 
 struct Select {
   const int64_t* keys;          // [capacity]
   const uint8_t* active;        // [capacity]
   const int32_t* counts;        // [partitions] live slots of each range
-  const float* t_cw;            // [4, 4]
+  const float* pose;            // [4, 4]
   const float* k;               // [4, 4]
   int32_t* slots;               // [budget] out
-  int32_t* tile_counts;         // [tiles] scratch
+  float* t_cw;                  // [4, 4] out: inv(pose)
+  unsigned long long* status;   // [>= tiles] the look-back's words, zero
+  uint32_t* ctl;                // [2] tickets drawn, look-backs ended; zero
   const int32_t* overflow_in;   // []
   int32_t* overflow_out;        // [] out: overflow_in + dropped
-  int capacity, per_cap, H, W, budget, tiles;
+  int capacity, per_cap, H, W, budget;
   float voxel_size, diag;
 };
 
-// frustum_candidates' test of one slot.
-__device__ __forceinline__ bool candidate(const Select& S, int slot) {
-  if (slot >= S.capacity || S.active[slot] == 0 ||
-      slot % S.per_cap >= S.counts[slot / S.per_cap])
-    return false;
-  const uint32_t kk = static_cast<uint32_t>(S.keys[slot]);
+// frustum_candidates' test of one slot with T_cw (shared memory) and K;
+// kk the slot's key, read while the pose is inverted.
+__device__ __forceinline__ bool candidate(const Select& S, const float* T,
+                                          const float* K, bool live,
+                                          uint32_t kk) {
+  if (!live) return false;
   const float vs = S.voxel_size;
   const float wx = (static_cast<float>(compact_bits(kk) * 8) + 4.0f) * vs;
   const float wy = (static_cast<float>(compact_bits(kk >> 1) * 8) + 4.0f) * vs;
   const float wz = (static_cast<float>(compact_bits(kk >> 2) * 8) + 4.0f) * vs;
-  const Projected q = project_point(S.t_cw, S.k, wx, wy, wz);
+  const Projected q = project_point(T, K, wx, wy, wz);
   // torch.clamp(z, min=1e-3) keeps a NaN
   const float zc = q.cz < 1e-3f ? 1e-3f : q.cz;
-  const float foot = fabsf(S.k[0]) * S.diag / zc;
+  const float foot = fabsf(K[0]) * S.diag / zc;
   return q.cz > -0.5f * S.diag && q.px >= -foot &&
          q.px <= static_cast<float>(S.W - 1) + foot && q.py >= -foot &&
          q.py <= static_cast<float>(S.H - 1) + foot;
 }
 
-__global__ void __launch_bounds__(kSelectThreads)
-select_count(const Select S) {
-  const int slot = blockIdx.x * kSelectThreads + threadIdx.x;
-  const int n = __syncthreads_count(candidate(S, slot));
-  if (threadIdx.x == 0) S.tile_counts[blockIdx.x] = n;
+// Slot `slot`'s live test and key: a live active slot of its partition.
+__device__ __forceinline__ bool live_slot(const Select& S, int slot,
+                                          uint32_t* kk) {
+  const bool live = slot < S.capacity && S.active[slot] != 0 &&
+                    slot % S.per_cap < S.counts[slot / S.per_cap];
+  *kk = live ? static_cast<uint32_t>(S.keys[slot]) : 0u;
+  return live;
 }
 
 __global__ void __launch_bounds__(kSelectThreads)
-select_write(const Select S) {
-  __shared__ int warp_base[kWarps];
-  __shared__ int red_before[kWarps], red_total[kWarps];
+frustum_select_kernel(const Select S) {
+  __shared__ float T[16], Ks[16];
+  __shared__ int tile_s, before_s, count_w[kWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int slot = blockIdx.x * kSelectThreads + threadIdx.x;
-  const bool flag = candidate(S, slot);
+  if (threadIdx.x == 0) {
+    // tiles in ticket order: every tile before this one has started
+    tile_s = static_cast<int>(atomicAdd(S.ctl, 1u));
+    float A[4][4], X[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) A[i][j] = S.pose[i * 4 + j];
+    lu::lu_inverse<4>(A, X);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) T[i * 4 + j] = X[i][j];
+  } else if (threadIdx.x < 32 + 16 && threadIdx.x >= 32) {
+    Ks[threadIdx.x - 32] = S.k[threadIdx.x - 32];
+  }
+  // this thread's kSelectSlots consecutive slots by blockIdx (the tile is
+  // known only after the barrier): their loads go out while thread 0
+  // inverts
+  const int first = (blockIdx.x * kSelectThreads + threadIdx.x) *
+                    kSelectSlots;
+  bool live[kSelectSlots];
+  uint32_t kk[kSelectSlots];
+#pragma unroll
+  for (int j = 0; j < kSelectSlots; ++j)
+    live[j] = live_slot(S, first + j, &kk[j]);
+  __syncthreads();
+  const int tile = tile_s;
+  const int base = (tile * kSelectThreads + threadIdx.x) * kSelectSlots;
+  if (tile != static_cast<int>(blockIdx.x)) {
+#pragma unroll
+    for (int j = 0; j < kSelectSlots; ++j)
+      live[j] = live_slot(S, base + j, &kk[j]);
+  }
+  if (tile == 0 && threadIdx.x < 16) S.t_cw[threadIdx.x] = T[threadIdx.x];
+  bool flag[kSelectSlots];
+  int mine = 0;
+#pragma unroll
+  for (int j = 0; j < kSelectSlots; ++j) {
+    flag[j] = candidate(S, T, Ks, live[j], kk[j]);
+    mine += flag[j];
+  }
 
-  // the candidates of the tiles before this one, and of all tiles
-  int before = 0, total = 0;
-  for (int t = threadIdx.x; t < S.tiles; t += kSelectThreads) {
-    const int c = S.tile_counts[t];
-    total += c;
-    if (t < static_cast<int>(blockIdx.x)) before += c;
+  // the thread's first rank among the tile's candidates (the warps before
+  // its own, the lanes before it), the tile's count
+  int incl = mine;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += o;
   }
-  before = __reduce_add_sync(0xffffffffu, before);
-  total = __reduce_add_sync(0xffffffffu, total);
-  // this slot's rank among the tile's candidates
-  const unsigned ballot = __ballot_sync(0xffffffffu, flag);
-  if (lane == 0) {
-    red_before[warp] = before;
-    red_total[warp] = total;
-    warp_base[warp] = __popc(ballot);
-  }
+  if (lane == 31) count_w[warp] = incl;
   __syncthreads();
+  int count = 0, rank = incl - mine;
+#pragma unroll
+  for (int i = 0; i < kWarps; ++i) {
+    count += count_w[i];
+    rank += i < warp ? count_w[i] : 0;
+  }
   if (warp == 0) {
-    const int c = warp_base[lane];
-    int incl = c;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int o = __shfl_up_sync(0xffffffffu, incl, d);
-      if (lane >= d) incl += o;
-    }
-    const int b = __reduce_add_sync(0xffffffffu, red_before[lane]);
-    const int t = __reduce_add_sync(0xffffffffu, red_total[lane]);
-    __syncwarp();
-    warp_base[lane] = incl - c;
-    if (lane == 0) {
-      red_before[0] = b;
-      red_total[0] = t;
-    }
+    // the candidates of the tiles before this one
+    const int before = lb::look_back(S.status, tile, count, lane);
+    if (lane == 0) before_s = before;
+    lb::end_look_back(S.status, S.ctl, lane);
   }
   __syncthreads();
-  const int offset = red_before[0];
-  total = red_total[0];
-  const int pos = offset + warp_base[warp] +
-                  __popc(ballot & ((1u << lane) - 1u));
-  if (flag && pos < S.budget) S.slots[pos] = slot;
-  // jnp.nonzero's fill past the count
-  for (int q = min(total, S.budget) + blockIdx.x * kSelectThreads +
-               threadIdx.x;
-       q < S.budget; q += gridDim.x * kSelectThreads)
+  const int before = before_s;
+#pragma unroll
+  for (int j = 0; j < kSelectSlots; ++j) {
+    if (flag[j] && before + rank < S.budget) S.slots[before + rank] = base + j;
+    rank += flag[j];
+  }
+  // this tile's share of jnp.nonzero's fill past the count: [L(t),
+  // L(t - 1)) below the budget
+  const int start = tile * kSelectTile;
+  const int end = min(S.capacity, start + kSelectTile);
+  const int lo = min(before + count + (S.capacity - end), S.budget);
+  const int hi = tile == 0 ? S.budget
+                           : min(before + (S.capacity - start), S.budget);
+  for (int q = lo + static_cast<int>(threadIdx.x); q < hi;
+       q += kSelectThreads)
     S.slots[q] = -1;
-  if (blockIdx.x == 0 && threadIdx.x == 0)
-    S.overflow_out[0] = S.overflow_in[0] + max(total - S.budget, 0);
+  if (tile == static_cast<int>(gridDim.x) - 1 && threadIdx.x == 0)
+    S.overflow_out[0] = S.overflow_in[0] + max(before + count - S.budget, 0);
 }
 
 }  // namespace
@@ -676,31 +742,35 @@ extern "C" int fuse_ofusion(const void* slots, const void* keys,
 }
 
 // keys, active: the map's [capacity]; counts: [capacity / per_cap] live
-// slots of each partition's range (n_blocks for one); t_cw, k: [4, 4];
-// slots: [budget] out; tile_counts: [ceil(capacity / 1024)] scratch;
-// overflow_in, overflow_out: int32[] (may not alias).  0 < budget.
+// slots of each partition's range (n_blocks for one); pose, k: [4, 4];
+// slots: [budget] out; t_cw: [4, 4] out (inv(pose));
+// status: [>= ceil(capacity / kSelectTile)] uint64 and ctl: [2] uint32,
+// zero and left zero; overflow_in, overflow_out: int32[] (may not alias).
+// 0 < budget.
 extern "C" int frustum_select(const void* keys, const void* active,
-                              const void* counts, const void* t_cw,
-                              const void* k, void* slots, void* tile_counts,
+                              const void* counts, const void* pose,
+                              const void* k, void* slots, void* t_cw,
+                              void* status, void* ctl,
                               const void* overflow_in, void* overflow_out,
                               int capacity, int per_cap, int H, int W,
                               int budget, float voxel_size, float diag,
                               void* stream) {
   if (capacity <= 0 || per_cap <= 0 || budget <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int tiles = (capacity + kSelectThreads - 1) / kSelectThreads;
+  const int tiles = (capacity + kSelectTile - 1) / kSelectTile;
   const Select S{static_cast<const int64_t*>(keys),
                  static_cast<const uint8_t*>(active),
                  static_cast<const int32_t*>(counts),
-                 static_cast<const float*>(t_cw),
+                 static_cast<const float*>(pose),
                  static_cast<const float*>(k),
                  static_cast<int32_t*>(slots),
-                 static_cast<int32_t*>(tile_counts),
+                 static_cast<float*>(t_cw),
+                 static_cast<unsigned long long*>(status),
+                 static_cast<uint32_t*>(ctl),
                  static_cast<const int32_t*>(overflow_in),
                  static_cast<int32_t*>(overflow_out),
-                 capacity, per_cap, H, W, budget, tiles, voxel_size, diag};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  select_count<<<tiles, kSelectThreads, 0, st>>>(S);
-  select_write<<<tiles, kSelectThreads, 0, st>>>(S);
+                 capacity, per_cap, H, W, budget, voxel_size, diag};
+  frustum_select_kernel<<<tiles, kSelectThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(S);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,15 +1,17 @@
 // The inverse of a small square float32 matrix in one thread's registers:
 // the device form of core/numerics.py:inv, shared by pose_inv
-// (numerics.cu) and the raycast's splat bounds (raycast.cu), which inverts
-// its view inside its own launch.  The same code built with the same flags
-// (--fmad=false) gives the same bits in both.
+// (numerics.cu), the raycast's splat bounds (raycast.cu), which inverts its
+// view inside its own launch, and the fusion's frustum selection
+// (integrate.cu), which inverts the pose inside its own.  The same code
+// built with the same flags (--fmad=false) gives the same bits in all.
 //
 // The steps, as numerics.inv transcribes them from the OpenBLAS that XLA's
 // CPU jnp.linalg.inv calls (LAPACK's getrf, then getrs on the identity):
 // - getrf, left-looking, column by column: the previous pivots applied to
 //   the column, its unit-lower triangular solve (each dot product a fmaf
 //   chain from 0, from the last term to the first), the column update (a
-//   fmaf chain from 0, from the first term), the first largest |pivot|, the
+//   fmaf chain from 0, from the first term), the pivot as OpenBLAS's isamax
+//   picks it (the first largest |pivot|, but for a NaN: see max_sse), the
 //   row swap of the columns so far, and the column below the pivot scaled
 //   by the pivot's reciprocal (when the pivot is neither 0 nor NaN);
 // - getrs: the identity's rows permuted by the pivots, then for each column
@@ -68,6 +70,11 @@ __device__ __forceinline__ float flush(float x) {
   return fabsf(x) < FLT_MIN ? copysignf(0.0f, x) : x;
 }
 
+// x86's maxss d, s: the second operand where either is NaN
+__device__ __forceinline__ float max_sse(float d, float s) {
+  return d > s ? d : s;
+}
+
 // v[i] and v[piv] swapped (piv >= i) by selects over the rows piv may
 // be, so that every index stays a constant.
 template <int N, typename T>
@@ -111,15 +118,22 @@ __device__ __forceinline__ void lu_inverse(float (&A)[N][N],
       for (int k = 0; k < j; ++k) t = fma_ftz(A[i][k], b[k], t);
       b[i] = sub_ftz(b[i], t);
     }
-    // the first largest |pivot| (a NaN never wins)
-    int p = j;
-    float best = fabsf(flush(b[j]));
+    // the pivot as OpenBLAS's isamax picks it (numerics._isamax): the
+    // magnitudes in 4 lanes padded with 0, their largest as maxps pairs
+    // them (lane 2 with 0, 3 with 1, then the two; the second operand
+    // where either is NaN), then the first entry not below that largest
+    float v[4];
 #pragma unroll
-    for (int i = j + 1; i < N; ++i) {
-      const float a = fabsf(flush(b[i]));
-      const bool more = a > best;
-      best = more ? a : best;
-      p = more ? i : p;
+    for (int i = 0; i < 4; ++i)
+      v[i] = j + i < N ? fabsf(flush(b[j + i])) : 0.0f;
+    const float m = max_sse(max_sse(v[2], v[0]), max_sse(v[3], v[1]));
+    int p = j;
+    bool found = false;
+#pragma unroll
+    for (int i = j; i < N; ++i) {
+      const bool hit = !found && !(v[i - j] < m);
+      p = hit ? i : p;
+      found = found || hit;
     }
     piv[j] = p;
     float pivot = b[j];

@@ -8,11 +8,12 @@ first, with the carry (``tracking.TrackState``: pose, error2, count,
 converged, iteration) on the device.  The one-device frame takes it.
 
 The sharded frame all-reduces the sums between a trip's two halves, so it
-runs one trip as two launches: :func:`icp_track_reduce` associates every
-pixel of a level with the reference maps, writes the status image and sums
-the normal equations (kernel A); :func:`icp_update` solves them and updates
-the carry (kernel B).  Once ``converged`` is set or ``iteration`` has
-reached ``n_iters`` both return at once and change nothing, so the host can
+runs a level as one launch a trip and one more: :func:`icp_track_reduce`
+(kernel A) applies the previous trip's update from its all-reduced sums,
+then associates every pixel of a level with the reference maps, writes the
+status image and sums the normal equations; :func:`icp_update` (kernel B)
+applies the level's last update alone.  Once ``converged`` is set or
+``iteration`` has reached ``n_iters`` both change nothing, so the host can
 queue every trip of a level without reading anything back.
 
 The sums are one float32 vector of :data:`N_SUMS`: ``error2``, ``JTe[6]``,
@@ -20,9 +21,9 @@ JTJ's 21 distinct entries (``JTJ[b][a]`` for ``a <= b``, in the order of
 :data:`TRIU`) and ``count``.  A wrapper launches its kernel for CUDA tensors
 and takes its twin only for CPU tensors; there is no fallback between the
 two.  On the card the kernel writes its outputs in place (kernel A the
-status image and the sums, kernel B the carry's tensors); the twins return
-new tensors, and on the CPU they skip a trip after the level has ended by
-reading the carry (a CPU tensor: no device sync).
+carry, the status image and the sums, kernel B the carry's tensors); the
+twins return new tensors, and on the CPU they skip a trip after the level
+has ended by reading the carry (a CPU tensor: no device sync).
 """
 
 from __future__ import annotations
@@ -120,19 +121,24 @@ def icp_track_reduce_twin(in_vertex, in_normal, ref_vertex, ref_normal,
                           view, st, n_iters: int, result, sums,
                           symmetric=False, robust: str = "none",
                           robust_delta: float = 0.01,
-                          assoc: str = "nearest"):
-    """Plain PyTorch version of kernel A: ``tracking.track_kernel`` and
-    ``reduce_kernel`` at the carry's pose.  Returns (status image, sums):
-    the new ones while the level runs, ``result`` and ``sums`` after it
-    has ended."""
+                          assoc: str = "nearest",
+                          pending: Optional[torch.Tensor] = None,
+                          icp_threshold: float = 0.0):
+    """Plain PyTorch version of kernel A: :func:`icp_update_twin` of the
+    ``pending`` sums (the previous trip's; none at a level's first trip),
+    then ``tracking.track_kernel`` and ``reduce_kernel`` at the carry's
+    pose.  Returns (carry, status image, sums): the new ones while the
+    level runs, ``result`` and ``sums`` after it has ended."""
+    if pending is not None:
+        st = icp_update_twin(pending, st, n_iters, icp_threshold)
     tr = _tracking()
     go = live(st, n_iters)
     if not go.is_cuda and not bool(go):
-        return result, sums
+        return st, result, sums
     td = tr.track_kernel(in_vertex, in_normal, ref_vertex, ref_normal,
                          st.pose, view, symmetric=symmetric, assoc=assoc)
     new = pack_sums(*tr.reduce_kernel(td, robust, robust_delta))
-    return torch.where(go, td.result, result), torch.where(go, new, sums)
+    return st, torch.where(go, td.result, result), torch.where(go, new, sums)
 
 
 def icp_update_twin(sums, st, n_iters: int, icp_threshold: float,
@@ -204,26 +210,34 @@ def _call(fn: str, args, stream) -> None:
 def icp_track_reduce(in_vertex, in_normal, ref_vertex, ref_normal, view, st,
                      n_iters: int, result, sums, symmetric=False,
                      robust: str = "none", robust_delta: float = 0.01,
-                     assoc: str = "nearest", scratch=None):
-    """Kernel A, one trip: the status image (int32 ``result`` [rows,
-    cols]) and the sums (float32 ``sums`` [N_SUMS]) of the level
+                     assoc: str = "nearest", scratch=None,
+                     pending: Optional[torch.Tensor] = None,
+                     icp_threshold: float = 0.0):
+    """Kernel A, one trip of the sharded frame, in one launch: the previous
+    trip's update from its all-reduced sums ``pending`` (float32 [N_SUMS],
+    as :func:`icp_update` with ``icp_threshold``; None at a level's first
+    trip), then the status image (int32 ``result`` [rows, cols]) and the
+    sums (float32 ``sums`` [N_SUMS], not ``pending``) of the level
     ``in_vertex`` / ``in_normal`` (float32 [rows, cols, 3], any row and
     column strides, the last dimension contiguous: a strided level or a row
     strip is read in place) against ``ref_vertex`` / ``ref_normal``
-    (contiguous float32 [rH, rW, 3]) at the carry ``st``'s pose; ``view``
-    = K @ inv(raycast_pose) (float32 [4, 4]).  ``symmetric``: False, True
-    or a bool tensor (the per-frame gate, read on the device); ``robust``
-    / ``robust_delta`` and ``assoc`` as in ``pipeline/tracking.py``.
-    Returns (result, sums); after the level has ended both are left as they
-    are.  CPU tensors take the twin; CUDA tensors launch the kernel, which
-    writes ``result`` and ``sums`` in place, with ``scratch`` from
-    :func:`make_scratch` (allocated here when None)."""
+    (contiguous float32 [rH, rW, 3]) at that pose; ``view`` = K @
+    inv(raycast_pose) (float32 [4, 4]).  ``symmetric``: False, True or a
+    bool tensor (the per-frame gate, read on the device); ``robust`` /
+    ``robust_delta`` and ``assoc`` as in ``pipeline/tracking.py``.  Returns
+    (carry, result, sums).  Where the update ends the level the carry takes
+    it and ``result`` and ``sums`` are left as they are; after the level has
+    ended nothing changes.  CPU tensors take the twin; CUDA tensors launch
+    the kernel, which updates the carry's tensors, ``result`` and ``sums``
+    in place, with ``scratch`` from :func:`make_scratch` (allocated here
+    when None)."""
     args = (in_vertex, in_normal, ref_vertex, ref_normal, view, st, n_iters,
             result, sums)
     knobs = dict(symmetric=symmetric, robust=robust,
                  robust_delta=robust_delta, assoc=assoc)
     if in_vertex.device.type == "cpu":
-        return icp_track_reduce_twin(*args, **knobs)
+        return icp_track_reduce_twin(*args, **knobs, pending=pending,
+                                     icp_threshold=icp_threshold)
     dev = in_vertex.device
     if dev.type != "cuda":
         raise ValueError(f"icp_track_reduce: no kernel for device {dev}")
@@ -252,6 +266,11 @@ def icp_track_reduce(in_vertex, in_normal, ref_vertex, ref_normal, view, st,
              ("partials", partials, torch.float32,
               (max(-(-rows * cols // THREADS), 1), N_SUMS)),
              ("ticket", ticket, torch.int32, (1,))] + _carry_specs(st)
+    if pending is not None:
+        specs.append(("pending", pending, torch.float32, (N_SUMS,)))
+        if pending.data_ptr() == sums.data_ptr():
+            raise ValueError("icp_track_reduce: pending and sums must be "
+                             "two buffers")
     gate = None
     if isinstance(symmetric, torch.Tensor):
         gate = symmetric
@@ -271,13 +290,13 @@ def icp_track_reduce(in_vertex, in_normal, ref_vertex, ref_normal, view, st,
             (ctypes.c_longlong, in_vertex.stride(0)),
             (ctypes.c_longlong, in_vertex.stride(1)), (i, rows), (i, cols),
             (P, ref_vertex), (P, ref_normal), (i, rH), (i, rW), (P, view),
-            (P, st.pose), (P, st.converged), (P, st.iteration),
-            (i, n_iters), (i, mode), (P, gate), (i, ROBUST[robust]),
+            (P, st.pose), (P, st.error2), (P, st.count), (P, st.converged),
+            (P, st.iteration), (i, n_iters), (f, icp_threshold),
+            (P, pending), (i, mode), (P, gate), (i, ROBUST[robust]),
             (f, float(delta)), (f, float(np.float32(1.0) / delta)),
             (i, ASSOC[assoc]), (f, DIST_THRESHOLD), (f, NORMAL_THRESHOLD),
-            (P, result), (P, partials), (P, ticket), (P, sums)],
-            _stream(dev))
-    return result, sums
+            (P, result), (P, partials), (P, ticket), (P, sums)], _stream(dev))
+    return st, result, sums
 
 
 def icp_update(sums, st, n_iters: int, icp_threshold: float,
@@ -355,7 +374,7 @@ def icp_track_levels_twin(pose, levels, ref_vertex, ref_normal, view,
                          iteration=zero(torch.int32))
         result = torch.zeros(iv.shape[:-1], dtype=torch.int32, device=dev)
         for _ in range(n_iters):
-            result, last = icp_track_reduce_twin(
+            _, result, last = icp_track_reduce_twin(
                 iv, inm, ref_vertex, ref_normal, view, st, n_iters, result,
                 last, **knobs)
             st = icp_update_twin(last, st, n_iters, icp_threshold)

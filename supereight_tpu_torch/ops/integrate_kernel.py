@@ -2,8 +2,9 @@
 kernels (`csrc/integrate.cu`) and their plain PyTorch twins, for the SDF
 (:func:`fuse_sdf`) and the OFusion field (:func:`fuse_ofusion`), with the
 budget branch's frustum selection (:func:`frustum_select`) before them
-and the coarse node pyramid's update (:func:`update_nodes`), which runs
-inside their launch (``nodes=True``).
+(which also inverts the pose into the fusion's ``T_cw``) and the coarse
+node pyramid's update (:func:`update_nodes`), which runs inside their
+launch (``nodes=True``).
 
 Counterparts of `supereight_tpu/ops/integrate_kernel.py` (the Pallas TPU
 kernel K1, SDF only) and of the body of `supereight_tpu/pipeline/
@@ -21,8 +22,9 @@ the JAX package by the CPU tests).  :func:`frustum_select` and
 :func:`update_nodes` are the rest of JAX's ``integrate``
 (`supereight_tpu/pipeline/integration.py:515-536` and ``_update_nodes``,
 `:581-600`), which the port ran as chains of small launches with a host
-read; on the card the selection is one call of its kernel, the node
-update part of the fusion's launch, and neither reads anything back.
+read; on the card the selection is one launch with the fusion's inverse
+inside it, the node update part of the fusion's launch, and neither reads
+anything back.
 """
 
 from __future__ import annotations
@@ -34,21 +36,21 @@ import numpy as np
 import torch
 
 from supereight_tpu_torch.core import morton, octree
-from supereight_tpu_torch.core.numerics import matvec, trunc_i32
+from supereight_tpu_torch.core.numerics import inv_twin, matvec, trunc_i32
 from supereight_tpu_torch.core.octree import (BLOCK_SIDE, BLOCK_VOXELS,
                                               VoxelMap)
 from supereight_tpu_torch.fields.ofusion import OFusionField
 from supereight_tpu_torch.fields.sdf import SDFField
-from . import _build
+from . import _build, look_back
 
 PATCH = 16          # depth patch side per block, in strided pixels
 N_STRIDES = 4       # patch strides 1, 2, 4, 8
-#: slots a CTA of frustum_select's scan takes
-_SELECT_TILE = _build.constants("integrate")["kSelectThreads"]
+#: slots a CTA (a tile) of frustum_select's look-back takes
+_SELECT_TILE = (_build.constants("integrate")["kSelectThreads"]
+                * _build.constants("integrate")["kSelectSlots"])
 
 #: kernel launches so far, one counter per kernel (the chip smoke test reads
-#: them to show that the main path went through the kernels; a call of
-#: frustum_select launches its two kernels and counts once; update_nodes
+#: them to show that the main path went through the kernels; update_nodes
 #: counts each node update, which runs inside a fusion's launch)
 LAUNCHES = {"fuse_sdf": 0, "fuse_ofusion": 0, "frustum_select": 0,
             "update_nodes": 0}
@@ -271,27 +273,33 @@ def frustum_candidates(m: VoxelMap, T_cw, K, frame_hw) -> torch.Tensor:
             & (cpy >= -foot) & (cpy <= H - 1 + foot))
 
 
-def frustum_select_twin(m: VoxelMap, T_cw, K, frame_hw, budget: int):
-    """Plain PyTorch version of :func:`frustum_select`."""
+def frustum_select_twin(m: VoxelMap, pose, K, frame_hw, budget: int):
+    """Plain PyTorch version of :func:`frustum_select`: ``T_cw`` by
+    ``numerics.inv_twin``, then the candidates' first ``budget``."""
+    T_cw = inv_twin(pose)
     cand = frustum_candidates(m, T_cw, K, frame_hw)
     idx = torch.nonzero(cand)[:budget, 0].to(torch.int32)
     slots = torch.full((budget,), -1, dtype=torch.int32, device=cand.device)
     slots[:idx.numel()] = idx
     dropped = torch.clamp(cand.sum(dtype=torch.int32) - budget, min=0)
-    return slots, m.overflow + dropped
+    return slots, m.overflow + dropped, T_cw
 
 
-def frustum_select(m: VoxelMap, T_cw, K, frame_hw, budget: int):
-    """The budget branch's slots: ``(slots, overflow)``, ``slots`` int32
-    [budget] the first ``budget`` :func:`frustum_candidates` in ascending
-    slot order, -1 past their count (``jnp.nonzero``'s fill), and
-    ``overflow`` int32[] the map's overflow plus the candidates past the
-    budget, both on the map's device.  ``T_cw`` / ``K`` float32 [4, 4],
-    ``0 < budget``.  CPU tensors take the plain twin; CUDA tensors launch
-    the two kernels of a deterministic scan and read nothing back (a new
-    ``slots`` and ``overflow`` each call), raising if they cannot."""
+def frustum_select(m: VoxelMap, pose, K, frame_hw, budget: int):
+    """The budget branch's operands: ``(slots, overflow, T_cw)``.  ``T_cw``
+    float32 [4, 4] is ``inv(pose)`` (``numerics.inv``'s bits), ``slots``
+    int32 [budget] the first ``budget`` :func:`frustum_candidates` at that
+    ``T_cw`` in ascending slot order, -1 past their count
+    (``jnp.nonzero``'s fill), and ``overflow`` int32[] the map's overflow
+    plus the candidates past the budget, all on the map's device.
+    ``pose`` / ``K`` float32 [4, 4], ``0 < budget``.  CPU tensors take the
+    plain twin; CUDA tensors launch one kernel, which inverts the pose in
+    each CTA and ranks the candidates by a look-back over its tiles, and
+    read nothing back (new ``slots``, ``overflow`` and ``T_cw`` each call;
+    the look-back's status words and tickets in :func:`look_back.scratch`,
+    which the kernel leaves zero), raising if it cannot."""
     if m.device.type == "cpu":
-        return frustum_select_twin(m, T_cw, K, frame_hw, budget)
+        return frustum_select_twin(m, pose, K, frame_hw, budget)
     dev = m.device
     cap = m.capacity
     counts = octree.partition_counts(m)
@@ -300,23 +308,26 @@ def frustum_select(m: VoxelMap, T_cw, K, frame_hw, budget: int):
             ("active", m.active, torch.bool, (cap,), 1),
             ("partition counts", counts, torch.int32, (m.partitions,), 4),
             ("overflow", m.overflow, torch.int32, (), 4),
-            ("T_cw", T_cw, torch.float32, (4, 4), 4),
+            ("pose", pose, torch.float32, (4, 4), 4),
             ("K", K, torch.float32, (4, 4), 4)])
     if not 0 < budget:
         raise ValueError(f"frustum_select: budget must be > 0, got {budget}")
     H, W = frame_hw
     i32 = dict(dtype=torch.int32, device=dev)
     slots = torch.empty((budget,), **i32)
-    tiles = torch.empty((-(-cap // _SELECT_TILE),), **i32)
     overflow = torch.empty((), **i32)
+    T_cw = torch.empty((4, 4), dtype=torch.float32, device=dev)
+    sc = look_back.scratch(dev)
+    status = sc.words(select_tiles(cap))
     fn = _build.load("integrate").frustum_select
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P] * 9 + [I] * 5 + [F, F, P]
+    fn.argtypes = [P] * 11 + [I] * 5 + [F, F, P]
     fn.restype = I
     with torch.cuda.device(dev):
         err = fn(m.keys.data_ptr(), m.active.data_ptr(), counts.data_ptr(),
-                 T_cw.data_ptr(), K.data_ptr(), slots.data_ptr(),
-                 tiles.data_ptr(), m.overflow.data_ptr(), overflow.data_ptr(),
+                 pose.data_ptr(), K.data_ptr(), slots.data_ptr(),
+                 T_cw.data_ptr(), status.data_ptr(), sc.ctl.data_ptr(),
+                 m.overflow.data_ptr(), overflow.data_ptr(),
                  cap, cap // m.partitions, H, W, budget, m.voxel_size,
                  1.7320508 * BLOCK_SIDE * m.voxel_size,
                  torch.cuda.current_stream(dev).cuda_stream)
@@ -324,7 +335,13 @@ def frustum_select(m: VoxelMap, T_cw, K, frame_hw, budget: int):
         raise RuntimeError(f"frustum_select kernel launch failed: CUDA error "
                            f"{err}")
     LAUNCHES["frustum_select"] += 1
-    return slots, overflow
+    return slots, overflow, T_cw
+
+
+def select_tiles(capacity: int) -> int:
+    """The tiles (CTAs) of :func:`frustum_select`'s launch at
+    ``capacity`` slots: the look-back's status words it needs."""
+    return -(-capacity // _SELECT_TILE)
 
 
 def _pixel_valid(px, py, pos_cam, frame_hw):

@@ -13,9 +13,10 @@
 tensors these kernels, with no fallback between the two.  Each wrapper
 checks its operands and raises for another device, dtype or shape, and
 when a launch fails; each queues its launch on the current stream and
-reads nothing back.  R1's encoded grid and ticket and the scan's
-look-back state live in a scratch of each (device, stream)
-(:class:`Scratch`), zeroed once: the kernels leave it zero."""
+reads nothing back.  R1's encoded grid and ticket (:class:`Scratch`) and
+the scan's look-back state (:mod:`.look_back`, shared with the fusion's
+frustum selection) live in scratches of each (device, stream), zeroed
+once: the kernels leave them zero."""
 
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ import torch
 
 from supereight_tpu_torch.core import octree
 from supereight_tpu_torch.core.octree import BLOCK_SIDE, BLOCK_VOXELS
-from . import _build
+from . import _build, look_back
 
 _K = _build.constants("raycast")
 #: rays a tile of R2 (the second window's ranks count by tile)
@@ -48,17 +49,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 class Scratch:
-    """The raycast kernels' state on one (device, stream), allocated zeroed
-    at first use and never read back; each launch leaves what it used
-    zero: R1's encoded grid and ticket (``enc``), the scan's tile status
-    words (``status``) and its two counters (``ctl``: tickets drawn,
-    look-backs ended)."""
+    """R1's state on one (device, stream), allocated zeroed at first use
+    and never read back; each launch leaves what it used zero: its encoded
+    grid and ticket (``enc``).  The scan's look-back state is
+    :func:`look_back.scratch`'s."""
 
     def __init__(self, device):
         self.device = device
         self.enc = torch.zeros(0, dtype=torch.int32, device=device)
-        self.status = torch.zeros(0, dtype=torch.int64, device=device)
-        self.ctl = torch.zeros(2, dtype=torch.int32, device=device)
 
     def splat(self, cells: int) -> torch.Tensor:
         """R1's zero [>= 2 cells + 1] int32."""
@@ -66,14 +64,6 @@ class Scratch:
             self.enc = torch.zeros(2 * cells + 1, dtype=torch.int32,
                                    device=self.device)
         return self.enc
-
-    def scan(self, tiles: int) -> torch.Tensor:
-        """The zero status words [>= tiles] int64 of a scan that ranks
-        its rays over ``tiles`` tiles."""
-        if self.status.numel() < tiles:
-            self.status = torch.zeros(tiles, dtype=torch.int64,
-                                      device=self.device)
-        return self.status
 
 
 _SCRATCH: Dict[tuple, Scratch] = {}
@@ -234,8 +224,8 @@ def ray_scan(m, dense, field, view, plan, tmin, tmax, g: int,
     f32 = dict(dtype=torch.float32, device=dev)
     hit, z = torch.empty((h, w), **b8), torch.empty((h, w), **f32)
     tiles = -(-(h * w) // SCAN_TILE)
-    sc = scratch(dev)
-    status = sc.scan(tiles) if second_window else None
+    sc = look_back.scratch(dev)
+    status = sc.words(tiles) if second_window else None
     delta = 0.35 * plan.thickness
     ptr = lambda t: None if t is None else t.data_ptr()
     _launch(fn, dev, "ray_scan",

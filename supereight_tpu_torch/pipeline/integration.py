@@ -5,7 +5,8 @@ SDF allocation is the per-pixel band march of ``buildAllocationList`` over a
 (decimated) pixel grid, deduplicated by one dense block mask; OFusion's is
 the distance-adaptive octant march of ``buildOctantList``, one dense request
 mask per octree level.  Fusion picks at most ``budget`` frustum candidates
-(``frustum_select``) or every live slot and fuses them in place on the
+(``frustum_select``, which on the card also inverts the pose in its one
+launch) or every live slot and fuses them in place on the
 map's block table through the field's kernel (`ops/integrate_kernel.py`:
 ``fuse_sdf`` or ``fuse_ofusion``, which also writes a held SDF read view's
 fused rows and updates the coarse node pyramid, ``update_nodes``' values,
@@ -231,17 +232,18 @@ def unallocated_fraction(m: VoxelMap, depth, pose, K, decim: int = 4,
         / inside.sum().clamp(min=1).to(torch.float32)
 
 
-def fusion_operands(m: VoxelMap, T_cw, K, frame_hw, budget: int = 0):
-    """The slots a fusion takes for this map, and the map's overflow after
-    it: ``(slots, overflow)``.  With ``0 < budget < capacity``:
-    ``integrate_kernel.frustum_select``'s int32 [budget] slots (the first
+def fusion_operands(m: VoxelMap, pose, K, frame_hw, budget: int = 0):
+    """The operands of a fusion of this map from ``pose``: ``(slots,
+    overflow, T_cw)``, ``T_cw`` = ``inv(pose)``.  With ``0 < budget <
+    capacity``: ``integrate_kernel.frustum_select``'s (one launch on the
+    card, the inverse inside it): int32 [budget] slots (the first
     ``budget`` frustum candidates in ascending slot order, -1 past their
-    count) and the overflow plus the candidates past the budget, both on
-    the device.  Otherwise ``(None, m.overflow)``: every live slot
-    fuses."""
+    count), the overflow plus the candidates past the budget, and
+    ``T_cw``, all on the device.  Otherwise ``(None, m.overflow,
+    inv(pose))``: every live slot fuses."""
     if budget and budget < m.capacity:
-        return integrate_kernel.frustum_select(m, T_cw, K, frame_hw, budget)
-    return None, m.overflow
+        return integrate_kernel.frustum_select(m, pose, K, frame_hw, budget)
+    return None, m.overflow, inv(pose)
 
 
 def fuse(field, m: VoxelMap, slots, depth, T_cw, K, timestamp: float,
@@ -283,10 +285,9 @@ def integrate(m: VoxelMap, field, depth, pose, K, timestamp: float = 0.0,
     if view is not None and field.multiscale_alloc:
         raise ValueError("a held view is updated by fusion for single-scale "
                          "fields only (the multiscale view is rebuilt)")
-    T_cw = inv(pose)
     K = K.contiguous()
     depth = depth.contiguous()
-    slots, overflow = fusion_operands(m, T_cw, K, depth.shape, budget)
+    slots, overflow, T_cw = fusion_operands(m, pose, K, depth.shape, budget)
     m = fuse(field, m, slots, depth, T_cw, K, timestamp, patch,
              view).replace(overflow=overflow)
     return m if view is None else (m, view)

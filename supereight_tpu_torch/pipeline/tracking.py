@@ -12,14 +12,16 @@ one launch of a persistent CUDA kernel that runs every trip of every level,
 on the CPU its twin (each level's loop as :func:`_level_loop` runs it).
 Sharded (``track(shard=)``), each level runs :func:`_level_loop`: the host
 queues all ``n_iters`` trips, a trip after ``converged`` is set changes
-nothing, and a trip is two calls of `ops/icp_kernel.py`, association,
-residuals and
-the normal equations' sums (:func:`~supereight_tpu_torch.ops.icp_kernel.\
-icp_track_reduce`), then the solve and the pose update
-(:func:`~supereight_tpu_torch.ops.icp_kernel.icp_update`), with the sums
-all-reduced between the two, so every rank issues the same collectives and
-takes the same decisions.  On the card these are two CUDA kernels, on the
-CPU their twins, which run this module's functions.
+nothing, and a trip is one call of `ops/icp_kernel.py`'s
+:func:`~supereight_tpu_torch.ops.icp_kernel.icp_track_reduce`: the
+previous trip's solve and pose update from its all-reduced sums, then the
+association, residuals and the normal equations' sums, which are
+all-reduced before the next trip, so every rank issues the same
+collectives and takes the same decisions; one
+:func:`~supereight_tpu_torch.ops.icp_kernel.icp_update` applies a level's
+last update.  On the card these are two CUDA kernels (one launch a trip,
+one a level), on the CPU their twins, which run this module's functions
+in the same order.
 """
 
 from __future__ import annotations
@@ -231,24 +233,33 @@ def _level_loop(st: TrackState, n_iters: int, in_vertex, in_normal,
     """Track + reduce + update with the early exit on ||twist|| <
     icp_threshold, as JAX's ``lax.while_loop``: ``converged`` and
     ``iteration`` restart at 0, then all ``n_iters`` trips are queued and
-    those after the exit change nothing.  With ``comm`` the sums are
-    all-reduced over its ranks every trip.  Returns (state, status image of
-    the last trip that ran, zeros if none ran)."""
+    those after the exit change nothing.  A trip is one call of
+    ``icp_kernel.icp_track_reduce``, which applies the previous trip's
+    update (from its sums) before its own pass, and one ``icp_update``
+    applies the last trip's: n_iters + 1 calls a level.  With ``comm`` the
+    sums are all-reduced over its ranks every trip.  Returns (state,
+    status image of the last trip that ran, zeros if none ran)."""
     dev = in_vertex.device
     st = st._replace(converged=torch.zeros((), dtype=torch.bool, device=dev),
                      iteration=torch.zeros((), dtype=torch.int32,
                                            device=dev))
     result = torch.zeros(in_vertex.shape[:-1], dtype=torch.int32, device=dev)
-    sums = torch.zeros(icp_kernel.N_SUMS, dtype=torch.float32, device=dev)
+    # a trip writes one buffer while it reads the other's pending sums
+    bufs = [torch.zeros(icp_kernel.N_SUMS, dtype=torch.float32, device=dev)
+            for _ in range(2)]
     scratch = icp_kernel.make_scratch(result.numel(), dev)
-    for _ in range(n_iters):
-        result, sums = icp_kernel.icp_track_reduce(
+    pending = None
+    for trip in range(n_iters):
+        st, result, sums = icp_kernel.icp_track_reduce(
             in_vertex, in_normal, ref_vertex, ref_normal, view, st, n_iters,
-            result, sums, symmetric=symmetric, robust=robust,
-            robust_delta=robust_delta, assoc=assoc, scratch=scratch)
+            result, bufs[trip % 2], symmetric=symmetric, robust=robust,
+            robust_delta=robust_delta, assoc=assoc, scratch=scratch,
+            pending=pending, icp_threshold=icp_threshold)
         if comm is not None:
             sums = comm.all_reduce_sum(sums)
-        st = icp_kernel.icp_update(sums, st, n_iters, icp_threshold)
+        pending = sums
+    if pending is not None:
+        st = icp_kernel.icp_update(pending, st, n_iters, icp_threshold)
     return st, result
 
 

@@ -27,9 +27,14 @@ launch: the first window, the second window cut at its budget, the
 midsolve off) and R4 on its rays (the secant re-solve, hybrid normals at
 the headline's grad_decim; and the other re-solve and normals modes,
 ``ray_refine_normals_<resolve>_<normals>``) on the headline map after 12
-frames from the last pose, and the fusion with the node update
+frames from the last pose, the fusion with the node update
 (:func:`fusion_calls`; a package from before the update went into the
-fusion's launch times its fusion alone there),
+fusion's launch times its fusion alone there), the budget branch's
+operands with the selection at three capacities (:func:`operands_calls`;
+one launch with the inverse inside, or the inverse then the selection)
+and ``icp_track_levels`` and a trip of the sharded frame on a rank's
+strip of each level (:func:`icp_calls`; one launch with the previous
+trip's update inside, or kernel B then kernel A),
 each's median device time (``ms``), host time with the device
 synchronised before and after (``host_ms``) and enqueue time, the call's
 own time from an idle device (``enqueue_ms``), over 25 runs.
@@ -80,21 +85,27 @@ def main(argv=None):
         res["ms"][f"slab_row_sum_{rows.numel()}"] = med(
             lambda: gp.slab_row_sum(rows, table))
     res["host_ms"], res["enqueue_ms"] = {}, {}
-    for name, fn in glue_calls(smoke, dev).items():
-        res["ms"][name] = med(fn)
-        res["host_ms"][name] = statistics.median(host_times_ms(fn, True))
-        res["enqueue_ms"][name] = statistics.median(host_times_ms(fn, False))
+    for name, call in glue_calls(smoke, dev).items():
+        fn, setup = call if isinstance(call, tuple) else (call, None)
+        res["ms"][name] = statistics.median(device_times_ms(fn, 25, setup))
+        res["host_ms"][name] = statistics.median(
+            host_times_ms(fn, True, setup=setup))
+        res["enqueue_ms"][name] = statistics.median(
+            host_times_ms(fn, False, setup=setup))
     print(json.dumps(res))
     return res
 
 
-def host_times_ms(fn, synchronised: bool, runs: int = 25):
+def host_times_ms(fn, synchronised: bool, runs: int = 25, setup=None):
     """The host clock's ms of ``fn`` from an idle device, to its return
-    (the enqueue) or, ``synchronised``, to the device's end."""
+    (the enqueue) or, ``synchronised``, to the device's end; ``setup``, if
+    given, runs before each run, outside the clock."""
     import torch
     fn()
     out = []
     for _ in range(runs):
+        if setup is not None:
+            setup()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -153,7 +164,103 @@ def glue_calls(smoke, dev) -> dict:
                 m, dense, field, view, plan, scan.z, scan.hit, r, n,
                 cfg.raycast_grad_decim))
     calls.update(fusion_calls(smoke, dev, slam, depths[12]))
+    calls.update(operands_calls(smoke, dev, slam, depths, poses))
+    calls.update(icp_calls(smoke, dev, depths, poses))
     return calls
+
+
+def operands_calls(smoke, dev, slam, depths, poses) -> dict:
+    """The budget branch's fusion operands (``integration.fusion_operands``
+    from the pose: the selection with the inverse inside its one launch; a
+    package from before that takes ``numerics.inv(pose)`` first, as its
+    ``integrate`` did) on the headline map after 12 frames at its budget,
+    3072 of 6144 slots, and on maps of frame 30's blocks at
+    demo512-ofusion's and 1024-quality's capacities and budgets
+    (``chip_smoke.SELECT_CAPACITIES``)."""
+    import numpy as np
+    import torch
+    from supereight_tpu_torch.core import numerics
+    from supereight_tpu_torch.pipeline import (camera, integration,
+                                               preprocessing)
+    k = camera.camera_matrix(torch.from_numpy(smoke.K).to(dev)).contiguous()
+    out = {"operands_6144_3072": operands(
+        integration, numerics, slam.state.map, slam.state.pose, k, 3072)}
+    depth = preprocessing.mm_to_meters(
+        torch.from_numpy(depths[30].astype(np.int32)).to(dev), (240, 320))
+    pose = torch.from_numpy(poses[30]).to(dev)
+    for size, cap, budget in smoke.SELECT_CAPACITIES:
+        m = smoke.select_map(torch, size, cap, dev, depth, pose, k)
+        out[f"operands_{cap}_{budget}"] = operands(integration, numerics, m,
+                                                   pose, k, budget)
+    return out
+
+
+def operands(integration, numerics, m, pose, k, budget):
+    """A call of the package's ``integration.fusion_operands`` from the
+    pose at ``budget``: since the selection inverts the pose in its own
+    launch it takes the pose; before, the caller inverted it first, as
+    ``integrate`` did."""
+    import inspect
+    if list(inspect.signature(
+            integration.fusion_operands).parameters)[1] == "pose":
+        return lambda: integration.fusion_operands(m, pose, k, (240, 320),
+                                                   budget)
+    return lambda: integration.fusion_operands(m, numerics.inv(pose), k,
+                                               (240, 320), budget)
+
+
+#: a rank's strip of each level of the headline's pyramid (level, stride,
+#: ranks): the sharded frame's trips on rank 1 of 2
+TRIP_STRIPS = {"160x120 decimated, rank 1 of 2": (0, 2, 2),
+               "160x120, rank 1 of 2": (1, 1, 2),
+               "80x60, rank 1 of 2": (2, 1, 2)}
+
+
+def icp_calls(smoke, dev, depths, poses) -> dict:
+    """``icp_track_levels`` on the headline frame ``chip_smoke.ICP_FRAME``
+    at its pyramid, and a trip of the sharded frame on each strip of
+    TRIP_STRIPS from that frame's start pose, the previous trip's sums
+    pending: one launch with the update inside it, or, for a package from
+    before it, kernel A then kernel B (the carry restored before each
+    run, outside the time)."""
+    import inspect
+    import torch
+    from supereight_tpu_torch.ops import icp_kernel as icp
+    ops = smoke.icp_operands(torch, depths, poses, dev)
+    cfg = ops["cfg"]
+    refs = (ops["ref_v"], ops["ref_n"], ops["view"])
+    levels = smoke.icp_level_set(ops, cfg.icp_finest_decimate)
+    out = {f"icp_track_levels_{cfg.pyramid}": lambda: icp.icp_track_levels(
+        ops["start"], levels, *refs, cfg.pyramid, cfg.icp_threshold)}
+    merged = "pending" in inspect.signature(icp.icp_track_reduce).parameters
+    for name, (level, d, n) in TRIP_STRIPS.items():
+        iv, inm = (a[::d, ::d] for a in (ops["vertices"][level],
+                                         ops["normals"][level]))
+        rows = iv.shape[0] // n
+        iv, inm = (a[rows:2 * rows] for a in (iv, inm))
+        res = torch.zeros(iv.shape[:2], dtype=torch.int32, device=dev)
+        sums = torch.zeros(icp.N_SUMS, device=dev)
+        start = smoke.icp_carry(torch, ops["start"])
+        carry = smoke.icp_carry(torch, ops["start"])
+        scratch = icp.make_scratch(res.numel(), dev)
+        icp.icp_track_reduce(iv, inm, *refs, carry, 4, res, sums,
+                             scratch=scratch)
+        pending, out_sums = sums.clone(), torch.zeros_like(sums)
+        if merged:
+            fn = (lambda iv=iv, inm=inm, res=res, carry=carry,
+                  pending=pending, out_sums=out_sums, scratch=scratch:
+                  icp.icp_track_reduce(iv, inm, *refs, carry, 4, res,
+                                       out_sums, scratch=scratch,
+                                       pending=pending, icp_threshold=0.0))
+        else:
+            def fn(iv=iv, inm=inm, res=res, carry=carry, pending=pending,
+                   out_sums=out_sums, scratch=scratch):
+                icp.icp_update(pending, carry, 4, 0.0)
+                icp.icp_track_reduce(iv, inm, *refs, carry, 4, res, out_sums,
+                                     scratch=scratch)
+        out[f"icp_trip_{name}"] = (fn, lambda carry=carry, start=start: [
+            a.copy_(b) for a, b in zip(carry, start)])
+    return out
 
 
 def fusion_calls(smoke, dev, slam, depth_mm) -> dict:
@@ -195,7 +302,7 @@ def fusion_calls(smoke, dev, slam, depth_mm) -> dict:
         of_table, depth, of_T, k, of.field.mu, of.field.sigma_lo, now,
         of_rows)
     for name, (m, field) in maps.items():
-        slots, _ = integration.fusion_operands(m, T_cw, k, depth.shape, 3072)
+        slots = operands(integration, numerics, m, pose, k, 3072)()[0]
         out[f"fuse_with_nodes_{name}_3072"] = (
             lambda m=m, field=field, slots=slots: integration.fuse(
                 field, m, slots, depth, T_cw, k, now))

@@ -91,14 +91,15 @@ def _op(ins: str) -> str:
 def kernel_name(func: str) -> str:
     """The package's name of a compiled (mangled) kernel: ``fuse_sdf`` and
     ``fuse_ofusion`` by their update, ``lane_shuffle_sum<64>`` for a
-    template argument, the raycast's by their entry points, else the
-    function's own name."""
+    template argument, the raycast's, the selection's and the sharded ICP
+    trip's by their entry points, else the function's own name."""
     if "OFusion" in func:
         return "fuse_ofusion"
     if "Sdf" in func:
         return "fuse_sdf"
     for name in ("lane_shuffle_sum", "slab_row_sum", "empty", "inverse",
-                 "splat_bounds", "ray_scan", "ray_refine_normals"):
+                 "splat_bounds", "ray_scan", "ray_refine_normals",
+                 "frustum_select", "icp_track_reduce"):
         if name + "_kernel" in func:
             m = _TEMPLATE.search(func)
             if m is None:

@@ -36,7 +36,9 @@ of :data:`INT_PARTS` (:func:`integration_parts`), each timed alone the
 same way on clones of the map's tables; a run's ``int_parts`` are their
 medians over the frames that run each part.  Of the other checkout these
 take ``system.tracking_stage``, ``system._alloc_fires``, ``integration``'s
-``allocate_sdf`` / ``allocate_ofusion``, ``fusion_operands``, ``fuse``
+``allocate_sdf`` / ``allocate_ofusion``, ``fusion_operands`` (which
+returns ``T_cw`` too: a checkout from before the inverse went into the
+selection's launch is cut by its own probe), ``fuse``
 (which returns the map with its new node tables: a checkout from before
 the node update went into the fusion's launch is cut by its own probe),
 ``raycast.view_alloc_fill`` / ``pack_view`` and ``gradmap.build_table``.
@@ -116,11 +118,12 @@ def track_parts(slam, depth_mm, k, frame: int):
 
 #: the integration stage's parts: the allocation march with its slot
 #: assignment (allocating frames), the held view's fill (an SDF view's
-#: ``view_alloc_fill``, a multiscale view's rebuild), ``inv(pose)``, the
-#: frustum candidates and their selection (``fusion_operands``), the
-#: fusion launch (with the node pyramid's update inside it) and the stored
-#: gradient table's rebuild (``raycast_normals="stored"``)
-INT_PARTS = ("alloc", "fill", "inv", "select", "fuse", "grad")
+#: ``view_alloc_fill``, a multiscale view's rebuild), the fusion's
+#: operands (``fusion_operands``: on the budget branch the frustum
+#: selection with ``inv(pose)`` inside its launch, else ``inv(pose)``
+#: alone), the fusion launch (with the node pyramid's update inside it)
+#: and the stored gradient table's rebuild (``raycast_normals="stored"``)
+INT_PARTS = ("alloc", "fill", "select", "fuse", "grad")
 
 
 def _timer(slam, out):
@@ -158,7 +161,6 @@ def integration_parts(slam, depth_mm, k, frame: int):
     The state is left as it was.  None where the frame does not fuse."""
     import numpy as np
     from supereight_tpu_torch.core import octree
-    from supereight_tpu_torch.core.numerics import inv
     from supereight_tpu_torch.pipeline import (camera, gradmap, integration,
                                                raycast, system)
     cfg, field = slam.config, slam.field
@@ -191,10 +193,9 @@ def integration_parts(slam, depth_mm, k, frame: int):
     if sdf_view:
         part("fill", lambda: raycast.view_alloc_fill(view, m, live_before,
                                                      field))
-    T_cw = part("inv", lambda: inv(pose))
     K, depth = K.contiguous(), depth.contiguous()
-    slots, _ = part("select", lambda: integration.fusion_operands(
-        m, T_cw, K, depth.shape, cfg.integrate_budget))
+    slots, _, T_cw = part("select", lambda: integration.fusion_operands(
+        m, pose, K, depth.shape, cfg.integrate_budget))
     m = part("fuse", lambda: integration.fuse(
         field, m, slots, depth, T_cw, K, timestamp, cfg.integrate_patch,
         view if sdf_view else None))

@@ -404,10 +404,11 @@ def test_glue_holds_on_the_cpu():
     m = slam.state.map
     T_cw = numerics.inv(slam.state.pose)
     Km = camera.camera_matrix(torch.from_numpy(k)).contiguous()
-    cand, timed = chip_smoke.hold_select(torch, "x", m, T_cw, Km, (120, 160),
+    pose = slam.state.pose
+    cand, timed = chip_smoke.hold_select(torch, "x", m, pose, Km, (120, 160),
                                          1000)
     assert cand > 10 and timed is None
-    assert chip_smoke.hold_select(torch, "x", m, T_cw, Km, (120, 160),
+    assert chip_smoke.hold_select(torch, "x", m, pose, Km, (120, 160),
                                   cand // 2)[0] == cand
     depth = slam.state.float_depth
     for field in (SDFField(mu=0.1), OFusionField(mu=0.008, voxel_size=0.075)):
@@ -419,14 +420,23 @@ def test_glue_holds_on_the_cpu():
     assert chip_smoke.bits_err(torch, a, a.clone()) == (0.0, True)
     assert chip_smoke.bits_err(torch, a, torch.tensor(
         [1.5, float("nan"), 0.0])) == (0.5, False)
-    counts = dict(build_pyramid=10, pose_inv=19, update_nodes=9,
+    # the budget branch's inverse is inside the selection's launch: the
+    # inverse counts the ICP frames and the whole-table fusions
+    counts = dict(build_pyramid=10, pose_inv=10, update_nodes=9,
                   frustum_select=9, fuse_sdf=9)
+    qcfg = chip_smoke.preset_config("quality")
+    chip_smoke.check_glue_launched(
+        "x", {**counts, "pose_inv": 19, "frustum_select": 0}, qcfg, 10, 9)
+    with pytest.raises(SystemExit, match="launched"):
+        chip_smoke.check_glue_launched(
+            "x", {**counts, "pose_inv": 18, "frustum_select": 0}, qcfg, 10,
+            9)
     hcfg = chip_smoke.preset_config("headline")
     chip_smoke.check_glue_launched("x", counts, hcfg, 10, 9)
     chip_smoke.check_glue_launched("x", {**counts, "build_pyramid": 12},
                                    hcfg, 10, 9)
     for bad in (dict(build_pyramid=9), dict(update_nodes=10, fuse_sdf=10),
-                dict(frustum_select=8), dict(pose_inv=18)):
+                dict(frustum_select=8), dict(pose_inv=9)):
         with pytest.raises(SystemExit, match="launched"):
             chip_smoke.check_glue_launched("x", {**counts, **bad}, hcfg, 10, 9)
     # the node update counts once inside each fusion launch
@@ -462,9 +472,12 @@ def test_icp_hold_covers_the_headline():
     assert chip_smoke.FP32_EPS == np.finfo(np.float32).eps
     assert chip_smoke.ICP_LEVEL_SETS == {
         "headline": cfg.icp_finest_decimate, "320x240": 1}
-    assert chip_smoke.icp_expected(cfg, 96) == 96 * 19
+    assert chip_smoke.icp_expected(cfg, 96) == (96 * 19, 96 * 3)
     assert chip_smoke.icp_expected(
-        dataclasses.replace(cfg, tracking_rate=2), 96) == 48 * 19
+        dataclasses.replace(cfg, tracking_rate=2), 96) == (48 * 19, 48 * 3)
+    assert chip_smoke.icp_expected(
+        dataclasses.replace(cfg, pyramid=(10, 5, 0)), 96) == (96 * 15,
+                                                              96 * 2)
     assert chip_smoke.icp_frames(cfg, 96) == 96
     assert chip_smoke.icp_frames(
         dataclasses.replace(cfg, tracking_rate=3), 96) == 32
@@ -476,10 +489,13 @@ def test_icp_hold_covers_the_headline():
                           (1824, 1824, 0, 96)):
         with pytest.raises(SystemExit, match="icp_track_levels once"):
             chip_smoke.check_icp_launched("x", counts(a, b, n), want)
-    chip_smoke.check_icp_pair_launched("x", counts(1824, 1824, 0), 1824)
-    for a, b, n in ((1824, 1823, 0), (1805, 1805, 0), (1824, 1824, 1)):
+    chip_smoke.check_icp_pair_launched("x", counts(1824, 288, 0),
+                                       (1824, 288))
+    for a, b, n in ((1824, 1824, 0), (1824, 287, 0), (1805, 288, 0),
+                    (1824, 288, 1)):
         with pytest.raises(SystemExit, match="ICP kernels every trip"):
-            chip_smoke.check_icp_pair_launched("x", counts(a, b, n), 1824)
+            chip_smoke.check_icp_pair_launched("x", counts(a, b, n),
+                                               (1824, 288))
 
 
 def test_icp_hold_on_the_cpu(monkeypatch):
@@ -581,8 +597,9 @@ def test_tracking_parts_on_the_cpu(monkeypatch):
                            "raycasting", "total"}
     assert tuple(parts) == stage_times.PARTS
     # frames 2-4 fuse; the default config allocates on each of them; the
-    # node update is part of the fusion's call
-    assert tuple(int_parts) == ("alloc", "inv", "select", "fuse")
+    # node update is part of the fusion's call, the inverse of the
+    # operands' (the selection's on the budget branch)
+    assert tuple(int_parts) == ("alloc", "select", "fuse")
     for t in (*parts.values(), *int_parts.values()):
         assert t["host"] > 0 and t["device"] is None and t["frames"] == 3
     assert "not measured" in stage_times.format_parts(parts)

@@ -338,8 +338,9 @@ def test_inv_twin_matches_jax_pivot_patterns(name):
     """``inv_twin`` against the jitted ``jnp.linalg.inv`` on a matrix of
     ``chip_smoke.pivot_matrices`` of 1, 2 or 4 rows (row orders; zero,
     NaN, subnormal, infinite and huge pivots; subnormal products and
-    entries; singular matrices): XLA's CPU inverse bit for bit, with its
-    flush-to-zero of subnormals.  Not at
+    entries; singular matrices; a NaN below the first row, alone and with
+    an infinity): XLA's CPU inverse bit for bit, with its flush-to-zero of
+    subnormals and OpenBLAS's pivot for a NaN.  Not at
     3 or more than 4 rows, where OpenBLAS's triangular solve and LU take
     another order than the twin's (``numerics.inv_twin``); the port
     inverts 4x4 matrices only, and on the card ``pose_inv`` is held to the
@@ -347,6 +348,28 @@ def test_inv_twin_matches_jax_pivot_patterns(name):
     m = PIVOT_MATRICES[name]
     _same_inverse(numerics.inv_twin(torch.from_numpy(m)).numpy(),
                   jax.jit(jnp.linalg.inv)(m))
+
+
+INV_SPECIALS = np.array([0.0, -0.0, np.nan, np.inf, -np.inf, 1e-39, -3e38,
+                         3e38, 1.0], np.float32)
+
+
+@pytest.mark.parametrize("n", numerics.INV_SIZES)
+def test_inv_twin_matches_jax_fuzz(n):
+    """``inv_twin`` against the jitted ``jnp.linalg.inv`` on 9000 random
+    matrices of ``n`` rows (27000 over 1, 2 and 4), a tenth to a half of
+    their entries replaced by zeros, NaN, infinities, subnormal and huge
+    values: XLA's CPU inverse bit for bit, NaN where NaN (a twin that lets
+    no NaN win the pivot misses some where a NaN lies below the first
+    row)."""
+    rng = np.random.default_rng(40 + n)
+    A = rng.normal(size=(9000, n, n)).astype(np.float32)
+    mask = rng.random(A.shape) < rng.choice([0.1, 0.25, 0.5], (9000, 1, 1))
+    A[mask] = rng.choice(INV_SPECIALS, int(mask.sum()))
+    want = np.asarray(jax.jit(jnp.linalg.inv)(A))
+    got = np.stack([numerics.inv_twin(torch.from_numpy(a)).numpy()
+                    for a in A])
+    _same_inverse(got, want)
 
 
 def test_inv_twin_matches_jax_on_every_pose():
@@ -387,8 +410,9 @@ def _jax_candidates(m, T_cw, K):
 def test_frustum_select_twin_matches_jax(scene, budget):
     """The slots (``jnp.nonzero(cand, size=budget, fill_value=-1)``) and
     the overflow (plus ``max(count - budget, 0)``) of JAX's budget branch,
-    bit for bit, at budgets below and above the candidates' count; the
-    port's overflow is a tensor."""
+    bit for bit, at budgets below and above the candidates' count, and its
+    ``T_cw`` (``jnp.linalg.inv(pose)``), bit for bit; the port's overflow
+    is a tensor."""
     jm = scene["map"]
     T_cw, Km = scene["T_cw"], scene["K"]
     cand = _jax_candidates(jm, T_cw, Km)
@@ -396,14 +420,17 @@ def test_frustum_select_twin_matches_jax(scene, budget):
     n = int(cand.sum())
     assert 40 < n < 1000
     tm = _port_map(jm)
-    slots, overflow = ik.frustum_select_twin(tm, _t(T_cw), _t(Km),
-                                             (120, 160), budget)
+    slots, overflow, got_T = ik.frustum_select_twin(
+        tm, _t(scene["pose"]), _t(Km), (120, 160), budget)
     assert slots.dtype == torch.int32 and overflow.dtype == torch.int32
     np.testing.assert_array_equal(slots.numpy(), want)
     assert int(overflow) == int(jm.overflow) + max(n - budget, 0)
+    _same_inverse(got_T.numpy(), T_cw)
     # the dispatcher takes the twin for CPU tensors
-    got = ik.frustum_select(tm, _t(T_cw), _t(Km), (120, 160), budget)
-    assert torch.equal(got[0], slots) and torch.equal(got[1], overflow)
+    got = ik.frustum_select(tm, _t(scene["pose"]), _t(Km), (120, 160),
+                            budget)
+    for a, b in zip(got, (slots, overflow, got_T)):
+        assert torch.equal(a, b)
 
 
 def _node_maps(field, jfield, size, seed):

@@ -62,7 +62,7 @@ def _case(H, W, seed, n=512):
     K = np.eye(4, dtype=np.float32)
     K[0, 0], K[1, 1], K[0, 2], K[1, 2] = fx, 240.0 * W / 320, W / 2, H / 2
     return dict(bc=bc, depth=depth, T_cw=np.linalg.inv(pose).astype(
-        np.float32), K=K, rng=rng)
+        np.float32), K=K, rng=rng, pose=pose.astype(np.float32))
 
 
 def _map(c, kernel, dev, n_blocks=None):
@@ -834,7 +834,8 @@ def _sym(name, dev):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", sorted(ICP_SHAPES))
 def test_icp_kernels_match_twins(cuda, shape):
-    """Kernel A against its twin in every knob group: the status image bit
+    """Kernel A (a level's first trip: nothing pending) against its twin
+    in every knob group: the status image bit
     for bit, the sums within rtol 1e-5 + 1e-6 times their terms' absolute
     sum (another summation order); kernel B on those sums against its
     twin: twist and pose within 1e-6, error2, count and the trip count
@@ -855,22 +856,22 @@ def test_icp_kernels_match_twins(cuda, shape):
         want = icp.icp_track_reduce_twin(*args, st, 4, res, sums, **kn)
         assert icp.LAUNCHES["icp_track_reduce"] == \
             before["icp_track_reduce"] + 1
-        assert torch.equal(got[0], want[0]), kn
-        assert int((got[0] == 1).sum()) > 500
+        assert torch.equal(got[1], want[1]), kn
+        assert int((got[1] == 1).sum()) > 500
         td = tracking.track_kernel(*args[:4], st.pose, args[4],
                                    symmetric=kn["symmetric"],
                                    assoc=kn["assoc"])
         mag = icp.term_magnitudes(td, tracking.robust_weights(
             td, kn["robust"], kn["robust_delta"])).cpu()
-        g, w = got[1].cpu().double(), want[1].cpu().double()
+        g, w = got[2].cpu().double(), want[2].cpu().double()
         assert not (torch.abs(g - w) > 1e-5 * w.abs() + 1e-6 * mag).any(), \
             (kn, g, w)
 
         x_k = torch.zeros(6, device=cuda)
         x_t = torch.zeros(6, device=cuda)
-        k_st = icp.icp_update(got[1], _icp_carry(inp["start"]), 4, 1e-5,
+        k_st = icp.icp_update(got[2], _icp_carry(inp["start"]), 4, 1e-5,
                               twist=x_k)
-        t_st = icp.icp_update_twin(got[1], _icp_carry(inp["start"]), 4,
+        t_st = icp.icp_update_twin(got[2], _icp_carry(inp["start"]), 4,
                                    1e-5, twist=x_t)
         assert icp.LAUNCHES["icp_update"] == before["icp_update"] + 1
         assert float(x_k.abs().max()) > 1e-5
@@ -880,32 +881,151 @@ def test_icp_kernels_match_twins(cuda, shape):
             assert torch.equal(getattr(k_st, name), getattr(t_st, name))
 
 
+#: the merged trip's exits: the carry it starts from (converged, iteration)
+#: and the threshold of its pending update; "none" runs the update and the
+#: pass, "converges" and "last trip" end the level with the update (the
+#: carry written, no pass), "ended" finds the level over (nothing written)
+TRIP_EXITS = {"none": (False, 0, 1e-9), "converges": (False, 0, 1e9),
+              "last trip": (False, 3, 1e-9), "ended": (True, 1, 1e-9)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(ICP_SHAPES))
+def test_icp_merged_trip_matches_twins(cuda, shape):
+    """Kernel A with the previous trip's sums pending, at each exit of
+    TRIP_EXITS in two knob groups: the carry kernel B's on the same sums
+    bit for bit (and the twins' update's error2, count, converged and
+    iteration); where the pass runs, the status image and sums kernel A's
+    from that carry with nothing pending bit for bit, the status image the
+    twins' bit for bit and the sums within their tolerance; where it does
+    not, the status image and the sums as they were."""
+    from supereight_tpu_torch.ops import icp_kernel as icp
+    from supereight_tpu_torch.pipeline import tracking
+    inp = _icp_inputs(cuda)
+    iv, inm = _icp_level(inp, shape)
+    args = (iv, inm, inp["ref_v"], inp["ref_n"], inp["view"])
+    knobs = list(_icp_knobs())
+    for kn in (knobs[0], knobs[-1]):
+        kn = dict(kn, symmetric=_sym(kn["symmetric"], cuda))
+        pending = icp.icp_track_reduce(
+            *args, _icp_carry(inp["start"]), 4,
+            torch.zeros(iv.shape[:2], dtype=torch.int32, device=cuda),
+            torch.zeros(icp.N_SUMS, device=cuda), **kn)[2]
+        for exit_at, (conv, it, thr) in TRIP_EXITS.items():
+            def carry():
+                st = _icp_carry(inp["start"])
+                st.converged.fill_(conv)
+                st.iteration.fill_(it)
+                return st
+            st = carry()
+            res = torch.full(iv.shape[:2], 7, dtype=torch.int32,
+                             device=cuda)
+            sums = torch.arange(icp.N_SUMS, dtype=torch.float32,
+                                device=cuda)
+            before = dict(icp.LAUNCHES)
+            icp.icp_track_reduce(*args, st, 4, res, sums,
+                                 pending=pending.clone(), icp_threshold=thr,
+                                 **kn)
+            assert {k: icp.LAUNCHES[k] - n for k, n in before.items()} == \
+                dict(icp_track_reduce=1, icp_update=0, icp_track_levels=0)
+            b_st = icp.icp_update(pending, carry(), 4, thr)
+            t_st = icp.icp_update_twin(pending, carry(), 4, thr)
+            for a, b in zip(st, b_st):
+                assert torch.equal(a, b), exit_at
+            for name in ("error2", "count", "converged", "iteration"):
+                assert torch.equal(getattr(st, name), getattr(t_st, name))
+            if exit_at != "none":
+                assert bool((res == 7).all()), exit_at
+                assert torch.equal(sums, torch.arange(
+                    icp.N_SUMS, dtype=torch.float32, device=cuda))
+                continue
+            ref = icp.icp_track_reduce(
+                *args, _icp_carry(b_st.pose), 4, torch.zeros_like(res),
+                torch.zeros_like(sums), **kn)
+            twin = icp.icp_track_reduce_twin(
+                *args, _icp_carry(b_st.pose), 4, torch.zeros_like(res),
+                torch.zeros_like(sums), **kn)
+            assert torch.equal(res, ref[1]) and torch.equal(sums, ref[2])
+            assert torch.equal(res, twin[1])
+            td = tracking.track_kernel(*args[:4], b_st.pose, args[4],
+                                       symmetric=kn["symmetric"],
+                                       assoc=kn["assoc"])
+            mag = icp.term_magnitudes(td, tracking.robust_weights(
+                td, kn["robust"], kn["robust_delta"])).cpu()
+            g, w = sums.cpu().double(), twin[2].cpu().double()
+            assert not (torch.abs(g - w) > 1e-5 * w.abs()
+                        + 1e-6 * mag).any(), (kn, g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["160x120-decimated", "strip"])
+def test_icp_level_loop_on_the_card(cuda, shape):
+    """``tracking._level_loop`` on the card (the sharded frame's level
+    loop): n_iters launches of kernel A and one of kernel B,
+    no host read, and the carry and status image bit for bit those of the
+    same kernels composed as the pair ran before (kernel A with nothing
+    pending, then kernel B, every trip), at a threshold that ends the
+    level early and at one that never does."""
+    from supereight_tpu_torch.ops import icp_kernel as icp
+    from supereight_tpu_torch.pipeline import tracking
+    inp = _icp_inputs(cuda)
+    iv, inm = _icp_level(inp, shape)
+    refs = (inp["ref_v"], inp["ref_n"], inp["view"])
+    ran = set()
+    for thr in (1e-3, 0.0):
+        torch.cuda.synchronize()
+        before = dict(icp.LAUNCHES)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            st, res = tracking._level_loop(_icp_carry(inp["start"]), 8, iv,
+                                           inm, *refs, thr)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert {k: icp.LAUNCHES[k] - n for k, n in before.items()} == \
+            dict(icp_track_reduce=8, icp_update=1, icp_track_levels=0)
+        pair = _icp_carry(inp["start"])
+        p_res = torch.zeros(iv.shape[:2], dtype=torch.int32, device=cuda)
+        p_sums = torch.zeros(icp.N_SUMS, device=cuda)
+        for _ in range(8):
+            icp.icp_track_reduce(iv, inm, *refs, pair, 8, p_res, p_sums)
+            icp.icp_update(p_sums, pair, 8, thr)
+        for a, b in zip((*st, res), (*pair, p_res)):
+            assert torch.equal(a, b), thr
+        ran.add((int(st.iteration), bool(st.converged)))
+    assert (8, False) in ran and any(c and n < 8 for n, c in ran), ran
+
+
 @pytest.mark.gpu
 def test_icp_kernels_stop_after_the_level(cuda):
     """Once the carry says the level has ended (converged, or iteration at
-    n_iters), both kernels launch and change nothing."""
+    n_iters), both kernels launch and change nothing, kernel A with or
+    without sums pending."""
     from supereight_tpu_torch.ops import icp_kernel as icp
     inp = _icp_inputs(cuda)
     iv, inm = _icp_level(inp, "80x60")
     for done in ("converged", "iteration"):
-        st = _icp_carry(inp["start"])
-        if done == "converged":
-            st.converged.fill_(True)
-        else:
-            st.iteration.fill_(3)
-        res = torch.full(iv.shape[:2], 7, dtype=torch.int32, device=cuda)
-        sums = torch.arange(icp.N_SUMS, dtype=torch.float32, device=cuda)
-        carry = [t.clone() for t in st]
-        icp.icp_track_reduce(iv, inm, inp["ref_v"], inp["ref_n"],
-                             inp["view"], st, 3, res, sums)
-        icp.icp_update(sums, st, 3, 1e-5)
-        torch.cuda.synchronize()
-        assert bool((res == 7).all())
-        assert torch.equal(sums, torch.arange(icp.N_SUMS,
-                                              dtype=torch.float32,
-                                              device=cuda))
-        for a, b in zip(st, carry):
-            assert torch.equal(a, b)
+        for pending in (None, torch.ones(icp.N_SUMS, device=cuda)):
+            st = _icp_carry(inp["start"])
+            if done == "converged":
+                st.converged.fill_(True)
+            else:
+                st.iteration.fill_(3)
+            res = torch.full(iv.shape[:2], 7, dtype=torch.int32,
+                             device=cuda)
+            sums = torch.arange(icp.N_SUMS, dtype=torch.float32,
+                                device=cuda)
+            carry = [t.clone() for t in st]
+            icp.icp_track_reduce(iv, inm, inp["ref_v"], inp["ref_n"],
+                                 inp["view"], st, 3, res, sums,
+                                 pending=pending, icp_threshold=1e-5)
+            icp.icp_update(sums, st, 3, 1e-5)
+            torch.cuda.synchronize()
+            assert bool((res == 7).all())
+            assert torch.equal(sums, torch.arange(icp.N_SUMS,
+                                                  dtype=torch.float32,
+                                                  device=cuda))
+            for a, b in zip(st, carry):
+                assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -932,6 +1052,10 @@ def test_icp_kernels_reject_what_they_do_not_take(cuda):
             *refs[1:])
     with pytest.raises(ValueError):                # gate not a bool
         run(iv, inm, *refs, symmetric=torch.tensor(1.0, device=cuda))
+    with pytest.raises(ValueError):                # pending is the output
+        run(iv, inm, *refs, pending=sums, icp_threshold=1e-5)
+    with pytest.raises(ValueError):                # pending not float32
+        run(iv, inm, *refs, pending=sums.double(), icp_threshold=1e-5)
     with pytest.raises(ValueError):                # a CPU carry
         icp.icp_update(sums, st._replace(pose=st.pose.cpu()), 3, 1e-5)
     with pytest.raises(ValueError):                # sums not float32
@@ -1274,29 +1398,101 @@ def _select_map(cuda, partitions=1):
     return c, m
 
 
+def _select_holds(m, pose, K, budget, hw=(240, 320)):
+    """``frustum_select`` on the card at ``budget``: one launch and no
+    ``pose_inv``; slots, overflow and ``T_cw`` equal to the twin's on the
+    card and on the CPU, ``T_cw`` to ``pose_inv``'s bit for bit; the
+    look-back's status words and tickets zero after the launch.  Returns
+    (slots, overflow)."""
+    from supereight_tpu_torch.core import numerics
+    from supereight_tpu_torch.ops import look_back, numerics_kernel
+    before = ik.LAUNCHES["frustum_select"]
+    inv_before = numerics_kernel.LAUNCHES["pose_inv"]
+    slots, ovf, T_cw = ik.frustum_select(m, pose, K, hw, budget)
+    torch.cuda.synchronize()
+    assert ik.LAUNCHES["frustum_select"] == before + 1
+    assert numerics_kernel.LAUNCHES["pose_inv"] == inv_before
+    sc = look_back.scratch(m.device)
+    assert not bool(sc.status.any()) and not bool(sc.ctl.any())
+    _same_bits(T_cw, numerics.inv(pose))
+    mc = _to(m, "cpu")
+    for w_slots, w_ovf, w_T in (
+            ik.frustum_select_twin(m, pose, K, hw, budget),
+            ik.frustum_select(mc, pose.cpu(), K.cpu(), hw, budget)):
+        assert torch.equal(slots.cpu(), w_slots.cpu())
+        assert int(ovf) == int(w_ovf)
+        _same_bits(T_cw, w_T)
+    return slots, ovf
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("partitions", [1, 2])
 def test_frustum_select_matches_twin(cuda, partitions):
     """``frustum_select`` on the card at budgets below, near and above the
-    candidates' count: slots (-1 past the count) and overflow equal to the
-    twin's on the card and on the CPU; one count a call."""
+    candidates' count: slots (-1 past the count), overflow and ``T_cw``
+    equal to the twin's on the card and on the CPU (``T_cw`` also
+    ``pose_inv``'s); one launch a call and no ``pose_inv``; its scratch
+    zero after each."""
     c, m = _select_map(cuda, partitions)
-    _, T_cw, K = _frame(c, cuda)
+    _, _, K = _frame(c, cuda)
+    pose = torch.from_numpy(c["pose"]).to(cuda)
+    T_cw = ik.frustum_select(m, pose, K, (240, 320), 1)[2]
     cand = int(ik.frustum_candidates(m, T_cw, K, (240, 320)).sum())
     assert cand > 10
-    mc = _to(m, "cpu")
     for budget in (cand // 3, cand, cand + 7, m.capacity - 1):
-        before = ik.LAUNCHES["frustum_select"]
-        slots, ovf = ik.frustum_select(m, T_cw, K, (240, 320), budget)
-        torch.cuda.synchronize()
-        assert ik.LAUNCHES["frustum_select"] == before + 1
-        for w_slots, w_ovf in (
-                ik.frustum_select_twin(m, T_cw, K, (240, 320), budget),
-                ik.frustum_select(mc, T_cw.cpu(), K.cpu(), (240, 320),
-                                  budget)):
-            assert torch.equal(slots.cpu(), w_slots.cpu())
-            assert int(ovf) == int(w_ovf) == 5 + max(cand - budget, 0)
+        slots, ovf = _select_holds(m, pose, K, budget)
+        assert int(ovf) == 5 + max(cand - budget, 0)
         assert int((slots >= 0).sum()) == min(cand, budget)
+
+
+#: the selection's capacities (1, 6, 24 and 192 tiles): the map size and
+#: capacity of a 1024-slot table, the 256^3 presets', demo512-ofusion's
+#: and 1024-quality's
+SELECT_CAPACITIES = ((256, 1024), (256, 6144), (512, 24576), (1024, 196608))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size,capacity", SELECT_CAPACITIES)
+def test_frustum_select_at_capacities(cuda, size, capacity):
+    """The one-launch selection on a map of the headline's frame 30's
+    blocks (``chip_smoke.select_map``) at each capacity of
+    SELECT_CAPACITIES: at budgets below and above the candidates' count
+    and above the capacity (tile 0's share of the fill runs past the
+    table), and with no candidates (every slot inactive), as
+    :func:`_select_holds` holds it."""
+    import chip_smoke
+    from supereight_tpu_torch.pipeline import camera, preprocessing
+    z = np.load(BENCH)
+    depth = preprocessing.mm_to_meters(
+        torch.from_numpy(z["depths"][30].astype(np.int32)).to(cuda),
+        (240, 320))
+    pose = torch.from_numpy(z["poses"][30].astype(np.float32)).to(cuda)
+    K = camera.camera_matrix(torch.from_numpy(chip_smoke.K).to(cuda))
+    m = chip_smoke.select_map(torch, size, capacity, cuda, depth, pose, K)
+    T_cw = ik.frustum_select(m, pose, K, (240, 320), 1)[2]
+    cand = int(ik.frustum_candidates(m, T_cw, K, (240, 320)).sum())
+    assert cand > 100
+    for budget in (cand // 3, cand + 7, capacity + 5):
+        _, ovf = _select_holds(m, pose, K, budget)
+        assert int(ovf) == int(m.overflow) + max(cand - budget, 0)
+    none = m.replace(active=torch.zeros_like(m.active))
+    slots, ovf = _select_holds(none, pose, K, 64)
+    assert bool((slots == -1).all()) and int(ovf) == int(m.overflow)
+
+
+@pytest.mark.gpu
+def test_select_and_trip_kernels_in_registers(cuda):
+    """The one-launch selection and the sharded ICP trip as built: no more stack frame and spill stores than
+    ``chip_smoke.LOOK_BACK_AND_TRIP`` names (``-Xptxas -v``,
+    ``chip_smoke.select_trip_registers``; none for the selection)."""
+    import chip_smoke
+    props = chip_smoke.select_trip_registers()
+    for names in chip_smoke.LOOK_BACK_AND_TRIP.values():
+        for name, (stack, spills) in names.items():
+            p = props[name]
+            assert p["stack"] <= stack and p["spill_stores"] <= spills
+    p = props["frustum_select"]
+    assert p["stack"] == p["spill_stores"] == p["spill_loads"] == 0
 
 
 def _node_map(cuda, size, field, seed):
@@ -1324,7 +1520,9 @@ def _fusion_operands(launch, m, T_cw, K):
     (its rows, keys and active flags, its live count as n_blocks, and the
     whole map's node tables)."""
     if launch == "budget":
-        return m, ik.frustum_select(m, T_cw, K, (240, 320), 3072)[0]
+        from supereight_tpu_torch.core import numerics
+        return m, ik.frustum_select(m, numerics.inv(T_cw), K, (240, 320),
+                                    3072)[0]
     if launch == "whole":
         return m, None
     cap = m.capacity // 2
@@ -1468,9 +1666,10 @@ def test_glue_reads_nothing_back(cuda):
     torch.cuda.synchronize()
     delta = {k: n - b.get(k, 0) for c, b in zip(counts, before)
              for k, n in c.items()}
+    # the tracking view's inverse; the fusion's is inside the selection
     assert delta == dict(fuse_sdf=1, fuse_ofusion=0, frustum_select=1,
                          update_nodes=1, icp_track_reduce=0, icp_update=0,
-                         icp_track_levels=1, build_pyramid=1, pose_inv=2)
+                         icp_track_levels=1, build_pyramid=1, pose_inv=1)
     want = integration.integrate(kept, field, depth.cpu(), pose.cpu(),
                                  K.cpu(), timestamp,
                                  budget=cfg.integrate_budget)
@@ -1625,6 +1824,7 @@ def test_scan_ranks_across_tile_counts(cuda):
     flagged rays' count and 8192, with and without the midsolve, and the
     scan alone against ``ray_scan_twin``: each launch leaves the
     look-back's status words and counters zero for the next."""
+    from supereight_tpu_torch.ops import look_back
     from supereight_tpu_torch.ops import raycast_kernel as rk
     from supereight_tpu_torch.pipeline import raycast
     from supereight_tpu_torch.pipeline.constants import FAR_PLANE, NEAR_PLANE
@@ -1649,7 +1849,7 @@ def test_scan_ranks_across_tile_counts(cuda):
                     got = rk.ray_scan(*grids, True, budget, mid)
                     assert torch.equal(got.hit, want.hit)
                     _same_bits(got.z, want.z)
-                    sc = rk.scratch(view.device)
+                    sc = look_back.scratch(view.device)
                     assert not bool(sc.status.any() or sc.ctl.any())
             alone = rk.ray_scan(*grids)
             assert torch.equal(alone.hit, first.hit)

@@ -137,8 +137,8 @@ def test_integrate_updates_in_place(scene, budget):
     before = {k: v.clone() for k, v in tm.voxels.items()}
     active0 = tm.active.clone()
     depth, pose, K = (_t(scene[k]) for k in ("depth", "pose", "K"))
-    T_cw = torch.linalg.inv(pose).contiguous()
-    slots, _ = integration.fusion_operands(tm, T_cw, K, depth.shape, budget)
+    slots, _, _ = integration.fusion_operands(tm, pose, K, depth.shape,
+                                              budget)
     fused = torch.zeros(tm.capacity, dtype=torch.bool)
     if slots is None:
         fused = octree.slot_mask(tm) & tm.active

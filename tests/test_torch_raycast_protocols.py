@@ -1,13 +1,17 @@
-"""The raycast kernels' two inter-CTA protocols (`csrc/raycast.cu`),
-emulated on the CPU over the wrapper's own scratch
-(`ops/raycast_kernel.Scratch`), CTA by CTA in random orders:
+"""The inter-CTA protocols of the raycast kernels (`csrc/raycast.cu`) and
+of the fusion's frustum selection (`csrc/integrate.cu`), emulated on the
+CPU over the wrappers' own scratches (`ops/look_back.Scratch`, which both
+look-backs use, and `ops/raycast_kernel.Scratch`, R1's), CTA by CTA in
+random orders:
 
-- the merged scan's decoupled look-back: each CTA draws its tile from the
-  ticket, publishes its count of flagged rays, looks back over the tiles
+- the decoupled look-back (`csrc/look_back.cuh`) of the merged scan and of
+  the selection: each CTA draws its tile from the ticket, publishes its
+  count of flagged rays (candidate slots), looks back over the tiles
   before it 32 at a time until an inclusive count, publishes its own and
-  ranks its rays; the last CTA to end its look-back zeroes the status
+  ranks its items; the last CTA to end its look-back zeroes the status
   words and the counters, so the next call finds its scratch clean,
-  however the tile count changes;
+  however the tile count changes; each tile of the selection writes its
+  share of the -1 fill, the last the overflow;
 - R1's ticket: every CTA splats, then draws a ticket; the last one pools
   the encoded grid and leaves it and the ticket zero.
 
@@ -18,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+from supereight_tpu_torch.ops import integrate_kernel as ik
+from supereight_tpu_torch.ops import look_back as lb
 from supereight_tpu_torch.ops import raycast_kernel as rk
 
 TILE = rk.SCAN_TILE
@@ -29,14 +35,11 @@ def _word(flag, count):
     return (flag << 32) | count
 
 
-def _cta_scan(need, st, ctl, tiles, budget, out):
-    """One CTA of the merged scan, as a generator that yields where the
-    kernel would wait or another CTA may run in between."""
-    tile = int(ctl[0])
-    ctl[0] += 1
-    yield
-    flags = need[tile * TILE:(tile + 1) * TILE]
-    count = int(flags.sum())
+def _look_back(st, ctl, tile, count, tiles):
+    """``look_back.cuh``'s look-back and its end for tile ``tile`` with
+    ``count`` flagged items, as a generator (``yield from``) that yields
+    where the kernel would wait and returns the count of the tiles before
+    it."""
     st[tile] = np.uint64(_word(INCL if tile == 0 else AGG, count))
     yield
     before = 0
@@ -70,6 +73,18 @@ def _cta_scan(need, st, ctl, tiles, budget, out):
     if last:
         st[:tiles] = 0
         ctl[:] = 0
+    return before
+
+
+def _cta_scan(need, st, ctl, tiles, budget, out):
+    """One CTA of the merged scan, as a generator that yields where the
+    kernel would wait or another CTA may run in between."""
+    tile = int(ctl[0])
+    ctl[0] += 1
+    yield
+    flags = need[tile * TILE:(tile + 1) * TILE]
+    count = int(flags.sum())
+    before = yield from _look_back(st, ctl, tile, count, tiles)
     k = min(max(budget - before, 0), count)
     rank = np.cumsum(flags) - 1
     for i in np.flatnonzero(flags):
@@ -94,7 +109,7 @@ def _scan_call(sc, need, budget, rng):
     wrapper's scratch, the CTAs started (tickets drawn) in a random order
     and stepped in another."""
     tiles = -(-need.size // TILE)
-    st = sc.scan(tiles).numpy().view(np.uint64)
+    st = sc.words(tiles).numpy().view(np.uint64)
     ctl = sc.ctl.numpy().view(np.uint32)
     assert not st.any() and not ctl.any()
     out = dict(rank=np.full(need.size, -1), redo=np.zeros(need.size, bool),
@@ -131,7 +146,7 @@ def test_look_back_ranks_in_raster_order_across_calls(tiles):
     tile in the middle and at one above the count; each call leaves the
     scratch zero."""
     rng = np.random.default_rng(sum(tiles))
-    sc = rk.Scratch(torch.device("cpu"))
+    sc = lb.Scratch(torch.device("cpu"))
     for n in tiles * 2:
         rays = n * TILE - (17 if n % 2 else 0)
         need = rng.random(rays) < rng.uniform(0.05, 0.5)
@@ -197,3 +212,75 @@ def test_splat_ticket_pools_once_and_leaves_the_scratch_zero(cells):
         np.testing.assert_array_equal(out["tmin"], want_min)
         np.testing.assert_array_equal(out["tmax"], want_max)
         assert not sc.enc.any()
+
+
+SELECT_TILE = ik._SELECT_TILE
+
+
+def _cta_select(cand, capacity, st, ctl, tiles, budget, overflow_in, out):
+    """One CTA of ``frustum_select`` (a tile of SELECT_TILE slots, taken
+    in order): its tile from the ticket, its candidates' count, the
+    look-back, its slots written at their ranks below the budget, its
+    share [L(t), L(t - 1)) of the -1 fill; the last tile the overflow.
+    Every store counts in ``out["writes"]``."""
+    tile = int(ctl[0])
+    ctl[0] += 1
+    yield
+    start = tile * SELECT_TILE
+    end = min(capacity, start + SELECT_TILE)
+    flags = cand[start:end]
+    count = int(flags.sum())
+    before = yield from _look_back(st, ctl, tile, count, tiles)
+    rank = np.cumsum(flags) - 1
+    for i in np.flatnonzero(flags):
+        if before + rank[i] < budget:
+            out["slots"][before + rank[i]] = start + i
+            out["writes"][before + rank[i]] += 1
+        yield
+    lo = min(before + count + (capacity - end), budget)
+    hi = budget if tile == 0 else min(before + (capacity - start), budget)
+    out["slots"][lo:hi] = -1
+    out["writes"][lo:hi] += 1
+    if tile == tiles - 1:
+        out["overflow"] = overflow_in + max(before + count - budget, 0)
+    out["tiles"].append(tile)
+
+
+@pytest.mark.parametrize("capacity", [1024, 3000, 6144, 24576, 196608])
+def test_select_ranks_across_tile_counts(capacity):
+    """``frustum_select``'s look-back at the capacities of 1024, 6144,
+    24576 and 196608 slots (1, 6, 24 and 192 tiles of SELECT_TILE) and at
+    3000 (a ragged last tile), after a scan call on the same scratch and
+    before another: the slots are ``torch.nonzero(cand)[:budget]`` padded
+    with -1, each written once (the tiles' shares of the fill disjoint),
+    and the overflow the candidates past the budget, at a budget below the
+    candidates' count, one above it (and above the capacity, but at the
+    largest) and with no candidates; every call starts and ends with the
+    scratch zero."""
+    rng = np.random.default_rng(capacity)
+    sc = lb.Scratch(torch.device("cpu"))
+    tiles = ik.select_tiles(capacity)
+    assert tiles == -(-capacity // 1024)
+    rays = 3 * TILE - 5
+    need = rng.random(rays) < 0.3
+    _check(_scan_call(sc, need, 40, rng), need, 40)
+    density = min(1.0, 4000 / capacity)
+    for cand, budget in ((rng.random(capacity) < density, 300),
+                         (rng.random(capacity) < density, 9000),
+                         (np.zeros(capacity, bool), 64)):
+        st = sc.words(tiles).numpy().view(np.uint64)
+        ctl = sc.ctl.numpy().view(np.uint32)
+        assert not st.any() and not ctl.any()
+        out = dict(slots=np.full(budget, 7777), overflow=None, tiles=[],
+                   writes=np.zeros(budget, int))
+        _run([_cta_select(cand, capacity, st, ctl, tiles, budget, 5, out)
+              for _ in range(tiles)], rng)
+        assert sorted(out["tiles"]) == list(range(tiles))
+        assert not st.any() and not ctl.any()
+        want = np.full(budget, -1)
+        idx = np.flatnonzero(cand)[:budget]
+        want[:idx.size] = idx
+        np.testing.assert_array_equal(out["slots"], want)
+        assert (out["writes"] == 1).all()
+        assert out["overflow"] == 5 + max(int(cand.sum()) - budget, 0)
+    _check(_scan_call(sc, need, 40, rng), need, 40)

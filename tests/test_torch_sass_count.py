@@ -143,6 +143,10 @@ def test_issue_lower_bound_sums_warp_classes():
      "RaysE", "ray_scan"),
     ("_ZN45_GLOBAL__N__7c1e2f0a_10_raycast_cu_9d2b4e1125ray_refine_normals_"
      "kernelENS_6FinishE", "ray_refine_normals"),
+    ("_ZN47_GLOBAL__N__5d2c8e1a_12_integrate_cu_0b7f3a2e21frustum_select_"
+     "kernelENS_6SelectE", "frustum_select"),
+    ("_ZN41_GLOBAL__N__9e3a1c7b_6_icp_cu_4c2d8f1023icp_track_reduce_kernelE"
+     "NS_5LevelENS_5KnobsEPKfNS_5CarryEifS4_PiPfPjS7_", "icp_track_reduce"),
 ])
 def test_kernel_names(func, name):
     assert sc.kernel_name(func) == name

@@ -413,6 +413,67 @@ def test_device_loop_equals_host_loop(maps, assoc, symmetric, robust):
     assert torch.equal(res, hres)
 
 
+#: the sharded loop's exits: the threshold that ends the coarsest level's
+#: loop after its first trip, in the middle of its trips, or never
+LOOP_EXITS = {"trip 0": 1e9, "middle": LOOP_THRESHOLD, "never": 0.0}
+
+
+@pytest.mark.parametrize("exit_at", LOOP_EXITS)
+def test_level_loop_order(maps, monkeypatch, exit_at):
+    """The sharded frame's level loop on the CPU: n_iters calls of
+    ``icp_track_reduce`` (the first with no pending sums, each other with
+    the previous trip's) and one ``icp_update``, n_iters + 1 calls a
+    level; each trip's update runs before the next trip's pass, and the
+    passes and updates alternate until the exit, after which nothing runs;
+    the carry and the status image equal the host loop's bit for bit."""
+    level, iv, inm = _levels(maps)[0]
+    n = LOOP_ITERS[level]
+    rv, rn, view = _t(maps["ref_v"]), _t(maps["ref_n"]), _t(_view(maps))
+    start = _t(maps["start"])
+    events, calls = [], []
+    track, update = tracking.track_kernel, icp_kernel.icp_update_twin
+    reduce, last = icp_kernel.icp_track_reduce, icp_kernel.icp_update
+
+    def track_kernel(*a, **kw):
+        events.append("pass")
+        return track(*a, **kw)
+
+    def update_twin(sums, st, n_iters, *a, **kw):
+        if bool(icp_kernel.live(st, n_iters)):
+            events.append("update")
+        return update(sums, st, n_iters, *a, **kw)
+
+    def track_reduce(*a, pending=None, **kw):
+        calls.append(("trip", pending is not None))
+        return reduce(*a, pending=pending, **kw)
+
+    def icp_update(*a, **kw):
+        calls.append(("update", True))
+        return last(*a, **kw)
+
+    monkeypatch.setattr(tracking, "track_kernel", track_kernel)
+    monkeypatch.setattr(icp_kernel, "icp_update_twin", update_twin)
+    monkeypatch.setattr(icp_kernel, "icp_track_reduce", track_reduce)
+    monkeypatch.setattr(icp_kernel, "icp_update", icp_update)
+    threshold = LOOP_EXITS[exit_at]
+    st, res = tracking._level_loop(_carry(start), n, iv, inm, rv, rn, view,
+                                   threshold)
+    assert calls == [("trip", False)] + [("trip", True)] * (n - 1) \
+        + [("update", True)]
+    trips = int(st.iteration)
+    assert events == ["pass", "update"] * trips
+    assert {"trip 0": trips == 1, "middle": 1 < trips < n,
+            "never": trips == n}[exit_at], trips
+    assert bool(st.converged) == (trips < n)
+    monkeypatch.undo()
+    *host, hres, h_trips, h_conv = _host_level_loop(
+        start, torch.zeros(()), torch.zeros(()), n, iv, inm, rv, rn, view,
+        threshold)
+    for got, want in zip((st.pose, st.error2, st.count, res), (*host, hres)):
+        assert torch.equal(got, want)
+    assert (trips, bool(st.converged)) == (h_trips, h_conv)
+
+
 def _composed_levels(start, levels, iters, rv, rn, view, threshold, **kn):
     """The one-device level loops as ``track_levels`` composed them before
     ``icp_track_levels``: ``_level_loop`` a level, coarsest first."""
@@ -604,12 +665,13 @@ def test_icp_twins_match_jax(level0, assoc, robust):
     want = jtr.reduce_kernel(td, robust=robust, robust_delta=delta)
     st = _carry(_t(level0["start"]))
     iv = _t(level0["in_v"])
-    res, sums = icp_kernel.icp_track_reduce(
+    st0, res, sums = icp_kernel.icp_track_reduce(
         iv, _t(level0["in_n"]), _t(level0["ref_v"]), _t(level0["ref_n"]),
         _t(_view(level0)), st, 1, torch.zeros(iv.shape[:2],
                                               dtype=torch.int32),
         torch.zeros(icp_kernel.N_SUMS), robust=robust, robust_delta=delta,
         assoc=assoc)
+    assert st0 is st
     np.testing.assert_array_equal(res.numpy(), np.asarray(td.result))
     w = tracking.robust_weights(
         tracking.TrackData(_t(td.result), _t(td.error), _t(td.J)), robust,
@@ -635,7 +697,7 @@ def test_icp_twins_match_jax(level0, assoc, robust):
         iv, _t(level0["in_n"]), _t(level0["ref_v"]), _t(level0["ref_n"]),
         _t(_view(level0)), nxt, 1, res, sums, robust=robust,
         robust_delta=delta, assoc=assoc)
-    assert again[0] is res and again[1] is sums
+    assert again[0] is nxt and again[1] is res and again[2] is sums
 
 
 #: the sharded loop's cases: ICP knobs over the level tests' inputs
