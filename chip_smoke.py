@@ -26,7 +26,9 @@ GPU.
    ``torch.cuda.set_sync_debug_mode("error")``: the level loops must not
    synchronise, and on one device launch ``icp_track_levels`` once and the
    pair never.  ``icp_track_levels`` (every trip of every level in one
-   cooperative launch) is held against its twin at the headline's level
+   cooperative launch with no grid barrier, the view formed inside it; its
+   CTAs, threads and registers printed, its ``-Xptxas -v`` line held to
+   LOOK_BACK_AND_TRIP) is held against its twin at the headline's level
    set and with the whole 320x240 finest level (ICP_LEVEL_SETS) in every
    knob group: one trip at the finest level (status image bit for bit,
    sums within the tolerances above), the headline's pyramid (pose within
@@ -99,9 +101,12 @@ GPU.
    trip's update inside it), kernel B once a level and
    ``icp_track_levels`` never; on the presets and F,
    ``build_pyramid`` at least once a frame with ICP (one launch a call),
-   ``pose_inv`` at least once a frame with ICP and once an integrated
-   frame of the whole-table branch (the budget branch's inverse is inside
-   the selection's launch), ``update_nodes`` once an integrated frame
+   ``pose_inv`` at least once an integrated frame of the whole-table
+   branch (the budget branch's inverse is inside the selection's launch,
+   the tracking view's inside ``icp_track_levels``'), the view formed
+   inside ``icp_track_levels`` equal to the card's ``camera_matrix(k) @
+   inv(raycast_pose)`` bit for bit at every raycast pose of the run (the
+   presets), ``update_nodes`` once an integrated frame
    and once inside each fusion launch, and ``frustum_select`` once an
    integrated frame on the budget branch; on every path R1, R2
    and R4 once a raycast that fires, R3 (its count: the launches of R2
@@ -343,11 +348,13 @@ MESH_AT_SCALE = "1024-quality"
 #: the counts the earlier runs of this code gave on the card; the path is
 #: deterministic, so they repeat exactly (taken again whenever the order of
 #: a sum changes: when JTJ became a reduction instead of a GEMM, when
-#: icp_track_reduce took the sums over, in its fixed order, and when the
+#: icp_track_reduce took the sums over, in its fixed order, when the
 #: hybrid normal's dot product became numerics.dot3's (x + y) + z, as on
-#: the CPU: runs in two calls gave these counts)
-REPEAT = {"headline": dict(tracked=92, ate_cm=0.96, blocks=2767, overflow=0),
-          "ofusion": dict(tracked=92, ate_cm=0.96, blocks=3675, overflow=0)}
+#: the CPU, and when icp_track_levels took its warps' sums by a butterfly
+#: and its CTAs' partials over the CTAs that own pixels: two runs in one
+#: call gave these counts)
+REPEAT = {"headline": dict(tracked=92, ate_cm=0.97, blocks=2767, overflow=0),
+          "ofusion": dict(tracked=92, ate_cm=0.91, blocks=3673, overflow=0)}
 MIN_TRACKED = 88
 #: least share of the last raycast's pixels that hit the map; ``noise``
 #: fills its table (its record overflows by 1891 blocks), so surface past
@@ -860,14 +867,15 @@ def fusion_registers():
     return props
 
 
-#: the one-launch frustum selection and the sharded ICP trip
-#: (sass_count.kernel_name) by source, each with the most bytes of stack
-#: frame and of spill stores its -Xptxas -v line may show (as built on an
-#: H100 with CUDA 12.8): the selection none; the trip the 32-byte frame
-#: that icp_update and icp_track_levels have too (sinf's and cosf's slow
-#: argument reduction in solve_step), no spills
+#: the one-launch frustum selection, the sharded ICP trip and the
+#: one-device ICP frame (sass_count.kernel_name) by source, each with the
+#: most bytes of stack frame and of spill stores its -Xptxas -v line may
+#: show (as built on an H100 with CUDA 12.8): the selection none; the trip
+#: and the frame the 32-byte frame that icp_update has too (sinf's and
+#: cosf's slow argument reduction in the solve), no spills
 LOOK_BACK_AND_TRIP = {"integrate": {"frustum_select": (0, 0)},
-                      "icp": {"icp_track_reduce": (32, 0)}}
+                      "icp": {"icp_track_reduce": (32, 0),
+                              "icp_track_levels": (32, 0)}}
 
 
 def select_trip_registers():
@@ -1332,14 +1340,15 @@ def check_glue_kernels(torch, depths, poses, dev):
 def check_glue_launched(label, counts, cfg, icp_frames, integrated):
     """The glue kernels on a one-device path: the pyramid once every frame
     on which ICP runs (one launch builds every level; the frame-to-frame
-    publications add theirs), the inverse on each such frame and each
-    integrated frame of the whole-table branch (the budget branch's is
-    inside the selection's launch), the node update once an integrated
-    frame and inside each fusion launch (one count each), the frustum
-    selection once an integrated frame on the budget branch."""
+    publications add theirs), the inverse on each integrated frame of the
+    whole-table branch (the budget branch's is inside the selection's
+    launch, the tracking view's inside icp_track_levels'), the node update
+    once an integrated frame and inside each fusion launch (one count
+    each), the frustum selection once an integrated frame on the budget
+    branch."""
     budget = 0 < cfg.integrate_budget < cfg.block_capacity
     want = dict(build_pyramid=icp_frames,
-                pose_inv=icp_frames + (0 if budget else integrated),
+                pose_inv=0 if budget else integrated,
                 update_nodes=integrated,
                 frustum_select=integrated if budget else 0)
     got = {k: counts.get(k, 0) for k in GLUE}
@@ -2204,12 +2213,13 @@ def icp_levels_bytes(torch, ops, levels, knobs) -> int:
     """Bytes ``icp_track_levels`` must move at these operands: every
     level's input maps read once, the distinct reference rows all its
     levels' pixels reach, the finest level's status image and the carry
-    written, the start pose and the view read."""
+    written, the start pose, the raycast pose and the intrinsics read."""
     distinct = int(torch.unique(torch.cat([
         reached_rows(torch, ops, iv, inm, knobs) for iv, inm in levels
     ])).numel())
     n_px = [iv.shape[0] * iv.shape[1] for iv, _ in levels]
-    return 24 * sum(n_px) + 24 * distinct + 4 * n_px[0] + 4 * 20 + 2 * 64
+    return 24 * sum(n_px) + 24 * distinct + 4 * n_px[0] + 4 * 20 + 2 * 64 \
+        + 16
 
 
 def level_trips(torch, ops, levels, iterations, threshold) -> list:
@@ -2350,9 +2360,10 @@ def hold_icp_levels(torch, ops, level_set, knobs):
     levels = icp_level_set(ops, ICP_LEVEL_SETS[level_set])
     kn = icp_knobs(torch, knobs, dev)
     args = (levels, ops["ref_v"], ops["ref_n"], ops["view"])
+    kargs = (*args[:3], ops["rpose"], ops["k"])
     one = (1,) + (0,) * (len(cfg.pyramid) - 1)
     sums = [torch.zeros(icp.N_SUMS, device=dev) for _ in range(2)]
-    got = icp.icp_track_levels(ops["start"], *args, one, cfg.icp_threshold,
+    got = icp.icp_track_levels(ops["start"], *kargs, one, cfg.icp_threshold,
                                sums=sums[0], **kn)
     want = icp.icp_track_levels_twin(ops["start"], *args, one,
                                      cfg.icp_threshold, sums=sums[1], **kn)
@@ -2366,7 +2377,7 @@ def hold_icp_levels(torch, ops, level_set, knobs):
                   + ICP_SUM_MAG * mag).sum())
     flips_one = int((got[1] != want[1]).sum())
     n_ok = int((got[1] == 1).sum())
-    got = icp.icp_track_levels(ops["start"], *args, cfg.pyramid,
+    got = icp.icp_track_levels(ops["start"], *kargs, cfg.pyramid,
                                cfg.icp_threshold, **kn)
     want = icp.icp_track_levels_twin(ops["start"], *args, cfg.pyramid,
                                      cfg.icp_threshold, **kn)
@@ -2379,6 +2390,26 @@ def hold_icp_levels(torch, ops, level_set, knobs):
              f"{ICP_TRACK_ATOL}), {flips} statuses flipped")
     return (float((g - w).abs().max()), d_pose, flips, n_ok,
             (int(got[0].iteration), int(want[0].iteration)))
+
+
+def levels_shape(ops, dev) -> dict:
+    """``icp_track_levels``' launch at the headline's level set: its CTAs,
+    threads a CTA and registers (``-Xptxas -v``), and a line saying so."""
+    from supereight_tpu_torch.ops import icp_kernel as icp
+    from supereight_tpu_torch.probes import sass_count
+    cfg = ops["cfg"]
+    levels = icp_level_set(ops, cfg.icp_finest_decimate)
+    n_cta = icp.levels_launch(dev, levels, cfg.pyramid)
+    regs = {sass_count.kernel_name(f): p for f, p in
+            sass_count.ptxas_properties(sass_count.ptxas_log("icp")).items()}
+    registers = regs.get("icp_track_levels", {}).get("registers")
+    return dict(ctas=n_cta, threads=icp.LEVEL_THREADS, registers=registers,
+                text=f"a cooperative grid of {n_cta} CTAs (those owning "
+                     f"pixels at the largest level; the card holds "
+                     f"{icp.levels_grid(dev)} at once) of "
+                     f"{icp.LEVEL_THREADS} threads, {registers} registers; "
+                     "no grid barrier (tagged words), the solve on a warp, "
+                     "the view inside the launch")
 
 
 def check_icp_levels(torch, ops, dev, a_ms, b_ms, floor):
@@ -2394,10 +2425,8 @@ def check_icp_levels(torch, ops, dev, a_ms, b_ms, floor):
     from supereight_tpu_torch.ops import icp_kernel as icp
     from supereight_tpu_torch.pipeline import tracking
     cfg = ops["cfg"]
-    print(f"# icp_track_levels: a fixed grid of {icp.levels_grid(dev)} CTAs "
-          f"of {icp.THREADS} threads (the CTAs an SM holds at once x "
-          f"{torch.cuda.get_device_properties(dev).multi_processor_count} "
-          "SMs), launched cooperatively")
+    shape = levels_shape(ops, dev)
+    print(f"# icp_track_levels: {shape['text']}")
     sum_err = pose_err = 0.0
     for level_set, d in ICP_LEVEL_SETS.items():
         oks, flipped, trips = [], 0, set()
@@ -2422,10 +2451,11 @@ def check_icp_levels(torch, ops, dev, a_ms, b_ms, floor):
     levels = icp_level_set(ops, cfg.icp_finest_decimate)
     args = (ops["start"], levels, ops["ref_v"], ops["ref_n"], ops["view"],
             cfg.pyramid, cfg.icp_threshold)
+    kargs = (*args[:4], ops["rpose"], ops["k"], *args[5:])
     runs = []
     for _ in range(2):
         sums = torch.zeros(icp.N_SUMS, device=dev)
-        st, res = icp.icp_track_levels(*args, sums=sums)
+        st, res = icp.icp_track_levels(*kargs, sums=sums)
         runs.append((*st, res, sums))
     if not all(torch.equal(a, b) for a, b in zip(*runs)):
         fail("icp_track_levels: two launches on the same operands differ")
@@ -2433,7 +2463,7 @@ def check_icp_levels(torch, ops, dev, a_ms, b_ms, floor):
           "same bits (carry, status image, sums)")
 
     # times a headline frame
-    run = lambda: icp.icp_track_levels(*args)
+    run = lambda: icp.icp_track_levels(*kargs)
     plain = lambda: icp.icp_track_levels_twin(*args)
 
     def pair():
@@ -2476,7 +2506,7 @@ def check_icp_levels(torch, ops, dev, a_ms, b_ms, floor):
         bound_by=b[1], library_ms=None, launch_floor_ms=floor,
         host_ms=k_host, pose_err=pose_err, pair_ms=pair_sum,
         pair_levels_ms=pair_dev, pair_levels_host_ms=pair_host,
-        grid=icp.levels_grid(dev))
+        **{k: v for k, v in shape.items() if k != "text"})
 
 
 def host_ms(torch, fn) -> float:
@@ -2613,7 +2643,7 @@ def check_icp_kernels(torch, depths, poses, dev):
 
     # the level loops read nothing back: one launch a frame
     lv = (ops["vertices"], ops["normals"], ops["ref_v"], ops["ref_n"],
-          ops["view"])
+          ops["rpose"], ops["k"])
     for sym in ("off", "on", "gate"):
         kn = icp_knobs(torch, dict(ICP_KNOBS[0], symmetric=sym), dev)
         torch.cuda.synchronize()
@@ -2673,6 +2703,42 @@ def icp_expected(cfg, n_frames: int):
             sum(1 for n in cfg.pyramid if n) * frames)
 
 
+def launch_view(torch, rpose, k):
+    """The tracking view ``icp_track_levels`` forms inside its launch from
+    the raycast pose and the intrinsics ``k`` (a launch of no trip on a
+    1x1 level; not counted on any path)."""
+    from supereight_tpu_torch.ops import icp_kernel as icp
+    dev = rpose.device
+    z = torch.zeros((1, 1, 3), device=dev)
+    view = torch.empty((4, 4), device=dev)
+    icp.icp_track_levels(torch.eye(4, device=dev), [(z, z)], z, z, rpose, k,
+                         (0,), 0.0, view=view)
+    return view
+
+
+def hold_view(torch, label, rposes):
+    """The view of each raycast pose of a run (those its ICP frames saw),
+    formed inside ``icp_track_levels``' launch, against the card's
+    ``camera_matrix(k) @ inv(raycast_pose)`` (``pose_inv`` and PyTorch's
+    product), bit for bit."""
+    from supereight_tpu_torch.core import numerics
+    from supereight_tpu_torch.pipeline import camera
+    if not rposes:
+        return
+    k = torch.from_numpy(np.asarray(K, np.float32)).to(rposes[0].device)
+    bad = 0
+    for rp in rposes:
+        _, same = bits_err(torch, launch_view(torch, rp, k),
+                           camera.camera_matrix(k) @ numerics.inv(rp))
+        bad += not same
+    print(f"# {label}: the view inside icp_track_levels equals the card's "
+          f"camera_matrix(k) @ inv(raycast_pose) bit for bit at "
+          f"{len(rposes) - bad} of {len(rposes)} raycast poses")
+    if bad:
+        fail(f"{label}: the view inside icp_track_levels differs at {bad} "
+             "raycast poses")
+
+
 def check_icp_launched(label, counts, frames=None):
     """A one-device path's ICP went through ``icp_track_levels``: one launch
     a frame on which ICP runs (``frames``, where it is known; else above
@@ -2712,12 +2778,15 @@ def run_slam(torch, cfg, depths, poses, dev):
 
     slam = DenseSLAMSystem((240, 320), cfg, dev)
     slam.setPose(poses[0])
-    est, tracked, integrated, ms = [], [], [], []
+    est, tracked, integrated, ms, rposes = [], [], [], [], []
     reset_launches()
     t0 = time.perf_counter()
     with counting_raycasts() as raycasts:
         for f in range(len(depths)):
             t1 = time.perf_counter()
+            if f % cfg.tracking_rate == 0:
+                # the raycast pose this frame's ICP sees
+                rposes.append(slam.state.raycast_pose.clone())
             st = slam.step(depths[f], K, f)
             torch.cuda.synchronize()
             ms.append(1e3 * (time.perf_counter() - t1))
@@ -2732,7 +2801,8 @@ def run_slam(torch, cfg, depths, poses, dev):
                 icp_frames=icp_frames(cfg, len(depths)),
                 wall=time.perf_counter() - t0,
                 blocks=int(st.map.n_blocks), overflow=int(st.map.overflow),
-                ref_vertex=st.ref_vertex, ref_normal=st.ref_normal)
+                ref_vertex=st.ref_vertex, ref_normal=st.ref_normal,
+                rposes=rposes)
 
 
 def check_run(torch, name, r, poses, record, max_ate, counter):
@@ -2756,6 +2826,7 @@ def check_run(torch, name, r, poses, record, max_ate, counter):
     check_raycast_launched(name, r["launches"], r["raycasts"],
                            r["cfg"].raycast_second_window
                            or r["cfg"].raycast_midsolve)
+    hold_view(torch, name, r["rposes"])
     print(f"# {name}: median ms/frame after the first 16 frames: "
           f"{statistics.median(r['ms'][16:]):.2f} (first frame "
           f"{r['ms'][0]:.1f} ms)")

@@ -1,6 +1,6 @@
 // ICP tracking on the card, for Hopper (sm_90a).  icp_track_levels runs
-// every trip of every pyramid level of a tracked frame in one cooperative
-// launch (the one-device frame); icp_track_reduce runs one trip of the
+// every trip of every pyramid level of a tracked frame in one launch (the
+// one-device frame); icp_track_reduce runs one trip of the
 // sharded frame, whose sums are all-reduced between trips: the previous trip's
 // update (the solve and the pose update), then the association,
 // residuals, IRLS weights and the normal equations' sums; icp_update
@@ -33,41 +33,47 @@
 // 77 kB status image and 116 bytes of sums, about 1-1.5 MB: under half a
 // microsecond at 3.35 TB/s, and about 250 float operations a pixel, under
 // 0.1 us at 67 TFLOP/s.  A trip's solve is about 400 dependent float
-// operations on one thread.  So a launch a trip is bound by the launch
-// floor (~5 us), not bytes or operations, and a sharded frame of 19 trips
-// by the host's enqueue of its launches.  What the designs do about that:
-// - icp_track_levels: one launch a frame.  A fixed grid (the CTAs an SM
-//   holds times the SMs) owns fixed pixels of every level, keeps the input
-//   maps of up to kOwn pixels a thread in registers over a level's trips,
-//   and a trip costs its pixel pass, one grid barrier, every CTA's sum of
-//   the CTAs' partials (the same fixed order in every CTA) and one thread's
-//   solve.  The reference maps stay in the 50 MB L2.
+// operations.  So a launch a trip is bound by the launch floor (~5 us), not
+// bytes or operations, and a sharded frame of 19 trips by the host's
+// enqueue of its launches; one launch a frame by the chain of its trips,
+// each a pixel pass, a cross-CTA exchange and a solve in a row.  What the
+// designs do about that:
+// - icp_track_levels: one launch a frame, the tracking view K @
+//   inv(raycast_pose) computed inside it (lu_inverse.cuh, as pose_inv).  A
+//   fixed grid owns fixed pixels of every level and keeps up to kOwn pixels
+//   a thread in registers over a level's trips; a warp sums its 29 sums by
+//   a reduce-scatter butterfly (31 shuffles, not 29 trees of 5); no grid
+//   barrier: the exchange carries the barrier with the data; and every
+//   CTA's warp 0 solves, the independent elements of the solve on separate
+//   lanes (warp_solve).  The reference maps stay in the 50 MB L2.
 // - icp_track_reduce: one launch a trip, the previous trip's solve at its
 //   start and the cross-CTA sum at its end in a fixed order (a last-CTA
-//   ticket), so no second launch and no atomics on the sums (which would also make them vary run
-//   to run).
+//   ticket), so no second launch and no atomics on the sums (which would
+//   also make them vary run to run).
 // - The strided finest level and a rank's row strip are read in place
 //   through a base pointer and row / column strides: no copy of the level.
-// - The solve, the exponential and the pose product run on one thread: 6x6
-//   and 4x4 are too small to split.
+// - icp_track_reduce and icp_update solve on one thread (solve_step);
+//   icp_track_levels' warp_solve gives solve_step's bits.
 //
 // Rounding.  Built with --fmad=false and IEEE division and square root; the
 // projections, norms and cross products are explicit fmaf chains in the
 // order the twins' `numerics.matvec`, `preprocessing.norm` and
 // `preprocessing.cross` use, so the status image of a trip from a given
 // pose equals the twin's bit for bit.  The sums add in another order than
-// PyTorch's reductions (a thread's pixels, warp shuffles, then CTA partials
-// in order), within float32 rounding of the twin's, and in the same order
-// in every run on a given card (a fixed grid, fixed pixels a CTA); the 6x6
-// Cholesky is a plain left-looking one in float32, within float32 rounding
-// of torch.linalg's.
+// PyTorch's reductions, within float32 rounding of the twin's, and in the
+// same order in every run on a given card: a thread's pixels in order, then
+// the warp's butterfly (lane l ends with sum l: at each width w = 16, 8, 4,
+// 2, 1 the two lanes w apart add the halves they keep and receive), the
+// warps in order, then the CTAs' partials in rank order (a fixed grid and
+// fixed pixels a CTA).  The 6x6 Cholesky is a plain left-looking one in
+// float32, within float32 rounding of torch.linalg's.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace cg = cooperative_groups;
+#include "lu_inverse.cuh"
 
 namespace {
 
@@ -77,9 +83,9 @@ constexpr int kSums = 29;              // error2, JTe[6], JTJ[21], count
 constexpr float kInvalid = -2.0f;      // the invalid-normal marker
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxLevels = 8;          // pyramid levels icp_track_levels takes
-constexpr int kOwn = 4;                // pixels a thread keeps in registers
-constexpr int kChunk = 4;              // partials a lane loads at once
-constexpr int kSumsPerWarp = (kSums + kWarps - 1) / kWarps;
+constexpr int kSumSlots = 32;          // the sums padded to a warp's lanes
+constexpr int kLevelThreads = 256;     // icp_track_levels' CTAs
+constexpr int kLevelWarps = kLevelThreads / 32;
 
 // row r of T[:3, :3] @ p + T[:3, 3], a multiply-add chain (numerics.matvec)
 __device__ __forceinline__ float affine_row(const float* T, int r, float x,
@@ -534,46 +540,392 @@ icp_track_reduce_kernel(Level L, Knobs k, const float* __restrict__ view,
   if (tid == 0) *ticket = 0u;
 }
 
-// Every level's loop of a tracked frame in one cooperative launch of a
-// fixed grid (every CTA resident).  A CTA owns the pixels blockIdx.x *
-// kThreads + tid + j * (gridDim.x * kThreads) of each level, and keeps the
-// first kOwn of a thread's in registers for the level's trips.  A trip:
-// each CTA that owns pixels at the level writes its partial of the 29 sums
-// to partials[trip & 1] (warp trees, then the warps in order), one grid
-// barrier, then every CTA sums those partials in the same fixed order and
-// runs the solve on one thread into its own shared copy of the carry.  Every CTA so holds the same bits and
-// takes the same exit, and the double buffer keeps the next trip's
-// partials off the ones a slower CTA may still be reading.
-__global__ void __launch_bounds__(kThreads)
-icp_track_levels_kernel(Levels P, Knobs k, const float* __restrict__ view,
-                        const float* __restrict__ pose_in,
-                        float icp_threshold, float* partials,
-                        float* __restrict__ pose, float* __restrict__ error2,
-                        float* __restrict__ count,
-                        uint8_t* __restrict__ converged,
-                        int* __restrict__ iteration, int* __restrict__ result,
-                        float* __restrict__ sums_out) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ float T[16], V[16];
-  __shared__ float warp_part[kWarps][kSums];
-  __shared__ float S[kSums];
-  __shared__ bool solved_conv;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n_cta = gridDim.x, stride = n_cta * kThreads;
-  const int g = blockIdx.x * kThreads + tid;
-  if (tid < 16) {
-    T[tid] = pose_in[tid];
-    V[tid] = view[tid];
+// ---------------------------------------------------------------------
+// icp_track_levels: every level's loop of a tracked frame in one launch
+// ---------------------------------------------------------------------
+//
+// A cooperative grid of the CTAs that own pixels at the largest level that
+// runs a trip (75 of 256 threads at the headline's decimated 160x120), all
+// resident.  A CTA owns the pixels blockIdx.x * kLevelThreads + tid + j *
+// (gridDim.x * kLevelThreads) of each level and keeps the first kOwn of a
+// thread's in registers for the level's trips.  A trip: the pixel pass,
+// each warp's 29 sums by a reduce-scatter butterfly (warp_reduce_scatter),
+// the warps' sums in warp order into the CTA's partial, then the exchange
+// (level_exchange): no grid barrier, the barrier and the data travel
+// together, and every CTA sums every CTA's partial in CTA order, the same
+// order in every CTA.  Then warp 0 of every CTA solves (warp_solve) into
+// its own shared copy of the carry, so every CTA holds the same bits and
+// takes the same exit, and no second barrier is needed.  (A one-cluster
+// form, 16 CTAs of 512 threads reading the partials over distributed
+// shared memory after a cluster barrier, was slower on an H100: see
+// PERF.md.)
+
+// The index in the sums of JTJ's entry (a, b), a <= b (row by row).
+__host__ __device__ constexpr int jtj_index(int a, int b) {
+  return 7 + a * 6 - a * (a - 1) / 2 + (b - a);
+}
+
+// One step of the warp's reduce-scatter butterfly at width w: a lane keeps
+// the half of its 2w-wide window that its bit w names, sends the other half
+// to the lane w away and adds what it receives (keep + received).
+template <int w>
+__device__ __forceinline__ void butterfly(float (&v)[kSumSlots], int lane) {
+  const bool up = (lane & w) != 0;
+#pragma unroll
+  for (int i = 0; i < w; ++i) {
+    const float send = up ? v[i] : v[i + w];
+    const float keep = up ? v[i + w] : v[i];
+    v[i] = keep + __shfl_xor_sync(kFull, send, w);
   }
-  if (tid < kSums) S[tid] = 0.0f;    // error2 and count before any trip
+}
+
+// The warp's sums of v (the 29 sums padded to a warp) by a reduce-scatter
+// butterfly of widths 16, 8, 4, 2, 1: 31 shuffles.  Lane l ends with the
+// sum of v[l] over the warp, in a fixed tree.
+__device__ __forceinline__ float warp_reduce_scatter(float (&v)[kSumSlots],
+                                                     int lane) {
+  butterfly<16>(v, lane);
+  butterfly<8>(v, lane);
+  butterfly<4>(v, lane);
+  butterfly<2>(v, lane);
+  butterfly<1>(v, lane);
+  return v[0];
+}
+
+// W = [x]_x of the rotation twist (w0, w1, w2), entry (i, j) by selects
+__device__ __forceinline__ float skew(float w0, float w1, float w2, int i,
+                                      int j) {
+  const float r0 = j == 0 ? 0.0f : j == 1 ? -w2 : w1;
+  const float r1 = j == 0 ? w2 : j == 1 ? 0.0f : -w0;
+  const float r2 = j == 0 ? -w1 : j == 1 ? w0 : 0.0f;
+  return i == 0 ? r0 : i == 1 ? r1 : r2;
+}
+
+// solve_step over one warp, with solve_step's bits: every element is the
+// same fmaf chain in the same order, and the independent ones run on
+// separate lanes.  The sums S (shared, >= 29) in, the pose P (shared [16])
+// updated in place; every lane returns |x| < icp_threshold and, where x is
+// not null, lane 0 writes the twist.  Every lane computes the Cholesky's
+// diagonal and the two triangular solves (serial, the same bits on every
+// lane); lane i computes L[i][j] below the diagonal, broadcast by shuffles;
+// lane 0 sinf(theta) (once: solve_step computes it twice) and lane 1
+// cosf(theta); lane 3i + j E[i][j] and its translation term; lane i E[i][3];
+// lane 4i + j the pose product's entry (i, j).
+__device__ bool warp_solve(const float* S, float* P, float icp_threshold,
+                           int lane, float* x_out) {
+  const int r = lane < 6 ? lane : 5;       // this lane's row of L
+  // the sums this lane reads, loaded together: JTJ's diagonal, JTe, and
+  // column j's entry of row r (M[r][j] = the sums' (j, r))
+  float Md[6], Mr[6], g[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    Md[j] = S[jtj_index(j, j)];
+    Mr[j] = S[jtj_index(j, r > j ? r : j)];
+    g[j] = S[1 + j];
+  }
+  float L[6][6], R[6];                     // L on every lane, R: row r
+  bool bad = false;
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    float s = Md[j];
+#pragma unroll
+    for (int q = 0; q < j; ++q) s = fmaf(-L[j][q], L[j][q], s);
+    bad = bad || !(s > 0.0f);
+    const float d = __fsqrt_rn(s);
+    L[j][j] = d;
+    // lane r > j: L[r][j]; other lanes' values are never read
+    float t = Mr[j];
+#pragma unroll
+    for (int q = 0; q < j; ++q) t = fmaf(-R[q], L[j][q], t);
+    R[j] = __fdiv_rn(t, d);
+#pragma unroll
+    for (int i = j + 1; i < 6; ++i) L[i][j] = __shfl_sync(kFull, R[j], i);
+  }
+  float x[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    float t = g[i];
+#pragma unroll
+    for (int q = 0; q < i; ++q) t = fmaf(-L[i][q], x[q], t);
+    x[i] = __fdiv_rn(t, L[i][i]);
+  }
+#pragma unroll
+  for (int i = 5; i >= 0; --i) {
+    float t = x[i];
+#pragma unroll
+    for (int q = i + 1; q < 6; ++q) t = fmaf(-L[q][i], x[q], t);
+    x[i] = __fdiv_rn(t, L[i][i]);
+  }
+#pragma unroll
+  for (int i = 0; i < 6; ++i) bad = bad || !isfinite(x[i]);
+  if (bad)
+#pragma unroll
+    for (int i = 0; i < 6; ++i) x[i] = 0.0f;
+  if (x_out != nullptr && lane == 0)
+    for (int i = 0; i < 6; ++i) x_out[i] = x[i];
+
+  // se3_exp(x), with camera.se3_exp's small-angle branches
+  const float w0 = x[3], w1 = x[4], w2 = x[5];
+  const float theta2 = fmaf(w2, w2, fmaf(w1, w1, w0 * w0));
+  const float theta = __fsqrt_rn(theta2);
+  const bool small = theta < 1e-6f;
+  float sc = 0.0f;
+  if (lane == 0) sc = sinf(theta);
+  else if (lane == 1) sc = cosf(theta);
+  const float sn = __shfl_sync(kFull, sc, 0);
+  const float cs = __shfl_sync(kFull, sc, 1);
+  const float a = small ? 1.0f - theta2 / 6.0f : __fdiv_rn(sn, theta);
+  const float b = small ? 0.5f - theta2 / 24.0f : __fdiv_rn(1.0f - cs, theta2);
+  const float c = small ? 1.0f / 6.0f - theta2 / 120.0f
+                        : __fdiv_rn(theta - sn, theta2 * theta);
+  // lane e = 3i + j (e < 9): E[i][j] and (id + b W + c W^2)[i][j]
+  const int e = lane < 9 ? lane : 0, ei = e / 3, ej = e - 3 * ei;
+  float W2 = skew(w0, w1, w2, ei, 0) * skew(w0, w1, w2, 0, ej);
+  W2 = fmaf(skew(w0, w1, w2, ei, 1), skew(w0, w1, w2, 1, ej), W2);
+  W2 = fmaf(skew(w0, w1, w2, ei, 2), skew(w0, w1, w2, 2, ej), W2);
+  const float id = ei == ej ? 1.0f : 0.0f;
+  const float Wij = skew(w0, w1, w2, ei, ej);
+  const float Eij = (id + a * Wij) + b * W2;
+  const float Vij = (id + b * Wij) + c * W2;
+  // lane i (< 3): E[i][3] = V[i] . x, a fmaf chain from 0
+  const int ti = lane < 3 ? lane : 0;
+  float et = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    et = fmaf(__shfl_sync(kFull, Vij, 3 * ti + j), x[j], et);
+  // lane 4i + j (< 16): (E @ P)[i][j]
+  const int pi = (lane >> 2) & 3, pj = lane & 3, si = pi < 3 ? pi : 2;
+  float Er[4];
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const float v = __shfl_sync(kFull, Eij, 3 * si + q);
+    Er[q] = pi < 3 ? v : 0.0f;
+  }
+  const float v3 = __shfl_sync(kFull, et, si);
+  Er[3] = pi < 3 ? v3 : 1.0f;
+  float t = Er[0] * P[pj];
+#pragma unroll
+  for (int q = 1; q < 4; ++q) t = fmaf(Er[q], P[4 * q + pj], t);
+  __syncwarp();
+  if (lane < 16) P[lane] = t;
+  __syncwarp();
+
+  float xx = x[0] * x[0];
+#pragma unroll
+  for (int i = 1; i < 6; ++i) xx = fmaf(x[i], x[i], xx);
+  return __fsqrt_rn(xx) < icp_threshold;
+}
+
+// view = camera_matrix(k) @ inv(rpose) on one thread, with the bits the
+// card gives that product in PyTorch: the inverse of lu_inverse.cuh
+// (pose_inv's), then each entry the products K[i][q] * X[q][j] rounded one
+// by one and added in q order, ((p0 + p1) + p2) + p3 (held to the card's
+// `@` on every raycast pose of the smoke and a fuzz of poses: see
+// tests/test_torch_gpu.py).
+__device__ __forceinline__ void tracking_view(const float* rpose,
+                                              const float* k, float* V) {
+  float A[4][4], X[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) A[i][j] = rpose[4 * i + j];
+  lu::lu_inverse<4>(A, X);
+  const float K[4][4] = {{k[0], 0.0f, k[2], 0.0f},
+                         {0.0f, k[1], k[3], 0.0f},
+                         {0.0f, 0.0f, 1.0f, 0.0f},
+                         {0.0f, 0.0f, 0.0f, 1.0f}};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float s = K[i][0] * X[0][j];
+#pragma unroll
+      for (int q = 1; q < 4; ++q) s = s + K[i][q] * X[q][j];
+      V[4 * i + j] = s;
+    }
+}
+
+#ifdef ICP_TRIP_CLOCKS
+// The trip-parts build (probes/icp_times.py trip_parts): CTA 0's thread 0
+// stamps clock64 at each part's end into trip_clocks (set by
+// icp_set_trip_clocks; kClockTrips trips of kClockStamps stamps, then the
+// launch's clock64 and globaltimer at its start and end).
+constexpr int kClockTrips = 64;
+constexpr int kClockStamps = 5;
+__device__ unsigned long long* trip_clocks = nullptr;
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define TRIP_STAMP(trip, i)                                              \
+  do {                                                                   \
+    if (blockIdx.x == 0 && tid == 0 && trip_clocks != nullptr &&         \
+        (trip) < kClockTrips)                                            \
+      trip_clocks[(trip) * kClockStamps + (i)] = clock64();              \
+  } while (0)
+#define TRIP_SYNC() __syncthreads()
+#define LAUNCH_STAMP(i)                                                  \
+  do {                                                                   \
+    if (blockIdx.x == 0 && tid == 0 && trip_clocks != nullptr) {         \
+      trip_clocks[kClockTrips * kClockStamps + (i)] = clock64();         \
+      trip_clocks[kClockTrips * kClockStamps + (i) + 1] = global_ns();   \
+    }                                                                    \
+  } while (0)
+#else
+#define TRIP_STAMP(trip, i) \
+  do {                      \
+  } while (0)
+#define TRIP_SYNC() \
+  do {              \
+  } while (0)
+#define LAUNCH_STAMP(i) \
+  do {                  \
+  } while (0)
+#endif
+
+__device__ __forceinline__ void st_relaxed(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+__device__ __forceinline__ unsigned long long ld_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_relaxed(unsigned* p, unsigned v) {
+  asm volatile("st.relaxed.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// The exchange of a trip.  Each CTA publishes its 29 partials as 64-bit
+// words {value, tag} (one store each, so a word is read whole or not at
+// all) into words[trip & 1][cta], the tag base + trip + 1; every warp w of
+// every CTA loads the words of CTAs w, w + kLevelWarps, ... together,
+// reloads together those that do not carry the trip's tag yet until all
+// do, and sums them in CTA order; then warp 0 sums the warps' sums in
+// order into S.  The barrier and the data travel together: one L2 round
+// trip.  Every CTA publishes every trip (zeros at a level where it owns no
+// pixel), so no CTA writes trip t + 2's words before every CTA has
+// published trip t + 1, which it does after reading trip t's.  `base` is
+// read from *epoch at the launch's start, and CTA 0 adds the launch's
+// trips at its end (every CTA has read it by then: each published at
+// least once), so no word left by an earlier launch carries a tag this
+// launch waits for, also in a replayed CUDA graph.
+constexpr int kGather = 17;            // words a lane loads at once
+
+__device__ __forceinline__ void level_exchange(
+    unsigned long long* __restrict__ words, unsigned base, int trip,
+    const float (&wp)[kLevelWarps][kSumSlots],
+    float (&gp)[kLevelWarps][kSumSlots], float* S, int tid) {
+  const int lane = tid & 31, warp = tid >> 5, n = gridDim.x;
+  const unsigned tag32 = base + trip + 1;
+  const unsigned long long tag = static_cast<unsigned long long>(tag32)
+                                 << 32;
+  unsigned long long* slot =
+      words + static_cast<size_t>(trip & 1) * n * kSumSlots;
+  if (tid < kSums) {
+    float s = wp[0][lane];
+#pragma unroll
+    for (int w = 1; w < kLevelWarps; ++w) s += wp[w][lane];
+    st_relaxed(slot + blockIdx.x * kSumSlots + lane, tag | __float_as_uint(s));
+  }
+  if (lane < kSums) {
+    float s = 0.0f;
+    for (int b0 = warp; b0 < n; b0 += kLevelWarps * kGather) {
+      unsigned long long v[kGather];
+#pragma unroll
+      for (int c = 0; c < kGather; ++c) {
+        const int b = b0 + kLevelWarps * c;
+        v[c] = b < n ? ld_relaxed(slot + b * kSumSlots + lane) : tag;
+      }
+      for (;;) {
+        bool ready = true;
+#pragma unroll
+        for (int c = 0; c < kGather; ++c)
+          ready = ready && static_cast<unsigned>(v[c] >> 32) == tag32;
+        if (ready) break;
+#pragma unroll
+        for (int c = 0; c < kGather; ++c)
+          if (static_cast<unsigned>(v[c] >> 32) != tag32)
+            v[c] = ld_relaxed(slot + (b0 + kLevelWarps * c) * kSumSlots +
+                              lane);
+      }
+#pragma unroll
+      for (int c = 0; c < kGather; ++c) {
+        const int b = b0 + kLevelWarps * c;
+        if (b < n) {
+          const float x = __uint_as_float(static_cast<unsigned>(v[c]));
+          s = b == warp ? x : s + x;
+        }
+      }
+    }
+    gp[warp][lane] = s;
+  }
+  __syncthreads();
+  if (tid < 32) {
+    const int m = min(kLevelWarps, n);
+    float s = gp[0][lane];
+    for (int w = 1; w < m; ++w) s += gp[w][lane];
+    S[lane] = s;
+  }
+  __syncwarp();
+}
+
+struct LevelsOut {
+  float* pose;
+  float* error2;
+  float* count;
+  uint8_t* converged;
+  int* iteration;
+  int* result;                         // level 0's status image
+  float* sums;                         // the last trip's sums, or null
+  float* view;                         // the view used, or null
+};
+
+// words: [2][gridDim.x][kSumSlots], epoch: see level_exchange
+__global__ void __launch_bounds__(kLevelThreads, 1)
+icp_track_levels_kernel(Levels P, Knobs k, const float* __restrict__ rpose,
+                        const float* __restrict__ kvec,
+                        const float* __restrict__ pose_in,
+                        float icp_threshold,
+                        unsigned long long* __restrict__ words,
+                        unsigned* __restrict__ epoch, LevelsOut o) {
+  constexpr int kOwn = 2;                // 76800 / (132 x 256) = 2.3
+  __shared__ float Tp[16], V[16];
+  __shared__ float warp_part[kLevelWarps][kSumSlots];
+  __shared__ float gather_part[kLevelWarps][kSumSlots];
+  __shared__ float S[kSumSlots];
+  __shared__ int conv_s;
+  __shared__ unsigned base;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_cta = gridDim.x, stride = n_cta * kLevelThreads;
+  const int g = blockIdx.x * kLevelThreads + tid;
+  LAUNCH_STAMP(0);
+  // the tracking view on thread 0 while the others load the carry
+  if (tid == 0) tracking_view(rpose, kvec, V);
+  if (tid == 32) base = ld_relaxed(epoch);
+  if (tid >= 48 && tid < 64) Tp[tid - 48] = pose_in[tid - 48];
+  if (tid >= 64 && tid < 64 + kSumSlots) S[tid - 64] = 0.0f;  // no trip yet
   int trip = 0, trips = 0;
   bool conv = false;
   for (int l = P.n_levels - 1; l >= 0; --l) {
     const Level L = P.level[l];
     const int n_px = L.rows * L.cols, n_iters = P.iters[l];
-    // the CTAs that own pixels at this level (the others' partials are 0)
-    const int n_act = min(n_cta, (n_px + kThreads - 1) / kThreads);
-    int* res = l == 0 ? result : nullptr;
+    int* res = l == 0 ? o.result : nullptr;
     float own[kOwn][6];
 #pragma unroll
     for (int j = 0; j < kOwn; ++j)
@@ -584,89 +936,83 @@ icp_track_levels_kernel(Levels P, Knobs k, const float* __restrict__ view,
     conv = false;
     __syncthreads();
     while (trips < n_iters && !conv) {
-      float acc[kSums], v[kSums];
+      TRIP_STAMP(trip, 0);
+      float acc[kSumSlots], v[kSums];
 #pragma unroll
-      for (int i = 0; i < kSums; ++i) acc[i] = 0.0f;
+      for (int i = 0; i < kSumSlots; ++i) acc[i] = 0.0f;
 #pragma unroll
       for (int j = 0; j < kOwn; ++j) {
         const int p = g + j * stride;
         if (p < n_px) {
-          const int status = pixel_terms(L, k, T, V, own[j], v);
+          const int status = pixel_terms(L, k, Tp, V, own[j], v);
           if (res != nullptr) res[p] = status;
 #pragma unroll
           for (int i = 0; i < kSums; ++i) acc[i] += v[i];
         }
       }
       for (int p = g + kOwn * stride; p < n_px; p += stride) {
-        float x[6];
-        load_input(L, p, x);
-        const int status = pixel_terms(L, k, T, V, x, v);
+        float in[6];
+        load_input(L, p, in);
+        const int status = pixel_terms(L, k, Tp, V, in, v);
         if (res != nullptr) res[p] = status;
 #pragma unroll
         for (int i = 0; i < kSums; ++i) acc[i] += v[i];
       }
-
-      // this CTA's partial, then the barrier
-      float* part = partials + (trip & 1) * n_cta * kSums;
-#pragma unroll
-      for (int i = 0; i < kSums; ++i) {
-        const float s = warp_sum(acc[i]);
-        if (lane == 0) warp_part[warp][i] = s;
+      TRIP_SYNC();
+      TRIP_STAMP(trip, 1);
+      warp_part[warp][lane] = warp_reduce_scatter(acc, lane);
+      __syncthreads();
+      TRIP_STAMP(trip, 2);
+      level_exchange(words, base, trip, warp_part, gather_part, S, tid);
+      TRIP_STAMP(trip, 3);
+      if (warp == 0) {
+        const bool c = warp_solve(S, Tp, icp_threshold, lane, nullptr);
+        if (lane == 0) conv_s = c;
       }
       __syncthreads();
-      if (tid < kSums && static_cast<int>(blockIdx.x) < n_act) {
-        float s = warp_part[0][tid];
-        for (int w = 1; w < kWarps; ++w) s += warp_part[w][tid];
-        part[blockIdx.x * kSums + tid] = s;
-      }
-      grid.sync();
-
-      // every CTA: the active CTAs' partials in a fixed order (warp w sums
-      // w, w + kWarps, ...; lane l the CTAs l, l + 32, ... in turn, loading
-      // kChunk of them at once), then the solve
-      float acc_s[kSumsPerWarp];
-#pragma unroll
-      for (int q = 0; q < kSumsPerWarp; ++q) acc_s[q] = 0.0f;
-      for (int b0 = lane; b0 < n_act; b0 += 32 * kChunk) {
-        float ld[kSumsPerWarp][kChunk];
-#pragma unroll
-        for (int q = 0; q < kSumsPerWarp; ++q)
-#pragma unroll
-          for (int c = 0; c < kChunk; ++c) {
-            const int i = warp + q * kWarps, b = b0 + 32 * c;
-            ld[q][c] = i < kSums && b < n_act
-                           ? __ldcg(part + b * kSums + i) : 0.0f;
-          }
-#pragma unroll
-        for (int q = 0; q < kSumsPerWarp; ++q)
-#pragma unroll
-          for (int c = 0; c < kChunk; ++c)
-            if (b0 + 32 * c < n_act) acc_s[q] += ld[q][c];
-      }
-#pragma unroll
-      for (int q = 0; q < kSumsPerWarp; ++q) {
-        const float s = warp_sum(acc_s[q]);
-        if (lane == 0 && warp + q * kWarps < kSums) S[warp + q * kWarps] = s;
-      }
-      __syncthreads();
-      if (tid == 0) {
-        float x[6];
-        solved_conv = solve_step(S, T, icp_threshold, x);
-      }
-      __syncthreads();
-      conv = solved_conv;      // tid 0 writes it again only after the
+      TRIP_STAMP(trip, 4);
+      conv = conv_s;           // warp 0 writes it again only after the
       ++trip;                  // next trip's barriers
       ++trips;
     }
   }
+  if (blockIdx.x == 0 && tid == 0 && trip > 0) st_relaxed(epoch, base + trip);
+  LAUNCH_STAMP(2);
   if (blockIdx.x != 0) return;
-  if (tid < 16) pose[tid] = T[tid];
-  if (sums_out != nullptr && tid < kSums) sums_out[tid] = S[tid];
+  if (tid < 16) o.pose[tid] = Tp[tid];
+  if (o.view != nullptr && tid < 16) o.view[tid] = V[tid];
+  if (o.sums != nullptr && tid < kSums) o.sums[tid] = S[tid];
   if (tid == 0) {
-    *error2 = S[0];
-    *count = S[kSums - 1];
-    *converged = conv;
-    *iteration = trips;
+    *o.error2 = S[0];
+    *o.count = S[kSums - 1];
+    *o.converged = conv;
+    *o.iteration = trips;
+  }
+}
+
+// The warp solve against solve_step on the same sums and pose: CTA i (one
+// warp) runs both on system i (the GPU tests hold them bit for bit).
+__global__ void __launch_bounds__(32)
+solve_check_kernel(const float* __restrict__ sums,
+                   const float* __restrict__ poses, float icp_threshold,
+                   float* __restrict__ warp_pose, float* __restrict__ warp_x,
+                   uint8_t* __restrict__ warp_conv,
+                   float* __restrict__ one_pose, float* __restrict__ one_x,
+                   uint8_t* __restrict__ one_conv) {
+  __shared__ float S[kSumSlots], Pw[16];
+  const int i = blockIdx.x, lane = threadIdx.x;
+  S[lane] = lane < kSums ? sums[i * kSums + lane] : 0.0f;
+  if (lane < 16) Pw[lane] = poses[i * 16 + lane];
+  __syncwarp();
+  const bool c = warp_solve(S, Pw, icp_threshold, lane, warp_x + 6 * i);
+  if (lane < 16) warp_pose[i * 16 + lane] = Pw[lane];
+  if (lane == 0) {
+    warp_conv[i] = c;
+    float Po[16], xo[6];
+    for (int q = 0; q < 16; ++q) Po[q] = poses[i * 16 + q];
+    one_conv[i] = solve_step(sums + i * kSums, Po, icp_threshold, xo);
+    for (int q = 0; q < 16; ++q) one_pose[i * 16 + q] = Po[q];
+    for (int q = 0; q < 6; ++q) one_x[6 * i + q] = xo[q];
   }
 }
 
@@ -721,9 +1067,9 @@ int icp_update(const float* sums, float* pose, float* error2, float* count,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The fixed grid of icp_track_levels on the current device: the CTAs an
-// SM holds at once times the SMs (every CTA resident, as a cooperative
-// launch needs).
+// The most CTAs icp_track_levels may launch on the current device: those
+// the card holds at once (an SM's times the SMs), as a cooperative launch
+// needs.
 int icp_track_levels_grid(int* n_cta) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -731,7 +1077,7 @@ int icp_track_levels_grid(int* n_cta) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, icp_track_levels_kernel, kThreads, 0);
+        &per_sm, icp_track_levels_kernel, kLevelThreads, 0);
   *n_cta = per_sm * sms;
   return static_cast<int>(err);
 }
@@ -739,23 +1085,30 @@ int icp_track_levels_grid(int* n_cta) {
 // Every level's loop of a tracked frame, coarsest (n_levels - 1) to
 // finest (0): level l's input maps at in_vertex[l] / in_normal[l] with row
 // and column strides (floats), rows[l] x cols[l] pixels, iters[l] trips at
-// most.  Writes the final carry, level 0's status image of its last trip
-// (zeros where it ran none) and, if sums is not null, the last trip's 29
-// sums.  partials: 2 x n_cta x 29 floats of workspace.
-int icp_track_levels(int n_levels, const float* const* in_vertex,
+// most, against the reference maps seen through view = K @ inv(rpose), K
+// the intrinsics kvec = (fx, fy, cx, cy), computed in the launch.  Writes
+// the final carry, level 0's status image of its last trip (zeros where it
+// ran none) and, where not null, the last trip's 29 sums and the view.  A
+// cooperative grid of n_cta CTAs (at most icp_track_levels_grid's), with
+// words (2 x n_cta x 32 uint64) and epoch (a uint32), both zero before the
+// first launch on them: each launch leaves them fit for the next.
+int icp_track_levels(int n_cta, int n_levels, const float* const* in_vertex,
                      const float* const* in_normal,
                      const long long* row_stride,
                      const long long* col_stride, const int* rows,
                      const int* cols, const int* iters,
                      const float* ref_vertex, const float* ref_normal,
-                     int rH, int rW, const float* view, const float* pose_in,
-                     float icp_threshold, int symmetric, const uint8_t* gate,
-                     int robust, float delta, float tukey_inv, int bilinear,
+                     int rH, int rW, const float* rpose, const float* kvec,
+                     const float* pose_in, float icp_threshold,
+                     int symmetric, const uint8_t* gate, int robust,
+                     float delta, float tukey_inv, int bilinear,
                      float dist_threshold, float normal_threshold,
-                     float* partials, int n_cta, float* pose, float* error2,
-                     float* count, uint8_t* converged, int* iteration,
-                     int* result, float* sums, cudaStream_t stream) {
-  if (n_levels < 1 || n_levels > kMaxLevels || n_cta < 1)
+                     unsigned long long* words, unsigned* epoch, float* pose,
+                     float* error2, float* count, uint8_t* converged,
+                     int* iteration, int* result, float* sums, float* view,
+                     cudaStream_t stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels || n_cta < 1 ||
+      words == nullptr || epoch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   Levels P{};
   P.n_levels = n_levels;
@@ -767,14 +1120,38 @@ int icp_track_levels(int n_levels, const float* const* in_vertex,
   }
   Knobs k{symmetric, gate, robust, delta, tukey_inv, bilinear,
           dist_threshold, normal_threshold};
-  void* args[] = {&P, &k, &view, &pose_in, &icp_threshold, &partials,
-                  &pose, &error2, &count, &converged, &iteration, &result,
-                  &sums};
+  LevelsOut o{pose, error2, count, converged, iteration, result, sums, view};
+  void* args[] = {&P, &k, &rpose, &kvec, &pose_in, &icp_threshold, &words,
+                  &epoch, &o};
   cudaError_t err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(icp_track_levels_kernel), dim3(n_cta),
-      dim3(kThreads), args, 0, stream);
-  if (err == cudaSuccess) err = cudaGetLastError();
-  return static_cast<int>(err);
+      dim3(kLevelThreads), args, 0, stream);
+  // read (and clear) the error a refused launch records, so that the next
+  // launch does not report it
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
+
+// The warp solve and solve_step on n systems (sums [n, 29], poses [n, 16]):
+// each one's pose, twist and exit test.
+int icp_solve_check(const float* sums, const float* poses, int n,
+                    float icp_threshold, float* warp_pose, float* warp_x,
+                    uint8_t* warp_conv, float* one_pose, float* one_x,
+                    uint8_t* one_conv, cudaStream_t stream) {
+  if (n < 1) return 0;
+  solve_check_kernel<<<n, 32, 0, stream>>>(sums, poses, icp_threshold,
+                                           warp_pose, warp_x, warp_conv,
+                                           one_pose, one_x, one_conv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#ifdef ICP_TRIP_CLOCKS
+// The trip-parts build: where CTA 0 stamps its clocks (kClockTrips x
+// kClockStamps uint64), or null to stop.
+int icp_set_trip_clocks(unsigned long long* buf) {
+  return static_cast<int>(
+      cudaMemcpyToSymbol(trip_clocks, &buf, sizeof(buf)));
+}
+#endif
 
 }  // extern "C"

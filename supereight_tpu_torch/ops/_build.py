@@ -54,12 +54,13 @@ def _source(name: str) -> Path:
     return CSRC / (f"{name}.cpp" if name in HOST_SOURCES else f"{name}.cu")
 
 
-def _command(name: str):
-    """The compiler and its flags for ``name``."""
+def _command(name: str, defines=()):
+    """The compiler and its flags for ``name`` (with ``-D`` each of
+    ``defines``)."""
     if name in HOST_SOURCES:
         return [os.environ.get("CXX") or shutil.which("c++") or "g++",
                 *CXX_FLAGS]
-    return [_nvcc(), *NVCC_FLAGS]
+    return [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines)]
 
 
 def _host_cpu() -> str:
@@ -88,12 +89,14 @@ def headers(path: Path):
     return found
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines=()) -> Path:
     """Where ``csrc/<name>.cu`` (or ``.cpp``) builds to, keyed by source,
     the headers it includes (so that editing a shared header rebuilds
     every library that includes it) and flags (and, for host code, the
-    CPU's features)."""
-    flags = " ".join(NVCC_FLAGS)
+    CPU's features).  A variant built with ``defines`` (a probe's
+    instrumented build) goes to a subdirectory of its own, named after
+    them."""
+    flags = " ".join((*NVCC_FLAGS, *(f"-D{d}" for d in defines)))
     if name in HOST_SOURCES:
         flags = " ".join(CXX_FLAGS) + _host_cpu()
     src = _source(name)
@@ -101,7 +104,9 @@ def library_path(name: str) -> Path:
     for inc in headers(src):
         h.update(inc.name.encode() + b"\0" + inc.read_bytes())
     h.update(flags.encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    where = BUILD_DIR / "_".join(d.lower() for d in defines) if defines \
+        else BUILD_DIR
+    return where / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 #: every kernel source of the package
@@ -121,16 +126,16 @@ def constants(name: str) -> Dict[str, int]:
             re.findall(r"^constexpr int (k\w+) = (\d+);", src, re.M)}
 
 
-def _start(name: str):
+def _start(name: str, defines=()):
     """Start the compiler on ``name``'s source unless it is built; returns
     (library, temporary output, process) or None."""
-    so = library_path(name)
+    so = library_path(name, defines)
     if so.exists():
         return None
-    BUILD_DIR.mkdir(exist_ok=True)
+    so.parent.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     proc = subprocess.Popen(
-        [*_command(name), "-o", str(tmp), str(_source(name))],
+        [*_command(name, defines), "-o", str(tmp), str(_source(name))],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     return so, tmp, proc
 
@@ -152,12 +157,15 @@ def build_all(names=SOURCES) -> None:
             _finish(name, *job)
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines=()) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu`` (or ``.cpp``), compiling it
-    if needed.  The compiler's output (for a kernel ``-Xptxas -v``:
-    registers, spills) is kept beside it in ``<library>.log``."""
-    if name in _loaded:
-        return _loaded[name]
-    build_all((name,))
-    _loaded[name] = ctypes.CDLL(str(library_path(name)))
-    return _loaded[name]
+    if needed; ``defines``: a variant with those macros defined (see
+    :func:`library_path`).  The compiler's output (for a kernel ``-Xptxas
+    -v``: registers, spills) is kept beside it in ``<library>.log``."""
+    key = (name, *defines)
+    if key not in _loaded:
+        job = _start(name, defines)
+        if job is not None:
+            _finish(name, *job)
+        _loaded[key] = ctypes.CDLL(str(library_path(name, defines)))
+    return _loaded[key]

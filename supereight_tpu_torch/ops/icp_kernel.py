@@ -5,7 +5,9 @@ plain PyTorch twins.
 tracked frame in one launch: the JAX package's per-level ``lax.while_loop``
 (`supereight_tpu/pipeline/tracking.py:_level_loop`) over the levels, coarsest
 first, with the carry (``tracking.TrackState``: pose, error2, count,
-converged, iteration) on the device.  The one-device frame takes it.
+converged, iteration) on the device, and the tracking view K @
+inv(raycast_pose) formed inside the launch.  The one-device frame takes
+it.
 
 The sharded frame all-reduces the sums between a trip's two halves, so it
 runs a level as one launch a trip and one more: :func:`icp_track_reduce`
@@ -41,6 +43,8 @@ _K = _build.constants("icp")
 THREADS = _K["kThreads"]
 #: the most pyramid levels icp_track_levels takes
 MAX_LEVELS = _K["kMaxLevels"]
+#: threads a CTA of icp_track_levels
+LEVEL_THREADS = _K["kLevelThreads"]
 #: error2, JTe[6], JTJ's 21 distinct entries, count
 N_SUMS = _K["kSums"]
 #: JTJ's distinct entries (a, b), a <= b, in the sums' order
@@ -57,8 +61,10 @@ ASSOC = {"nearest": 0, "bilinear": 1}
 
 #: kernel launches so far, one counter per kernel
 LAUNCHES = {"icp_track_reduce": 0, "icp_update": 0, "icp_track_levels": 0}
-#: icp_track_levels' grid by device index (see :func:`levels_grid`)
+#: icp_track_levels' most CTAs by device index (see :func:`levels_grid`)
 _GRID = {}
+#: its exchange's words and epoch by (device index, stream) (see _words)
+_WORDS = {}
 
 
 def _tracking():
@@ -193,18 +199,24 @@ def _array(ctype, values):
     return type(a), a
 
 
-def _call(fn: str, args, stream) -> None:
+def _lib():
+    """The built `csrc/icp.cu`."""
+    return _build.load("icp")
+
+
+def _call(fn: str, args, stream, count: bool = True) -> None:
     """Call ``fn`` of the built `csrc/icp.cu` with ``args`` ((ctypes type,
     value) pairs, a tensor's value its data pointer or None), raise on its
-    CUDA error, count the launch."""
-    c_fn = getattr(_build.load("icp"), fn)
+    CUDA error, count the launch (unless ``count`` is False)."""
+    c_fn = getattr(_lib(), fn)
     c_fn.argtypes = [t for t, _ in args] + [ctypes.c_void_p]
     c_fn.restype = ctypes.c_int
     err = c_fn(*(v.data_ptr() if isinstance(v, torch.Tensor) else v
                  for _, v in args), stream)
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")
-    LAUNCHES[fn] += 1
+    if count:
+        LAUNCHES[fn] += 1
 
 
 def icp_track_reduce(in_vertex, in_normal, ref_vertex, ref_normal, view, st,
@@ -329,13 +341,14 @@ def icp_update(sums, st, n_iters: int, icp_threshold: float,
 
 
 def levels_grid(dev) -> int:
-    """The fixed grid of :func:`icp_track_levels` on the CUDA device
-    ``dev``: the CTAs an SM holds at once times the SMs, every CTA resident
-    as a cooperative launch needs.  Asked of the card once a device."""
+    """The most CTAs :func:`icp_track_levels` may launch on the CUDA device
+    ``dev``: those the card holds at once (the CTAs an SM holds times the
+    SMs), as a cooperative launch needs.  Asked of the card once a
+    device."""
     dev = torch.device(dev)
     idx = torch.cuda.current_device() if dev.index is None else dev.index
     if idx not in _GRID:
-        fn = _build.load("icp").icp_track_levels_grid
+        fn = _lib().icp_track_levels_grid
         fn.argtypes = [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         n = ctypes.c_int(0)
@@ -346,6 +359,40 @@ def levels_grid(dev) -> int:
                                f"{n.value} CTAs")
         _GRID[idx] = n.value
     return _GRID[idx]
+
+
+def levels_launch(dev, levels, iterations) -> int:
+    """The CTAs of :func:`icp_track_levels` on these levels: those that own
+    pixels at the largest level that runs a trip, at least 1 and at most
+    :func:`levels_grid`'s (a grid the card cannot hold at once is refused
+    by the launch)."""
+    most = max([iv.shape[0] * iv.shape[1]
+                for (iv, _), it in zip(levels, iterations) if it > 0],
+               default=0)
+    return max(1, min(levels_grid(dev), -(-most // LEVEL_THREADS)))
+
+
+def _words(dev, n_cta: int):
+    """The exchange's tagged words and epoch for the current stream of
+    ``dev``, zero when made (each launch leaves them fit for the next; see
+    `csrc/icp.cu` ``level_exchange``): one pair a (device, stream), for
+    ``n_cta`` CTAs or more."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    have = _WORDS.get(key)
+    if have is None or have[0].shape[1] < n_cta:
+        have = (torch.zeros((2, n_cta, 32), dtype=torch.int64, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev))
+        _WORDS[key] = have
+    return have
+
+
+def tracking_view(raycast_pose, k) -> torch.Tensor:
+    """The tracking view K @ inv(raycast_pose) of the intrinsics ``k`` (fx,
+    fy, cx, cy), as ``tracking.track`` forms it on the CPU (on the card
+    :func:`icp_track_levels` forms it inside its launch, with these bits)."""
+    from supereight_tpu_torch.core.numerics import inv
+    from supereight_tpu_torch.pipeline import camera
+    return camera.camera_matrix(k) @ inv(raycast_pose)
 
 
 def icp_track_levels_twin(pose, levels, ref_vertex, ref_normal, view,
@@ -383,29 +430,35 @@ def icp_track_levels_twin(pose, levels, ref_vertex, ref_normal, view,
     return st, result
 
 
-def icp_track_levels(pose, levels, ref_vertex, ref_normal, view,
+def icp_track_levels(pose, levels, ref_vertex, ref_normal, raycast_pose, k,
                      iterations: Sequence[int], icp_threshold: float,
                      symmetric=False, robust: str = "none",
                      robust_delta: float = 0.01, assoc: str = "nearest",
-                     sums=None):
+                     sums=None, view=None):
     """Every level's ICP loop of a tracked frame from ``pose`` (float32
     [4, 4]), coarsest first: ``levels[l]`` = (input vertices, input normals)
     of level l (float32 [rows, cols, 3], any row and column strides, the
     last dimension contiguous: the finest level strided by
     ``finest_decimate`` is read in place), at most ``iterations[l]`` trips
     with the exit on ``|twist| < icp_threshold``, against ``ref_vertex`` /
-    ``ref_normal`` (contiguous float32 [rH, rW, 3]) with ``view`` = K @
-    inv(raycast_pose); the knobs as :func:`icp_track_reduce`'s.  Returns
-    (final ``tracking.TrackState``, level 0's status image of its last trip,
-    zeros where it ran none); ``sums`` (float32 [N_SUMS]), if given, takes
-    the last trip's sums.  CPU tensors take the twin; CUDA tensors launch
-    the kernel once (cooperatively, on the grid of :func:`levels_grid`), or
-    raise where it cannot launch."""
+    ``ref_normal`` (contiguous float32 [rH, rW, 3]) seen from
+    ``raycast_pose`` (float32 [4, 4]) through the intrinsics ``k`` (float32
+    [4]: fx, fy, cx, cy), the view :func:`tracking_view`; the knobs as
+    :func:`icp_track_reduce`'s.  Returns (final ``tracking.TrackState``,
+    level 0's status image of its last trip, zeros where it ran none);
+    ``sums`` (float32 [N_SUMS]), if given, takes the last trip's sums and
+    ``view`` (float32 [4, 4]) the view.  CPU tensors take the twin on
+    :func:`tracking_view`; CUDA tensors launch the kernel once (a
+    cooperative grid of :func:`levels_launch`'s CTAs), which forms the view
+    inside its launch, or raise where it cannot launch."""
     knobs = dict(symmetric=symmetric, robust=robust,
                  robust_delta=robust_delta, assoc=assoc)
     if pose.device.type == "cpu":
+        v = tracking_view(raycast_pose, k)
+        if view is not None:
+            view.copy_(v)
         return icp_track_levels_twin(pose, levels, ref_vertex, ref_normal,
-                                     view, iterations, icp_threshold,
+                                     v, iterations, icp_threshold,
                                      sums=sums, **knobs)
     dev = pose.device
     fn = "icp_track_levels"
@@ -432,9 +485,12 @@ def icp_track_levels(pose, levels, ref_vertex, ref_normal, view,
     specs = [("pose", pose, torch.float32, (4, 4)),
              ("ref_vertex", ref_vertex, torch.float32, (rH, rW, 3)),
              ("ref_normal", ref_normal, torch.float32, (rH, rW, 3)),
-             ("view", view, torch.float32, (4, 4))]
+             ("raycast_pose", raycast_pose, torch.float32, (4, 4)),
+             ("k", k, torch.float32, (4,))]
     if sums is not None:
         specs.append(("sums", sums, torch.float32, (N_SUMS,)))
+    if view is not None:
+        specs.append(("view", view, torch.float32, (4, 4)))
     gate = None
     if isinstance(symmetric, torch.Tensor):
         gate = symmetric
@@ -444,9 +500,8 @@ def icp_track_levels(pose, levels, ref_vertex, ref_normal, view,
         mode = int(bool(symmetric))
     _check(fn, dev, specs)
 
-    n_cta = levels_grid(dev)
-    partials = torch.empty((2, n_cta, N_SUMS), dtype=torch.float32,
-                           device=dev)
+    n_cta = levels_launch(dev, levels, iterations)
+    words, epoch = _words(dev, n_cta)
     f32 = lambda shape: torch.empty(shape, dtype=torch.float32, device=dev)
     st = _tracking().TrackState(
         pose=f32((4, 4)), error2=f32(()), count=f32(()),
@@ -461,19 +516,47 @@ def icp_track_levels(pose, levels, ref_vertex, ref_normal, view,
     P, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
     with torch.cuda.device(dev):
         _call(fn, [
-            (i, n), _array(P, [iv.data_ptr() for iv, _ in levels]),
+            (i, n_cta), (i, n),
+            _array(P, [iv.data_ptr() for iv, _ in levels]),
             _array(P, [inm.data_ptr() for _, inm in levels]),
             _array(ctypes.c_longlong, [iv.stride(0) for iv, _ in levels]),
             _array(ctypes.c_longlong, [iv.stride(1) for iv, _ in levels]),
             _array(i, [iv.shape[0] for iv, _ in levels]),
             _array(i, [iv.shape[1] for iv, _ in levels]),
-            _array(i, [int(k) for k in iterations]),
-            (P, ref_vertex), (P, ref_normal), (i, rH), (i, rW), (P, view),
-            (P, pose), (f, icp_threshold), (i, mode), (P, gate),
-            (i, ROBUST[robust]), (f, float(delta)),
+            _array(i, [int(it) for it in iterations]),
+            (P, ref_vertex), (P, ref_normal), (i, rH), (i, rW),
+            (P, raycast_pose), (P, k), (P, pose), (f, icp_threshold),
+            (i, mode), (P, gate), (i, ROBUST[robust]), (f, float(delta)),
             (f, float(np.float32(1.0) / delta)), (i, ASSOC[assoc]),
-            (f, DIST_THRESHOLD), (f, NORMAL_THRESHOLD), (P, partials),
-            (i, n_cta), (P, st.pose), (P, st.error2), (P, st.count),
-            (P, st.converged), (P, st.iteration), (P, result), (P, sums)],
-            _stream(dev))
+            (f, DIST_THRESHOLD), (f, NORMAL_THRESHOLD), (P, words),
+            (P, epoch), (P, st.pose), (P, st.error2), (P, st.count),
+            (P, st.converged), (P, st.iteration), (P, result), (P, sums),
+            (P, view)], _stream(dev))
     return st, result
+
+
+def solve_check(sums, poses, icp_threshold: float):
+    """The kernel's warp solve and ``solve_step`` (one thread, as
+    :func:`icp_update` runs it) on the CUDA tensors ``sums`` (float32 [n,
+    N_SUMS]) and ``poses`` (float32 [n, 4, 4]): ((pose, twist, converged)
+    of the warp solve, the same of ``solve_step``), for holding the two bit
+    for bit.  A check of the kernel's solve, not a path of the frame: its
+    launches are not counted."""
+    dev = sums.device
+    if dev.type != "cuda":
+        raise ValueError(f"solve_check: no kernel for device {dev}")
+    m = sums.shape[0]
+    _check("solve_check", dev, [
+        ("sums", sums, torch.float32, (m, N_SUMS)),
+        ("poses", poses, torch.float32, (m, 4, 4))])
+    out = [(torch.empty((m, 4, 4), dtype=torch.float32, device=dev),
+            torch.empty((m, 6), dtype=torch.float32, device=dev),
+            torch.empty(m, dtype=torch.bool, device=dev)) for _ in range(2)]
+    P = ctypes.c_void_p
+    with torch.cuda.device(dev):
+        _call("icp_solve_check", [
+            (P, sums), (P, poses), (ctypes.c_int, m),
+            (ctypes.c_float, icp_threshold),
+            *((P, t) for t in out[0]), *((P, t) for t in out[1])],
+            _stream(dev), count=False)
+    return tuple(out)

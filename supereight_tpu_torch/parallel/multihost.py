@@ -399,8 +399,7 @@ def _track_probe(comm, inp: dict, dev) -> dict:
     raycast pose, ``k``, ``iterations``, ``icp_threshold``,
     ``finest_decimate`` and the ICP knobs ``kw``)."""
     import torch
-    from supereight_tpu_torch.core.numerics import inv
-    from supereight_tpu_torch.pipeline import camera, tracking
+    from supereight_tpu_torch.pipeline import tracking
     t = lambda a: torch.as_tensor(np.asarray(a), device=dev)
     lists = {k: [t(a) for a in inp[k]]
              for k in ("depths", "vertices", "normals")}
@@ -411,10 +410,10 @@ def _track_probe(comm, inp: dict, dev) -> dict:
     pose, ok, result = tracking.track(*args, t(inp["raycast_pose"]),
                                       t(inp["k"]), inp["iterations"],
                                       inp["icp_threshold"], **kw)
-    view = camera.camera_matrix(t(inp["k"])) @ inv(t(inp["raycast_pose"]))
     st, _, _ = tracking.track_levels(
-        args[0], lists["vertices"], lists["normals"], *args[4:], view,
-        inp["iterations"], inp["icp_threshold"], **kw)
+        args[0], lists["vertices"], lists["normals"], *args[4:],
+        t(inp["raycast_pose"]), t(inp["k"]), inp["iterations"],
+        inp["icp_threshold"], **kw)
     return dict(pose=_np(pose), ok=bool(ok), result=_np(result),
                 iteration=int(st.iteration), converged=bool(st.converged))
 

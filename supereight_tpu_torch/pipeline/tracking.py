@@ -8,8 +8,9 @@ on the device (:class:`TrackState`: pose, error2, count, converged,
 iteration) and nothing read back inside the level loops.  On one device
 :func:`track_levels` is one call of
 :func:`~supereight_tpu_torch.ops.icp_kernel.icp_track_levels`: on the card
-one launch of a persistent CUDA kernel that runs every trip of every level,
-on the CPU its twin (each level's loop as :func:`_level_loop` runs it).
+one launch of a persistent CUDA kernel that forms the view from the raycast
+pose and runs every trip of every level, on the CPU its twin (each level's
+loop as :func:`_level_loop` runs it).
 Sharded (``track(shard=)``), each level runs :func:`_level_loop`: the host
 queues all ``n_iters`` trips, a trip after ``converged`` is set changes
 nothing, and a trip is one call of `ops/icp_kernel.py`'s
@@ -31,7 +32,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from supereight_tpu_torch.core.numerics import fma, inv, trunc_i32
+from supereight_tpu_torch.core.numerics import fma, trunc_i32
 from supereight_tpu_torch.ops import icp_kernel
 from . import camera
 from .constants import (DIST_THRESHOLD, INVALID, NORMAL_THRESHOLD,
@@ -263,18 +264,21 @@ def _level_loop(st: TrackState, n_iters: int, in_vertex, in_normal,
     return st, result
 
 
-def track_levels(pose, vertices, normals, ref_vertex, ref_normal, view,
-                 iterations: Sequence[int], icp_threshold: float,
-                 finest_decimate: int = 1, symmetric=False,
-                 robust: str = "none", robust_delta: float = 0.01,
-                 assoc: str = "nearest", shard=None):
-    """The coarse-to-fine level loops of :func:`track` from ``pose``, with
-    ``view`` = K @ inv(raycast_pose): no host read.  Returns (final
-    :class:`TrackState`, status image of the last level's last trip,
-    pixels of the finest level actually run, or None when they are the
-    status image's).  On one device (``shard`` None) one call of
-    ``icp_kernel.icp_track_levels``; sharded, :func:`_level_loop` a level
-    with the sums all-reduced every trip."""
+def track_levels(pose, vertices, normals, ref_vertex, ref_normal,
+                 raycast_pose, k, iterations: Sequence[int],
+                 icp_threshold: float, finest_decimate: int = 1,
+                 symmetric=False, robust: str = "none",
+                 robust_delta: float = 0.01, assoc: str = "nearest",
+                 shard=None):
+    """The coarse-to-fine level loops of :func:`track` from ``pose``
+    against the reference maps seen from ``raycast_pose`` through the
+    intrinsics ``k``: no host read.  Returns (final :class:`TrackState`,
+    status image of the last level's last trip, pixels of the finest level
+    actually run, or None when they are the status image's).  On one device
+    (``shard`` None) one call of ``icp_kernel.icp_track_levels``, which
+    forms the view K @ inv(raycast_pose) itself (on the card inside its
+    launch); sharded, the view (``icp_kernel.tracking_view``), then
+    :func:`_level_loop` a level with the sums all-reduced every trip."""
     d = finest_decimate
     knobs = dict(symmetric=symmetric, robust=robust,
                  robust_delta=robust_delta, assoc=assoc)
@@ -284,9 +288,10 @@ def track_levels(pose, vertices, normals, ref_vertex, ref_normal, view,
         levels[0] = tuple(a[::d, ::d] for a in levels[0])
     if shard is None:
         st, result = icp_kernel.icp_track_levels(
-            pose, levels, ref_vertex, ref_normal, view, iterations,
-            icp_threshold, **knobs)
+            pose, levels, ref_vertex, ref_normal, raycast_pose, k,
+            iterations, icp_threshold, **knobs)
         return st, result, None
+    view = icp_kernel.tracking_view(raycast_pose, k)
     dev = pose.device
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     st = TrackState(pose=pose.clone(), error2=zero, count=zero.clone(),
@@ -329,10 +334,9 @@ def track(pose, depths, vertices, normals, ref_vertex, ref_normal,
     whole on every rank.  Both give every rank the same sums.  The status
     image is then this rank's strip of the finest level when its rows
     divide by D (the caller gathers the strips)."""
-    view = camera.camera_matrix(k) @ inv(raycast_pose)
     st, result, n_px = track_levels(
-        pose, vertices, normals, ref_vertex, ref_normal, view, iterations,
-        icp_threshold, finest_decimate=finest_decimate, symmetric=symmetric,
+        pose, vertices, normals, ref_vertex, ref_normal, raycast_pose, k,
+        iterations, icp_threshold, finest_decimate=finest_decimate, symmetric=symmetric,
         robust=robust, robust_delta=robust_delta, assoc=assoc, shard=shard)
     d = finest_decimate
 

@@ -50,6 +50,9 @@ import subprocess
 import sys
 import time
 
+# this checkout's, imported before the package under --root takes its place
+from supereight_tpu_torch.probes.icp_times import camera_args
+
 PKG = "supereight_tpu_torch"
 
 
@@ -230,8 +233,10 @@ def icp_calls(smoke, dev, depths, poses) -> dict:
     cfg = ops["cfg"]
     refs = (ops["ref_v"], ops["ref_n"], ops["view"])
     levels = smoke.icp_level_set(ops, cfg.icp_finest_decimate)
+    cam = camera_args(icp, ops)
     out = {f"icp_track_levels_{cfg.pyramid}": lambda: icp.icp_track_levels(
-        ops["start"], levels, *refs, cfg.pyramid, cfg.icp_threshold)}
+        ops["start"], levels, *refs[:2], *cam, cfg.pyramid,
+        cfg.icp_threshold)}
     merged = "pending" in inspect.signature(icp.icp_track_reduce).parameters
     for name, (level, d, n) in TRIP_STRIPS.items():
         iv, inm = (a[::d, ::d] for a in (ops["vertices"][level],

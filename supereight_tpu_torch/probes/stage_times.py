@@ -29,7 +29,8 @@ the four parts of :data:`PARTS` (:func:`track_parts`), each timed alone
 from the state the stage starts from, on the host clock and by CUDA
 events; their medians are the run's ``parts``.  Of the other checkout
 these also take ``preprocessing.build_pyramid``, ``camera.camera_matrix``,
-``core.numerics.inv`` and ``tracking.track_levels``.
+``core.numerics.inv`` and ``tracking.track_levels`` (given the raycast
+pose and the intrinsics where it takes them, the view otherwise).
 
 It also cuts the integration stage of each of those frames in the parts
 of :data:`INT_PARTS` (:func:`integration_parts`), each timed alone the
@@ -66,9 +67,11 @@ SKIP = 16
 
 
 #: the tracking stage's parts: the pyramid (``build_pyramid``), the view
-#: (``camera_matrix(k) @ inv(raycast_pose)``, the host LU), the level
-#: loops (``track_levels``) and the divergence test with its ``bool(ok)``
-#: read
+#: (``camera_matrix(k) @ inv(raycast_pose)``: ``pose_inv`` and a matrix
+#: product, for a checkout whose level loops take the view; since the view
+#: is formed inside ``icp_track_levels``' launch, part of the loops), the
+#: level loops (``track_levels``) and the divergence test with its
+#: ``bool(ok)`` read
 PARTS = ("pyramid", "view", "loops", "read")
 
 
@@ -79,6 +82,7 @@ def track_parts(slam, depth_mm, k, frame: int):
     after it: {part: (host ms, device ms by CUDA events)}; on the CPU the
     device ms are None.  The state is left as it was.  None where the
     frame runs no ICP."""
+    import inspect
     import torch
     from supereight_tpu_torch.core.numerics import inv
     from supereight_tpu_torch.pipeline import (camera, preprocessing, system,
@@ -98,11 +102,15 @@ def track_parts(slam, depth_mm, k, frame: int):
 
     _, vertices, normals = part("pyramid", lambda: preprocessing.build_pyramid(
         st.scaled_depth, kd, len(cfg.pyramid), neg_y=neg_y))
-    view = part("view", lambda: camera.camera_matrix(kd) @ inv(
-        st.raycast_pose))
+    if "raycast_pose" in inspect.signature(tracking.track_levels).parameters:
+        # the view is formed inside the level loops' launch: no view part
+        camera_args = (st.raycast_pose, kd)
+    else:
+        camera_args = (part("view", lambda: camera.camera_matrix(kd) @ inv(
+            st.raycast_pose)),)
     carry, result, _ = part("loops", lambda: tracking.track_levels(
-        st.pose, vertices, normals, st.ref_vertex, st.ref_normal, view,
-        cfg.pyramid, cfg.icp_threshold,
+        st.pose, vertices, normals, st.ref_vertex, st.ref_normal,
+        *camera_args, cfg.pyramid, cfg.icp_threshold,
         finest_decimate=cfg.icp_finest_decimate, symmetric=sym,
         robust=cfg.icp_robust, robust_delta=cfg.icp_robust_delta,
         assoc=cfg.icp_assoc))

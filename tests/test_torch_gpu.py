@@ -786,7 +786,8 @@ def _icp_inputs(dev):
                 vertices=[to(t) for t in pyr[50][1]],
                 normals=[to(t) for t in pyr[50][2]],
                 ref_v=to(ref_v), ref_n=to(ref_n), rpose=to(rp), k=to(k),
-                view=to(camera.camera_matrix(k) @ numerics.inv(rp)),
+                # on the device, as the kernel forms it
+                view=camera.camera_matrix(to(k)) @ numerics.inv(to(rp)),
                 start=to(torch.from_numpy(z["poses"][49].astype(
                     np.float32))))
 
@@ -1078,7 +1079,7 @@ def test_icp_level_loops_read_nothing_back(cuda):
     from supereight_tpu_torch.pipeline import tracking
     inp = _icp_inputs(cuda)
     levels = (inp["vertices"], inp["normals"], inp["ref_v"], inp["ref_n"],
-              inp["view"])
+              inp["rpose"], inp["k"])
     gate = torch.tensor(True, device=cuda)
     torch.cuda.synchronize()
     before = dict(icp.LAUNCHES)
@@ -1120,6 +1121,14 @@ def _levels(inp, d):
 
 
 def _levels_args(inp, d):
+    """What icp_track_levels takes after the start pose (the raycast pose
+    and the intrinsics: the view is formed inside the launch)."""
+    return (_levels(inp, d), inp["ref_v"], inp["ref_n"], inp["rpose"],
+            inp["k"])
+
+
+def _twin_args(inp, d):
+    """What its twin takes after the start pose (the view)."""
     return (_levels(inp, d), inp["ref_v"], inp["ref_n"], inp["view"])
 
 
@@ -1136,11 +1145,12 @@ def test_icp_track_levels_matches_twin(cuda, level_set):
     from supereight_tpu_torch.pipeline import tracking
     inp = _icp_inputs(cuda)
     d = LEVEL_SETS[level_set]
-    levels, rv, rn, view = _levels_args(inp, d)
+    levels, rv, rn, view = _twin_args(inp, d)
+    cam = (inp["rpose"], inp["k"])
     for kn in _icp_knobs():
         kn = dict(kn, symmetric=_sym(kn["symmetric"], cuda))
         sums = [torch.zeros(icp.N_SUMS, device=cuda) for _ in range(2)]
-        got = icp.icp_track_levels(inp["start"], levels, rv, rn, view,
+        got = icp.icp_track_levels(inp["start"], levels, rv, rn, *cam,
                                    (1, 0, 0), 1e-5, sums=sums[0], **kn)
         want = icp.icp_track_levels_twin(inp["start"], levels, rv, rn, view,
                                          (1, 0, 0), 1e-5, sums=sums[1], **kn)
@@ -1155,7 +1165,7 @@ def test_icp_track_levels_matches_twin(cuda, level_set):
         assert not (torch.abs(g - w) > 1e-5 * w.abs() + 1e-6 * mag).any(), \
             (kn, g, w)
         assert float(got[0].count) == float(want[0].count)
-        got = icp.icp_track_levels(inp["start"], levels, rv, rn, view,
+        got = icp.icp_track_levels(inp["start"], levels, rv, rn, *cam,
                                    (10, 5, 4), 1e-5, **kn)
         want = icp.icp_track_levels_twin(inp["start"], levels, rv, rn, view,
                                          (10, 5, 4), 1e-5, **kn)
@@ -1174,6 +1184,7 @@ def test_icp_track_levels_exits_at_every_level(cuda, level_set):
     from supereight_tpu_torch.ops import icp_kernel as icp
     inp = _icp_inputs(cuda)
     args = _levels_args(inp, LEVEL_SETS[level_set])
+    twin = _twin_args(inp, LEVEL_SETS[level_set])
     run = lambda iters, thr: icp.icp_track_levels(inp["start"], *args,
                                                   iters, thr)
     exit_at_once, res = run((10, 5, 4), 1e3)
@@ -1184,7 +1195,7 @@ def test_icp_track_levels_exits_at_every_level(cuda, level_set):
     assert int(exit_at_once.iteration) == int(one_each.iteration) == 1
     for iters in ((0, 5, 4), (4, 0, 10), (4, 5, 0)):
         got, r = run(iters, 1e-5)
-        want, wr = icp.icp_track_levels_twin(inp["start"], *args, iters,
+        want, wr = icp.icp_track_levels_twin(inp["start"], *twin, iters,
                                              1e-5)
         torch.testing.assert_close(got.pose, want.pose, rtol=0, atol=1e-4)
         assert int(got.iteration) == int(want.iteration)
@@ -1211,6 +1222,8 @@ def test_icp_track_levels_is_deterministic(cuda):
         runs.append((*st, res, sums))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+    # the CTAs owning the decimated 160x120 level's pixels, all resident
+    assert icp.levels_launch(cuda, args[0], (10, 5, 4)) == 75
     assert icp.levels_grid(cuda) >= torch.cuda.get_device_properties(
         cuda).multi_processor_count
 
@@ -1219,9 +1232,9 @@ def test_icp_track_levels_is_deterministic(cuda):
 def test_icp_track_levels_rejects_what_it_does_not_take(cuda):
     from supereight_tpu_torch.ops import icp_kernel as icp
     inp = _icp_inputs(cuda)
-    levels, rv, rn, view = _levels_args(inp, 2)
-    run = lambda lv=levels, r=rv, it=(10, 5, 4), **kw: icp.icp_track_levels(
-        inp["start"], lv, r, rn, view, it, 1e-5, **kw)
+    levels, rv, rn, rpose, k = _levels_args(inp, 2)
+    run = lambda lv=levels, r=rv, it=(10, 5, 4), rp=rpose, kk=k, **kw: \
+        icp.icp_track_levels(inp["start"], lv, r, rn, rp, kk, it, 1e-5, **kw)
     swap = lambda l, pair: [pair if i == l else p
                             for i, p in enumerate(levels)]
     with pytest.raises(ValueError):                # a CPU reference map
@@ -1241,6 +1254,12 @@ def test_icp_track_levels_rejects_what_it_does_not_take(cuda):
         run(lv=levels * 3, it=(1,) * 9)
     with pytest.raises(ValueError):                # sums not float32
         run(sums=torch.zeros(icp.N_SUMS, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError):                # a raycast pose on the CPU
+        run(rp=rpose.cpu())
+    with pytest.raises(ValueError):                # not the 4 intrinsics
+        run(kk=torch.zeros(3, device=cuda))
+    with pytest.raises(ValueError):                # a view of another shape
+        run(view=torch.zeros(3, 4, device=cuda))
 
 
 @pytest.mark.gpu
@@ -1260,6 +1279,214 @@ def test_one_device_track_launches_levels_once(cuda):
         assert {k: icp.LAUNCHES[k] - n for k, n in before.items()} == dict(
             icp_track_levels=1, icp_track_reduce=0, icp_update=0)
         assert bool(ok) and tuple(res.shape) == (240, 320)
+
+
+def _solve_systems(kind, inp, dev):
+    """(sums [n, 29], poses [n, 4, 4]) of one kind of system for the warp
+    solve: random SPD normal equations (large and small twists), bad
+    pivots (singular, zero, negative and tiny diagonals), non-finite
+    entries, or the sums of the headline frame's trips."""
+    from supereight_tpu_torch.ops import icp_kernel as icp
+    rng = np.random.default_rng({"spd": 1, "bad_pivots": 2,
+                                 "non_finite": 3, "trips": 4}[kind])
+    poses = []
+    sums = []
+
+    def pose():
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = _rotation(rng.normal(size=3))
+        T[:3, 3] = rng.normal(size=3)
+        return T
+
+    def pack(e2, jte, jtj, count):
+        return icp.pack_sums(torch.tensor(e2, dtype=torch.float32),
+                             torch.from_numpy(np.float32(jte)),
+                             torch.from_numpy(np.float32(jtj)),
+                             torch.tensor(count, dtype=torch.float32))
+
+    if kind == "spd":
+        for i in range(512):
+            J = rng.normal(size=(64, 6)) * rng.uniform(0.01, 10, size=6)
+            jtj = J.T @ J
+            x = rng.normal(size=6) * 10.0 ** rng.uniform(-9, 0)
+            sums.append(pack(rng.uniform(0, 1), jtj @ x, jtj, 64.0))
+            poses.append(pose())
+    elif kind == "bad_pivots":
+        for i in range(256):
+            J = rng.normal(size=(64, 6))
+            jtj = J.T @ J
+            m = i % 4
+            if m == 0:                     # singular: a repeated column
+                J[:, 5] = J[:, 2]
+                jtj = J.T @ J
+            elif m == 1:
+                jtj = np.zeros((6, 6))
+            elif m == 2:                   # a negative diagonal
+                jtj[i % 6, i % 6] = -1.0
+            else:                          # a tiny pivot
+                jtj[i % 6] *= 1e-30
+                jtj[:, i % 6] *= 1e-30
+            sums.append(pack(1.0, rng.normal(size=6), jtj, 64.0))
+            poses.append(pose())
+    elif kind == "non_finite":
+        bad = (np.nan, np.inf, -np.inf, 3e38)
+        for i in range(256):
+            J = rng.normal(size=(64, 6))
+            jtj, jte = J.T @ J, rng.normal(size=6)
+            if i % 2:
+                jtj[i % 6, (i // 6) % 6] = bad[i % 4]
+            else:
+                jte[i % 6] = bad[i % 4]
+            sums.append(pack(1.0, jte, jtj, 64.0))
+            poses.append(pose())
+    else:
+        # every trip of the headline frame, at each level alone and the
+        # pyramid, each trip's sums as the kernel summed them
+        args = _levels_args(inp, 2)
+        for iters in ([(n, 0, 0) for n in range(1, 11)]
+                      + [(0, n, 0) for n in range(1, 6)]
+                      + [(0, 0, n) for n in range(1, 5)]):
+            s = torch.zeros(icp.N_SUMS, device=dev)
+            st, _ = icp.icp_track_levels(inp["start"], *args, iters, 0.0,
+                                         sums=s)
+            sums.append(s.cpu())
+            poses.append(st.pose.cpu().numpy())
+    return (torch.stack(sums).to(dev).contiguous(),
+            torch.from_numpy(np.stack(poses).astype(np.float32)).to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["spd", "bad_pivots", "non_finite",
+                                  "trips"])
+def test_icp_warp_solve_matches_solve_step(cuda, kind):
+    """The warp solve of ``icp_track_levels`` (the Cholesky's columns, sinf
+    and cosf, E's entries and the pose product on separate lanes) equals
+    ``solve_step`` (one thread, ``icp_update``'s) bit for bit: the new
+    pose, the twist and the exit test, at a threshold that stops nothing
+    and one that stops every finite twist."""
+    from supereight_tpu_torch.ops import icp_kernel as icp
+    sums, poses = _solve_systems(kind, _icp_inputs(cuda), cuda)
+    bits = lambda t: t.contiguous().view(torch.int32)
+    for thr in (0.0, 1e-5, 1e3):
+        warp, one = icp.solve_check(sums, poses, thr)
+        for a, b in zip(warp[:2], one[:2]):
+            assert torch.equal(bits(a), bits(b)), (kind, thr)
+        assert torch.equal(warp[2], one[2])
+    if kind == "bad_pivots":
+        # a zero, negative or underflowing pivot: a zero twist, the pose
+        # unchanged (a singular system rounds to a positive pivot)
+        caught = torch.arange(len(poses), device=cuda) % 4 != 0
+        assert torch.equal(bits(one[0][caught]), bits(poses[caught]))
+        assert not bool(one[1][caught].any())
+    if kind == "spd":
+        assert bool(torch.isfinite(one[1]).all())
+        assert float(one[1].abs().max()) > 0.1
+
+
+def _card_views(poses, k, dev):
+    """The card's ``camera_matrix(k) @ inv(pose)`` of each pose and the
+    view ``icp_track_levels`` forms inside its launch."""
+    from supereight_tpu_torch.core import numerics
+    from supereight_tpu_torch.ops import icp_kernel as icp
+    from supereight_tpu_torch.pipeline import camera
+    z = torch.zeros((1, 1, 3), device=dev)
+    want, got = [], []
+    for p in poses:
+        rp = torch.from_numpy(np.ascontiguousarray(p, np.float32)).to(dev)
+        want.append(camera.camera_matrix(k) @ numerics.inv(rp))
+        view = torch.empty((4, 4), device=dev)
+        icp.icp_track_levels(torch.eye(4, device=dev), [(z, z)], z, z, rp, k,
+                             (0,), 0.0, view=view)
+        got.append(view)
+    return torch.stack(got), torch.stack(want)
+
+
+@pytest.mark.gpu
+def test_icp_track_levels_forms_the_cards_view(cuda):
+    """The view formed inside the launch (lu_inverse.cuh's inverse, then
+    K's products added in order) equals the card's ``camera_matrix(k) @
+    inv(raycast_pose)`` (``pose_inv`` and PyTorch's product) bit for bit:
+    every pose of the cached sequences at the smoke's intrinsics and at
+    half of them, and a fuzz of rigid poses, axis-aligned rotations (exact
+    and signed zeros) and intrinsics."""
+    import glob
+    rng = np.random.default_rng(7)
+    seqs = sorted(glob.glob(os.path.join(os.path.dirname(BENCH),
+                                         "synthetic_256_frames*.npz")))
+    poses = np.concatenate([np.load(f)["poses"] for f in seqs])
+    fuzz = []
+    for i in range(600):
+        T = np.eye(4)
+        if i % 3:
+            T[:3, :3] = _rotation(rng.normal(size=3))
+        else:
+            perm = rng.permutation(3)
+            for r in range(3):
+                T[r, :3] = 0.0
+                T[r, perm[r]] = rng.choice((-1.0, 1.0))
+        T[:3, 3] = rng.normal(size=3) * (3 if i % 2 else 0)
+        fuzz.append(T)
+    ks = [np.array([240.6, 240.0, 160.0, 120.0], np.float32)]
+    ks.append(ks[0] / 2)
+    ks += [rng.uniform(50, 700, size=4).astype(np.float32) for _ in range(4)]
+    for i, k in enumerate(ks):
+        kt = torch.from_numpy(k).to(cuda)
+        got, want = _card_views(poses if i < 2 else fuzz[i::4], kt, cuda)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), k
+    got, want = _card_views(fuzz, torch.from_numpy(ks[0]).to(cuda), cuda)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_icp_track_levels_refuses_what_it_cannot_schedule(cuda, monkeypatch):
+    """A cooperative grid of more CTAs than the card holds at once (the
+    whole 320x240 level's 300 CTAs where the card is said to hold more) is
+    refused by the launch: the wrapper raises, counts no launch and gives
+    no twin's result; at the card's own limit the same levels run."""
+    from supereight_tpu_torch.ops import icp_kernel as icp
+    inp = _icp_inputs(cuda)
+    args = _levels_args(inp, 1)
+    n = icp.levels_grid(cuda)
+    assert icp.levels_launch(cuda, args[0], (1, 1, 1)) == min(n, 300)
+    monkeypatch.setitem(icp._GRID, torch.cuda.current_device(), 4 * n)
+    assert icp.levels_launch(cuda, args[0], (1, 1, 1)) == 300 > n
+    before = dict(icp.LAUNCHES)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        icp.icp_track_levels(inp["start"], *args, (1, 1, 1), 1e-5)
+    assert icp.LAUNCHES == before
+    monkeypatch.undo()
+    st, _ = icp.icp_track_levels(inp["start"], *args, (1, 1, 1), 1e-5)
+    assert int(st.iteration) == 1 and icp.LAUNCHES["icp_track_levels"] == \
+        before["icp_track_levels"] + 1
+
+
+@pytest.mark.gpu
+def test_icp_track_levels_in_a_cuda_graph(cuda):
+    """``track_levels`` captured into a CUDA graph (the cooperative launch
+    and its exchange's words): each replay equals an eager launch on the
+    same operands bit for bit (the carry and the status image), three
+    times in a row, with eager launches on the same stream between them."""
+    from supereight_tpu_torch.pipeline import tracking
+    inp = _icp_inputs(cuda)
+    args = (inp["start"], inp["vertices"], inp["normals"], inp["ref_v"],
+            inp["ref_n"], inp["rpose"], inp["k"], (10, 5, 4), 1e-5)
+    eager = tracking.track_levels(*args, finest_decimate=2)[:2]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tracking.track_levels(*args, finest_decimate=2)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = tracking.track_levels(*args, finest_decimate=2)[:2]
+    for _ in range(3):
+        g.replay()
+        torch.cuda.synchronize()
+        for a, b in zip((*out[0], out[1]), (*eager[0], eager[1])):
+            assert torch.equal(a, b)
+        again = tracking.track_levels(*args, finest_decimate=2)[:2]
+        for a, b in zip((*again[0], again[1]), (*eager[0], eager[1])):
+            assert torch.equal(a, b)
 
 
 # ----------------------------------------------------------------------
@@ -1666,10 +1893,11 @@ def test_glue_reads_nothing_back(cuda):
     torch.cuda.synchronize()
     delta = {k: n - b.get(k, 0) for c, b in zip(counts, before)
              for k, n in c.items()}
-    # the tracking view's inverse; the fusion's is inside the selection
+    # no inverse: the tracking view's is inside icp_track_levels' launch,
+    # the fusion's inside the selection's
     assert delta == dict(fuse_sdf=1, fuse_ofusion=0, frustum_select=1,
                          update_nodes=1, icp_track_reduce=0, icp_update=0,
-                         icp_track_levels=1, build_pyramid=1, pose_inv=1)
+                         icp_track_levels=1, build_pyramid=1, pose_inv=0)
     want = integration.integrate(kept, field, depth.cpu(), pose.cpu(),
                                  K.cpu(), timestamp,
                                  budget=cfg.integrate_budget)

@@ -147,6 +147,8 @@ def test_issue_lower_bound_sums_warp_classes():
      "kernelENS_6SelectE", "frustum_select"),
     ("_ZN41_GLOBAL__N__9e3a1c7b_6_icp_cu_4c2d8f1023icp_track_reduce_kernelE"
      "NS_5LevelENS_5KnobsEPKfNS_5CarryEifS4_PiPfPjS7_", "icp_track_reduce"),
+    ("_ZN38_GLOBAL__N__5b90e1d1_6_icp_cu_8d66285623icp_track_levels_kernelE"
+     "NS_6LevelsENS_5KnobsEPKfS3_S3_fPyPjNS_9LevelsOutE", "icp_track_levels"),
 ])
 def test_kernel_names(func, name):
     assert sc.kernel_name(func) == name

@@ -84,6 +84,12 @@ def _view(m):
                       @ jnp.linalg.inv(jnp.asarray(m["rpose"])))
 
 
+def _cam(m):
+    """The raycast pose and the intrinsics, as ``track_levels`` and
+    ``icp_track_levels`` take them in place of the view."""
+    return _t(m["rpose"]), _t(K)
+
+
 def _flips(a, b):
     return float((a != b).mean())
 
@@ -406,7 +412,7 @@ def test_device_loop_equals_host_loop(maps, assoc, symmetric, robust):
     assert any(trips == n and not conv for trips, conv, n in ran), ran
     whole, res, _ = tracking.track_levels(
         start, [_t(v) for v in maps["vertices"]],
-        [_t(v) for v in maps["normals"]], rv, rn, view, LOOP_ITERS,
+        [_t(v) for v in maps["normals"]], rv, rn, *_cam(maps), LOOP_ITERS,
         LOOP_THRESHOLD, finest_decimate=2, **kn)
     for got, want in zip(whole, st):
         assert torch.equal(got, want)
@@ -517,10 +523,11 @@ def test_levels_twin_equals_level_loops(maps, assoc, symmetric, robust,
     assert torch.equal(res, wres) and res.shape == levels[0][0].shape[:2]
     # the wrapper takes the twin for CPU tensors; track_levels takes it
     again, ares = icp_kernel.icp_track_levels(
-        start, levels, rv, rn, view, LOOP_ITERS, LOOP_THRESHOLD, **kn)
+        start, levels, rv, rn, *_cam(maps), LOOP_ITERS, LOOP_THRESHOLD,
+        **kn)
     whole, tres, n_px = tracking.track_levels(
         start, [_t(v) for v in maps["vertices"]],
-        [_t(v) for v in maps["normals"]], rv, rn, view, LOOP_ITERS,
+        [_t(v) for v in maps["normals"]], rv, rn, *_cam(maps), LOOP_ITERS,
         LOOP_THRESHOLD, finest_decimate=decimate, **kn)
     assert n_px is None
     for st, r in ((again, ares), (whole, tres)):
@@ -540,8 +547,9 @@ def test_levels_without_trips(maps, iters):
     levels = _pyramid(maps, 2)
     want, wres = _composed_levels(start, levels, iters, rv, rn, view,
                                   LOOP_THRESHOLD)
-    got, res = icp_kernel.icp_track_levels(start, levels, rv, rn, view,
-                                           iters, LOOP_THRESHOLD)
+    got, res = icp_kernel.icp_track_levels(start, levels, rv, rn,
+                                           *_cam(maps), iters,
+                                           LOOP_THRESHOLD)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert torch.equal(res, wres)
@@ -563,9 +571,9 @@ def test_levels_twin_sums_are_the_last_trips(maps):
     start = _t(maps["start"])
     levels = _pyramid(maps, 1)
     sums = torch.full((icp_kernel.N_SUMS,), float("nan"))
-    st, res = icp_kernel.icp_track_levels(start, levels, rv, rn, view,
-                                          (1, 0, 0), LOOP_THRESHOLD,
-                                          sums=sums)
+    st, res = icp_kernel.icp_track_levels(start, levels, rv, rn,
+                                          *_cam(maps), (1, 0, 0),
+                                          LOOP_THRESHOLD, sums=sums)
     td = tracking.track_kernel(*levels[0], rv, rn, start, view)
     want = icp_kernel.pack_sums(*tracking.reduce_kernel(td))
     assert torch.equal(sums, want) and torch.equal(res, td.result)
@@ -574,17 +582,54 @@ def test_levels_twin_sums_are_the_last_trips(maps):
     assert int(st.iteration) == 1
 
 
+@pytest.mark.parametrize("frame", [0, REF, 57, 95])
+def test_levels_wrapper_forms_the_view(maps, frame):
+    """The wrapper takes the raycast pose and the intrinsics: on the CPU it
+    forms the view (``tracking_view``, which ``view=`` takes) equal to
+    JAX's ``camera_matrix(k) @ inv(raycast_pose)`` bit for bit, and runs
+    the twin on it; ``track_levels`` passes both through."""
+    _, poses = load_frames()
+    rpose = poses[frame].astype(np.float32)
+    want_view = np.asarray(jcam.camera_matrix(jnp.asarray(K))
+                           @ jnp.linalg.inv(jnp.asarray(rpose)))
+    rv, rn = _t(maps["ref_v"]), _t(maps["ref_n"])
+    start = _t(maps["start"])
+    levels = _pyramid(maps, 2)
+    view = torch.full((4, 4), float("nan"))
+    got, res = icp_kernel.icp_track_levels(start, levels, rv, rn, _t(rpose),
+                                           _t(K), (2, 1, 1), LOOP_THRESHOLD,
+                                           view=view)
+    assert np.array_equal(view.numpy().view(np.int32),
+                          want_view.view(np.int32))
+    want, wres = icp_kernel.icp_track_levels_twin(
+        start, levels, rv, rn, _t(want_view), (2, 1, 1), LOOP_THRESHOLD)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(res, wres)
+    whole, tres, _ = tracking.track_levels(
+        start, [_t(v) for v in maps["vertices"]],
+        [_t(v) for v in maps["normals"]], rv, rn, _t(rpose), _t(K),
+        (2, 1, 1), LOOP_THRESHOLD, finest_decimate=2)
+    for a, b in zip(whole, want):
+        assert torch.equal(a, b)
+    assert torch.equal(tres, wres)
+
+
 def test_levels_wrapper_rejects_a_device_without_kernel(maps):
     """Tensors on neither the CPU nor a CUDA device: ``icp_track_levels``
-    raises rather than falling back to the twin."""
-    rv, rn, view = _t(maps["ref_v"]), _t(maps["ref_n"]), _t(_view(maps))
+    raises rather than falling back to the twin (the CPU's view would
+    need the twin's inverse), with or without a ``view`` to fill."""
+    rv, rn = _t(maps["ref_v"]), _t(maps["ref_n"])
     start = _t(maps["start"])
     levels = _pyramid(maps, 2)
     meta = lambda t: t.to("meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        icp_kernel.icp_track_levels(
-            meta(start), [tuple(map(meta, lv)) for lv in levels], meta(rv),
-            meta(rn), meta(view), LOOP_ITERS, LOOP_THRESHOLD)
+    rpose, k = _cam(maps)
+    for kw in (dict(), dict(view=torch.empty((4, 4), device="meta"))):
+        with pytest.raises(ValueError, match="no kernel"):
+            icp_kernel.icp_track_levels(
+                meta(start), [tuple(map(meta, lv)) for lv in levels],
+                meta(rv), meta(rn), meta(rpose), meta(k), LOOP_ITERS,
+                LOOP_THRESHOLD, **kw)
 
 
 def _jax_carry(pose):
@@ -744,7 +789,7 @@ def test_sharded_device_loop_matches_one_device(maps, sharded, name):
         _t(maps["start"]), *args, _t(maps["rpose"].astype(np.float32)),
         _t(K), LOOP_ITERS, LOOP_THRESHOLD, finest_decimate=2, **kw)
     st, _, _ = tracking.track_levels(
-        _t(maps["start"]), *args[1:], _t(_view(maps)), LOOP_ITERS,
+        _t(maps["start"]), *args[1:], *_cam(maps), LOOP_ITERS,
         LOOP_THRESHOLD, finest_decimate=2, **kw)
     ranks = sharded[name]
     np.testing.assert_array_equal(ranks[0]["pose"], ranks[1]["pose"])
