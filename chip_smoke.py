@@ -2930,26 +2930,28 @@ def check_held_view(torch, name, slam):
 
 def print_stage_times(name, cfg, depths, poses, dev):
     """Median host time per stage (device synchronised after each) over
-    the frames after the first 16, from a second run with step_staged, and
-    the tracking stage's four parts (``probes/stage_times.track_parts``:
-    the pyramid, the view's host LU, the level loops, the ``bool(ok)``
-    read, each timed alone on the host clock and by CUDA events)."""
+    the frames after the first 16, from a second run with step_staged,
+    and each of the port's spans' median host and self ms from a third
+    run through ``step`` with tracing on
+    (``probes/stage_times.span_medians``)."""
     from supereight_tpu_torch.pipeline import DenseSLAMSystem
     from supereight_tpu_torch.probes import stage_times
+    from supereight_tpu_torch.utils.perfstats import Stats
     slam = DenseSLAMSystem((240, 320), cfg, dev)
     slam.setPose(poses[0])
     t0 = time.perf_counter()
-    stages, parts, int_parts, ray_parts = stage_times.staged_run(
-        slam, depths, K)
+    stages = stage_times.staged_run(slam, depths, K)
     print(f"# {name}: median ms per stage after the first 16 frames "
           f"(step_staged, {time.perf_counter() - t0:.1f} s): " + ", ".join(
               f"{k} {v:.2f}" for k, v in stages.items()))
-    for what, cut in (("tracking", parts), ("integration", int_parts),
-                      ("raycast", ray_parts)):
-        if cut:
-            print(f"# {name}: {what} stage parts, median host / device ms "
-                  "(each alone, synchronised): "
-                  + stage_times.format_parts(cut))
+    slam = DenseSLAMSystem((240, 320), cfg, dev)
+    slam.setPose(poses[0])
+    with Stats.tracing() as spans:
+        run = stage_times.step_run(slam, depths, poses, K, ate_rmse)
+    print(f"# {name}: spans of a step run with tracing on ({run['step']:.2f}"
+          " ms a frame), median host / self ms (spans): " + ", ".join(
+              f"{n} {h:.3f} / {s:.3f} ({c})" for n, (h, s, c) in
+              stage_times.span_medians(spans).items()))
 
 
 def run_preset(torch, name, dev, kernels):

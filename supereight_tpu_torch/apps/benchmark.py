@@ -62,7 +62,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-frames", type=int, default=0)
     p.add_argument("--field", choices=("sdf", "ofusion"), default="sdf")
     p.add_argument("--staged", action="store_true",
-                   help="time each stage: fills the per-stage TSV columns")
+                   help="time each stage: fills the per-stage TSV columns "
+                   "and traces the spans (the summary lists them)")
     p.add_argument("--raycast-rate", type=int, default=1,
                    help="refresh reference maps every Nth frame")
     p.add_argument("--adaptive-raycast", type=float, default=0.0,
@@ -236,7 +237,8 @@ def run(argv=None) -> Run:
         n = min(n, args.max_frames)
     t_start = time.perf_counter()
     with (open(args.log_file, "w") if args.log_file
-          else contextlib.nullcontext(sys.stdout)) as log:
+          else contextlib.nullcontext(sys.stdout)) as log, \
+            (Stats.tracing() if args.staged else contextlib.nullcontext()):
         est_poses, images = _stream(args, reader, slam, k, gt_poses, n,
                                     t_start, log)
     wall = time.perf_counter() - t_start

@@ -11,6 +11,8 @@ import struct
 import numpy as np
 import torch
 
+from supereight_tpu_torch.utils.perfstats import Stats
+
 _I32_MAX = 2147483647
 _F32_BELOW_2_31 = 2147483520.0     # largest float32 below 2^31
 
@@ -47,7 +49,8 @@ def _addcmul_fuses(device_type: str) -> bool:
     x = torch.full((1,), 1 + 2 ** -12, dtype=torch.float32,
                    device=device_type)
     y = torch.addcmul(torch.full_like(x, -(1 + 2 ** -11)), x, x)
-    return float(y[0]) == 2 ** -24
+    with Stats.host_read("fma_probe"):
+        return float(y[0]) == 2 ** -24
 
 
 def _fma_round_to_odd(a, b, c) -> torch.Tensor:

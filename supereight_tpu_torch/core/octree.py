@@ -23,6 +23,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from supereight_tpu_torch.utils.perfstats import Stats
 from . import morton
 from .numerics import trunc_i32
 
@@ -173,14 +174,22 @@ def live_slots(m: VoxelMap) -> torch.Tensor:
     return torch.nonzero(slot_mask(m))[:, 0]
 
 
-def scatter_drop(dst: torch.Tensor, idx: torch.Tensor, src) -> torch.Tensor:
+def scatter_drop(dst: torch.Tensor, idx: torch.Tensor, src,
+                 site: str = "scatter_value") -> torch.Tensor:
     """``dst`` with ``dst[idx] = src`` where ``idx`` < len(dst), dropping
     the rest (JAX's ``.at[idx].set(src, mode="drop")`` for the sentinel
     index ``len(dst)``): the sentinel lands in a scratch row that is cut
-    off, so no index leaves the tensor and the host never syncs."""
+    off, so no index leaves the tensor.  A host scalar ``src`` is copied
+    to the device first, which waits for its stream: the host read
+    ``site``."""
     n = dst.shape[0]
     ext = torch.cat([dst, dst[:1]])
-    ext[idx.clamp(0, n).long()] = src
+    idx = idx.clamp(0, n).long()
+    if isinstance(src, torch.Tensor):
+        ext[idx] = src
+    else:
+        with Stats.host_read(site):
+            ext[idx] = src
     return ext[:n]
 
 
@@ -212,7 +221,7 @@ def allocate_block_mask(m: VoxelMap, wanted: torch.Tensor) -> VoxelMap:
                         new_keys)
     touched = wanted.reshape(D, -1) & (flat_new >= 0)
     active = scatter_drop(m.active, torch.where(touched, flat_new, cap)
-                          .reshape(-1), True)
+                          .reshape(-1), True, "alloc_active")
 
     n_new = counts + total_new
     new_counts = torch.clamp(n_new, max=per_cap)

@@ -41,6 +41,7 @@ from supereight_tpu_torch.core.octree import (BLOCK_SIDE, BLOCK_VOXELS,
                                               VoxelMap)
 from supereight_tpu_torch.fields.ofusion import OFusionField
 from supereight_tpu_torch.fields.sdf import SDFField
+from supereight_tpu_torch.utils.perfstats import Stats
 from . import _build, look_back
 
 PATCH = 16          # depth patch side per block, in strided pixels
@@ -454,7 +455,9 @@ def _launch(fn: str, m: VoxelMap, names: Tuple[str, str],
     if slots is None and m.partitions > 1:
         # the whole-table branch takes the live slots as a prefix of the
         # table: list a partitioned map's live slots instead
-        slots = torch.nonzero(octree.slot_mask(m) & m.active)[:, 0].int()
+        listed = octree.slot_mask(m) & m.active
+        with Stats.host_read("fuse_slots"):
+            slots = torch.nonzero(listed)[:, 0].int()
     cap = m.capacity
     H, W = depth.shape
     specs = [("channel 0", a, torch.float32, (cap, BLOCK_VOXELS), 16),

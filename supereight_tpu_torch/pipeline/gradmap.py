@@ -23,6 +23,7 @@ from supereight_tpu_torch.core import octree
 from supereight_tpu_torch.core.numerics import trunc_i32
 from supereight_tpu_torch.core.octree import (BLOCK_SIDE, BLOCK_VOXELS,
                                               VoxelMap)
+from supereight_tpu_torch.utils.perfstats import Stats
 
 #: table layout: [capacity, 512, 4] bf16 rows (gx, gy, gz, F): g* the
 #: per-voxel-step central difference 0.5 * (f[v+e] - f[v-e]), F the
@@ -92,8 +93,9 @@ def build_table(m: VoxelMap, field) -> torch.Tensor:
         comps.append(0.5 * (plus.to(torch.float32) - minus.to(torch.float32)))
     comps.append(F.to(torch.float32))
     table = torch.stack(comps, dim=-1).to(torch.bfloat16)
-    dead = torch.tensor([0.0, 0.0, 0.0, float("nan")], device=f.device) \
-        .to(torch.bfloat16)
+    with Stats.host_read("grad_dead"):
+        dead = torch.tensor([0.0, 0.0, 0.0, float("nan")],
+                            device=f.device).to(torch.bfloat16)
     return torch.where(live[:, None, None], table, dead)
 
 

@@ -104,7 +104,7 @@ def sdf_wanted_mask(depth, pose, K, *, size: int, dim: float, band: float,
     wanted = torch.zeros((B * B * B,), dtype=torch.bool, device=depth.device)
     # scatter True at the ok entries only (duplicates all write True)
     return octree.scatter_drop(wanted, torch.where(ok, lin, B * B * B),
-                               True).reshape(B, B, B)
+                               True, "march_mask").reshape(B, B, B)
 
 
 def allocate_sdf(m: VoxelMap, depth, pose, K, band: float,
@@ -174,7 +174,8 @@ def ofusion_wanted_masks(m: VoxelMap, depth, pose, K, band: float,
         # scatter True at the ok entries only (duplicates all write True)
         masks[level] = octree.scatter_drop(
             masks[level].reshape(-1),
-            torch.where(ok.reshape(-1), lin, n * n * n), True).reshape(n, n, n)
+            torch.where(ok.reshape(-1), lin, n * n * n), True,
+            "octant_mask").reshape(n, n, n)
 
     f32 = dict(dtype=torch.float32, device=dev)
     # zone 1: voxel steps through the band -> blocks

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from supereight_tpu_torch.core import octree
 from supereight_tpu_torch.core.numerics import div, dot3, inv, trunc_i32
 from supereight_tpu_torch.core.octree import BLOCK_SIDE, VoxelMap
+from supereight_tpu_torch.utils.perfstats import Stats
 from . import camera, gradmap
 from .constants import INVALID
 from .preprocessing import norm
@@ -110,7 +111,9 @@ def view_alloc_fill(view: torch.Tensor, m: VoxelMap, live_before,
     flip from the unallocated fill to the encoding of fresh voxels (weight
     0 -> NaN).  Fusion updates every later change
     (``integration.integrate(view=)``)."""
-    newly = torch.nonzero(octree.slot_mask(m) & ~live_before)[:, 0]
+    new = octree.slot_mask(m) & ~live_before
+    with Stats.host_read("view_fill"):
+        newly = torch.nonzero(new)[:, 0]
     return view.index_fill_(0, octree.block_rows(m)[newly],
                             _fill_value(m, field, "init"))
 
@@ -670,23 +673,29 @@ def _raycast(phases, m: VoxelMap, field, view, H: int, W: int, near: float,
         raise ValueError(f"unknown normals mode {normals!r}")
     if refine not in ("secant", "interp", "plane"):
         raise ValueError(f"unknown refine mode {refine!r}")
-    plan = scan_plan(m, field, H, W, near, far, span_factor, scan_stride,
-                     full_res_scan, row_range)
+    with Stats.span("se.raycasting.plan"):
+        plan = scan_plan(m, field, H, W, near, far, span_factor,
+                         scan_stride, full_res_scan, row_range)
     if dense is None:
-        dense = pack_view(m, field)
+        with Stats.span("se.raycasting.pack_view"):
+            dense = pack_view(m, field)
     if normals == "stored" and grad_table is None:
         grad_table = gradmap.build_table(m, field)
-    tmin, tmax, g = phases["splat"](m, field, view, H, W, near, far,
-                                    near_rescue=near_rescue,
-                                    inside_any=inside_any)
-    scan = phases["scan"](m, dense, field, view, plan, tmin, tmax, g,
-                          second_window, w2_budget, midsolve)
-    fin = ray_finish(m, dense, field, view, plan, scan, normals=normals,
-                     refine=refine, grad_decim=grad_decim,
-                     grad_table=grad_table, refine_normals=phases["finish"])
-    normal = fin.normal
-    if normal is None:
-        normal = gradient_normals(m, field, fin, normals, grad_table)
+    with Stats.span("se.raycasting.splat"):
+        tmin, tmax, g = phases["splat"](m, field, view, H, W, near, far,
+                                        near_rescue=near_rescue,
+                                        inside_any=inside_any)
+    with Stats.span("se.raycasting.scan"):
+        scan = phases["scan"](m, dense, field, view, plan, tmin, tmax, g,
+                              second_window, w2_budget, midsolve)
+    with Stats.span("se.raycasting.finish"):
+        fin = ray_finish(m, dense, field, view, plan, scan, normals=normals,
+                         refine=refine, grad_decim=grad_decim,
+                         grad_table=grad_table,
+                         refine_normals=phases["finish"])
+        normal = fin.normal
+        if normal is None:
+            normal = gradient_normals(m, field, fin, normals, grad_table)
     return RaycastResult(vertex=fin.vertex, normal=normal, t_hit=fin.t_hit)
 
 

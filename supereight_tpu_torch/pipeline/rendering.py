@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from supereight_tpu_torch.core.numerics import div, sqrt
+from supereight_tpu_torch.utils.perfstats import Stats
 from . import raycast as _raycast
 from .constants import AMBIENT, FAR_PLANE, INVALID, LIGHT, NEAR_PLANE
 
@@ -62,8 +63,9 @@ _TRACK_COLORS = (
 
 def render_track(result: torch.Tensor) -> torch.Tensor:
     """renderTrackKernel (`rendering.cpp:154-212`): ICP status colors."""
-    table = torch.tensor(_TRACK_COLORS, dtype=torch.uint8,
-                         device=result.device)
+    with Stats.host_read("track_colors"):
+        table = torch.tensor(_TRACK_COLORS, dtype=torch.uint8,
+                             device=result.device)
     rgb = table[(result + 6).clamp(0, 7).long()]
     return torch.cat([rgb, torch.zeros_like(rgb[..., :1])], -1)
 
@@ -87,8 +89,11 @@ def render_volume(m, field, view, H: int, W: int, light=LIGHT,
         rc = _raycast.raycast(m, field, view, H, W, near, far)
         vertex, normal = rc.vertex, rc.normal
     dev = vertex.device
-    light = torch.tensor(light, dtype=torch.float32, device=dev)
-    ambient = torch.tensor(ambient, dtype=torch.float32, device=dev)
+    # host values copied to the device: each copy waits for its stream
+    with Stats.host_read("light"):
+        light = torch.tensor(light, dtype=torch.float32, device=dev)
+    with Stats.host_read("ambient"):
+        ambient = torch.tensor(ambient, dtype=torch.float32, device=dev)
     diff = _unit(vertex - light)
     n = _unit(normal)
     prod = n * diff

@@ -23,6 +23,7 @@ from supereight_tpu_torch.config import SlamConfig
 from supereight_tpu_torch.core import octree
 from supereight_tpu_torch.core.volume import Volume
 from supereight_tpu_torch.fields import make_field
+from supereight_tpu_torch.utils.perfstats import Stats
 from . import (camera, gradmap, integration, preprocessing, raycast,
                rendering, tracking)
 from .constants import FAR_PLANE, INVALID, NEAR_PLANE
@@ -88,6 +89,7 @@ def init_state(size: int, dim: float, field, H: int, W: int, init_pose,
         else None)
 
 
+@Stats.spanned("se.preprocessing.stage")
 def preprocessing_stage(state: FrameState, depth_mm,
                         cfg: SlamConfig) -> FrameState:
     """Integer depth is millimetres, float depth is metres; both are
@@ -104,6 +106,7 @@ def preprocessing_stage(state: FrameState, depth_mm,
     return state.replace(float_depth=float_depth, scaled_depth=scaled_depth)
 
 
+@Stats.spanned("se.tracking.stage")
 def tracking_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
                    neg_y: bool, gt_pose=None, shard=None) -> FrameState:
     """Coarse-to-fine ICP against the last raycast's reference maps.  A
@@ -119,19 +122,23 @@ def tracking_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
                              prev_pose=state.pose.clone())
     if frame % cfg.tracking_rate != 0:
         return state.replace(tracked=False)
-    depths, vertices, normals = preprocessing.build_pyramid(
-        state.scaled_depth, k, len(cfg.pyramid), neg_y=neg_y)
+    with Stats.span("se.tracking.pyramid"):
+        depths, vertices, normals = preprocessing.build_pyramid(
+            state.scaled_depth, k, len(cfg.pyramid), neg_y=neg_y)
     sym = cfg.icp_symmetric
     if sym == "auto":
         sym = _sym_auto_gate(state, cfg.icp_sym_min_deg, cfg.icp_sym_max_deg)
-    new_pose, ok, result = tracking.track(
-        state.pose, depths, vertices, normals, state.ref_vertex,
-        state.ref_normal, state.raycast_pose, k, cfg.pyramid,
-        cfg.icp_threshold, finest_decimate=cfg.icp_finest_decimate,
-        symmetric=sym, robust=cfg.icp_robust,
-        robust_delta=cfg.icp_robust_delta, assoc=cfg.icp_assoc,
-        shard=shard)
-    return state.replace(pose=new_pose, tracked=bool(ok),
+    with Stats.span("se.tracking.icp"):
+        new_pose, ok, result = tracking.track(
+            state.pose, depths, vertices, normals, state.ref_vertex,
+            state.ref_normal, state.raycast_pose, k, cfg.pyramid,
+            cfg.icp_threshold, finest_decimate=cfg.icp_finest_decimate,
+            symmetric=sym, robust=cfg.icp_robust,
+            robust_delta=cfg.icp_robust_delta, assoc=cfg.icp_assoc,
+            shard=shard)
+    with Stats.host_read("tracked"):
+        tracked = bool(ok)
+    return state.replace(pose=new_pose, tracked=tracked,
                          track_result=result, prev_pose=state.pose)
 
 
@@ -152,13 +159,16 @@ def _sym_auto_gate(state: FrameState, min_deg: float,
     return (ang >= min_deg) & (ang <= max_deg)
 
 
-def _moved(pose, ref_pose, deg: float, dist: float) -> bool:
+def _moved(pose, ref_pose, deg: float, dist: float, site: str) -> bool:
     """Whether ``pose`` rotated more than ``deg`` degrees or moved more
-    than ``dist`` metres since ``ref_pose`` (the motion gates)."""
+    than ``dist`` metres since ``ref_pose`` (the motion gates; ``site``
+    names the gate's host read)."""
     dR = pose[:3, :3] @ ref_pose[:3, :3].T
     cos_ang = 0.5 * (torch.trace(dR) - 1.0)
     d = norm(pose[:3, 3] - ref_pose[:3, 3])
-    return bool((cos_ang < math.cos(math.radians(deg))) | (d > dist))
+    moved = (cos_ang < math.cos(math.radians(deg))) | (d > dist)
+    with Stats.host_read(site):
+        return bool(moved)
 
 
 def _alloc_fires(state: FrameState, depth, K, frame: int,
@@ -173,13 +183,15 @@ def _alloc_fires(state: FrameState, depth, K, frame: int,
         frac = integration.unallocated_fraction(
             state.map, depth, state.pose, K,
             border=cfg.alloc_on_demand_border)
-        return bool(frac > cfg.alloc_on_demand)
+        with Stats.host_read("alloc_demand"):
+            return bool(frac > cfg.alloc_on_demand)
     if cfg.alloc_adaptive_deg > 0.0:
         return _moved(state.pose, state.alloc_pose, cfg.alloc_adaptive_deg,
-                      cfg.alloc_adaptive_dist)
+                      cfg.alloc_adaptive_dist, "alloc_motion")
     return cfg.alloc_rate <= 1 or frame % cfg.alloc_rate == 0
 
 
+@Stats.spanned("se.integration.stage")
 def integration_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
                       field) -> FrameState:
     """Fuse when tracked against a model map or during the bootstrap
@@ -202,30 +214,36 @@ def integration_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
     live_before = octree.slot_mask(m)
     a_pose, a_count = state.alloc_pose, state.alloc_count
     if _alloc_fires(state, depth, K, frame, cfg):
-        if field.multiscale_alloc:
-            m = integration.allocate_ofusion(m, depth, pose, K,
+        with Stats.span("se.integration.march"):
+            if field.multiscale_alloc:
+                m = integration.allocate_ofusion(m, depth, pose, K,
+                                                 field.alloc_band(),
+                                                 phase=a_count)
+            else:
+                m = integration.allocate_sdf(m, depth, pose, K,
                                              field.alloc_band(),
-                                             phase=a_count)
-        else:
-            m = integration.allocate_sdf(m, depth, pose, K,
-                                         field.alloc_band(),
-                                         stride=cfg.alloc_stride)
+                                             stride=cfg.alloc_stride)
         a_pose, a_count = pose.clone(), a_count + 1
     args = dict(timestamp=timestamp, budget=cfg.integrate_budget,
                 patch=cfg.integrate_patch)
     if view is not None and not field.multiscale_alloc:
-        view = raycast.view_alloc_fill(view, m, live_before, field)
-        m, view = integration.integrate(m, field, depth, pose, K, view=view,
-                                        **args)
+        with Stats.span("se.integration.view_fill"):
+            view = raycast.view_alloc_fill(view, m, live_before, field)
+        with Stats.span("se.integration.fuse"):
+            m, view = integration.integrate(m, field, depth, pose, K,
+                                            view=view, **args)
     else:
-        m = integration.integrate(m, field, depth, pose, K, **args)
+        with Stats.span("se.integration.fuse"):
+            m = integration.integrate(m, field, depth, pose, K, **args)
         if view is not None:
-            view = raycast.pack_view(m, field)["F"]
+            with Stats.span("se.integration.view_fill"):
+                view = raycast.pack_view(m, field)["F"]
     grad = None if state.grad is None else gradmap.build_table(m, field)
     return state.replace(map=m, alloc_pose=a_pose, alloc_count=a_count,
                          integrated=True, view=view, grad=grad)
 
 
+@Stats.spanned("se.raycasting.stage")
 def raycasting_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
                      field, neg_y: bool = False) -> FrameState:
     """Refresh the reference maps from the current pose, from frame
@@ -268,7 +286,7 @@ def raycast_fires(state: FrameState, frame: int, cfg: SlamConfig) -> bool:
         if cfg.raycast_adaptive_deg > 0.0:
             do_raycast = _moved(state.pose, state.raycast_pose,
                                 cfg.raycast_adaptive_deg,
-                                cfg.raycast_adaptive_dist)
+                                cfg.raycast_adaptive_dist, "raycast_motion")
         elif cfg.raycast_rate > 1:
             do_raycast = frame % cfg.raycast_rate == 0
     return do_raycast
@@ -283,15 +301,16 @@ def f2f_publish(state: FrameState, k, frame: int, cfg: SlamConfig,
          and frame >= cfg.raycast_from_frame)
     if not publish:
         return state
-    _, v0, n0 = preprocessing.build_pyramid(state.scaled_depth, k, 1,
-                                            neg_y=neg_y)
-    invalid = n0[0][..., 0] == INVALID
-    w_n = torch.where(invalid[..., None], n0[0],
-                      camera.rotate_vectors(state.pose, n0[0]))
-    return state.replace(ref_vertex=camera.transform_points(state.pose,
-                                                            v0[0]),
-                         ref_normal=w_n, raycast_pose=state.pose.clone(),
-                         model_ref=False)
+    with Stats.span("se.raycasting.f2f"):
+        _, v0, n0 = preprocessing.build_pyramid(state.scaled_depth, k, 1,
+                                                neg_y=neg_y)
+        invalid = n0[0][..., 0] == INVALID
+        w_n = torch.where(invalid[..., None], n0[0],
+                          camera.rotate_vectors(state.pose, n0[0]))
+        return state.replace(
+            ref_vertex=camera.transform_points(state.pose, v0[0]),
+            ref_normal=w_n, raycast_pose=state.pose.clone(),
+            model_ref=False)
 
 
 def process_frame(state: FrameState, depth_mm, k, frame: int, *,
@@ -371,23 +390,32 @@ class DenseSLAMSystem:
     def getInitPos(self) -> torch.Tensor:
         return self.init_pose[:3, 3]
 
+    # the host's uploads: a copy from pageable host memory waits for the
+    # device's stream, so each is a host read
+
     def _pose(self, pose) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(pose, np.float32),
-                               device=self.device)
+        with Stats.span("se.entry.upload"), Stats.host_read("pose"):
+            return torch.as_tensor(np.asarray(pose, np.float32),
+                                   device=self.device)
 
     def _depth(self, depth_mm) -> torch.Tensor:
-        if not isinstance(depth_mm, torch.Tensor):
-            depth_mm = np.asarray(depth_mm)
-            if depth_mm.dtype == np.uint16:
-                depth_mm = depth_mm.astype(np.int32)
-            depth_mm = torch.from_numpy(depth_mm)
-        return depth_mm.to(self.device)
+        with Stats.span("se.entry.upload"):
+            if not isinstance(depth_mm, torch.Tensor):
+                depth_mm = np.asarray(depth_mm)
+                if depth_mm.dtype == np.uint16:
+                    depth_mm = depth_mm.astype(np.int32)
+                depth_mm = torch.from_numpy(depth_mm)
+            with Stats.host_read("depth"):
+                return depth_mm.to(self.device)
 
     def _k(self, k) -> Tuple[torch.Tensor, bool]:
         """``k`` on the device, and whether fy < 0 (NegY normals for a
         flipped y)."""
-        k_host = np.asarray(k, np.float32)
-        return torch.from_numpy(k_host).to(self.device), bool(k_host[1] < 0)
+        with Stats.span("se.entry.upload"):
+            k_host = np.asarray(k, np.float32)
+            with Stats.host_read("intrinsics"):
+                kd = torch.from_numpy(k_host).to(self.device)
+            return kd, bool(k_host[1] < 0)
 
     # ---- one stage each (the reference's preprocessing / tracking /
     # integration / raycasting) ----
@@ -462,12 +490,15 @@ class DenseSLAMSystem:
 
     # ---- renderers (uint8 [H, W, 4] images) ----
 
+    @Stats.spanned("se.rendering.depth")
     def renderDepth(self) -> torch.Tensor:
         return rendering.render_depth(self.state.scaled_depth)
 
+    @Stats.spanned("se.rendering.track")
     def renderTrack(self) -> torch.Tensor:
         return rendering.render_track(self.state.track_result)
 
+    @Stats.spanned("se.rendering.volume")
     def renderVolume(self, view_pose=None, k=None) -> torch.Tensor:
         """The shaded surface of the last raycast's reference maps, or,
         given ``view_pose`` and ``k``, of a raycast from that view."""

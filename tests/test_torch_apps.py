@@ -191,11 +191,25 @@ def test_presets_and_pinned_flags():
     assert _config(["-i", "x"]).field_type == "sdf"
 
 
-def test_staged_fills_stage_columns(seq):
-    argv = _base(seq, 64) + ["-g", seq["gt"], "--device", "cpu"]
+def test_staged_fills_stage_columns(seq, capsys):
+    """``--staged`` fills the stage columns and traces the spans, which
+    the summary lists; the poses are those of the plain run."""
+    from supereight_tpu_torch.utils.perfstats import Stats
+    argv = [a for a in _base(seq, 64) if a != "-q"] + [
+        "-g", seq["gt"], "--device", "cpu"]
+    tracked = lambda: len(Stats.results.get("se.tracking.stage",
+                                            {"data": []})["data"])
+    n0 = tracked()
     fused = benchmark.run(argv + ["-o", str(seq["dir"] / "f.tsv")])
+    assert tracked() == n0
     staged = benchmark.run(argv + ["--staged", "-o",
                                    str(seq["dir"] / "s.tsv")])
+    assert tracked() == n0 + N_FRAMES
+    summary = capsys.readouterr().err
+    for span in ("se.preprocessing.stage", "se.tracking.stage",
+                 "se.integration.stage", "se.raycasting.stage",
+                 "se.read.depth"):
+        assert span in summary
     rows = _rows(seq["dir"] / "s.tsv")
     assert (rows[:, 2:6] > 0).all()
     assert (_rows(seq["dir"] / "f.tsv")[:, 2:6] == 0).all()

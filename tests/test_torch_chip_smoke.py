@@ -572,43 +572,30 @@ def test_solve_tolerance():
     assert tol == pytest.approx(1e-6 + 2 * 2.0 ** -23 * 100.0 * 1.0)
 
 
-def test_tracking_parts_on_the_cpu(monkeypatch):
-    """``probes/stage_times``' cut of the tracking stage, run on the CPU at
-    a small size: every part timed on every frame that tracks (no device
-    time without a card), and the run's poses and maps those of the same
-    run without the cut, bit for bit."""
+def test_stage_times_print_on_the_cpu(monkeypatch, capsys):
+    """``chip_smoke.print_stage_times`` on the CPU at a small size: the
+    stages' medians, then each span's median host and self ms, every
+    stage's span once a frame."""
     import torch
     from supereight_tpu_torch.config import SlamConfig
-    from supereight_tpu_torch.pipeline import DenseSLAMSystem
     from supereight_tpu_torch.probes import stage_times
     torch.set_num_threads(1)
     monkeypatch.setattr(stage_times, "SKIP", 2)
+    monkeypatch.setattr(chip_smoke, "K", chip_smoke.K / 2)
     depths, poses = chip_smoke.load_sequence("synthetic_256_frames")
     cfg = SlamConfig(volume_size=(4.8,) * 3, volume_resolution=(64,) * 3,
                      compute_size_ratio=2, block_capacity=1024)
-    runs = [DenseSLAMSystem((240, 320), cfg, "cpu") for _ in range(2)]
-    for s in runs:
-        s.setPose(poses[0])
-    k = chip_smoke.K / 2
-    stages, parts, int_parts, _ = stage_times.staged_run(runs[0],
-                                                         depths[:5], k)
-    for f in range(5):
-        runs[1].step_staged(depths[f], k, f)
-    assert set(stages) == {"preprocessing", "tracking", "integration",
-                           "raycasting", "total"}
-    # the view is formed inside the level loops' call: no view part
-    assert tuple(parts) == ("pyramid", "loops", "read")
-    # frames 2-4 fuse; the default config allocates on each of them; the
-    # node update is part of the fusion's call, the inverse of the
-    # operands' (the selection's on the budget branch)
-    assert tuple(int_parts) == ("alloc", "select", "fuse")
-    for t in (*parts.values(), *int_parts.values()):
-        assert t["host"] > 0 and t["device"] is None and t["frames"] == 3
-    assert "not measured" in stage_times.format_parts(parts)
-    a, b = (s.state for s in runs)
-    assert torch.equal(a.pose, b.pose) and a.tracked == b.tracked
-    for name in a.map.voxels:
-        assert torch.equal(a.map.voxels[name], b.map.voxels[name])
+    chip_smoke.print_stage_times("small", cfg, depths[:5], poses, "cpu")
+    stages, spans = capsys.readouterr().out.strip().splitlines()
+    assert stages.startswith("# small: median ms per stage")
+    for n in ("preprocessing", "tracking", "integration", "raycasting",
+              "total"):
+        assert f" {n} " in stages
+    assert spans.startswith("# small: spans of a step run")
+    for n in ("preprocessing", "tracking", "integration", "raycasting"):
+        assert f"se.{n}.stage " in spans
+        assert spans.split(f"se.{n}.stage ")[1].split(")")[0] \
+            .endswith("(5")
 
 
 def test_step_run_on_the_cpu(monkeypatch):

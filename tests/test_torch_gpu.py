@@ -1910,6 +1910,67 @@ def test_glue_reads_nothing_back(cuda):
             _same_bits(a[n], b[n])
 
 
+@pytest.mark.gpu
+def test_every_sync_is_a_named_read(cuda, monkeypatch):
+    """Frames 0-8 of a small SDF configuration (frames that allocate,
+    fuse, raycast and render) through ``step`` and the renders, then
+    frames 9-10 through the per-stage calls, under
+    ``torch.cuda.set_sync_debug_mode("error")``: every synchronisation
+    falls inside a named host read (``Stats.host_read``, wrapped here to
+    lower the mode to "default" inside it), the reads of each site as
+    many as the path makes."""
+    from contextlib import contextmanager
+    from supereight_tpu_torch.config import SlamConfig
+    from supereight_tpu_torch.pipeline import DenseSLAMSystem
+    from supereight_tpu_torch.utils.perfstats import Stats
+    named = Stats.host_read
+    sites = []
+
+    @contextmanager
+    def lowered(site):
+        sites.append(site)
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            with named(site):
+                yield
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(Stats, "host_read", lowered)
+    z = np.load(BENCH)
+    cfg = SlamConfig(volume_size=(4.8,) * 3, volume_resolution=(128,) * 3,
+                     block_capacity=2048)
+    slam = DenseSLAMSystem((240, 320), cfg, cuda)
+    slam.setPose(z["poses"][0])
+    k = (240.6, 240.0, 160.0, 120.0)
+    torch.cuda.synchronize()
+    sites.clear()
+    fused = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for f in range(9):
+            fused += slam.step(z["depths"][f], k, f).integrated
+            slam.renderDepth(), slam.renderTrack(), slam.renderVolume()
+        for f in (9, 10):
+            slam.preprocessing(z["depths"][f])
+            slam.tracking(k, f)
+            fused += slam.integration(k, f)
+            slam.raycasting(k, f)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert slam.state.tracked and int(slam.state.map.n_blocks) > 0
+    # the fused-multiply-add probe reads once a process
+    counts = {s: sites.count(s) for s in set(sites) if s != "fma_probe"}
+    # a step uploads its depth and intrinsics, each per-stage call its
+    # intrinsics; tracking reads its flag; the renders copy their colours;
+    # each march (on every fusing frame here) scatters two host scalars
+    assert fused >= 6
+    assert counts == dict(depth=11, intrinsics=9 + 2 * 3, tracked=11,
+                          track_colors=9, light=9, ambient=9,
+                          march_mask=fused, alloc_active=fused)
+
+
 _RAYCAST_MAPS = {}
 _RAYCAST_POSES = {}
 
