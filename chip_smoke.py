@@ -1902,12 +1902,15 @@ def check_path_raycast(torch, name, slam, cfg, kernels):
 
 @contextlib.contextmanager
 def counting_raycasts():
-    """Counts the calls of ``raycast.raycast`` (the stage's and the
-    renderers') while the block runs: yields a list whose one entry is
-    the count."""
-    from supereight_tpu_torch.pipeline import raycast
+    """Counts the raycasts that ran while the block runs: the calls of
+    ``raycast.raycast`` (the stage's and the renderers'), less those that
+    a CUDA graph captured (a capture runs nothing), plus the stage's graph
+    replays (``raycast_graph.COUNTS``).  Yields a list whose one entry is
+    the count once the block has ended."""
+    from supereight_tpu_torch.pipeline import raycast, raycast_graph
     calls = [0]
     inner = raycast.raycast
+    graphs = dict(raycast_graph.COUNTS)
 
     @functools.wraps(inner)
     def counted(*args, **kwargs):
@@ -1919,6 +1922,8 @@ def counting_raycasts():
         yield calls
     finally:
         raycast.raycast = inner
+        calls[0] += (raycast_graph.COUNTS["replays"] - graphs["replays"]) \
+            - (raycast_graph.COUNTS["captures"] - graphs["captures"])
 
 
 def check_raycast_launched(label, counts, raycasts, second=True):

@@ -25,7 +25,7 @@ from supereight_tpu_torch.core.volume import Volume
 from supereight_tpu_torch.fields import make_field
 from supereight_tpu_torch.utils.perfstats import Stats
 from . import (camera, gradmap, integration, preprocessing, raycast,
-               rendering, tracking)
+               raycast_graph, rendering, tracking)
 from .constants import FAR_PLANE, INVALID, NEAR_PLANE
 from .preprocessing import norm
 
@@ -256,15 +256,15 @@ def raycasting_stage(state: FrameState, k, frame: int, cfg: SlamConfig,
     failed, this frame's own vertex and normal maps (world space; ``neg_y``
     as in tracking) become the reference, so the next frame tracks against
     it; ``model_ref`` then turns False and suppresses fusion until the
-    next model raycast."""
+    next model raycast.  On the card the raycast is one CUDA graph replay
+    where ``raycast_graph.eager_reason`` allows it."""
     do_raycast = raycast_fires(state, frame, cfg)
     if do_raycast:
         H, W = state.float_depth.shape
-        rc = raycast.raycast(
-            state.map, field, state.pose @ camera.inverse_camera_matrix(k),
-            H, W, NEAR_PLANE, FAR_PLANE,
-            dense=None if state.view is None else {"F": state.view},
-            normals=cfg.raycast_normals, grad_table=state.grad,
+        rc = raycast_graph.raycast(
+            state.map, field, state.pose, k, H, W, NEAR_PLANE, FAR_PLANE,
+            view=state.view, grad_table=state.grad,
+            normals=cfg.raycast_normals,
             second_window=cfg.raycast_second_window,
             span_factor=cfg.raycast_span_factor,
             w2_budget=cfg.raycast_w2_budget,

@@ -1919,10 +1919,13 @@ def test_every_sync_is_a_named_read(cuda, monkeypatch):
     falls inside a named host read (``Stats.host_read``, wrapped here to
     lower the mode to "default" inside it), the reads of each site as
     many as the path makes."""
+    from collections import OrderedDict
     from contextlib import contextmanager
     from supereight_tpu_torch.config import SlamConfig
-    from supereight_tpu_torch.pipeline import DenseSLAMSystem
+    from supereight_tpu_torch.pipeline import DenseSLAMSystem, raycast_graph
     from supereight_tpu_torch.utils.perfstats import Stats
+    # a graph cache of its own: the first raycast captures
+    monkeypatch.setattr(raycast_graph, "_GRAPHS", OrderedDict())
     named = Stats.host_read
     sites = []
 
@@ -1964,11 +1967,13 @@ def test_every_sync_is_a_named_read(cuda, monkeypatch):
     counts = {s: sites.count(s) for s in set(sites) if s != "fma_probe"}
     # a step uploads its depth and intrinsics, each per-stage call its
     # intrinsics; tracking reads its flag; the renders copy their colours;
-    # each march (on every fusing frame here) scatters two host scalars
+    # each march (on every fusing frame here) scatters two host scalars;
+    # the raycast's graph is captured once (frame 3) and then replayed
     assert fused >= 6
     assert counts == dict(depth=11, intrinsics=9 + 2 * 3, tracked=11,
                           track_colors=9, light=9, ambient=9,
-                          march_mask=fused, alloc_active=fused)
+                          march_mask=fused, alloc_active=fused,
+                          raycast_capture=1)
 
 
 _RAYCAST_MAPS = {}
@@ -2254,3 +2259,193 @@ def test_raycasting_stage_reads_nothing_back(cuda, preset):
     _same_bits(out.ref_vertex, want.vertex)
     _same_bits(out.ref_normal, want.normal)
     assert float((want.vertex.abs().sum(-1) > 0).float().mean()) > 0.5
+
+
+# ----------------------------------------------------------------------
+# the raycasting stage as one CUDA graph replay a frame
+# (pipeline/raycast_graph.py): each replay against the eager raycast
+# ----------------------------------------------------------------------
+
+CELL_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                           "slambench", "configs", "sdf256-icl.json")
+RAYCAST_ALL = dict(splat_bounds=1, ray_scan=1, ray_scan_second=1,
+                   ray_refine_normals=1)
+
+
+def _graph_config(case):
+    """The benchmark cell's knobs (no held view, volume normals, a march
+    on every 4th frame), or ``headline`` with its held SDF view (hybrid
+    normals, a march every 3rd frame) raycasting every frame."""
+    import json
+    from supereight_tpu_torch.config import SlamConfig, apply_preset
+    if case == "cell":
+        with open(CELL_CONFIG) as f:
+            knobs = json.load(f)["system"]
+        return SlamConfig(**{k: tuple(v) if isinstance(v, list) else v
+                             for k, v in knobs.items()})
+    return dataclasses.replace(
+        apply_preset("headline", SlamConfig(
+            volume_resolution=(256,) * 3, volume_size=(4.8,) * 3,
+            block_capacity=6144)),
+        incremental_view=True, raycast_adaptive_deg=0.0)
+
+
+def _eager_raycast(st, field, cfg, kd):
+    import chip_smoke
+    from supereight_tpu_torch.pipeline import camera, raycast
+    from supereight_tpu_torch.pipeline.constants import FAR_PLANE, NEAR_PLANE
+    return raycast.raycast(
+        st.map, field, st.pose @ camera.inverse_camera_matrix(kd), 240, 320,
+        NEAR_PLANE, FAR_PLANE, dense=None if st.view is None else
+        {"F": st.view}, grad_table=st.grad, **chip_smoke.raycast_knobs(cfg))
+
+
+def _graph_system(cuda, cfg, monkeypatch):
+    """A system on the cached sequence with a graph cache of its own."""
+    from collections import OrderedDict
+    from supereight_tpu_torch.pipeline import DenseSLAMSystem, raycast_graph
+    monkeypatch.setattr(raycast_graph, "_GRAPHS", OrderedDict())
+    z = np.load(BENCH)
+    slam = DenseSLAMSystem((240, 320), cfg, cuda)
+    slam.setPose(z["poses"][0])
+    return slam, z["depths"], (240.6, 240.0, 160.0, 120.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["cell", "headline_view"])
+def test_raycasting_stage_replays_the_eager_raycast(cuda, case, monkeypatch):
+    """Frames 0-18 through the per-stage calls: the raycasting stage
+    captures its graph once (frame 3, the first raycast) and then replays
+    it on every frame, through the marches between (new ``keys`` and
+    ``block_index`` tensors, copied in) and the held view's in-place
+    updates; each frame's reference maps equal the eager raycast's of the
+    same state bit for bit, a replay runs under
+    ``set_sync_debug_mode("error")`` and counts R1, the merged scan and R4
+    once each, as the eager call does, and the graph's scratches are left
+    zero."""
+    from supereight_tpu_torch.ops import raycast_kernel as rk
+    from supereight_tpu_torch.pipeline import raycast_graph, system
+    cfg = _graph_config(case)
+    slam, depths, k = _graph_system(cuda, cfg, monkeypatch)
+    kd, neg_y = slam._k(k)
+    counts = dict(raycast_graph.COUNTS)
+    keys, replays = set(), 0
+    for f in range(19):
+        slam.preprocessing(depths[f])
+        slam.tracking(k, f)
+        slam.integration(k, f)
+        st = slam.state
+        keys.add(st.map.keys.data_ptr())
+        if f < cfg.raycast_from_frame:
+            slam.raycasting(k, f)
+            continue
+        before = dict(rk.LAUNCHES)
+        want = _eager_raycast(st, slam.field, cfg, kd)
+        assert {n: rk.LAUNCHES[n] - before[n] for n in before} == RAYCAST_ALL
+        before = dict(rk.LAUNCHES)
+        torch.cuda.synchronize()
+        replay = raycast_graph.COUNTS["captures"] > counts["captures"]
+        if replay:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            slam.state = system.raycasting_stage(st, kd, f, cfg, slam.field,
+                                                 neg_y)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        replays += replay
+        assert {n: rk.LAUNCHES[n] - before[n] for n in before} == RAYCAST_ALL
+        _same_bits(slam.state.ref_vertex, want.vertex)
+        _same_bits(slam.state.ref_normal, want.normal)
+    assert replays == 19 - cfg.raycast_from_frame - 1 >= 12
+    assert raycast_graph.COUNTS["captures"] - counts["captures"] == 1
+    assert raycast_graph.COUNTS["replays"] - counts["replays"] == replays
+    assert len(keys) > 2, "no march made new keys"
+    assert int(slam.state.map.n_blocks) > 0 and slam.state.tracked
+    # R1's and the look-back's device-side reset leave the graph's
+    # scratches zero after every replay
+    torch.cuda.synchronize()
+    (graph,) = raycast_graph._GRAPHS.values()
+    assert not any(bool(t.any()) for t in graph.scratches)
+
+
+@pytest.mark.gpu
+def test_raycast_graph_recaptures_a_moved_table(cuda, monkeypatch):
+    """A voxel table moved to a new address (a copy of the map's tables)
+    captures the raycast again; the new graph's replays equal the eager
+    raycast, and so do the old graph's on the old tables."""
+    from supereight_tpu_torch.pipeline import raycast_graph, system
+    cfg = _graph_config("cell")
+    slam, depths, k = _graph_system(cuda, cfg, monkeypatch)
+    for f in range(6):
+        slam.step(depths[f], k, f)
+    kd, neg_y = slam._k(k)
+    st = slam.state
+    moved = st.replace(map=st.map.replace(
+        voxels={n: v.clone() for n, v in st.map.voxels.items()}))
+    counts = dict(raycast_graph.COUNTS)
+    for state, captures in ((moved, 1), (moved, 1), (st, 1)):
+        out = system.raycasting_stage(state, kd, 6, cfg, slam.field, neg_y)
+        assert raycast_graph.COUNTS["captures"] - counts["captures"] == \
+            captures
+        want = _eager_raycast(state, slam.field, cfg, kd)
+        _same_bits(out.ref_vertex, want.vertex)
+        _same_bits(out.ref_normal, want.normal)
+    assert raycast_graph.COUNTS["replays"] - counts["replays"] == 2
+
+
+@pytest.mark.gpu
+def test_raycast_graph_results_outlive_the_next_replay(cuda, monkeypatch):
+    """The maps a replay hands out are the state's own: a frame's result
+    held across the next replay (another pose) keeps its values."""
+    from supereight_tpu_torch.pipeline import camera, raycast_graph, system
+    cfg = _graph_config("cell")
+    slam, depths, k = _graph_system(cuda, cfg, monkeypatch)
+    for f in range(6):
+        slam.step(depths[f], k, f)
+    kd, neg_y = slam._k(k)
+    st = slam.state
+    first = system.raycasting_stage(st, kd, 6, cfg, slam.field, neg_y)
+    held = [t.clone() for t in (first.ref_vertex, first.ref_normal)]
+    turned = st.replace(pose=camera.se3_exp(torch.tensor(
+        [0.05, 0.0, 0.02, 0.0, 0.08, 0.0], device=cuda)) @ st.pose)
+    counts = dict(raycast_graph.COUNTS)
+    second = system.raycasting_stage(turned, kd, 6, cfg, slam.field, neg_y)
+    assert raycast_graph.COUNTS["replays"] == counts["replays"] + 1
+    torch.cuda.synchronize()
+    _same_bits(first.ref_vertex, held[0])
+    _same_bits(first.ref_normal, held[1])
+    assert not torch.equal(second.ref_vertex, held[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ofusion", "stored", "row_range"])
+def test_raycast_graph_leaves_the_eager_calls(cuda, case, monkeypatch):
+    """OFusion (its held view packed anew at each fusion), stored normals
+    (their table rebuilt) and a strip of rows run the raycast eagerly:
+    nothing is captured or replayed, and the kernels count as before."""
+    import chip_smoke
+    from supereight_tpu_torch.ops import raycast_kernel as rk
+    from supereight_tpu_torch.pipeline import raycast_graph
+    from supereight_tpu_torch.pipeline.constants import FAR_PLANE, NEAR_PLANE
+    cfg = _graph_config("cell")
+    if case == "ofusion":
+        cfg = chip_smoke.preset_config("ofusion")
+    elif case == "stored":
+        cfg = dataclasses.replace(cfg, raycast_normals="stored")
+    slam, depths, k = _graph_system(cuda, cfg, monkeypatch)
+    counts, before = dict(raycast_graph.COUNTS), dict(rk.LAUNCHES)
+    raycasts = 6 - cfg.raycast_from_frame
+    for f in range(6):
+        slam.step(depths[f], k, f)
+    if case == "row_range":
+        # the stage's own raycasts (the cell's knobs) were captured
+        counts, before = dict(raycast_graph.COUNTS), dict(rk.LAUNCHES)
+        st = slam.state
+        kd, _ = slam._k(k)
+        raycast_graph.raycast(
+            st.map, slam.field, st.pose, kd, 240, 320, NEAR_PLANE,
+            FAR_PLANE, row_range=(120, 120), **chip_smoke.raycast_knobs(cfg))
+        raycasts = 1
+    assert raycast_graph.COUNTS == counts
+    assert {n: rk.LAUNCHES[n] - before[n] for n in before} == \
+        {n: raycasts for n in RAYCAST_ALL}
