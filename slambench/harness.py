@@ -47,7 +47,12 @@ REFERENCE_KNOBS = ("volume_resolution", "volume_size", "mu",
                    "pyramid", "icp_threshold", "bilateral_filter",
                    "block_capacity", "bootstrap_frames", "raycast_from_frame",
                    "raycast_span_factor", "raycast_scan_stride",
-                   "raycast_w2_budget", "initial_pos_factor")
+                   "raycast_w2_budget", "initial_pos_factor", "field_type",
+                   "raycast_near_rescue", "raycast_normals",
+                   "ofusion_sigma_floor")
+#: the values of the knobs the reference follows in part
+REFERENCE_VALUES = {"field_type": ("sdf", "ofusion"),
+                    "raycast_normals": ("volume", "exact")}
 #: window frames the check samples from, and how many
 SAMPLE_SPAN, N_SAMPLES = 96, 4
 #: warm-up frames the check also samples: the first frame (from the empty
@@ -93,6 +98,8 @@ def load_cell(name: str, root: str = ROOT) -> Cell:
     odd = [f.name for f in dataclasses.fields(SlamConfig)
            if f.name not in REFERENCE_KNOBS
            and getattr(system, f.name) != getattr(default, f.name)]
+    odd += [f"{k}={getattr(system, k)!r}" for k, v in REFERENCE_VALUES.items()
+            if getattr(system, k) not in v]
     if odd or system.compute_size_ratio != 1:
         raise SystemExit(f"{name}: the reference does not follow {odd}")
     H, W = cfg["input_size"]
@@ -330,12 +337,15 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
     if traced:
         fused = [w["fused_blocks"] for w in work_rows if "fused_blocks" in w]
         hits = [w["hit_blocks"] for w in work_rows if "hit_blocks" in w]
+        nodes = [w["nodes"] for w in work_rows if "nodes" in w]
         fused = float(np.mean(fused)) if fused else 0.0
         hits = float(np.mean(hits)) if hits else 0.0
+        nodes = float(np.mean(nodes)) if nodes else 0.0
         rr = cell.rendering_rate
         total = sum(work.frame_bytes(
             cell, i, integrated[i - w0], rr > 0 and i % rr == 0, fused,
-            hits, cell.system.bilateral_filter) for i in range(w0, w0 + lap))
+            hits, cell.system.bilateral_filter, nodes)
+            for i in range(w0, w0 + lap))
         ctx = dict(frames=lap, stage_s=stage_times, trace=summary,
                    least_s=total / work.PEAK_BYTES_S)
         result["metrics"] = {}

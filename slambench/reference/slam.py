@@ -1,6 +1,7 @@
 """The plain reference of one SLAM frame: preprocessing, ICP tracking, SDF
 block allocation and fusion, the raycast and the three renders, in plain
-PyTorch on any device.
+PyTorch on any device.  The raycast reads any field given as a
+:class:`Surface` (OFusion's, ``ofusion.py``).
 
 It imports nothing of the port (``supereight_tpu_torch``) or of the JAX
 package, and takes nothing the port derived: it reads the port's map and
@@ -309,7 +310,7 @@ def wanted_blocks(depth, pose, K, size: int, dim: float, band: float,
 def allocate(m: Map, wanted) -> Map:
     """New slots for the wanted unallocated blocks in flat block order, as
     far as the capacity reaches; every wanted allocated block turns active."""
-    cap = m.tsdf.shape[0]
+    cap = m.active.shape[0]
     bi = m.block_index.reshape(-1).clone()
     new = torch.nonzero((wanted.reshape(-1)) & (bi < 0))[:, 0]
     new = new[:max(cap - m.n_blocks, 0)]
@@ -339,13 +340,13 @@ def project(T_cw, K, p):
     return pc, hom[..., 0] / zs + 0.5, hom[..., 1] / zs + 0.5
 
 
-def fuse(m: Map, depth, pose, K, mu: float, max_weight: float,
-         prec="f32") -> Map:
-    """The projective TSDF update of every allocated active block: each
-    voxel (at its corner) samples the depth at its pixel on the block's
-    patch grid (the block's footprint sets a stride of 1, 2, 4 or 8 px and
-    a 16 x 16 patch round its centre); the fused blocks' ``active`` turns
-    to whether any voxel was in frame and in the patch."""
+def voxel_samples(m, depth, pose, K, prec="f32"):
+    """The projection of every allocated active block's voxels: each voxel
+    (at its corner) samples the depth at its pixel on the block's patch
+    grid (the block's footprint sets a stride of 1, 2, 4 or 8 px and a
+    16 x 16 patch round its centre).  Returns (slots, camera positions
+    [n, 512, 3], depth samples [n, 512], in frame and in the patch
+    [n, 512])."""
     q = rounder(prec)
     H, W = depth.shape
     dev = depth.device
@@ -378,7 +379,16 @@ def fuse(m: Map, depth, pose, K, mu: float, max_weight: float,
     valid = valid & (lr >= 0) & (lr < PATCH) & (lc >= 0) & (lc < PATCH)
     ds = depth[(iy << lv).clamp(0, H - 1).long(),
                (ix << lv).clamp(0, W - 1).long()]
-    ds = torch.where(valid, ds, 0.0)
+    return slots, pc, torch.where(valid, ds, 0.0), valid
+
+
+def fuse(m: Map, depth, pose, K, mu: float, max_weight: float,
+         prec="f32") -> Map:
+    """The projective TSDF update of every allocated active block
+    (:func:`voxel_samples`); the fused blocks' ``active`` turns to whether
+    any voxel was in frame and in the patch."""
+    q = rounder(prec)
+    slots, pc, ds, valid = voxel_samples(m, depth, pose, K, prec)
     z = pc[..., 2]
     zs = torch.where(z == 0, 1.0, z)
     scale = torch.sqrt(1.0 + (pc[..., 0] / zs) ** 2 + (pc[..., 1] / zs) ** 2)
@@ -396,6 +406,18 @@ def fuse(m: Map, depth, pose, K, mu: float, max_weight: float,
 
 
 # ---------------------------------------------------------------- stage 4
+
+
+class Surface(NamedTuple):
+    """What the raycast reads of a field, signed so that the inside is
+    below 0 (the tsdf; OFusion's negated log-odds): ``view`` [B^3, 512],
+    one row a block-grid cell, NaN where a sample is not valid; ``table``
+    [cap, 512], the raw slots (the inside flags of the splat, the exact
+    normals); ``empty``, the value of a normal's tap where the view has no
+    valid sample and the table's outside the allocated blocks."""
+    view: torch.Tensor
+    table: torch.Tensor
+    empty: float
 
 
 def read_view(m: Map):
@@ -426,16 +448,18 @@ def min_filter(x, k):
     return -F.max_pool2d(-x[None, None], k, stride=1, padding=k // 2)[0, 0]
 
 
-def splat_bounds(m: Map, view_m, H: int, W: int):
+def splat_bounds(m: Map, view_m, H: int, W: int, table,
+                 near_rescue: bool):
     """Start and far depth of each 8 x 8 px cell from the blocks holding an
-    inside voxel, widened by a 3 x 3 cell neighbourhood; near-field cells
-    with no splat take a 25 x 25 neighbourhood's start."""
+    inside voxel (below 0 in ``table``), widened by a 3 x 3 cell
+    neighbourhood; with ``near_rescue``, near-field cells with no splat
+    take a 25 x 25 neighbourhood's start."""
     g = next(c for c in (8, 4, 2, 1) if H % c == 0 and W % c == 0)
     gh, gw = H // g, W // g
     dev = view_m.device
     vs = m.vs
     slots, bc = live_coords(m)
-    inside = (m.tsdf[slots] < 0).any(1)
+    inside = (table[slots] < 0).any(1)
     hom = transform(inv4(view_m), (bc.float() + 0.5) * (BLOCK * vs))
     z = hom[:, 2]
     zs = torch.where(z == 0, 1.0, z)
@@ -460,6 +484,8 @@ def splat_bounds(m: Map, view_m, H: int, W: int):
             tmax = tmax.scatter_reduce(0, tgt, z_hi, "amax")
     tmin = min_filter(tmin[:-1].reshape(gh, gw), 3)
     tmax = F.max_pool2d(tmax[:-1].reshape(1, 1, gh, gw), 3, 1, 1)[0, 0]
+    if not near_rescue:
+        return tmin, tmax, g
     twide = min_filter(tmin, 25)
     fb = ~torch.isfinite(tmin) & (twide < 0.5 * diag * fx / (2.4 * g))
     return (torch.where(fb, twide, tmin), torch.where(fb, twide + diag, tmax),
@@ -495,28 +521,71 @@ def window_scan(view, size, inv_vs, origin, dirs, z0, span, n, active):
     return hit, torch.where(hit, z_hi + (z_hi - z_lo) * (f_hi / den), 0.0)
 
 
+def blended_gradient(m: Map, surface: Surface, pos):
+    """Upstream's ``volume.grad``: at each of the 8 voxels round ``pos``
+    (voxel units) the central difference of ``surface.table`` along each
+    axis (its taps clamped into the volume, ``surface.empty`` outside the
+    allocated blocks), blended by the trilinear weights of ``pos``; half
+    the difference, in table units a voxel."""
+    size = m.size
+    base = torch.floor(pos)
+    frac = pos - base
+    lower = i32(base).clamp(min=0)
+
+    def value(v):
+        v = v.clamp(0, size - 1)
+        b, l = v >> 3, v & 7
+        slot = m.block_index[b[..., 0].long(), b[..., 1].long(),
+                             b[..., 2].long()]
+        col = (l[..., 0] + l[..., 1] * 8 + l[..., 2] * 64).long()
+        val = surface.table[slot.clamp(min=0).long(), col]
+        return torch.where(slot >= 0, val, surface.empty)
+
+    grad = torch.zeros_like(pos)
+    unit = torch.eye(3, dtype=torch.int32, device=pos.device)
+    for c in range(8):
+        bits = [(c >> a) & 1 for a in range(3)]
+        w = torch.ones_like(frac[..., 0])
+        for a in range(3):
+            w = w * (frac[..., a] if bits[a] else 1.0 - frac[..., a])
+        corner = lower + torch.tensor(bits, dtype=torch.int32,
+                                      device=pos.device)
+        for a in range(3):
+            d = value(corner + unit[a]) - value(corner - unit[a])
+            grad[..., a] += w * d
+    return 0.5 * grad
+
+
 def up2(a):
     return a.repeat_interleave(2, 0).repeat_interleave(2, 1)
 
 
 def raycast(m: Map, pose, k, H: int, W: int, mu: float,
-            span_factor=1.6, scan_stride=0.5, w2_budget=8192, prec="f32"):
+            span_factor=1.6, scan_stride=0.5, w2_budget=8192, prec="f32",
+            near_rescue: bool = True, normals: str = "volume",
+            surface: Surface = None):
     """Vertex and normal maps of the surface seen from ``pose``: the
     cells' bounds, a half-resolution scan of one window from each cell's
     start (a second window deeper for the first ``w2_budget`` rays, in
     raster order, that found nothing and reach further), the full-
-    resolution secant re-solve within +/- 0.7 mu, and normals from the
-    6-tap central difference at the vertex."""
+    resolution secant re-solve within +/- 0.7 mu (``mu``: the surface's
+    band), and normals: ``"volume"`` from the 6-tap central difference at
+    the vertex, ``"exact"`` the trilinearly blended gradient of the raw
+    table (:func:`blended_gradient`).  ``surface``: the field as the
+    raycast reads it, by default the tsdf's."""
     q = rounder(prec)
     view_m = pose @ inverse_camera_matrix(k)
-    view = read_view(m)
+    if surface is None:
+        surface = Surface(read_view(m), m.tsdf, 1.0)
+    view = surface.view
     size, inv_vs, vs = m.size, m.size / m.dim, m.vs
     diag = 1.7320508 * BLOCK * vs
     step = scan_stride * mu
     n = int(min(max(math.ceil((span_factor * diag + 2.0 * mu) / step) + 1,
                     8), 48))
     span = n * step
-    tmin, tmax, g = splat_bounds(m, view_m, H, W)
+    tmin, tmax, g = splat_bounds(m, view_m, H, W, surface.table,
+                                 near_rescue)
     x = torch.arange(W, dtype=torch.float32, device=pose.device)[None, :]
     y = torch.arange(H, dtype=torch.float32, device=pose.device)[:, None]
     dirs = torch.stack([(view_m[r, 0] * x + view_m[r, 1] * y
@@ -559,13 +628,17 @@ def raycast(m: Map, pose, k, H: int, W: int, mu: float,
     hit = hit & ~(pair & ~cross)
     vertex = q(origin + dirs * z[..., None])
     base = vertex * inv_vs
-    taps = []
-    for a in range(3):
-        o = torch.zeros(3, device=base.device)
-        o[a] = 1.0
-        taps.append([torch.nan_to_num(sample(view, base + s * o, size, 1.0),
-                                      nan=1.0) for s in (1.0, -1.0)])
-    grad = -0.5 * torch.stack([p - mm for p, mm in taps], -1)
+    if normals == "exact":
+        grad = -blended_gradient(m, surface, base)
+    else:
+        e = surface.empty
+        taps = []
+        for a in range(3):
+            o = torch.zeros(3, device=base.device)
+            o[a] = 1.0
+            taps.append([torch.nan_to_num(sample(view, base + s * o, size, e),
+                                          nan=e) for s in (1.0, -1.0)])
+        grad = -0.5 * torch.stack([p - mm for p, mm in taps], -1)
     gn = vnorm(grad, True)
     normal = q(grad / torch.clamp(gn, min=1e-12))
     bad = ~hit | (gn[..., 0] == 0)
